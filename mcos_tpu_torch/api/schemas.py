@@ -1,0 +1,102 @@
+"""Request schemas of the port's HTTP API: the part of
+`mcos_tpu/api/schemas.py` that `PriceRequest` needs, copied unchanged apart
+from the imports. tests/test_torch_copies.py holds the two equal.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from pydantic import BaseModel, Field
+
+from mcos_tpu_torch.config import DIVIDEND_YIELD, MAX_PATHS, RISK_FREE_RATE
+from mcos_tpu_torch.models.params import SVJParams
+
+# Compute-parameter admission bounds: path counts flow straight into device
+# allocations, so every request field that sizes a buffer is clamped here.
+_PATHS = dict(ge=1_000, le=MAX_PATHS)
+
+
+class SVJParamsRequest(BaseModel):
+    kappa: float = Field(3.0, description="Mean reversion speed")
+    theta: float = Field(0.04, description="Long-run variance")
+    xi: float = Field(0.5, description="Vol-of-vol")
+    rho: float = Field(-0.7, description="Spot-vol correlation")
+    v0: float = Field(0.04, description="Initial variance")
+    lambda_j: float = Field(1.0, description="Jump intensity")
+    mu_j: float = Field(-0.05, description="Mean jump size (log)")
+    sigma_j: float = Field(0.10, ge=0.0,
+                           description="Jump size volatility")
+    r: float = Field(RISK_FREE_RATE, description="Risk-free rate")
+    q: float = Field(DIVIDEND_YIELD, description="Dividend yield")
+
+    def to_params(self) -> SVJParams:
+        return SVJParams(**self.model_dump())
+
+
+class DividendItem(BaseModel):
+    """One discrete dividend: ex-date `t` (year fraction) and `amount`
+    (currency for kind="cash", fractional drop in (0,1) for
+    kind="proportional")."""
+    t: float = Field(gt=0.0, le=30.0)
+    amount: float = Field(ge=0.0)
+
+
+def build_dividend_schedule(items, kind: str):
+    """Request dividends → ops.dividends.DividendSchedule (sorted; same-date
+    cash amounts summed, proportional drops composed). None when empty."""
+    if not items:
+        return None
+    from mcos_tpu_torch.ops.dividends import DividendSchedule
+
+    merged: dict = {}
+    for it in sorted(items, key=lambda d: d.t):
+        if kind == "proportional":
+            prev = merged.get(it.t, 0.0)
+            merged[it.t] = 1.0 - (1.0 - prev) * (1.0 - it.amount)
+        else:
+            merged[it.t] = merged.get(it.t, 0.0) + it.amount
+    times = sorted(merged)
+    try:
+        return DividendSchedule(times, [merged[t] for t in times], kind)
+    except ValueError as e:
+        raise ValueError(f"invalid dividends: {e}") from e
+
+
+class RateKnot(BaseModel):
+    """Piecewise-flat forward-rate knot: rate `r` applies up to time `t`."""
+    t: float = Field(gt=0.0, le=50.0)
+    r: float = Field(ge=-0.05, le=1.0)
+
+
+def build_rate_curve(items):
+    """Request knots → ops.curves.RateCurve (sorted). None when empty."""
+    if not items:
+        return None
+    from mcos_tpu_torch.ops.curves import RateCurve
+
+    knots = sorted(items, key=lambda k: k.t)
+    try:
+        return RateCurve([k.t for k in knots], [k.r for k in knots])
+    except ValueError as e:
+        raise ValueError(f"invalid rate_curve: {e}") from e
+
+
+class PriceRequest(BaseModel):
+    spot: float
+    strike: float
+    T: float
+    is_call: bool = True
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(500_000, **_PATHS)
+    use_sobol: bool = True
+    use_antithetic: bool = True
+    use_control_variate: bool = True
+    cv_mode: str = "companion"
+    rqmc_randomizations: Optional[int] = Field(None, ge=2, le=64)
+    scheme: str = "euler"
+    num_steps: Optional[int] = Field(None, ge=4, le=8192)
+    use_importance: bool = False
+    dividends: Optional[list[DividendItem]] = Field(None, max_length=64)
+    dividend_kind: str = Field("cash", pattern="^(cash|proportional)$")
+    rate_curve: Optional[list[RateKnot]] = Field(None, max_length=64)

@@ -1,0 +1,248 @@
+"""HTTP serving layer of the port (counterpart of `mcos_tpu/api/server.py`,
+serving slice).
+
+    GET  /api/health
+    POST /api/price      — pre/post guards, price, 50 sample paths,
+                           1024 terminal samples, elapsed_ms
+
+Every other route answers 404, as the JAX server does for unknown paths.
+`/api/price` options the port does not run yet (`use_sobol=false`,
+`scheme="qe"`, `use_importance`, `rqmc_randomizations`) answer 501 with the
+ROADMAP.md item that will port them; they never fall back to plain torch.
+
+Transport: the stdlib ThreadingHTTPServer. Every device program goes onto
+the device's default stream. Before it serves, `serve` builds the CUDA
+kernels and the default-shape Sobol net, so the first client request does
+not pay for either.
+
+    python -m mcos_tpu_torch.api.server --device cuda --port 8000
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import torch
+from pydantic import ValidationError
+
+from mcos_tpu_torch.api import coalesce, schemas
+from mcos_tpu_torch.engine.guards import PricingGuard
+from mcos_tpu_torch.engine.pricer import (
+    NOT_PORTED,
+    MonteCarloEngine,
+    to_host,
+)
+from mcos_tpu_torch.utils import fastjson
+
+logger = logging.getLogger("mcos_tpu_torch.api")
+
+# Admission control: a JSON body bigger than this is rejected before parsing.
+MAX_BODY_BYTES = 10 * 1024 * 1024
+
+VERSION = "1.0.0"
+
+
+class ApiError(Exception):
+    def __init__(self, status: int, detail):
+        super().__init__(str(detail))
+        self.status = status
+        self.detail = detail
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Endpoint implementations (transport-agnostic: dict in, dict out)
+# ─────────────────────────────────────────────────────────────────────────────
+def handle_health(_body: dict) -> dict:
+    return {"status": "healthy", "engine": "SVJ Monte Carlo (PyTorch/CUDA)",
+            "version": VERSION}
+
+
+def _unported_option(req) -> Optional[str]:
+    if not req.use_sobol:
+        return "use_sobol=false"
+    if req.scheme == "qe":
+        return "scheme=qe"
+    if req.use_importance:
+        return "use_importance"
+    if req.rqmc_randomizations:
+        return "rqmc_randomizations"
+    return None
+
+
+def handle_price(body: dict, device="cuda") -> dict:
+    """`/api/price` on `device`, the JAX handler's contract."""
+    req = schemas.PriceRequest(**body)
+    start = time.time()
+    option = _unported_option(req)
+    if option is not None:
+        raise ApiError(501, f"{option} is not ported to mcos_tpu_torch yet: "
+                            f"{NOT_PORTED[option]}")
+    svj = req.params.to_params()
+
+    guard = PricingGuard(svj)
+    pre = guard.check_pre_price(req.spot, req.strike, req.T)
+    if not pre["pass"]:
+        raise ApiError(400, {"failures": pre["failures"],
+                             "alerts": pre["alerts"]})
+
+    try:
+        divs = schemas.build_dividend_schedule(req.dividends,
+                                               req.dividend_kind)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    try:
+        curve = schemas.build_rate_curve(req.rate_curve)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    engine_kwargs = dict(
+        num_paths=req.num_paths, use_sobol=req.use_sobol,
+        use_antithetic=req.use_antithetic,
+        use_control_variate=req.use_control_variate, cv_mode=req.cv_mode,
+        scheme=req.scheme, dividends=divs, rate_curve=curve, device=device)
+    if req.num_steps is not None:
+        engine_kwargs["num_steps"] = req.num_steps
+    engine = MonteCarloEngine(svj, **engine_kwargs)
+    if divs is not None:
+        try:
+            engine._spot_eff(req.spot, req.T)  # escrow feasibility → 400
+        except ValueError as e:
+            raise ApiError(400, str(e))
+
+    # Micro-batching: concurrent same-shape requests join one batch
+    # (api/coalesce.py); members enter with their maturity-effective params
+    # and dividend-effective spot, so batching stays exact.
+    ck = coalesce.bucket_key(req, device) if coalesce.enabled() else None
+    if ck is not None:
+        sl = coalesce.coalescer.submit(
+            ck, (engine._params_T(req.T),
+                 engine._spot_eff(req.spot, req.T), req.strike, req.T))
+        result = engine.format_price(sl["res"], req.T)
+        sample_paths, terms = sl["paths"], sl["terms"]
+    else:
+        # Solo path: enqueue the price and both viz programs, then one
+        # device→host copy for all of them.
+        host = to_host({
+            "paths": engine.sample_paths_device(req.spot, req.T,
+                                                num_samples=50),
+            "terms": engine.terminal_samples_device(req.spot, req.T),
+            **engine.price_device(req.spot, req.strike, req.T, req.is_call),
+        })
+        sample_paths, terms = host.pop("paths"), host.pop("terms")
+        result = engine.format_price(host, req.T)
+
+    result["sample_paths"] = fastjson.float_array_json(sample_paths,
+                                                       decimals=2)
+    result["terminal_samples"] = fastjson.float_array_json(terms, decimals=2)
+    return _finish_price(result, guard, pre, req, start)
+
+
+def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,
+                  start: float) -> dict:
+    """Shared tail of /api/price: post-guards, timing, request echo."""
+    post = guard.check_post_price(result, req.spot, req.strike, req.T,
+                                  req.is_call)
+    result["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    result["pre_checks"] = pre
+    result["post_checks"] = post
+    result["params_used"] = req.params.model_dump()
+    logger.info("Priced %s K=%.0f T=%.4f → %.4f (%.0fms)",
+                "Call" if req.is_call else "Put", req.strike, req.T,
+                result["price"], result["elapsed_ms"])
+    return result
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# stdlib transport
+# ─────────────────────────────────────────────────────────────────────────────
+class _Handler(BaseHTTPRequestHandler):
+    server_version = f"mcos-tpu-torch/{VERSION}"
+    # Socket read timeout against clients that never finish their body.
+    timeout = 30
+
+    def _send_json(self, status: int, payload) -> None:
+        data = fastjson.dumps(payload).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.send_header("Access-Control-Allow-Origin", "*")
+        self.send_header("X-Content-Type-Options", "nosniff")
+        self.send_header("Cache-Control", "no-store")
+        self.end_headers()
+        self.wfile.write(data)
+
+    def log_message(self, fmt, *args):  # route through logging, not stderr
+        logger.debug(fmt, *args)
+
+    def do_GET(self):
+        if self.path.split("?", 1)[0] == "/api/health":
+            self._send_json(200, handle_health({}))
+        else:
+            self._send_json(404, {"detail": "not found"})
+
+    def do_POST(self):
+        if self.path.split("?", 1)[0] != "/api/price":
+            self._send_json(404, {"detail": "not found"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            if length > MAX_BODY_BYTES:
+                self._send_json(413, {"detail": "request body too large"})
+                return
+            body = json.loads(self.rfile.read(max(length, 0)) or b"{}")
+            self._send_json(200, handle_price(body, device=self.server.device))
+        except ApiError as e:
+            self._send_json(e.status, {"detail": e.detail})
+        except (ValidationError, json.JSONDecodeError) as e:
+            self._send_json(422, {"detail": str(e)})
+        except Exception as e:  # noqa: BLE001 — the server must not die
+            logger.exception("POST %s failed", self.path)
+            self._send_json(500, {"detail": str(e)})
+
+
+def warm(device) -> None:
+    """Build the CUDA kernels (on a CUDA device) and the default-shape Sobol
+    net before serving."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        from mcos_tpu_torch.ops import cuda_kernels
+
+        cuda_kernels.load_library()
+    req = schemas.PriceRequest(spot=22500.0, strike=22500.0, T=0.25)
+    eng = MonteCarloEngine(req.params.to_params(), num_paths=req.num_paths,
+                           device=device)
+    eng._sobol_draws(eng._steps(req.T))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(host: str = "0.0.0.0", port: int = 8000,
+          device="cuda") -> ThreadingHTTPServer:
+    """Warm the device, then bind; the caller runs `serve_forever()`."""
+    warm(device)
+    httpd = ThreadingHTTPServer((host, port), _Handler)
+    httpd.device = torch.device(device)
+    logger.info("mcos_tpu_torch API on %s:%d (device %s)", host,
+                httpd.server_address[1], httpd.device)
+    return httpd
+
+
+def main():
+    parser = argparse.ArgumentParser(description="mcos_tpu_torch pricing API")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to price on (default: cuda)")
+    args = parser.parse_args()
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s [%(name)s] %(levelname)s: %(message)s")
+    serve(args.host, args.port, args.device).serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,433 @@
+"""Hand-written CUDA kernels of the port, their wrappers, their plain torch
+versions and their build (counterpart of `mcos_tpu/ops/pallas_kernels.py`
+for the two kernels on the serving path).
+
+K1 `svj_terminal_from_draws` (csrc/svj_draws.cu) replaces
+    `svj_terminal_from_draws_pallas` / `_svj_draws_kernel`.
+K2 `gbm_terminal` (csrc/gbm.cu) replaces
+    `gbm_terminal_pallas` / `_gbm_kernel`.
+
+The wrapper rule: a CPU input takes the plain torch version; a CUDA input
+launches the kernel or raises. There is no fallback from one to the other.
+Each wrapper counts its launches in a plain int attribute, `.launches`,
+which it increments where it launches the kernel and nowhere else.
+
+Build: `nvcc -gencode arch=compute_90a,code=sm_90a` compiles every source
+in `csrc/` into one shared library with a plain C interface, loaded with
+ctypes. It runs at first use, under a process-wide lock, into
+`mcos_tpu_torch/_build/` (listed in .gitignore), and rebuilds when the
+sources' hash changes. `build_seconds()` reports how long it took.
+
+The plain Philox4x32-10 below is the kernels' generator on int64 tensors
+with 32-bit masks (torch has no usable uint32 arithmetic); it gives the
+same words as csrc/philox.cuh, so a kernel's in-kernel random mode can be
+compared word for word with its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from mcos_tpu_torch.models.params import SVJParams
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_M32 = 0xFFFFFFFF
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Build and load
+# ─────────────────────────────────────────────────────────────────────────────
+class _Library:
+    """The compiled kernels: built once per process, under a lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+        self.build_seconds: Optional[float] = None
+        self.path: Optional[str] = None
+
+    @staticmethod
+    def _sources():
+        names = sorted(f for f in os.listdir(CSRC_DIR)
+                       if f.endswith((".cu", ".cuh")))
+        return [os.path.join(CSRC_DIR, f) for f in names]
+
+    @staticmethod
+    def _nvcc() -> str:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        for cand in (os.path.join(cuda_home, "bin", "nvcc"),
+                     shutil.which("nvcc")):
+            if cand and os.path.exists(cand):
+                return cand
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from mcos_tpu_torch/csrc at first use")
+
+    def get(self) -> ctypes.CDLL:
+        if self._lib is not None:
+            return self._lib
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._build_and_load()
+        return self._lib
+
+    def _build_and_load(self) -> ctypes.CDLL:
+        t0 = time.perf_counter()
+        sources = self._sources()
+        digest = hashlib.sha256()
+        for path in sources:
+            with open(path, "rb") as f:
+                digest.update(os.path.basename(path).encode() + f.read())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        lib_path = os.path.join(
+            BUILD_DIR, f"libmcos_kernels_{digest.hexdigest()[:16]}.so")
+        if not os.path.exists(lib_path):
+            tmp = f"{lib_path}.{os.getpid()}.tmp"
+            cmd = [self._nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *[s for s in sources if s.endswith(".cu")]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(lib_path)
+        vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_longlong, ctypes.c_ulonglong,
+                                  ctypes.c_float)
+        lib.mcos_svj_terminal_from_draws.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, u64, vp, vp]
+        lib.mcos_svj_terminal_from_draws.restype = i32
+        lib.mcos_gbm_terminal.argtypes = [
+            vp, i64, i32, i32, u64, f32, f32, f32, vp]
+        lib.mcos_gbm_terminal.restype = i32
+        lib.mcos_cuda_error_string.argtypes = [i32]
+        lib.mcos_cuda_error_string.restype = ctypes.c_char_p
+        self.path = lib_path
+        self.build_seconds = time.perf_counter() - t0
+        return lib
+
+
+_LIBRARY = _Library()
+# Launch counts are bumped from the HTTP server's threads.
+_COUNT_LOCK = threading.Lock()
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first call only) and load the kernels' shared library."""
+    return _LIBRARY.get()
+
+
+def build_seconds() -> Optional[float]:
+    """Seconds the first `load_library()` took (build + load), or None."""
+    return _LIBRARY.build_seconds
+
+
+def _check_rc(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.mcos_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _seed_words(seed: int) -> Tuple[int, int]:
+    seed = int(seed)
+    if seed < 0:
+        raise ValueError(f"seed must be non-negative, got {seed}")
+    return seed & _M32, (seed >> 32) & _M32
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Plain Philox4x32-10 (the generator of csrc/philox.cuh) on int64 tensors
+# ─────────────────────────────────────────────────────────────────────────────
+_PHILOX_10A, _PHILOX_10B = 0x9E3779B9, 0xBB67AE85
+_PHILOX_SA, _PHILOX_SB = 0xD2511F53, 0xCD9E8D57
+
+
+def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) 32-bit words of a·b for a constant a < 2³² and 0 ≤ b < 2³²,
+    through 16-bit halves of b so no int64 product overflows."""
+    p0 = (b & 0xFFFF) * a                      # < 2⁴⁸
+    p1 = (b >> 16) * a                         # < 2⁴⁸
+    mid = p0 + ((p1 & 0xFFFF) << 16)           # < 2⁴⁹
+    return mid & _M32, (p1 >> 16) + (mid >> 32)
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Four int64 tensors of 32-bit words: Philox4x32-10 of the counter
+    (c0, c1, c2, c3) (int64 tensors or ints, broadcast) under key (k0, k1)."""
+    like = next(c for c in (c0, c1, c2, c3) if isinstance(c, torch.Tensor))
+    c = [c if isinstance(c, torch.Tensor) else torch.full_like(like, c)
+         for c in (c0, c1, c2, c3)]
+    for rnd in range(10):
+        lo0, hi0 = _mulhilo32(_PHILOX_SA, c[0])
+        lo1, hi1 = _mulhilo32(_PHILOX_SB, c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        if rnd < 9:
+            k0 = (k0 + _PHILOX_10A) & _M32
+            k1 = (k1 + _PHILOX_10B) & _M32
+    return c
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """((bits >> 9) + 0.5) · 2⁻²³ in float32: strictly inside (0, 1), exact."""
+    return ((bits >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+
+
+def philox_jump_uniforms(num_steps: int, num_paths: int, seed: int,
+                         device) -> torch.Tensor:
+    """(num_steps, num_paths) jump uniforms of K1's in-kernel mode: counter
+    (path_lo, path_hi, step // 4, 0), key = seed, word step % 4."""
+    k0, k1 = _seed_words(seed)
+    path = torch.arange(num_paths, dtype=torch.int64, device=device)
+    rows = []
+    for quad in range(-(-num_steps // 4)):
+        words = philox4x32_10(path & _M32, path >> 32, quad, 0, k0, k1)
+        rows.extend(bits_to_uniform(w) for w in words)
+    return torch.stack(rows[:num_steps])
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K1: SVJ terminal state from streamed draws
+# ─────────────────────────────────────────────────────────────────────────────
+def _svj_consts(params: SVJParams, spot, T, num_steps: int) -> np.ndarray:
+    """The 15 per-launch float32 scalars of csrc/svj_draws.cu:SvjConsts, in
+    the arithmetic of mcos_tpu/ops/pallas_kernels.py:_pack_params."""
+    f = np.float32
+    with np.errstate(all="ignore"):
+        dt = f(T) / f(num_steps)
+        k = np.exp(f(params.mu_j) + f(0.5) * f(params.sigma_j) ** 2) - f(1.0)
+        sigma_cv = np.sqrt(f(params.v0))
+        vals = (
+            f(spot), f(params.v0), dt, np.sqrt(dt), f(params.kappa),
+            f(params.theta), f(params.xi), f(params.rho),
+            np.sqrt(f(1.0) - f(params.rho) ** 2),
+            f(params.lambda_j) * dt, f(params.mu_j), f(params.sigma_j),
+            (f(params.r) - f(params.q) - f(params.lambda_j) * k) * dt,
+            (f(params.r) - f(params.q) - f(0.5) * sigma_cv ** 2) * dt,
+            sigma_cv,
+        )
+    return np.asarray(vals, np.float32)
+
+
+def _steps_major(x: torch.Tensor, steps_major: bool) -> torch.Tensor:
+    return x if steps_major else x.T
+
+
+def svj_terminal_from_draws_plain(
+    params: SVJParams, spot, T, z1, z2, u_jump, z_js, *, seed: int = 0,
+    antithetic: bool = True, companion: bool = False,
+    steps_major: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch version of K1: the same scalars, algebra and output
+    layout, one step at a time. u_jump=None draws the uniforms from
+    `philox_jump_uniforms` (the kernel's in-kernel stream)."""
+    z1, z2, z_js = (_steps_major(x, steps_major) for x in (z1, z2, z_js))
+    num_steps, num_paths = z1.shape
+    if u_jump is None:
+        u_jump = philox_jump_uniforms(num_steps, num_paths, seed, z1.device)
+    else:
+        u_jump = _steps_major(u_jump, steps_major)
+    (spot_f, v0, dt, sqrt_dt, kappa, theta, xi, rho, rho_perp, lam_dt, mu_j,
+     sig_j, drift_dt, g_drift_dt, sig_cv) = (
+        float(x) for x in _svj_consts(params, spot, T, num_steps))
+    n_branch = 2 if antithetic else 1
+    sign = torch.tensor([1.0, -1.0][:n_branch], dtype=torch.float32,
+                        device=z1.device)[:, None]
+    shape = (n_branch, num_paths)
+    log_s = torch.zeros(shape, dtype=torch.float32, device=z1.device)
+    v = torch.full(shape, v0, dtype=torch.float32, device=z1.device)
+    log_g = torch.zeros_like(log_s)
+    for t in range(num_steps):
+        a, b, zj = z1[t] * sign, z2[t] * sign, z_js[t] * sign
+        v_pos = torch.clamp(v, min=0.0)
+        sqrt_v = torch.sqrt(v_pos)
+        dw1 = a * sqrt_dt
+        dw2 = rho * dw1 + rho_perp * b * sqrt_dt
+        jump = torch.where(u_jump[t] < lam_dt, mu_j + sig_j * zj,
+                           torch.zeros_like(zj))
+        log_s = log_s + (drift_dt - 0.5 * v_pos * dt) + sqrt_v * dw1 + jump
+        v = torch.clamp(v_pos + kappa * (theta - v_pos) * dt
+                        + xi * sqrt_v * dw2, min=0.0)
+        log_g = log_g + g_drift_dt + sig_cv * dw1
+    s = spot_f * torch.exp(log_s)
+    g = spot_f * torch.exp(log_g) if companion else None
+    return s, v, g
+
+
+def _check_draw(name: str, x: torch.Tensor, ref: torch.Tensor) -> None:
+    if x.device != ref.device:
+        raise ValueError(f"{name} is on {x.device}, z1 on {ref.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.shape != ref.shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"z1 {tuple(ref.shape)}")
+
+
+def svj_terminal_from_draws(
+    params: SVJParams, spot, T, z1: torch.Tensor, z2: torch.Tensor,
+    u_jump: Optional[torch.Tensor], z_js: torch.Tensor, *, seed: int = 0,
+    antithetic: bool = True, companion: bool = False,
+    steps_major: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K1 wrapper, the counterpart of `svj_terminal_from_draws_pallas`.
+
+    Args:
+        z1, z2, z_js, u_jump: float32 draws, (num_steps, num_paths) with
+            `steps_major=True` (what `sobol_svj_draws` gives) or
+            (num_paths, num_steps). u_jump=None draws the jump uniforms
+            in-kernel from Philox keyed on `seed`.
+    Returns:
+        (S, v, G or None), each (n_branch, num_paths): row 0 the base
+        branch, row 1 (antithetic) the negated normals with shared jump
+        uniforms.
+    """
+    draws = {"z1": z1, "z2": z2, "z_js": z_js}
+    if u_jump is not None:
+        draws["u_jump"] = u_jump
+    for name, x in draws.items():
+        _check_draw(name, x, z1)
+    if z1.dim() != 2 or z1.numel() == 0:
+        raise ValueError(f"draws must be non-empty 2-D, got {tuple(z1.shape)}")
+    if z1.device.type == "cpu":
+        return svj_terminal_from_draws_plain(
+            params, spot, T, z1, z2, u_jump, z_js, seed=seed,
+            antithetic=antithetic, companion=companion,
+            steps_major=steps_major)
+    if z1.device.type != "cuda":
+        raise ValueError(f"no kernel for device {z1.device}")
+
+    # The kernel reads steps-major rows; paths-major input is transposed
+    # into a copy (the serving path never takes this branch).
+    draws = {k: _steps_major(x, steps_major).contiguous()
+             for k, x in draws.items()}
+    num_steps, num_paths = draws["z1"].shape
+    n_branch = 2 if antithetic else 1
+    _seed_words(seed)
+    consts = _svj_consts(params, spot, T, num_steps)
+    out = torch.empty((3 if companion else 2, n_branch, num_paths),
+                      dtype=torch.float32, device=z1.device)
+    lib = load_library()
+    with torch.cuda.device(z1.device):
+        rc = lib.mcos_svj_terminal_from_draws(
+            draws["z1"].data_ptr(), draws["z2"].data_ptr(),
+            draws["z_js"].data_ptr(),
+            draws["u_jump"].data_ptr() if u_jump is not None else None,
+            out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr() if companion else None,
+            num_paths, num_steps, n_branch, int(seed),
+            consts.ctypes.data, _stream_handle(z1.device))
+    _check_rc(lib, rc, "svj_terminal_from_draws")
+    with _COUNT_LOCK:
+        svj_terminal_from_draws.launches += 1
+    return out[0], out[1], (out[2] if companion else None)
+
+
+svj_terminal_from_draws.launches = 0
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K2: GBM terminal spots from an in-kernel generator
+# ─────────────────────────────────────────────────────────────────────────────
+def _gbm_consts(spot, sigma, r, q, T, num_steps: int):
+    """(spot, drift_dt, σ√dt) in float32, as gbm_terminal_pallas packs them."""
+    f = np.float32
+    dt = f(T) / f(num_steps)
+    drift_dt = (f(r) - f(q) - f(0.5) * f(sigma) ** 2) * dt
+    return f(spot), drift_dt, f(sigma) * np.sqrt(dt)
+
+
+def gbm_terminal_plain(spot, sigma, r, q, T, seed: int, *, num_paths: int,
+                       num_steps: int, antithetic: bool = True,
+                       device="cpu") -> torch.Tensor:
+    """Plain torch version of K2 on the kernel's Philox words (counter
+    (path_lo, path_hi, step // 4, 1), key = seed); (n_branch, num_paths)."""
+    device = torch.device(device)
+    spot_f, drift_dt, sig_sqrt_dt = (
+        float(x) for x in _gbm_consts(spot, sigma, r, q, T, num_steps))
+    k0, k1 = _seed_words(seed)
+    path = torch.arange(num_paths, dtype=torch.int64, device=device)
+    ls0 = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    ls1 = torch.zeros_like(ls0)
+    for quad in range(-(-num_steps // 4)):
+        w = philox4x32_10(path & _M32, path >> 32, quad, 1, k0, k1)
+        u = [bits_to_uniform(x) for x in w]
+        z = []
+        for u1, u2 in ((u[0], u[1]), (u[2], u[3])):
+            rad = torch.sqrt(-2.0 * torch.log(u1))
+            ang = u2.double() * (2.0 * math.pi)
+            z += [rad * torch.cos(ang).float(), rad * torch.sin(ang).float()]
+        for zk in z[:num_steps - 4 * quad]:
+            st = sig_sqrt_dt * zk
+            ls0 = ls0 + drift_dt + st
+            ls1 = ls1 + drift_dt - st
+    rows = [ls0, ls1] if antithetic else [ls0]
+    return spot_f * torch.exp(torch.stack(rows))
+
+
+def gbm_terminal(spot, sigma, r, q, T, seed: int, *, num_paths: int,
+                 num_steps: int, antithetic: bool = True,
+                 device="cuda") -> torch.Tensor:
+    """K2 wrapper, the counterpart of `gbm_terminal_pallas`: terminal spots
+    of a GBM, (n_branch, num_paths). A CPU `device` takes the plain version;
+    a CUDA one launches the kernel or raises."""
+    device = torch.device(device)
+    if num_paths < 1 or num_steps < 1:
+        raise ValueError("need num_paths >= 1 and num_steps >= 1")
+    if device.type == "cpu":
+        return gbm_terminal_plain(spot, sigma, r, q, T, seed,
+                                  num_paths=num_paths, num_steps=num_steps,
+                                  antithetic=antithetic, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    _seed_words(seed)
+    spot_f, drift_dt, sig_sqrt_dt = _gbm_consts(spot, sigma, r, q, T,
+                                                num_steps)
+    n_branch = 2 if antithetic else 1
+    out = torch.empty((n_branch, num_paths), dtype=torch.float32,
+                      device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.mcos_gbm_terminal(
+            out.data_ptr(), num_paths, num_steps, n_branch, int(seed),
+            float(spot_f), float(drift_dt), float(sig_sqrt_dt),
+            _stream_handle(device))
+    _check_rc(lib, rc, "gbm_terminal")
+    with _COUNT_LOCK:
+        gbm_terminal.launches += 1
+    return out
+
+
+gbm_terminal.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    with _COUNT_LOCK:
+        svj_terminal_from_draws.launches = 0
+        gbm_terminal.launches = 0
+
+
+def launch_counts() -> dict:
+    with _COUNT_LOCK:
+        return {"svj_terminal_from_draws": svj_terminal_from_draws.launches,
+                "gbm_terminal": gbm_terminal.launches}

@@ -1,0 +1,129 @@
+"""Where a warm default `/api/price` spends its time on one CUDA device.
+
+    python -m mcos_tpu_torch.profile_price [--out FILE]
+
+Calls the port's `handle_price` in process (coalescing off, so each call is
+the solo path) on the default body (500k paths, T = 0.25 → 63 steps) and
+prints one JSON object:
+
+- `wall_ms`: median host wall time of a warm call (every call ends in a
+  device→host copy, so the device work is inside it);
+- `parts_ms`: the same call's pieces run alone and synchronised: a Sobol
+  net for a new seed (direction numbers cached), the price program (K1 +
+  payoff table + control variate), the 50-path recorder and the 1024-path
+  terminal sampler;
+- `profile`: from `torch.profiler` over 5 warm calls, the device time
+  per call summed over kernels, the number of kernel launches per call,
+  the busy share (device time / wall time) and the top kernels by device
+  time. If the profiler reports no device time, those fields say
+  "not measured".
+
+Without a CUDA device it fails: no CPU number is reported as a device one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import torch
+
+BODY = {"spot": 22500.0, "strike": 22500.0, "T": 0.25}
+
+
+def _wall_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile() -> dict:
+    from mcos_tpu_torch.api import coalesce, schemas, server
+    from mcos_tpu_torch.engine.pricer import MonteCarloEngine
+
+    reps = 5
+    device = torch.device("cuda", 0)
+    coalesce.coalescer.window_s = 0.0
+    server.warm(device)
+    call = lambda: server.handle_price(dict(BODY), device=device)  # noqa
+    call()
+    out = {"device": torch.cuda.get_device_name(device),
+           "wall_ms": _wall_ms(call, 2 * reps)}
+
+    req = schemas.PriceRequest(**BODY)
+    params = req.params.to_params()
+    eng = MonteCarloEngine(params, device=device)
+    steps = eng._steps(req.T)
+    seeds = iter(range(1000, 1000 + 4 * reps))
+
+    def new_net():
+        MonteCarloEngine(params, seed=next(seeds),
+                         device=device)._sobol_draws(steps)
+
+    out["parts_ms"] = {
+        "sobol_net_new_seed": _wall_ms(new_net, reps),
+        "price_program": _wall_ms(
+            lambda: eng.price_device(req.spot, req.strike, req.T), reps),
+        "sample_paths_50": _wall_ms(
+            lambda: eng.sample_paths_device(req.spot, req.T, 50), reps),
+        "terminal_samples_1024": _wall_ms(
+            lambda: eng.terminal_samples_device(req.spot, req.T), reps),
+    }
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages()
+               if _device_us(e) > 0 and getattr(e, "device_type", None)
+               is not None and "CUDA" in str(e.device_type)]
+    dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
+    launches = sum(e.count for e in kernels) / reps
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    out["profile"] = {
+        "profiled_wall_ms": wall,
+        "device_ms_per_call": dev_ms if kernels else "not measured",
+        "kernel_launches_per_call": launches if kernels else "not measured",
+        "busy_share": dev_ms / wall if kernels else "not measured",
+        "top_kernels": [{"name": e.key[:90],
+                         "device_ms_per_call": _device_us(e) / 1e3 / reps,
+                         "launches_per_call": e.count / reps} for e in top],
+    }
+    return out
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=None, help="also write JSON here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_price needs a CUDA device")
+    res = profile()
+    text = json.dumps(res, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+
+
+if __name__ == "__main__":
+    main()

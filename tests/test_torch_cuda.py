@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+These need a CUDA device and skip without one. The file imports torch and
+the port only (no JAX), so on the card it runs without the JAX suite's
+conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mcos_tpu_torch.engine.pricer import MonteCarloEngine
+from mcos_tpu_torch.models.params import SVJParams
+from mcos_tpu_torch.ops import cuda_kernels as ck
+from mcos_tpu_torch.ops import sobol
+
+torch.set_num_threads(1)
+
+_P = SVJParams(kappa=3.0, theta=0.06, xi=0.4, rho=-0.6, v0=0.04,
+               lambda_j=1.5, mu_j=-0.05, sigma_j=0.1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _draws(device, steps=20, n=10_007, seed=0):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    z = torch.randn((3, steps, n), generator=g, device=device)
+    u = torch.rand((steps, n), generator=g, device=device)
+    return z[0], z[1], u, z[2]
+
+
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("companion", [True, False])
+@pytest.mark.parametrize("explicit_u", [True, False])
+def test_k1_kernel_matches_plain(cuda, antithetic, companion, explicit_u):
+    z1, z2, u, zjs = _draws(cuda)
+    u = u if explicit_u else None
+    kw = dict(seed=9, antithetic=antithetic, companion=companion,
+              steps_major=True)
+    n0 = ck.svj_terminal_from_draws.launches
+    ker = ck.svj_terminal_from_draws(_P, 22500.0, 0.5, z1, z2, u, zjs, **kw)
+    torch.cuda.synchronize()
+    assert ck.svj_terminal_from_draws.launches == n0 + 1
+    ref = ck.svj_terminal_from_draws_plain(_P, 22500.0, 0.5, z1, z2, u, zjs,
+                                           **kw)
+    assert (ker[2] is None) == (not companion)
+    torch.testing.assert_close(ker[0], ref[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(ker[1], ref[1], rtol=1e-4, atol=1e-6)
+    if companion:
+        torch.testing.assert_close(ker[2], ref[2], rtol=1e-5, atol=0)
+
+
+def test_k1_paths_major_input(cuda):
+    z1, z2, u, zjs = _draws(cuda, steps=7, n=3000)
+    a = ck.svj_terminal_from_draws(_P, 100.0, 0.1, z1, z2, u, zjs,
+                                   steps_major=True)
+    b = ck.svj_terminal_from_draws(_P, 100.0, 0.1, z1.T, z2.T, u.T, zjs.T,
+                                   steps_major=False)
+    torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
+
+
+def test_k1_rejects_what_it_does_not_take(cuda):
+    z1, z2, u, zjs = _draws(cuda, steps=4, n=64)
+    with pytest.raises(TypeError):
+        ck.svj_terminal_from_draws(_P, 1.0, 1.0, z1.double(), z2, u, zjs)
+    with pytest.raises(ValueError):
+        ck.svj_terminal_from_draws(_P, 1.0, 1.0, z1, z2.cpu(), u, zjs)
+
+
+@pytest.mark.parametrize("steps", [1, 5, 13, 252])
+def test_k2_kernel_matches_plain(cuda, steps):
+    kw = dict(num_paths=50_001, num_steps=steps, device=cuda)
+    n0 = ck.gbm_terminal.launches
+    ker = ck.gbm_terminal(22500.0, 0.2, 0.065, 0.012, 1.0, 3, **kw)
+    torch.cuda.synchronize()
+    assert ck.gbm_terminal.launches == n0 + 1
+    ref = ck.gbm_terminal_plain(22500.0, 0.2, 0.065, 0.012, 1.0, 3, **kw)
+    torch.testing.assert_close(ker, ref, rtol=1e-5, atol=0)
+
+
+def test_sobol_on_card_equals_cpu(cuda):
+    a = sobol.sobol_svj_draws(5000, 9, seed=4, jump_uniforms=False,
+                              device=cuda)
+    b = sobol.sobol_svj_draws(5000, 9, seed=4, jump_uniforms=False)
+    for x, y in zip((a[0], a[1], a[3]), (b[0], b[1], b[3])):
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-5)
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    p = _P.replace(lambda_j=0.0)
+    kw = dict(num_paths=20_000, num_steps=252, seed=5)
+    a = MonteCarloEngine(p, device=cuda, **kw).price(22500.0, 22500.0, 0.2)
+    b = MonteCarloEngine(p, device="cpu", **kw).price(22500.0, 22500.0, 0.2)
+    for k in ("price", "std_error", "raw_mc_price", "bs_ref"):
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-4, err_msg=k)

@@ -1,0 +1,150 @@
+"""The port's slice end to end on CPU: `/api/price` against the JAX
+package's handler, the coalescer, the HTTP routes, and no JAX in the port."""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from mcos_tpu.api import coalesce as jcoalesce
+from mcos_tpu.api import server as jserver
+from mcos_tpu_torch.api import coalesce as pcoalesce
+from mcos_tpu_torch.api import server as pserver
+from mcos_tpu_torch.ops import cuda_kernels
+
+torch.set_num_threads(1)
+
+_BODY = {"spot": 22500.0, "strike": 22500.0, "T": 0.1, "num_paths": 4096}
+
+
+@pytest.fixture
+def solo(monkeypatch):
+    """Coalescing off on both sides (the modules read MCOS_BATCH_WINDOW_MS
+    only at import), single-device JAX pricing."""
+    monkeypatch.setattr(jcoalesce.coalescer, "window_s", 0.0)
+    monkeypatch.setattr(pcoalesce.coalescer, "window_s", 0.0)
+    monkeypatch.delenv("MCOS_AUTO_MESH", raising=False)
+
+
+def _both(body):
+    return (pserver.handle_price(dict(body), device="cpu"),
+            jserver.handle_price(dict(body)))
+
+
+def test_handle_price_matches_jax_without_jumps(solo):
+    body = dict(_BODY, params={"lambda_j": 0.0})
+    got, ref = _both(body)
+    assert got.keys() == ref.keys()
+    for k in ("price", "std_error"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, err_msg=k)
+    for k in ("raw_mc_price", "bs_ref", "v_max"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, err_msg=k)
+    assert got["num_steps"] == ref["num_steps"] == 25
+    assert got["num_paths_used"] == ref["num_paths_used"]
+    assert got["pre_checks"] == ref["pre_checks"]
+    assert got["post_checks"]["pass"] and ref["post_checks"]["pass"]
+    assert got["params_used"] == ref["params_used"]
+    for r in (got, ref):
+        paths = np.asarray(json.loads(r["sample_paths"].raw))
+        terms = np.asarray(json.loads(r["terminal_samples"].raw))
+        assert paths.shape == (50, 51) and (paths > 0).all()
+        assert terms.shape == (1024,) and (terms > 0).all()
+
+
+def test_handle_price_default_svj_within_errors(solo):
+    got, ref = _both(_BODY)
+    se = np.hypot(got["std_error"], ref["std_error"])
+    assert abs(got["price"] - ref["price"]) < 4 * se
+    assert got["post_checks"]["pass"] and ref["post_checks"]["pass"]
+
+
+def test_coalesced_batch_equals_solo(solo, monkeypatch):
+    bodies = [dict(_BODY, strike=k, T=0.05) for k in (22000.0, 22500.0,
+                                                      23000.0)]
+    solos = [pserver.handle_price(dict(b), device="cpu") for b in bodies]
+    monkeypatch.setattr(pcoalesce.coalescer, "window_s", 0.5)
+    runs0 = pcoalesce.coalescer.batches_run
+    out = [None] * 3
+
+    def call(i):
+        out[i] = pserver.handle_price(dict(bodies[i]), device="cpu")
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert pcoalesce.coalescer.batches_run == runs0 + 1
+    for got, ref in zip(out, solos):
+        for k in ("price", "std_error", "raw_mc_price", "bs_ref", "v_max"):
+            assert got[k] == ref[k], k
+        assert got["sample_paths"].raw == ref["sample_paths"].raw
+        assert got["terminal_samples"].raw == ref["terminal_samples"].raw
+
+
+@pytest.mark.parametrize("extra", [
+    {"use_sobol": False}, {"scheme": "qe"}, {"use_importance": True},
+    {"rqmc_randomizations": 4},
+])
+def test_unported_options_answer_501(solo, extra):
+    with pytest.raises(pserver.ApiError) as e:
+        pserver.handle_price(dict(_BODY, **extra), device="cpu")
+    assert e.value.status == 501 and "ROADMAP.md" in e.value.detail
+
+
+def test_http_routes(solo, monkeypatch):
+    monkeypatch.setattr(pserver, "warm", lambda device: None)
+    httpd = pserver.serve("127.0.0.1", 0, device="cpu")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data)
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        assert call("/api/health")[0] == 200
+        assert call("/api/metrics")[0] == 404
+        assert call("/api/greeks", _BODY)[0] == 404
+        assert call("/api/price", dict(_BODY, scheme="qe"))[0] == 501
+        assert call("/api/price", dict(_BODY, num_paths=10))[0] == 422
+        status, res = call("/api/price", dict(_BODY, num_paths=1024, T=0.05))
+        assert status == 200 and res["post_checks"]["pass"]
+        assert len(res["sample_paths"]) == 50
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_cpu_price_launches_no_kernel(solo):
+    before = cuda_kernels.launch_counts()
+    pserver.handle_price(dict(_BODY, num_paths=1024, T=0.05), device="cpu")
+    assert cuda_kernels.launch_counts() == before
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, mcos_tpu_torch, mcos_tpu_torch.api.server, "
+            "mcos_tpu_torch.bench, mcos_tpu_torch.ops.cuda_kernels; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'mcos_tpu' or "
+            "m.startswith('mcos_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=root)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
