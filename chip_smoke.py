@@ -11,14 +11,28 @@
    K1 `svj_terminal_from_draws` at 500 000 paths × 63 steps on the real
    Sobol net (explicit jump uniforms, then in-kernel Philox jumps), and
    K2 `gbm_terminal` at 2^20 pairs × 252 steps (word-for-word against the
-   plain version, antithetic mirror, moments, Black-Scholes within 3σ).
+   plain version, antithetic mirror, moments, Black-Scholes within 3σ);
+   K3 `svj_terminal` and K4 `svj_terminal_qe` at 500 000 pairs × 63 steps
+   on the same Philox words as their plain versions, and
+   K5 `svj_terminal_qe_from_draws` at 500 000 paths × 63 steps on the real
+   Sobol QE net (explicit jump uniforms, then in-kernel jumps). Each is
+   timed with CUDA events beside its plain version and its bound.
 4. Main path, with every launch count set to 0 first: the port's HTTP
    server on 127.0.0.1 (GET /api/health; the default POST /api/price solo
    and as 4 concurrent requests that the coalescer batches; a degenerate
    GBM request against Black-Scholes; the default SVJ request against the
    COS oracle; 5 warm requests for latency) and the benchmark entry point
    (`mcos_tpu_torch.bench`), then reads the launch counts.
-5. Prints the kernels' JSON line, the card line and, last, the result line
+5. The request options' path, with the counts set to 0 again: a new server
+   on 127.0.0.1 answers use_sobol=false (SVJ against COS; GBM with the CV
+   off against Black-Scholes; 4 concurrent requests in one batch, each
+   equal to the solo price), scheme="qe" with the Sobol and the PRNG
+   driver (against COS), use_importance on a deep-OTM call (against COS),
+   rqmc_randomizations=4 under Euler and QE (against COS) and
+   POST /api/convergence; then the counts show K3 served every PRNG Euler
+   request, K4 every PRNG QE request and K5 every Sobol QE request and
+   QE RQMC replicate.
+6. Prints the kernels' JSON line, the card line and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -39,8 +53,74 @@ import torch
 
 SPOT = STRIKE = 22500.0
 T_DEFAULT = 0.25          # 63 steps at the schema's 252 steps/year
+STEPS_DEFAULT = 63
 NUM_PATHS = 500_000       # PriceRequest default
 GBM_PAIRS, GBM_STEPS = 1 << 20, 252
+
+# The card's peaks (NVIDIA's H100 SXM data sheet): device memory 3.35 TB/s;
+# float32 67 TFLOP/s, i.e. 132 SMs x 128 lanes x 1.98 GHz instruction
+# slots with an FMA counted as 2 flops. No unit retires more than those 33.5e12
+# thread-instructions per second, so a kernel's operation count over that
+# rate is a lower bound on its time, whatever the mix of float, integer and
+# special-function instructions.
+HBM_BYTES_PER_S = 3.35e12
+INSTR_PER_S = 67e12 / 2
+
+# Operations per path-step (K1, K5) or per antithetic pair-step (K2, K3,
+# K4): the fewest instruction slots the step's work can take on sm_90, so
+# that the time they give is a lower bound.
+#   - One Philox4x32-10 call is 38: rounds 2-10 are two IMAD.WIDE.U32 (one
+#     gives a product's high and low words) and two LOP3 (a three-input
+#     xor) each; round 1 is half that, because its other multiply is of the
+#     path word. The key schedule is the same for every call of a thread
+#     and is left out. (cuobjdump -sass of the built kernels shows the
+#     multiply pairs as IMAD.WIDE.U32 and the xors as LOP3.)
+#   - bits_to_uniform 4 (shift, convert, add, multiply); Box-Muller 8 (log,
+#     sqrt, sin, cos, four multiplies). Each special function, divide and
+#     square root counts one, though its IEEE sequence is longer.
+#   - A multiply-add is one FFMA; a negation folds into its consumer; a
+#     product of launch constants, or a constant added every step, is known
+#     before the loop and is left out.
+#   - A choice that depends on the data counts its cheapest outcome: no jump
+#     on a step; the QE transition's mass at zero (whose test needs only
+#     psi and p, so Acklam's inverse, which feeds the quadratic branch, is
+#     not counted either). The count then holds for any data.
+#   - Loads count one each; stores, loop control and the once-per-path jump
+#     count and exps are left out.
+QE_COMMON = 6         # m 1, s2 1, psi 3 (square, max, divide), psi <= 1.5 1
+QE_AT_ZERO = 6        # p 5 ((psi-1)/(psi+1) clipped), u <= p 1
+OPS = {
+    # 3 loads; jump uniform: a quarter Philox call + 4, compare 1; dW1 1,
+    # dW2 2; two branches of 9 (max, sqrt, log S 2, v 4, log G 1)
+    "svj_terminal_from_draws": 3 + (38 / 4 + 4 + 1) + 3 + 2 * 9,
+    # a quarter Philox call, 4 uniforms / 4, two Box-Muller pairs / 4, one
+    # FFMA per branch
+    "gbm_terminal": (38 + 4 * 4 + 2 * 8) / 4 + 2,
+    # half a Philox call, 2 uniforms, Box-Muller; dW1 1, dW2 2; two
+    # branches of 7 (sqrt, log S 2, v 4); the companion sum 1
+    "svj_terminal": 38 / 2 + 2 * 4 + 8 + 3 + 2 * 7 + 1,
+    # one Philox call, 3 uniforms, Box-Muller, the QE transition, vol 4,
+    # base 2, log S 2 and log G 1 per branch
+    "svj_terminal_qe": 38 + 3 * 4 + 8 + QE_COMMON + QE_AT_ZERO + 4 + 2
+    + 2 * 3,
+    # 3 loads; jump uniform as in K1; the QE transition; vol 4, base 2, log
+    # S 2 and log G 1 per branch
+    "svj_terminal_qe_from_draws": 3 + (38 / 4 + 4 + 1) + QE_COMMON
+    + QE_AT_ZERO + 4 + 2 + 2 * 3,
+}
+
+
+def bound(name: str, units: int, in_bytes: int, out_bytes: int) -> dict:
+    """The least time the card could take: the larger of the bytes read and
+    written over the memory rate and the operations over the instruction
+    rate."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS[name] * units / INSTR_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "ops_per_unit": OPS[name], "units": units,
+            "bytes": in_bytes + out_bytes}
 
 
 def log(msg: str) -> None:
@@ -117,11 +197,14 @@ def check_k1(device, ck, sobol, params):
         params, SPOT, T_DEFAULT, z1, z2, None, zjs, **kw))
     plain_ms = cuda_ms(lambda: ck.svj_terminal_from_draws_plain(
         params, SPOT, T_DEFAULT, z1, z2, None, zjs, **kw), reps=3)
+    b = bound("svj_terminal_from_draws", steps * NUM_PATHS,
+              3 * steps * NUM_PATHS * 4, 3 * 2 * NUM_PATHS * 4)
     log(f"K1 at {NUM_PATHS} paths x {steps} steps: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms; Sobol net (cold, 3 x {steps} dims) "
+        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}); Sobol net (cold, 3 x {steps} dims) "
         f"{sobol_ms:.2f} ms")
     return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
-            "sobol_ms": sobol_ms, "shape": [steps, NUM_PATHS]}
+            "sobol_ms": sobol_ms, "shape": [steps, NUM_PATHS], **b}
 
 
 def check_k2(device, ck, bs_price):
@@ -156,17 +239,92 @@ def check_k2(device, ck, bs_price):
     plain_ms = cuda_ms(lambda: ck.gbm_terminal_plain(SPOT, sigma, r, q, T, 8,
                                                      **kw), reps=2)
     rate = 2 * GBM_PAIRS * GBM_STEPS / (ms * 1e-3)
+    b = bound("gbm_terminal", GBM_PAIRS * GBM_STEPS, 0, 2 * GBM_PAIRS * 4)
     log(f"K2 at {GBM_PAIRS} pairs x {GBM_STEPS} steps: kernel {ms:.4f} ms "
-        f"({rate:.4e} path-steps/s), plain {plain_ms:.4f} ms")
+        f"({rate:.4e} path-steps/s), plain {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": float((ker - ref).abs().max()), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, **b}
+
+
+def compare_terminal(name, ker, ref):
+    """Kernel against plain on the same inputs. rtol 1e-5 on S and G: the
+    kernel's multiply-adds are contracted to FMAs and the plain version's
+    are not, a few ulps of the log carry per step; v can sit at 0, so it
+    gets rtol 1e-4 beside atol 1e-6. Returns (max |S err|, v exact share)."""
+    s_err, g_err = rel_err(ker[0], ref[0]), rel_err(ker[2], ref[2])
+    v_ok = torch.allclose(ker[1], ref[1], rtol=1e-4, atol=1e-6)
+    v_exact = float((ker[1] == ref[1]).float().mean())
+    log(f"{name}: S rel err {s_err:.3e}, G rel err {g_err:.3e}, v allclose "
+        f"{v_ok}, v bit-equal share {v_exact:.6f}")
+    check(bool(torch.isfinite(ker[0]).all()), f"{name}: S finite")
+    check(s_err < 1e-5 and g_err < 1e-5 and v_ok, f"{name} vs plain")
+    return float((ker[0] - ref[0]).abs().max()), v_exact
+
+
+def check_prng(device, ck, params, name):
+    """K3 or K4 at the path's width, word for word against its plain
+    version on the same Philox stream."""
+    kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
+    kw = dict(num_paths=NUM_PATHS, num_steps=STEPS_DEFAULT, antithetic=True,
+              companion=True, device=device)
+    t0 = time.perf_counter()
+    ker = kernel(params, SPOT, T_DEFAULT, 42, **kw)
+    torch.cuda.synchronize()
+    ref = plain(params, SPOT, T_DEFAULT, 42, **kw)
+    torch.cuda.synchronize()
+    err, v_exact = compare_terminal(name, ker, ref)
+    ms = cuda_ms(lambda: kernel(params, SPOT, T_DEFAULT, 43, **kw))
+    plain_ms = cuda_ms(lambda: plain(params, SPOT, T_DEFAULT, 43, **kw),
+                       reps=3)
+    b = bound(name, NUM_PATHS * STEPS_DEFAULT, 0, 3 * 2 * NUM_PATHS * 4)
+    log(f"{name} at {NUM_PATHS} pairs x {STEPS_DEFAULT} steps: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}); phase {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": err, "v_bit_equal_share": v_exact, "ms": ms,
+            "plain_ms": plain_ms, **b}
+
+
+def check_k5(device, ck, sobol, params):
+    """K5 on the real Sobol QE net, explicit then in-kernel jump uniforms."""
+    t0 = time.perf_counter()
+    z_x, u_v, _, z_js = sobol.sobol_qe_draws(NUM_PATHS, STEPS_DEFAULT,
+                                             seed=42, jump_uniforms=False,
+                                             device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    uj = torch.rand(z_x.shape, generator=gen, device=device)
+    kw = dict(seed=42, antithetic=True, companion=True, steps_major=True)
+    errs, exact = [], []
+    for mode, u in (("explicit u_jump", uj), ("in-kernel jumps", None)):
+        ker = ck.svj_terminal_qe_from_draws(params, SPOT, T_DEFAULT, z_x,
+                                            u_v, u, z_js, **kw)
+        torch.cuda.synchronize()
+        ref = ck.svj_terminal_qe_from_draws_plain(params, SPOT, T_DEFAULT,
+                                                  z_x, u_v, u, z_js, **kw)
+        torch.cuda.synchronize()
+        err, v_exact = compare_terminal(f"K5 {mode}", ker, ref)
+        errs.append(err)
+        exact.append(v_exact)
+    ms = cuda_ms(lambda: ck.svj_terminal_qe_from_draws(
+        params, SPOT, T_DEFAULT, z_x, u_v, None, z_js, **kw))
+    plain_ms = cuda_ms(lambda: ck.svj_terminal_qe_from_draws_plain(
+        params, SPOT, T_DEFAULT, z_x, u_v, None, z_js, **kw), reps=3)
+    units = STEPS_DEFAULT * NUM_PATHS
+    b = bound("svj_terminal_qe_from_draws", units, 3 * units * 4,
+              3 * 2 * NUM_PATHS * 4)
+    log(f"K5 at {NUM_PATHS} paths x {STEPS_DEFAULT} steps: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}); phase {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max(errs), "v_bit_equal_share": min(exact),
+            "ms": ms, "plain_ms": plain_ms, **b}
 
 
 # ─────────────────────────────────────────────────────────────────────────────
 # Main path
 # ─────────────────────────────────────────────────────────────────────────────
-def post(base: str, body: dict):
-    req = urllib.request.Request(base + "/api/price",
+def post(base: str, body: dict, path: str = "/api/price"):
+    req = urllib.request.Request(base + path,
                                  data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
@@ -175,11 +333,19 @@ def post(base: str, body: dict):
     return status, res, (time.perf_counter() - t0) * 1e3
 
 
-def check_response(status, res, what):
+def check_response(status, res, what, diagnostics=True):
+    """A 200 with finite prices, passed post-checks and the viz samples.
+    bs_ref and raw_mc_price come with the control variate only. Importance
+    and RQMC responses carry no frac_nonfinite: pass diagnostics=False for
+    them; every other response must report all its paths finite."""
     check(status == 200, f"{what}: status {status}")
-    for k in ("price", "std_error", "bs_ref", "raw_mc_price"):
-        check(np.isfinite(res.get(k, 0.0)), f"{what}: {k} finite")
-    check(res["frac_nonfinite"] == 0.0, f"{what}: all paths finite")
+    for k in ("price", "std_error"):
+        check(np.isfinite(res[k]), f"{what}: {k} finite")
+    for k in ("bs_ref", "raw_mc_price"):
+        check(k not in res or np.isfinite(res[k]), f"{what}: {k} finite")
+    check(res["std_error"] > 0, f"{what}: std_error > 0")
+    if diagnostics:
+        check(res["frac_nonfinite"] == 0.0, f"{what}: all paths finite")
     check(res["post_checks"]["pass"], f"{what}: post_checks {res['post_checks']}")
     paths = np.asarray(res["sample_paths"], dtype=float)
     check(paths.ndim == 2 and paths.shape[0] == 50, f"{what}: sample_paths")
@@ -288,8 +454,154 @@ def main_path(device, ck, bench, cos_price, bs_price, SVJParams, server):
         "requests)")
     check(counts["svj_terminal_from_draws"] >= priced,
           "K1 launched for every priced request")
-    check(all(n > 0 for n in counts.values()), "every kernel launched")
+    check(counts["gbm_terminal"] > 0, "K2 launched by the benchmark")
     out["launches"] = counts
+    return out
+
+
+def options_path(device, ck, cos_price, bs_price, SVJParams, server):
+    """Every /api/price option but sharding, and /api/convergence, over HTTP
+    on a fresh server, with the launch counts set to 0 just before."""
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    body = {"spot": SPOT, "strike": STRIKE, "T": T_DEFAULT}
+    cos = float(cos_price(SVJParams(), SPOT, [STRIKE], T_DEFAULT, True)[0])
+    expect = {"svj_terminal": 0, "svj_terminal_qe": 0,
+              "svj_terminal_qe_from_draws": 0, "svj_terminal_from_draws": 0}
+    out = {"cos": cos, "phases_s": {}}
+
+    def phase(name, t0):
+        out["phases_s"][name] = time.perf_counter() - t0
+        log(f"  phase {name}: {out['phases_s'][name]:.2f} s")
+
+    def vs_cos(res, what, ref=cos):
+        tol = 4 * res["std_error"] + 0.01 * ref
+        log(f"{what}: {res['price']:.4f} ± {res['std_error']:.4f} vs COS "
+            f"{ref:.4f} (tol 4 se + 1% = {tol:.4f})")
+        check(abs(res["price"] - ref) < tol, f"{what} vs COS")
+        out[what] = {"price": res["price"], "std_error": res["std_error"],
+                     "cos": ref}
+
+    try:
+        t0 = time.perf_counter()
+        prng = dict(body, use_sobol=False)
+        status, solo, ms = post(base, prng)
+        check_response(status, solo, "use_sobol=false")
+        expect["svj_terminal"] += 1
+        vs_cos(solo, "use_sobol=false SVJ")
+        out["use_sobol=false SVJ"]["first_ms"] = ms
+        sigma = 0.2
+        gbm = dict(prng, use_control_variate=False,
+                   params={"kappa": 0.0, "theta": sigma**2, "xi": 0.0,
+                           "rho": 0.0, "v0": sigma**2, "lambda_j": 0.0,
+                           "mu_j": 0.0, "sigma_j": 0.0})
+        status, res, _ = post(base, gbm)
+        check_response(status, res, "use_sobol=false GBM")
+        expect["svj_terminal"] += 1
+        bs = float(bs_price(SPOT, STRIKE, T_DEFAULT, 0.065, 0.012, sigma,
+                            True))
+        log(f"use_sobol=false GBM (CV off) {res['price']:.4f} vs BS "
+            f"{bs:.4f} (3 se = {3 * res['std_error']:.4f})")
+        check(abs(res["price"] - bs) < 3 * res["std_error"],
+              "use_sobol=false GBM vs BS")
+        out["use_sobol=false GBM"] = {"price": res["price"], "bs": bs,
+                                      "std_error": res["std_error"]}
+
+        coalescer = server.coalesce.coalescer
+        batches0, window = coalescer.batches_run, coalescer.window_s
+        coalescer.window_s = 0.1
+        results = [None] * 4
+
+        def one(i):
+            results[i] = post(base, prng)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        finally:
+            coalescer.window_s = window
+        check(not any(t.is_alive() for t in threads),
+              "concurrent PRNG requests done")
+        for i, (status, res, _) in enumerate(results):
+            check_response(status, res, f"concurrent PRNG request {i}")
+            check(res["price"] == solo["price"], "coalesced PRNG == solo")
+        expect["svj_terminal"] += 4
+        n_batches = coalescer.batches_run - batches0
+        log(f"4 concurrent use_sobol=false: all 200, price == solo, in "
+            f"{n_batches} batch(es); latencies "
+            f"{[round(r[2], 1) for r in results]} ms")
+        check(n_batches == 1, "the 4 concurrent PRNG requests form one batch")
+        phase("use_sobol=false", t0)
+
+        t0 = time.perf_counter()
+        for what, extra, kernel in (
+                ("scheme=qe Sobol", {"scheme": "qe"},
+                 "svj_terminal_qe_from_draws"),
+                ("scheme=qe use_sobol=false",
+                 {"scheme": "qe", "use_sobol": False}, "svj_terminal_qe")):
+            status, res, ms = post(base, dict(body, **extra))
+            check_response(status, res, what)
+            expect[kernel] += 1
+            vs_cos(res, what)
+            out[what]["first_ms"] = ms
+        phase("scheme=qe", t0)
+
+        t0 = time.perf_counter()
+        otm = 1.25 * SPOT
+        cos_otm = float(cos_price(SVJParams(), SPOT, [otm], T_DEFAULT,
+                                  True)[0])
+        status, res, _ = post(base, dict(body, strike=otm,
+                                         use_importance=True))
+        check_response(status, res, "use_importance", diagnostics=False)
+        check(res["ess"] > 0, "use_importance: ess > 0")
+        vs_cos(res, "use_importance K=1.25 S", ref=cos_otm)
+        out["use_importance K=1.25 S"].update(ess=res["ess"],
+                                              tilt_shift=res["tilt_shift"])
+        phase("use_importance", t0)
+
+        t0 = time.perf_counter()
+        for what, extra, kernel in (
+                ("rqmc_randomizations=4", {}, "svj_terminal_from_draws"),
+                ("rqmc_randomizations=4 QE", {"scheme": "qe"},
+                 "svj_terminal_qe_from_draws")):
+            status, res, _ = post(base, dict(body, rqmc_randomizations=4,
+                                             **extra))
+            check_response(status, res, what, diagnostics=False)
+            check(res["randomizations"] == 4, f"{what}: 4 replicates")
+            expect[kernel] += 4
+            vs_cos(res, what)
+        phase("rqmc", t0)
+
+        t0 = time.perf_counter()
+        status, res, _ = post(base, body, path="/api/convergence")
+        check(status == 200, f"/api/convergence: status {status}")
+        check(res["num_paths"][-1] == NUM_PATHS and all(
+            np.isfinite(res["price"])), "/api/convergence series")
+        vs_cos({"price": res["price"][-1], "std_error": res["std_error"][-1]},
+               "/api/convergence last point")
+        phase("convergence", t0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    counts = ck.launch_counts()
+    log(f"launch counts over the options' path: {counts} (expected "
+        f"{expect})")
+    for name, n in expect.items():
+        check(counts[name] == n, f"{name} launched once per request that "
+              f"runs it ({counts[name]} vs {n})")
+    check(counts["gbm_terminal"] == 0, "no K2 on the options' path")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"options' path: {out['wall_s']:.1f} s")
     return out
 
 
@@ -311,28 +623,39 @@ def main() -> None:
     ck.load_library()
     log(f"kernel build (nvcc sm_90a) + load: {ck.build_seconds():.2f} s")
 
-    k1 = check_k1(device, ck, sobol, SVJParams())
+    params = SVJParams()
+    k1 = check_k1(device, ck, sobol, params)
     k2 = check_k2(device, ck, bs_price)
+    k3 = check_prng(device, ck, params, "svj_terminal")
+    k4 = check_prng(device, ck, params, "svj_terminal_qe")
+    k5 = check_k5(device, ck, sobol, params)
     mp = main_path(device, ck, bench, cos_price, bs_price, SVJParams, server)
+    op = options_path(device, ck, cos_price, bs_price, SVJParams, server)
 
+    # (name, source, TPU kernel body, its check, the path that launched it)
+    table = (
+        ("svj_terminal_from_draws", "svj_draws.cu", 490, k1, mp),
+        ("gbm_terminal", "gbm.cu", 1386, k2, mp),
+        ("svj_terminal", "svj.cu", 299, k3, op),
+        ("svj_terminal_qe", "svj_qe.cu", 769, k4, op),
+        ("svj_terminal_qe_from_draws", "svj_qe_draws.cu", 966, k5, op),
+    )
+    # No single PyTorch call computes any of these simulations: library_ms
+    # is null for every kernel.
     kernels = [
-        {"name": "svj_terminal_from_draws", "route": "cuda",
-         "source": "mcos_tpu_torch/csrc/svj_draws.cu",
-         "replaces": "mcos_tpu/ops/pallas_kernels.py:490",
-         "launches": mp["launches"]["svj_terminal_from_draws"],
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
-        {"name": "gbm_terminal", "route": "cuda",
-         "source": "mcos_tpu_torch/csrc/gbm.cu",
-         "replaces": "mcos_tpu/ops/pallas_kernels.py:1386",
-         "launches": mp["launches"]["gbm_terminal"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
-    ]
+        {"name": name, "route": "cuda",
+         "source": f"mcos_tpu_torch/csrc/{src}",
+         "replaces": f"mcos_tpu/ops/pallas_kernels.py:{line}",
+         "launches": path["launches"][name],
+         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+         "bound_by": res["bound_by"], "library_ms": None}
+        for name, src, line, res, path in table]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": ck.build_seconds(), "k1": k1,
-                   "k2": k2, "main_path": mp}, f, indent=1)
+                   "k2": k2, "k3": k3, "k4": k4, "k5": k5, "main_path": mp,
+                   "options_path": op}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came
     print(json.dumps({"ok": True, "device": {

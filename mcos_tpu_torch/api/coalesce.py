@@ -10,10 +10,11 @@ The leader/Future machinery is host code, unchanged from the JAX package.
 
 A batch runs its members one after another on the device, as the JAX
 version unrolls them: each member runs the exact program the solo path runs
-(the shared Sobol net, kernel K1 and the two visualisation programs), so a
-coalesced response equals a solo one, and the whole batch pays one
-device→host copy. PyTorch runs eagerly, so there is no compiled program per
-batch size to bound, and batches are not padded.
+(an engine with the serving seed: the shared Sobol net through K1 or K5,
+or the in-kernel generator of K3 or K4, then the two visualisation
+programs), so a coalesced response equals a solo one, and the whole batch
+pays one device→host copy. PyTorch runs eagerly, so there is no compiled
+program per batch size to bound, and batches are not padded.
 """
 
 from __future__ import annotations

@@ -2,13 +2,13 @@
 serving slice).
 
     GET  /api/health
-    POST /api/price      — pre/post guards, price, 50 sample paths,
-                           1024 terminal samples, elapsed_ms
+    POST /api/price        — pre/post guards, price, 50 sample paths,
+                             1024 terminal samples, elapsed_ms; every request
+                             option but sharding: Sobol or PRNG driver, Euler
+                             or QE, importance sampling, RQMC
+    POST /api/convergence  — prefix-mean convergence series
 
 Every other route answers 404, as the JAX server does for unknown paths.
-`/api/price` options the port does not run yet (`use_sobol=false`,
-`scheme="qe"`, `use_importance`, `rqmc_randomizations`) answer 501 with the
-ROADMAP.md item that will port them; they never fall back to plain torch.
 
 Transport: the stdlib ThreadingHTTPServer. Every device program goes onto
 the device's default stream. Before it serves, `serve` builds the CUDA
@@ -25,18 +25,12 @@ import json
 import logging
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
-
 import torch
 from pydantic import ValidationError
 
 from mcos_tpu_torch.api import coalesce, schemas
 from mcos_tpu_torch.engine.guards import PricingGuard
-from mcos_tpu_torch.engine.pricer import (
-    NOT_PORTED,
-    MonteCarloEngine,
-    to_host,
-)
+from mcos_tpu_torch.engine.pricer import MonteCarloEngine, to_host
 from mcos_tpu_torch.utils import fastjson
 
 logger = logging.getLogger("mcos_tpu_torch.api")
@@ -62,26 +56,10 @@ def handle_health(_body: dict) -> dict:
             "version": VERSION}
 
 
-def _unported_option(req) -> Optional[str]:
-    if not req.use_sobol:
-        return "use_sobol=false"
-    if req.scheme == "qe":
-        return "scheme=qe"
-    if req.use_importance:
-        return "use_importance"
-    if req.rqmc_randomizations:
-        return "rqmc_randomizations"
-    return None
-
-
 def handle_price(body: dict, device="cuda") -> dict:
     """`/api/price` on `device`, the JAX handler's contract."""
     req = schemas.PriceRequest(**body)
     start = time.time()
-    option = _unported_option(req)
-    if option is not None:
-        raise ApiError(501, f"{option} is not ported to mcos_tpu_torch yet: "
-                            f"{NOT_PORTED[option]}")
     svj = req.params.to_params()
 
     guard = PricingGuard(svj)
@@ -124,21 +102,58 @@ def handle_price(body: dict, device="cuda") -> dict:
         result = engine.format_price(sl["res"], req.T)
         sample_paths, terms = sl["paths"], sl["terms"]
     else:
-        # Solo path: enqueue the price and both viz programs, then one
-        # device→host copy for all of them.
-        host = to_host({
-            "paths": engine.sample_paths_device(req.spot, req.T,
-                                                num_samples=50),
-            "terms": engine.terminal_samples_device(req.spot, req.T),
-            **engine.price_device(req.spot, req.strike, req.T, req.is_call),
-        })
-        sample_paths, terms = host.pop("paths"), host.pop("terms")
-        result = engine.format_price(host, req.T)
+        # Solo path: enqueue both viz programs and the price program(s),
+        # then one device→host copy for all of them.
+        viz = {"paths": engine.sample_paths_device(req.spot, req.T,
+                                                   num_samples=50),
+               "terms": engine.terminal_samples_device(req.spot, req.T)}
+        if req.use_importance:
+            # Exponential tilt toward the strike + likelihood-ratio weights.
+            res, shift = engine.price_importance_device(
+                req.spot, req.strike, req.T, req.is_call)
+            host = to_host({**viz, **res})
+            result = engine.format_importance(host, req.T, shift)
+        elif req.rqmc_randomizations:
+            # R independent Owen scrambles → spread-based standard error.
+            host = to_host({**viz, **engine.price_rqmc_device(
+                req.spot, req.strike, req.T, req.is_call,
+                randomizations=req.rqmc_randomizations)})
+            result = engine.format_rqmc(host)
+        else:
+            host = to_host({**viz, **engine.price_device(
+                req.spot, req.strike, req.T, req.is_call)})
+            result = engine.format_price(host, req.T)
+        sample_paths, terms = host["paths"], host["terms"]
 
     result["sample_paths"] = fastjson.float_array_json(sample_paths,
                                                        decimals=2)
     result["terminal_samples"] = fastjson.float_array_json(terms, decimals=2)
     return _finish_price(result, guard, pre, req, start)
+
+
+def handle_convergence(body: dict, device="cuda") -> dict:
+    """`/api/convergence` on `device`: the prefix-mean convergence series of
+    one PRNG path set (num_paths capped at 500 000), the JAX handler's
+    contract."""
+    req = schemas.PriceRequest(**body)
+    try:
+        divs = schemas.build_dividend_schedule(req.dividends,
+                                               req.dividend_kind)
+        curve = schemas.build_rate_curve(req.rate_curve)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    engine = MonteCarloEngine(
+        req.params.to_params(), num_paths=min(req.num_paths, 500_000),
+        use_sobol=False, use_antithetic=req.use_antithetic,
+        dividends=divs, rate_curve=curve, device=device)
+    try:
+        return engine.convergence(req.spot, req.strike, req.T, req.is_call)
+    except ValueError as e:  # escrowed spot <= 0
+        raise ApiError(400, str(e))
+
+
+_POST_ROUTES = {"/api/price": handle_price,
+                "/api/convergence": handle_convergence}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,
@@ -185,7 +200,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(404, {"detail": "not found"})
 
     def do_POST(self):
-        if self.path.split("?", 1)[0] != "/api/price":
+        handler = _POST_ROUTES.get(self.path.split("?", 1)[0])
+        if handler is None:
             self._send_json(404, {"detail": "not found"})
             return
         try:
@@ -194,7 +210,7 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(413, {"detail": "request body too large"})
                 return
             body = json.loads(self.rfile.read(max(length, 0)) or b"{}")
-            self._send_json(200, handle_price(body, device=self.server.device))
+            self._send_json(200, handler(body, device=self.server.device))
         except ApiError as e:
             self._send_json(e.status, {"detail": e.detail})
         except (ValidationError, json.JSONDecodeError) as e:

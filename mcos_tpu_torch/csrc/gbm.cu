@@ -50,7 +50,8 @@ __global__ void __launch_bounds__(256)
   const int n_quads = (steps + 3) >> 2;
   for (int qd = 0; qd < n_quads; ++qd) {
     const uint4 b = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(qd), 1u), key);
+        make_uint4(p_lo, p_hi, static_cast<uint32_t>(qd), mcos::kGbmDomain),
+        key);
     float z[4];
     box_muller(mcos::bits_to_uniform(b.x), mcos::bits_to_uniform(b.y), z[0],
                z[1]);

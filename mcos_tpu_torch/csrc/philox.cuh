@@ -1,11 +1,28 @@
-// Philox4x32-10 counter-based generator and the bits-to-uniform map shared
-// by the port's kernels.
+// Device helpers shared by the port's kernels: the Philox4x32-10
+// counter-based generator, the bits-to-uniform map, Box-Muller, the
+// inverse-CDF jump count over a host table, Acklam's inverse normal CDF and
+// the Andersen QE variance transition.
 //
-// The constants are those of PyTorch's ATen/core/PhiloxRNGEngine.h
+// The Philox constants are those of PyTorch's ATen/core/PhiloxRNGEngine.h
 // (kPhilox10A/B, kPhiloxSA/SB); that header is not included, so the sources
-// build with nvcc alone. mcos_tpu_torch/ops/cuda_kernels.py:philox4x32_10 is
-// the same generator on int64 tensors: the CPU tests and the on-card checks
-// compare the two word for word.
+// build with nvcc alone. mcos_tpu_torch/ops/cuda_kernels.py holds the same
+// helpers on torch tensors (philox4x32_10, bits_to_uniform, box_muller,
+// count_from_table), with ops/simulate.py:qe_variance_step and
+// ops/sobol.py:ndtri_acklam; the CPU tests and the on-card checks compare
+// the two.
+//
+// Rounding against the plain versions. The QE transition's branch selects
+// (psi <= 1.5, u <= p) are not continuous in v, so a one-ulp difference in
+// v could send a path down the other branch. The helpers on the variance
+// path therefore repeat the plain version's IEEE operations one for one:
+//   - qe_variance_step and box_muller multiply and add with
+//     __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA (nor into
+//     the inlined sinf/cosf/logf);
+//   - acklam_ndtri rounds each Horner step once, in double, where the float
+//     product is exact; that is the plain version's float64 (a*x + c).
+// Elsewhere nvcc contracts freely, and the kernels differ from the plain
+// versions by FMA rounding (K2 keeps sincospif: its only consumer is a
+// continuous sum).
 #pragma once
 
 #include <cstdint>
@@ -16,6 +33,13 @@ constexpr uint32_t kPhilox10A = 0x9E3779B9u;
 constexpr uint32_t kPhilox10B = 0xBB67AE85u;
 constexpr uint32_t kPhiloxSA = 0xD2511F53u;
 constexpr uint32_t kPhiloxSB = 0xCD9E8D57u;
+
+// Philox counter domains (word 3 of the counter), one per stream, so that
+// two kernels given the same seed draw independent words.
+constexpr uint32_t kJumpDomain = 0u;   // K1/K5 per-step jump uniforms
+constexpr uint32_t kGbmDomain = 1u;    // K2
+constexpr uint32_t kSvjDomain = 2u;    // K3
+constexpr uint32_t kQeDomain = 3u;     // K4
 
 __device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
   const uint32_t hi0 = __umulhi(kPhiloxSA, c.x);
@@ -45,6 +69,119 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
 
 __device__ __forceinline__ uint32_t word_of(const uint4& w, int lane) {
   return lane == 0 ? w.x : lane == 1 ? w.y : lane == 2 ? w.z : w.w;
+}
+
+// 2*pi rounded to float32 (6.2831855f).
+constexpr float kTwoPi = 6.28318530717958647692f;
+
+// Two independent standard normals from two uniforms in (0, 1):
+// za = r cos(2 pi u2), zb = r sin(2 pi u2), r = sqrt(-2 log u1).
+__device__ __forceinline__ void box_muller(float u1, float u2, float& za,
+                                           float& zb) {
+  const float rad = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+  const float ang = __fmul_rn(kTwoPi, u2);
+  za = __fmul_rn(rad, cosf(ang));
+  zb = __fmul_rn(rad, sinf(ang));
+}
+
+// Jump count by inverse CDF: the number of entries of the nondecreasing
+// table cdf[0..k) that lie below u, i.e. sum_k 1{u > cdf_k}
+// (pallas_kernels.py:_count_from_u). The scan stops at the first entry
+// >= u, so it costs the count plus one compare.
+__device__ __forceinline__ int count_from_table(const double* __restrict__ cdf,
+                                                int k, float u) {
+  const double ud = static_cast<double>(u);
+  int n = 0;
+  while (n < k && __ldg(cdf + n) < ud) ++n;
+  return n;
+}
+
+// One Horner step a*x + c rounded once: the float product is exact in
+// double, so the double FMA rounds only the sum, as the plain version's
+// float64 a*x + c does; then once more to float.
+__device__ __forceinline__ float horner_step(float acc, float x, float c) {
+  return static_cast<float>(fma(static_cast<double>(acc),
+                                static_cast<double>(x),
+                                static_cast<double>(c)));
+}
+
+// Acklam's rational approximation of the inverse normal CDF for u strictly
+// inside (0, 1) (pallas_kernels.py:_ndtri_kernel; the constants of _ACK_*).
+__device__ __forceinline__ float acklam_ndtri(float u) {
+  const float qc = u - 0.5f;
+  if (fabsf(qc) <= 0.47575f) {  // float32(0.5 - 0.02425): central region
+    const float r = qc * qc;
+    float num = -3.969683028665376e+01f;
+    num = horner_step(num, r, 2.209460984245205e+02f);
+    num = horner_step(num, r, -2.759285104469687e+02f);
+    num = horner_step(num, r, 1.383577518672690e+02f);
+    num = horner_step(num, r, -3.066479806614716e+01f);
+    num = horner_step(num, r, 2.506628277459239e+00f);
+    float den = -5.447609879822406e+01f;
+    den = horner_step(den, r, 1.615858368580409e+02f);
+    den = horner_step(den, r, -1.556989798598866e+02f);
+    den = horner_step(den, r, 6.680131188771972e+01f);
+    den = horner_step(den, r, -1.328068155288572e+01f);
+    return (num * qc) / horner_step(den, r, 1.0f);
+  }
+  const float pm = fminf(u, 1.0f - u);
+  const float qt = sqrtf(-2.0f * logf(pm));
+  float num = -7.784894002430293e-03f;
+  num = horner_step(num, qt, -3.223964580411365e-01f);
+  num = horner_step(num, qt, -2.400758277161838e+00f);
+  num = horner_step(num, qt, -2.549732539343734e+00f);
+  num = horner_step(num, qt, 4.374664141464968e+00f);
+  num = horner_step(num, qt, 2.938163982698783e+00f);
+  float den = 7.784695709041462e-03f;
+  den = horner_step(den, qt, 3.224671290700398e-01f);
+  den = horner_step(den, qt, 2.445134137142996e+00f);
+  den = horner_step(den, qt, 3.754408661907416e+00f);
+  const float x_tail = num / horner_step(den, qt, 1.0f);
+  return qc < 0.0f ? x_tail : -x_tail;
+}
+
+// Per-launch QE scalars, computed on the host in float32 in the order and
+// arithmetic of mcos_tpu/ops/pallas_kernels.py:_pack_qe_params
+// (cuda_kernels.py:_qe_consts).
+struct QeConsts {
+  float spot, v0, theta, e_kdt, var1, var2, k0, k1, k2, k34, drift_dt, lam_dt,
+      mu_j, sig_j, g_drift_dt, sig_cv, sqrt_dt;
+};
+static_assert(sizeof(QeConsts) == 17 * sizeof(float), "packed");
+
+// float32(1 - 1e-7): the upper clip of the exponential branch's uniform.
+constexpr float kUMax = 0.99999988079071044921875f;
+
+// Andersen QE variance transition v -> v' (pallas_kernels.py:
+// _qe_variance_step): the quadratic branch a (sqrt(b^2) + z_v)^2 for
+// psi <= 1.5, else the exponential branch (mass p at 0, exponential tail)
+// from the uniform u_v. K5 passes z_v = ndtri(u_v) (Andersen's single
+// uniform); K4 an independent Box-Muller normal, which gives the same
+// transition law under a PRNG.
+__device__ __forceinline__ float qe_variance_step(float v, float z_v,
+                                                  float u_v,
+                                                  const QeConsts& c) {
+  const float m = __fadd_rn(c.theta, __fmul_rn(v - c.theta, c.e_kdt));
+  const float s2 = __fadd_rn(__fmul_rn(v, c.var1), c.var2);
+  const float psi = s2 / fmaxf(__fmul_rn(m, m), 1e-20f);
+  const float two_over_psi = 2.0f / fmaxf(psi, 1e-12f);
+  const float b2 = fmaxf(
+      __fadd_rn(two_over_psi - 1.0f,
+                __fmul_rn(sqrtf(fmaxf(two_over_psi, 1e-12f)),
+                          sqrtf(fmaxf(two_over_psi - 1.0f, 0.0f)))),
+      0.0f);
+  const float a = m / (1.0f + b2);
+  const float x = sqrtf(b2) + z_v;
+  const float v_quad = __fmul_rn(a, __fmul_rn(x, x));
+  const float p_mass = fminf(fmaxf((psi - 1.0f) / (psi + 1.0f), 0.0f), 0.999f);
+  const float beta = (1.0f - p_mass) / fmaxf(m, 1e-20f);
+  const float u_clip = fminf(fmaxf(u_v, 1e-7f), kUMax);
+  const float v_exp =
+      (u_v <= p_mass)
+          ? 0.0f
+          : logf((1.0f - p_mass) / fmaxf(1.0f - u_clip, 1e-12f)) /
+                fmaxf(beta, 1e-20f);
+  return psi <= 1.5f ? v_quad : v_exp;
 }
 
 }  // namespace mcos

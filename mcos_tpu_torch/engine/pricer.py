@@ -1,23 +1,33 @@
 """Monte Carlo pricing runtime of the port
 (counterpart of `mcos_tpu/engine/pricer.py`, serving slice).
 
-- `mc_price_from_draws` prices European strikes off one draw set with the
-  same estimator as the JAX package: antithetic pairs, the companion GBM
-  control variate against `bs_price`, population-std standard errors, and
-  the terminal-state diagnostics the post-price guards read.
-  backend="cuda" runs kernel K1 (`ops/cuda_kernels.svj_terminal_from_draws`:
-  the kernel for CUDA draws, its plain version for CPU draws);
-  backend="torch" runs the step-loop twin `simulate_terminal_from_draws`.
+Every pricer uses the JAX package's estimator: antithetic pairs, the
+companion GBM control variate against `bs_price`, population-std standard
+errors, and the terminal-state diagnostics the post-price guards read.
+
+- `mc_price_from_draws` prices off one supplied draw set (the Sobol
+  driver). backend="cuda" runs a kernel wrapper (the kernel for CUDA
+  draws, its plain version for CPU draws): K1 `svj_terminal_from_draws`
+  for scheme="euler", K5 `svj_terminal_qe_from_draws` for scheme="qe";
+  backend="torch" runs the step-loop twins.
+- `mc_price_cuda` (counterpart of `mc_price_pallas`) prices off the
+  in-kernel generator: K3 `svj_terminal` (Euler) or K4 `svj_terminal_qe`.
+  `mc_price_core` is the same estimator on the torch twins and a
+  `torch.Generator`.
+- `mc_price_importance` (exponentially tilted dW₁) and `_convergence_core`
+  (prefix-mean series) run as torch ops on the device, as the JAX package
+  runs them as XLA scans: no kernel sits under them.
 - `MonteCarloEngine` is the stateful wrapper the HTTP layer builds per
   request, with the process-wide Sobol-draw LRU (keyed on the device too).
 
-Every engine takes an explicit `device`. Only the Sobol driver with the
-Euler scheme is ported; the PRNG driver, QE, importance sampling, RQMC and
-sharding raise `NotImplementedError` naming their ROADMAP.md item.
+Every engine takes an explicit `device`. Sharding (`mesh=`) is not ported
+and raises `NotImplementedError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import copy
+import logging
 import threading
 from collections import OrderedDict
 from typing import Dict, Optional, Sequence
@@ -28,6 +38,8 @@ import torch
 from mcos_tpu_torch.config import (
     DEFAULT_NUM_PATHS,
     DEFAULT_NUM_STEPS,
+    DEFAULT_TOLERANCE,
+    MAX_PATHS,
     scaled_steps,
 )
 from mcos_tpu_torch.models.params import SVJParams
@@ -36,10 +48,6 @@ from mcos_tpu_torch.ops.bs import bs_price
 
 #: Not yet ported: ROADMAP.md queue 1 item that will port each option.
 NOT_PORTED = {
-    "use_sobol=false": "ROADMAP.md queue 1, item 1 (PRNG price path)",
-    "scheme=qe": "ROADMAP.md queue 1, item 2 (QE scheme)",
-    "use_importance": "ROADMAP.md queue 1, item 1 (PRNG price path)",
-    "rqmc_randomizations": "ROADMAP.md queue 1, item 1 (PRNG price path)",
     "mesh": "ROADMAP.md queue 1, item 7 (sharding over NCCL)",
 }
 
@@ -112,6 +120,77 @@ def _finalize_price(
     return out
 
 
+def _check_scheme(scheme: str) -> None:
+    if scheme not in ("euler", "qe"):
+        raise ValueError(f"unknown scheme: {scheme!r}")
+
+
+def _price_terminal(
+    params: SVJParams, spot, strikes, T, s_final: torch.Tensor,
+    v_final: torch.Tensor, g_final: Optional[torch.Tensor], is_call: bool,
+    control_variate: bool, cv_mode: str, cv_beta: str,
+) -> Dict[str, torch.Tensor]:
+    """The estimator over terminal spots (n_branch, paths), plus the
+    terminal-state diagnostics over `v_final`."""
+    device = s_final.device
+    strikes = torch.atleast_1d(torch.as_tensor(strikes, dtype=torch.float32,
+                                               device=device))
+    discount = torch.exp(-params.r * torch.tensor(T, dtype=torch.float32,
+                                                  device=device))
+    pay = _payoff_table(s_final, strikes, is_call)
+    out = _finalize_price(params, spot, strikes, T, discount, pay, s_final,
+                          g_final, is_call, control_variate, cv_mode, cv_beta)
+    out["s_mean"] = torch.mean(s_final)
+    out["v_mean"] = torch.mean(v_final)
+    out["v_max"] = torch.max(v_final)
+    out["frac_nonfinite"] = torch.mean((~torch.isfinite(s_final)).float())
+    return out
+
+
+def mc_price_core(
+    params: SVJParams, spot, strikes, T, generator: torch.Generator, *,
+    num_paths: int, num_steps: int, is_call: bool = True,
+    antithetic: bool = True, control_variate: bool = True,
+    cv_mode: str = "companion", cv_beta: str = "one", scheme: str = "euler",
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """European prices at one or many strikes off one path set of the torch
+    twins (`simulate_terminal`, or `simulate_terminal_qe` for scheme="qe")
+    driven by `generator`. Returns the keys of `mc_price_from_draws`."""
+    _check_scheme(scheme)
+    sim = (simulate.simulate_terminal_qe if scheme == "qe"
+           else simulate.simulate_terminal)
+    s_final, v_final, g_final = sim(
+        params, spot, T, generator, num_paths, num_steps,
+        antithetic=antithetic,
+        companion=control_variate and cv_mode == "companion", device=device)
+    return _price_terminal(params, spot, strikes, T, s_final, v_final,
+                           g_final, is_call, control_variate, cv_mode,
+                           cv_beta)
+
+
+def mc_price_cuda(
+    params: SVJParams, spot, strikes, T, seed: int, *, num_paths: int,
+    num_steps: int, is_call: bool = True, antithetic: bool = True,
+    control_variate: bool = True, cv_mode: str = "companion",
+    cv_beta: str = "one", scheme: str = "euler", device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """`mc_price_core` with terminal spots from the in-kernel generator
+    (counterpart of `mc_price_pallas`): kernel K3 `svj_terminal`, or K4
+    `svj_terminal_qe` for scheme="qe", keyed on `seed`. A CUDA `device`
+    launches the kernel, the CPU runs its plain version."""
+    _check_scheme(scheme)
+    sim = (cuda_kernels.svj_terminal_qe if scheme == "qe"
+           else cuda_kernels.svj_terminal)
+    s_final, v_final, g_final = sim(
+        params, spot, T, seed, num_paths=num_paths, num_steps=num_steps,
+        antithetic=antithetic,
+        companion=control_variate and cv_mode == "companion", device=device)
+    return _price_terminal(params, spot, strikes, T, s_final, v_final,
+                           g_final, is_call, control_variate, cv_mode,
+                           cv_beta)
+
+
 def mc_price_from_draws(
     params: SVJParams, spot, strikes, T, z1: torch.Tensor, z2: torch.Tensor,
     u_jump: Optional[torch.Tensor], z_js: torch.Tensor, *, seed: int = 0,
@@ -122,61 +201,154 @@ def mc_price_from_draws(
 ) -> Dict[str, torch.Tensor]:
     """QMC / CRN pricing from externally supplied draws (on their device).
 
-    backend="cuda": kernel K1, whose u_jump=None mode draws the jump
-    uniforms in-kernel from Philox keyed on `seed`. backend="torch": the
-    step-loop twin on (±z1, ±z2, u_jump, ±z_js); u_jump=None takes the same
-    Philox stream (`cuda_kernels.philox_jump_uniforms`), so both backends
-    price the same paths.
+    scheme="qe" reads the draw tuple as the QE layout (z1 slot = z_x
+    log-spot normals, z2 slot = u_v variance-transition uniforms, see
+    `ops/sobol.sobol_qe_draws`). backend="cuda": kernel K1 (Euler) or K5
+    (QE), whose u_jump=None mode draws the jump uniforms in-kernel from
+    Philox keyed on `seed`. backend="torch": the step-loop twins;
+    u_jump=None takes the same Philox stream
+    (`cuda_kernels.philox_jump_uniforms`), so both backends price the same
+    paths.
 
     Returns a dict of float32 tensors: price, std_error, raw_mc_price and,
     with the control variate, bs_ref and bs_cv_adjustment, each (K,); plus
     the scalars s_mean, v_mean, v_max and frac_nonfinite.
     """
-    if scheme == "qe":
-        raise not_ported("scheme=qe")
-    if scheme != "euler":
-        raise ValueError(f"unknown scheme: {scheme!r}")
-    device = z1.device
-    strikes = torch.atleast_1d(torch.as_tensor(strikes, dtype=torch.float32,
-                                               device=device))
+    _check_scheme(scheme)
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend: {backend!r}")
     want_g = control_variate and cv_mode == "companion"
     if backend == "cuda":
-        s_final, v_all, g_final = cuda_kernels.svj_terminal_from_draws(
+        kernel = (cuda_kernels.svj_terminal_qe_from_draws if scheme == "qe"
+                  else cuda_kernels.svj_terminal_from_draws)
+        s_final, v_all, g_final = kernel(
             params, spot, T, z1, z2, u_jump, z_js, seed=seed,
             antithetic=antithetic, companion=want_g, steps_major=steps_major)
-        v_base = v_all[0]
-    elif backend == "torch":
+    else:
         if u_jump is None:
             num_steps, num_paths = (z1.shape if steps_major
                                     else z1.shape[::-1])
             u_jump = cuda_kernels.philox_jump_uniforms(num_steps, num_paths,
-                                                       seed, device)
+                                                       seed, z1.device)
             if not steps_major:
                 u_jump = u_jump.T
-        s_base, v_base, g_base = simulate.simulate_terminal_from_draws(
-            params, spot, T, z1, z2, u_jump, z_js, companion=want_g,
-            steps_major=steps_major)
-        if antithetic:
-            s_anti, _, g_anti = simulate.simulate_terminal_from_draws(
-                params, spot, T, -z1, -z2, u_jump, -z_js, companion=want_g,
-                steps_major=steps_major)
-            s_final = torch.stack([s_base, s_anti])
-            g_final = torch.stack([g_base, g_anti]) if want_g else None
+        if scheme == "qe":
+            s_final, v_all, g_final = \
+                simulate.simulate_terminal_qe_from_draws(
+                    params, spot, T, z1, z2, u_jump, z_js,
+                    antithetic=antithetic, companion=want_g,
+                    steps_major=steps_major)
         else:
-            s_final = s_base[None]
-            g_final = g_base[None] if want_g else None
-    else:
-        raise ValueError(f"unknown backend: {backend!r}")
+            s_final, v_all, g_final = _euler_twin_pair(
+                params, spot, T, z1, z2, u_jump, z_js, antithetic, want_g,
+                steps_major)
+    return _price_terminal(params, spot, strikes, T, s_final, v_all[0],
+                           g_final, is_call, control_variate, cv_mode,
+                           cv_beta)
+
+
+def _euler_twin_pair(params, spot, T, z1, z2, u_jump, z_js, antithetic,
+                     want_g, steps_major):
+    """The Euler draws twin on (±z1, ±z2, u_jump, ±z_js), stacked as the
+    kernel's (n_branch, paths) outputs."""
+    branches = [simulate.simulate_terminal_from_draws(
+        params, spot, T, z1, z2, u_jump, z_js, companion=want_g,
+        steps_major=steps_major)]
+    if antithetic:
+        branches.append(simulate.simulate_terminal_from_draws(
+            params, spot, T, -z1, -z2, u_jump, -z_js, companion=want_g,
+            steps_major=steps_major))
+    s_final, v_all, g_rows = (list(x) for x in zip(*branches))
+    return (torch.stack(s_final), torch.stack(v_all),
+            torch.stack(g_rows) if want_g else None)
+
+
+def mc_price_importance(
+    params: SVJParams, spot, strikes, T, generator: torch.Generator, shift,
+    *, num_paths: int, num_steps: int, is_call: bool = True,
+    antithetic: bool = True, control_variate: bool = True, device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """Importance-sampled European pricing (exponentially tilted dW₁,
+    `simulate.simulate_terminal_tilted`), likelihood-ratio weighted. The
+    companion control variate is taken on the weighted legs with the
+    per-strike optimal β. Extra output `ess`, the Kish effective sample
+    size (Σw)²/Σw² of the weights."""
+    s_final, v_final, g_final, log_w = simulate.simulate_terminal_tilted(
+        params, spot, T, generator, shift, num_paths, num_steps,
+        antithetic=antithetic, companion=control_variate, device=device)
+    device = s_final.device
+    strikes = torch.atleast_1d(torch.as_tensor(strikes, dtype=torch.float32,
+                                               device=device))
+    w = torch.exp(log_w)
     discount = torch.exp(-params.r * torch.tensor(T, dtype=torch.float32,
                                                   device=device))
-    pay = _payoff_table(s_final, strikes, is_call)
-    out = _finalize_price(params, spot, strikes, T, discount, pay, s_final,
-                          g_final, is_call, control_variate, cv_mode, cv_beta)
-    out["s_mean"] = torch.mean(s_final)
-    out["v_mean"] = torch.mean(v_base)
-    out["v_max"] = torch.max(v_base)
+
+    def weighted_table(terminal):
+        pay = simulate.vanilla_payoff(terminal[None],
+                                      strikes[:, None, None], is_call)
+        return simulate.combine_antithetic((w[None] * pay).transpose(0, 1))
+
+    wpay = weighted_table(s_final)
+    raw_mean, raw_se = simulate.mc_mean_stderr(wpay)
+    out: Dict[str, torch.Tensor] = {
+        "price": discount * raw_mean,
+        "std_error": discount * raw_se,
+        "raw_mc_price": discount * raw_mean,
+    }
+    if control_variate:
+        sigma_bs = torch.sqrt(torch.tensor(params.v0, dtype=torch.float32,
+                                           device=device))
+        bs_ref = bs_price(spot, strikes, T, params.r, params.q, sigma_bs,
+                          is_call, device=device)
+        ctrl = weighted_table(g_final)
+        ctrl_c = ctrl - torch.mean(ctrl, dim=-1, keepdim=True)
+        var_c = torch.mean(ctrl_c**2, dim=-1)
+        cov = torch.mean(
+            (wpay - torch.mean(wpay, dim=-1, keepdim=True)) * ctrl_c, dim=-1)
+        beta = torch.where(var_c > 1e-12,
+                           cov / torch.clamp(var_c, min=1e-12),
+                           torch.zeros_like(var_c))
+        ctrl_mc = discount * torch.mean(ctrl, dim=-1)
+        out["price"] = out["raw_mc_price"] - beta * (ctrl_mc - bs_ref)
+        out["bs_ref"] = bs_ref
+        out["cv_beta"] = beta
+        cv_pay = wpay - beta[:, None] * (ctrl - bs_ref[:, None] / discount)
+        _, cv_se = simulate.mc_mean_stderr(cv_pay)
+        out["std_error"] = discount * cv_se
+    w_flat = w.reshape(-1)
+    out["ess"] = (torch.sum(w_flat) ** 2
+                  / torch.clamp(torch.sum(w_flat**2), min=1e-30))
+    out["v_max"] = torch.max(v_final)
     out["frac_nonfinite"] = torch.mean((~torch.isfinite(s_final)).float())
     return out
+
+
+def _convergence_core(
+    params: SVJParams, spot, strike, T, generator: torch.Generator, *,
+    num_paths: int, num_steps: int, is_call: bool, antithetic: bool,
+    counts: Sequence[int], device="cuda",
+):
+    """Prefix-mean convergence series on the device: checkpoint k reports
+    the mean and standard error of the first counts[k] payoffs. Payoffs are
+    centred on the full-sample mean before the float32 cumulative sums, so
+    the running sums stay O(√n·σ). Returns (prices, errors), (len(counts),)."""
+    s_final, _, _ = simulate.simulate_terminal(
+        params, spot, T, generator, num_paths, num_steps,
+        antithetic=antithetic, device=device)
+    pay = simulate.combine_antithetic(
+        simulate.vanilla_payoff(s_final, strike, is_call))
+    discount = torch.exp(torch.tensor(-params.r * T, dtype=torch.float32,
+                                      device=pay.device))
+    center = torch.mean(pay)
+    c = pay - center
+    csum = torch.cumsum(c, dim=0)
+    csum_sq = torch.cumsum(c * c, dim=0)
+    idx = torch.as_tensor(np.asarray(counts, np.int64) - 1,
+                          device=pay.device)
+    n = torch.as_tensor(np.asarray(counts, np.float32), device=pay.device)
+    mean_c = csum[idx] / n
+    var = torch.clamp(csum_sq[idx] / n - mean_c**2, min=0.0)
+    return discount * (center + mean_c), discount * torch.sqrt(var / n)
 
 
 def to_host(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -209,8 +381,9 @@ _SOBOL_DRAWS_LOCK = threading.Lock()
 class MonteCarloEngine:
     """Counterpart of `mcos_tpu.engine.pricer.MonteCarloEngine` on `device`.
 
-    backend: "cuda" (kernel K1 on CUDA draws, its plain version on CPU
-    draws) or "torch" (the step-loop twin).
+    backend: "cuda" (the kernels: K1/K5 on the Sobol draws, K3/K4 with
+    use_sobol=False; their plain versions on the CPU) or "torch" (the
+    step-loop twins).
     """
 
     def __init__(
@@ -257,11 +430,15 @@ class MonteCarloEngine:
             if hit is not None:
                 _SOBOL_DRAWS_CACHE.move_to_end(key)
                 return hit
-        from mcos_tpu_torch.ops.sobol import sobol_svj_draws
+        from mcos_tpu_torch.ops.sobol import sobol_qe_draws, sobol_svj_draws
 
-        draws = sobol_svj_draws(self.num_paths, steps, seed=self.seed,
-                                layout="steps", jump_uniforms=False,
-                                device=self.device)
+        if self.scheme == "qe":
+            draws = sobol_qe_draws(self.num_paths, steps, seed=self.seed,
+                                   jump_uniforms=False, device=self.device)
+        else:
+            draws = sobol_svj_draws(self.num_paths, steps, seed=self.seed,
+                                    layout="steps", jump_uniforms=False,
+                                    device=self.device)
         with _SOBOL_DRAWS_LOCK:
             _SOBOL_DRAWS_CACHE[key] = draws
             while len(_SOBOL_DRAWS_CACHE) > _SOBOL_DRAWS_CACHE_MAX:
@@ -293,18 +470,37 @@ class MonteCarloEngine:
 
     def _price_result(self, spot, strikes, T,
                       is_call: bool) -> Dict[str, torch.Tensor]:
-        if not self.use_sobol:
-            raise not_ported("use_sobol=false")
         spot = self._spot_eff(spot, T)
         params = self._params_T(T)
         steps = self._steps(T)
-        z1, z2, u_jump, z_js = self._sobol_draws(steps)
-        return mc_price_from_draws(
-            params, spot, strikes, T, z1, z2, u_jump, z_js, seed=self.seed,
-            is_call=is_call, antithetic=self.use_antithetic,
-            control_variate=self.use_control_variate, cv_mode=self.cv_mode,
-            cv_beta=self.cv_beta, backend=self.backend,
-            steps_major=True, scheme=self.scheme)
+        if self.use_sobol:
+            z1, z2, u_jump, z_js = self._sobol_draws(steps)
+            return mc_price_from_draws(
+                params, spot, strikes, T, z1, z2, u_jump, z_js,
+                seed=self.seed, is_call=is_call,
+                antithetic=self.use_antithetic,
+                control_variate=self.use_control_variate,
+                cv_mode=self.cv_mode, cv_beta=self.cv_beta,
+                backend=self.backend, steps_major=True, scheme=self.scheme)
+        return self._prng_price(params, spot, strikes, T, self.seed,
+                                self.num_paths, steps, is_call)
+
+    def _prng_price(self, params, spot, strikes, T, seed: int,
+                    num_paths: int, steps: int,
+                    is_call: bool) -> Dict[str, torch.Tensor]:
+        """The PRNG driver: K3/K4 keyed on `seed` (backend="cuda"), or the
+        torch twins on a generator seeded with it (backend="torch")."""
+        kwargs = dict(num_paths=num_paths, num_steps=steps, is_call=is_call,
+                      antithetic=self.use_antithetic,
+                      control_variate=self.use_control_variate,
+                      cv_mode=self.cv_mode, cv_beta=self.cv_beta,
+                      scheme=self.scheme, device=self.device)
+        if self.backend == "cuda":
+            return mc_price_cuda(params, spot, strikes, T, seed, **kwargs)
+        if self.backend == "torch":
+            return mc_price_core(params, spot, strikes, T,
+                                 self._seeded(seed), **kwargs)
+        raise ValueError(f"unknown backend: {self.backend!r}")
 
     # -- reference API ----------------------------------------------------------
     def price(self, spot: float, strike: float, T: float,
@@ -354,9 +550,181 @@ class MonteCarloEngine:
             results.append(row)
         return results
 
-    def _generator(self, offset: int) -> torch.Generator:
+    def price_to_tolerance(self, spot: float, strike: float, T: float,
+                           is_call: bool = True,
+                           tolerance: float = DEFAULT_TOLERANCE,
+                           max_paths: int = MAX_PATHS,
+                           batch_paths: int = 250_000) -> Dict[str, float]:
+        """Adaptive pricing: add path batches until stderr/price ≤ tolerance.
+
+        Batches double in size (powers of two from `batch_paths`) up to
+        `max_paths` and combine by exact moment pooling. Each batch runs the
+        PRNG driver with its own seed, (seed·1 000 003 + 7919·batch) mod 2³¹,
+        so batches are independent; a Sobol net chopped into batches loses
+        its equidistribution, so use_sobol=True is logged and ignored here.
+        One device→host copy per batch: the loop reads each batch's error.
+        """
+        if self.use_sobol:
+            logging.getLogger("mcos_tpu_torch.pricer").info(
+                "price_to_tolerance uses independent PRNG batches; the "
+                "engine's Sobol driver does not batch soundly")
+        spot = self._spot_eff(spot, T)
+        params = self._params_T(T)
+        steps = self._steps(T)
+        strikes = np.array([strike], np.float32)
+        total_n, batches = 0, 0
+        sum_mean = sum_sq = 0.0     # Σ nᵢ·meanᵢ, Σ nᵢ·E[x²]ᵢ
+        price = se = 0.0
+        bs_ref = None
+        n_next = 1 << max(int(np.ceil(np.log2(max(batch_paths, 1024)))), 10)
+        while total_n < max_paths:
+            n_batch = min(n_next, max_paths - total_n)
+            n_next *= 2
+            batch_seed = (self.seed * 1_000_003 + 7919 * batches) \
+                & 0x7FFFFFFF
+            res = self._prng_price(params, spot, strikes, T, batch_seed,
+                                   n_batch, steps, is_call)
+            res = to_host({k: res[k] for k in ("price", "std_error",
+                                               "bs_ref") if k in res})
+            p_i, se_i = float(res["price"][0]), float(res["std_error"][0])
+            if bs_ref is None and "bs_ref" in res:
+                bs_ref = float(res["bs_ref"][0])
+            sum_mean += n_batch * p_i
+            sum_sq += n_batch * (n_batch * se_i**2 + p_i**2)
+            total_n += n_batch
+            batches += 1
+            price = sum_mean / total_n
+            se = (max(sum_sq / total_n - price**2, 0.0) / total_n) ** 0.5
+            if price > 0 and se / price <= tolerance:
+                break
+        out = {
+            "price": price,
+            "std_error": se,
+            "num_paths_used": total_n,
+            "num_steps": steps,
+            "num_batches": batches,
+            "tolerance_met": bool(price > 0 and se / price <= tolerance),
+        }
+        if bs_ref is not None:
+            out["bs_ref"] = bs_ref
+        return out
+
+    def price_importance_device(self, spot: float, strike: float, T: float,
+                                is_call: bool = True,
+                                shift: Optional[float] = None):
+        """Enqueue the importance-sampled price program (tilt toward the
+        strike, `shift=None` aims it with `simulate.optimal_tilt`); returns
+        (the on-device result dict, the shift used)."""
+        spot = self._spot_eff(spot, T)
+        params = self._params_T(T)
+        steps = self._steps(T)
+        if shift is None:
+            shift = simulate.optimal_tilt(params, spot, strike, T, steps)
+        res = mc_price_importance(
+            params, spot, np.array([strike], np.float32), T,
+            self._seeded(self.seed), float(shift), num_paths=self.num_paths,
+            num_steps=steps, is_call=is_call, antithetic=self.use_antithetic,
+            control_variate=self.use_control_variate, device=self.device)
+        return res, float(shift)
+
+    def format_importance(self, res: Dict, T: float,
+                          shift: float) -> Dict[str, float]:
+        """Host-side formatting of a fetched importance result."""
+        out = {
+            "price": float(res["price"][0]),
+            "std_error": float(res["std_error"][0]),
+            "num_paths_used": self.num_paths,
+            "num_steps": self._steps(T),
+            "tilt_shift": float(shift),
+            "ess": float(res["ess"]),
+        }
+        if self.use_control_variate:
+            out["bs_ref"] = float(res["bs_ref"][0])
+            out["cv_beta"] = float(res["cv_beta"][0])
+        return out
+
+    def price_importance(self, spot: float, strike: float, T: float,
+                         is_call: bool = True,
+                         shift: Optional[float] = None) -> Dict[str, float]:
+        """Importance-sampled price for far-from-the-money strikes: the
+        spot Brownian is tilted so the path cloud lands near the strike and
+        every path is reweighted by the exact likelihood ratio. Honors the
+        engine's antithetic and control-variate settings."""
+        res, shift = self.price_importance_device(spot, strike, T, is_call,
+                                                  shift)
+        return self.format_importance(to_host(res), T, shift)
+
+    def price_rqmc_device(self, spot: float, strike: float, T: float,
+                          is_call: bool = True,
+                          randomizations: int = 8) -> Dict[str, torch.Tensor]:
+        """Enqueue R independently Owen-scrambled Sobol prices (seeds
+        seed + 7919·r, the engine's scheme: K1 or K5 on the card); returns
+        {"price": (R,)[, "bs_ref": (1,)]} on device."""
+        if randomizations < 2:
+            raise ValueError("randomizations must be ≥ 2 for an error bar")
+        prices, bs_ref = [], None
+        for rep in range(randomizations):
+            eng = copy.copy(self)
+            eng.seed = self.seed + 7919 * rep
+            eng.use_sobol = True
+            res = eng.price_device(spot, strike, T, is_call)
+            prices.append(res["price"][0])
+            bs_ref = res.get("bs_ref", bs_ref)
+        out = {"price": torch.stack(prices)}
+        if bs_ref is not None:
+            out["bs_ref"] = bs_ref
+        return out
+
+    def format_rqmc(self, res: Dict) -> Dict[str, float]:
+        """The replicates' mean, with their spread / √R as the standard
+        error (the honest QMC error bar)."""
+        arr = np.asarray(res["price"], np.float64)
+        r = arr.size
+        out = {
+            "price": float(arr.mean()),
+            "std_error": float(arr.std(ddof=1) / np.sqrt(r)),
+            "randomizations": r,
+            "num_paths_used": self.num_paths * r,
+            "price_min": float(arr.min()),
+            "price_max": float(arr.max()),
+        }
+        if "bs_ref" in res:
+            out["bs_ref"] = float(res["bs_ref"][0])
+        return out
+
+    def price_rqmc(self, spot: float, strike: float, T: float,
+                   is_call: bool = True,
+                   randomizations: int = 8) -> Dict[str, float]:
+        """Randomized-QMC price: R independent Owen scrambles of the same
+        Sobol net give R iid unbiased estimates; one host copy for all."""
+        return self.format_rqmc(to_host(self.price_rqmc_device(
+            spot, strike, T, is_call, randomizations)))
+
+    def convergence(self, spot: float, strike: float, T: float,
+                    is_call: bool = True,
+                    num_checkpoints: int = 12) -> Dict[str, list]:
+        """The estimate at geometrically spaced path counts, from prefix
+        means of ONE path set of the Euler twin (checkpoint k uses the
+        first n_k paths), reduced on the device; one host copy."""
+        counts = np.unique(np.geomspace(
+            max(self.num_paths // (2 ** (num_checkpoints - 1)), 64),
+            self.num_paths, num_checkpoints).astype(int))
+        prices, errors = _convergence_core(
+            self._params_T(T), self._spot_eff(spot, T), strike, T,
+            self._seeded(self.seed), num_paths=self.num_paths,
+            num_steps=self._steps(T), is_call=is_call,
+            antithetic=self.use_antithetic,
+            counts=tuple(int(n) for n in counts), device=self.device)
+        host = to_host({"price": prices, "std_error": errors})
+        return {
+            "num_paths": counts.tolist(),
+            "price": [float(x) for x in host["price"]],
+            "std_error": [float(x) for x in host["std_error"]],
+        }
+
+    def _seeded(self, seed: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed + offset)
+        gen.manual_seed(int(seed))
         return gen
 
     def sample_paths_device(self, spot: float, T: float,
@@ -365,7 +733,7 @@ class MonteCarloEngine:
         steps = max(int(self.num_steps * T), 50)
         return simulate.simulate_paths_recorded(
             self._params_T(T), self._spot_eff(spot, T), T,
-            self._generator(999), num_paths=int(num_samples),
+            self._seeded(self.seed + 999), num_paths=int(num_samples),
             num_steps=steps, device=self.device)
 
     def terminal_samples_device(self, spot: float, T: float,
@@ -373,6 +741,6 @@ class MonteCarloEngine:
         """A small sample of terminal spots for the histogram, unsynced."""
         s_final, _, _ = simulate.simulate_terminal(
             self._params_T(T), self._spot_eff(spot, T), T,
-            self._generator(1234), num_paths=int(num_samples),
+            self._seeded(self.seed + 1234), num_paths=int(num_samples),
             num_steps=self._steps(T), antithetic=False, device=self.device)
         return s_final[0]

@@ -1,11 +1,17 @@
 """Hand-written CUDA kernels of the port, their wrappers, their plain torch
 versions and their build (counterpart of `mcos_tpu/ops/pallas_kernels.py`
-for the two kernels on the serving path).
+for the kernels on the `/api/price` and `/api/convergence` paths).
 
 K1 `svj_terminal_from_draws` (csrc/svj_draws.cu) replaces
     `svj_terminal_from_draws_pallas` / `_svj_draws_kernel`.
 K2 `gbm_terminal` (csrc/gbm.cu) replaces
     `gbm_terminal_pallas` / `_gbm_kernel`.
+K3 `svj_terminal` (csrc/svj.cu) replaces
+    `svj_terminal_pallas` / `_svj_kernel`.
+K4 `svj_terminal_qe` (csrc/svj_qe.cu) replaces
+    `svj_terminal_qe_pallas` / `_svj_qe_kernel`.
+K5 `svj_terminal_qe_from_draws` (csrc/svj_qe_draws.cu) replaces
+    `svj_terminal_qe_from_draws_pallas` / `_svj_qe_draws_kernel`.
 
 The wrapper rule: a CPU input takes the plain torch version; a CUDA input
 launches the kernel or raises. There is no fallback from one to the other.
@@ -21,12 +27,20 @@ sources' hash changes. `build_seconds()` reports how long it took.
 The plain Philox4x32-10 below is the kernels' generator on int64 tensors
 with 32-bit masks (torch has no usable uint32 arithmetic); it gives the
 same words as csrc/philox.cuh, so a kernel's in-kernel random mode can be
-compared word for word with its plain version.
+compared word for word with its plain version. Each kernel's stream has
+its own counter domain (word 3): K1/K5 jumps 0, K2 1, K3 2, K4 3.
+
+The plain versions repeat each kernel's float32 operations in the same
+order. Where a result feeds a discontinuous select (the QE transition's
+branches), csrc/philox.cuh keeps nvcc from contracting multiply-adds and
+the plain version here performs the same IEEE operations; elsewhere the two
+differ by FMA rounding.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -40,6 +54,8 @@ import numpy as np
 import torch
 
 from mcos_tpu_torch.models.params import SVJParams
+from mcos_tpu_torch.ops.simulate import qe_variance_step
+from mcos_tpu_torch.ops.sobol import ndtri_acklam
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -116,6 +132,13 @@ class _Library:
         lib.mcos_gbm_terminal.argtypes = [
             vp, i64, i32, i32, u64, f32, f32, f32, vp]
         lib.mcos_gbm_terminal.restype = i32
+        for name in ("mcos_svj_terminal", "mcos_svj_terminal_qe"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, u64, vp, vp]
+            fn.restype = i32
+        lib.mcos_svj_terminal_qe_from_draws.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, u64, vp, vp]
+        lib.mcos_svj_terminal_qe_from_draws.restype = i32
         lib.mcos_cuda_error_string.argtypes = [i32]
         lib.mcos_cuda_error_string.restype = ctypes.c_char_p
         self.path = lib_path
@@ -160,6 +183,8 @@ def _seed_words(seed: int) -> Tuple[int, int]:
 # ─────────────────────────────────────────────────────────────────────────────
 _PHILOX_10A, _PHILOX_10B = 0x9E3779B9, 0xBB67AE85
 _PHILOX_SA, _PHILOX_SB = 0xD2511F53, 0xCD9E8D57
+# Counter domains of csrc/philox.cuh (word 3 of the counter).
+_JUMP_DOMAIN, _GBM_DOMAIN, _SVJ_DOMAIN, _QE_DOMAIN = 0, 1, 2, 3
 
 
 def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -200,9 +225,89 @@ def philox_jump_uniforms(num_steps: int, num_paths: int, seed: int,
     path = torch.arange(num_paths, dtype=torch.int64, device=device)
     rows = []
     for quad in range(-(-num_steps // 4)):
-        words = philox4x32_10(path & _M32, path >> 32, quad, 0, k0, k1)
+        words = philox4x32_10(path & _M32, path >> 32, quad, _JUMP_DOMAIN,
+                              k0, k1)
         rows.extend(bits_to_uniform(w) for w in words)
     return torch.stack(rows[:num_steps])
+
+
+def _pair_words(num_paths: int, call: int, domain: int, seed: int, device):
+    """Philox words of counter (pair_lo, pair_hi, call, domain) for pairs
+    0..num_paths-1, as four float32 uniform tensors."""
+    k0, k1 = _seed_words(seed)
+    pair = torch.arange(num_paths, dtype=torch.int64, device=device)
+    return [bits_to_uniform(w)
+            for w in philox4x32_10(pair & _M32, pair >> 32, call, domain,
+                                   k0, k1)]
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Device helpers of csrc/philox.cuh in plain torch
+# ─────────────────────────────────────────────────────────────────────────────
+_TWO_PI_F32 = float(np.float32(2.0 * math.pi))
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r·cos(2πu₂), r·sin(2πu₂) with r = √(−2 log u₁), on the float32
+    angle 2π·u₂ (philox.cuh:box_muller)."""
+    rad = torch.sqrt(-2.0 * torch.log(u1))
+    ang = u2 * _TWO_PI_F32
+    return rad * torch.cos(ang), rad * torch.sin(ang)
+
+
+# The count table's length: the upper tail beyond it is below 2⁻²⁴, under
+# the uniforms' grid ((k + ½)·2⁻²³ never exceeds 1 − 2⁻²⁴), and it has at
+# least the reference table's 64 entries.
+_COUNT_TAIL = 2.0 ** -24
+_COUNT_MIN_LEN = 64
+
+
+def binom_count_table(lam_dt: float, num_steps: int) -> np.ndarray:
+    """CDF of the path's jump count, Binomial(num_steps, λ·dt), in float64:
+    entry k is P(count ≤ k), for k up to the first whose upper tail is
+    below 2⁻²⁴ (and at least 64 entries; entries past num_steps are 1).
+
+    The counterpart of `_binom_count_cdf` without its two faults: that
+    float32 table stops at 64 entries and divides by its last one, which
+    conditions the count on < 64 and turns into NaN once (1−p)ⁿ
+    underflows. Here the pmf is built in log space, so it never
+    underflows to a NaN, and the table is as long as the tail needs.
+    """
+    n = int(num_steps)
+    p = min(max(float(lam_dt), 0.0), 1.0)
+    if n < 0:
+        raise ValueError(f"num_steps must be non-negative, got {n}")
+    if p == 0.0:
+        return np.ones(_COUNT_MIN_LEN)
+    k = np.arange(n + 1, dtype=np.float64)
+    if p == 1.0:
+        pmf = (k == n).astype(np.float64)
+    else:
+        # log pmf_k = n·log(1−p) + k·log(p/(1−p)) + Σ_{j<k} log((n−j)/(j+1))
+        steps = np.log((n - k[:-1]) / (k[:-1] + 1.0))
+        log_pmf = (n * math.log1p(-p) + k * (math.log(p) - math.log1p(-p))
+                   + np.concatenate([[0.0], np.cumsum(steps)]))
+        pmf = np.exp(log_pmf)
+    upper = np.cumsum(pmf[::-1])[::-1] - pmf      # P(count > k)
+    length = int(np.argmax(upper < _COUNT_TAIL)) + 1   # upper[n] = 0
+    cdf = np.minimum(np.cumsum(pmf)[:length], 1.0)
+    if cdf.size < _COUNT_MIN_LEN:
+        cdf = np.concatenate([cdf, np.ones(_COUNT_MIN_LEN - cdf.size)])
+    return cdf
+
+
+def count_from_table(u: torch.Tensor, cdf: np.ndarray) -> torch.Tensor:
+    """Jump counts Σₖ 1{u > cdf_k} as float32 (philox.cuh:count_from_table)."""
+    table = torch.as_tensor(cdf, dtype=torch.float64, device=u.device)
+    return (u.double()[:, None] > table[None, :]).sum(dim=1).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(lam_dt: float, num_steps: int, device: str) -> torch.Tensor:
+    """The count table on `device`, built and copied once per shape."""
+    return torch.as_tensor(binom_count_table(lam_dt, num_steps),
+                           dtype=torch.float64, device=device)
 
 
 # ─────────────────────────────────────────────────────────────────────────────
@@ -369,7 +474,8 @@ def gbm_terminal_plain(spot, sigma, r, q, T, seed: int, *, num_paths: int,
     ls0 = torch.zeros(num_paths, dtype=torch.float32, device=device)
     ls1 = torch.zeros_like(ls0)
     for quad in range(-(-num_steps // 4)):
-        w = philox4x32_10(path & _M32, path >> 32, quad, 1, k0, k1)
+        w = philox4x32_10(path & _M32, path >> 32, quad, _GBM_DOMAIN, k0,
+                          k1)
         u = [bits_to_uniform(x) for x in w]
         z = []
         for u1, u2 in ((u[0], u[1]), (u[2], u[3])):
@@ -420,14 +526,369 @@ def gbm_terminal(spot, sigma, r, q, T, seed: int, *, num_paths: int,
 gbm_terminal.launches = 0
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Shared pieces of K3, K4 and K5
+# ─────────────────────────────────────────────────────────────────────────────
+def _svj_prng_consts(params: SVJParams, spot, T, num_steps: int
+                     ) -> np.ndarray:
+    """The 18 float32 scalars of csrc/svj.cu:SvjPrngConsts: `_svj_consts`
+    plus the TPU kernel's hoisted forms −dt/2, 1 − κ·dt and κ·θ·dt."""
+    f = np.float32
+    base = _svj_consts(params, spot, T, num_steps)
+    dt, kappa, theta = base[2], base[4], base[5]
+    with np.errstate(all="ignore"):
+        extra = (f(-0.5) * dt, f(1.0) - kappa * dt, kappa * theta * dt)
+    return np.concatenate([base, np.asarray(extra, np.float32)])
+
+
+_QE_FIELDS = ("spot", "v0", "theta", "e_kdt", "var1", "var2", "k0", "k1",
+              "k2", "k34", "drift_dt", "lam_dt", "mu_j", "sig_j",
+              "g_drift_dt", "sig_cv", "sqrt_dt")
+
+
+def _qe_consts(params: SVJParams, spot, T, num_steps: int) -> np.ndarray:
+    """The 17 float32 scalars of csrc/philox.cuh:QeConsts, in the order and
+    arithmetic of mcos_tpu/ops/pallas_kernels.py:_pack_qe_params."""
+    f = np.float32
+    p = params
+    with np.errstate(all="ignore"):
+        dt = f(T) / f(num_steps)
+        kappa, theta, xi, rho = f(p.kappa), f(p.theta), f(p.xi), f(p.rho)
+        e_kdt = np.exp(-kappa * dt)
+        c_mean = f(1.0) - e_kdt
+        gamma = f(0.5)
+        xi_safe = np.maximum(xi, f(1e-12))
+        k_over = kappa * rho / xi_safe - f(0.5)
+        k_comp = np.exp(f(p.mu_j) + f(0.5) * f(p.sigma_j) ** 2) - f(1.0)
+        sigma_cv = np.sqrt(f(p.v0))
+        vals = (
+            f(spot), f(p.v0), theta, e_kdt,
+            xi ** 2 * e_kdt * c_mean / np.maximum(kappa, f(1e-12)),
+            theta * xi ** 2 * c_mean ** 2
+            / np.maximum(f(2.0) * kappa, f(1e-12)),
+            -rho * kappa * theta * dt / xi_safe,
+            gamma * dt * k_over - rho / xi_safe,
+            gamma * dt * k_over + rho / xi_safe,
+            gamma * dt * (f(1.0) - rho ** 2),
+            (f(p.r) - f(p.q) - f(p.lambda_j) * k_comp) * dt,
+            f(p.lambda_j) * dt, f(p.mu_j), f(p.sigma_j),
+            (f(p.r) - f(p.q) - f(0.5) * sigma_cv ** 2) * dt,
+            sigma_cv, np.sqrt(dt),
+        )
+    return np.asarray(vals, np.float32)
+
+
+def _qe_dict(consts: np.ndarray) -> dict:
+    c = dict(zip(_QE_FIELDS, (float(x) for x in consts)))
+    # drift_dt + k0 in float32, as the kernel adds them.
+    c["drift_k0"] = float(np.float32(consts[10]) + np.float32(consts[6]))
+    return c
+
+
+def _qe_log_spot(c: dict, v, v_next, ls, lg, z_x, jump=None):
+    """The central K-scheme log-spot and companion updates of one step for
+    each branch (z_x negated on the second), K4/K5 order of operations."""
+    vol = torch.sqrt(torch.clamp(c["k34"] * (v + v_next), min=0.0))
+    base = c["drift_k0"] + c["k1"] * v + c["k2"] * v_next
+    for k in range(len(ls)):
+        sz_x = z_x if k == 0 else -z_x
+        ls[k] = ls[k] + base + vol * sz_x
+        if jump is not None:
+            ls[k] = ls[k] + jump[k]
+        lg[k] = lg[k] + c["g_drift_dt"] + c["sig_cv"] * sz_x * c["sqrt_dt"]
+
+
+def _stack_out(rows, companion: bool, g_rows):
+    return (torch.stack(rows[0]), torch.stack(rows[1]),
+            torch.stack(g_rows) if companion else None)
+
+
+def _check_prng_args(num_paths: int, num_steps: int, seed: int,
+                     device) -> torch.device:
+    device = torch.device(device)
+    if num_paths < 1 or num_steps < 1:
+        raise ValueError("need num_paths >= 1 and num_steps >= 1")
+    _seed_words(seed)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+    return device
+
+
+def _launch_table_kernel(fn, consts: np.ndarray, lam_dt: float, seed: int,
+                         num_paths: int, num_steps: int, n_branch: int,
+                         companion: bool, device: torch.device, name: str):
+    """Launch K3 or K4 (same C signature); returns (S, v, G or None)."""
+    table = _device_table(float(lam_dt), int(num_steps), str(device))
+    out = torch.empty((3 if companion else 2, n_branch, num_paths),
+                      dtype=torch.float32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(
+            out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr() if companion else None, table.data_ptr(),
+            int(table.numel()), num_paths, num_steps, n_branch, int(seed),
+            consts.ctypes.data, _stream_handle(device))
+    _check_rc(lib, rc, name)
+    return out[0], out[1], (out[2] if companion else None)
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K3: SVJ Euler terminal state from an in-kernel generator
+# ─────────────────────────────────────────────────────────────────────────────
+def svj_terminal_plain(params: SVJParams, spot, T, seed: int, *,
+                       num_paths: int, num_steps: int, antithetic: bool = True,
+                       companion: bool = False, device="cpu"
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Optional[torch.Tensor]]:
+    """Plain torch version of K3 on the kernel's Philox words: call c of
+    counter (pair_lo, pair_hi, c, 2) drives steps 2c and 2c+1, call
+    ⌈steps/2⌉ the jump count and size; (n_branch, num_paths) outputs."""
+    device = torch.device(device)
+    consts = _svj_prng_consts(params, spot, T, num_steps)
+    (spot_f, v0, _dt, sqrt_dt, _kappa, _theta, xi, rho, rho_perp, lam_dt,
+     mu_j, sig_j, drift_dt, g_drift_dt, sig_cv, nhdt, omk, ktheta_dt) = (
+        float(x) for x in consts)
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    ls = [zeros] * nb
+    v = [torch.full_like(zeros, max(v0, 0.0))] * nb
+    cv_w = zeros
+
+    def step(z1, z2):
+        nonlocal cv_w
+        dw1 = z1 * sqrt_dt
+        dw2 = rho * dw1 + rho_perp * z2 * sqrt_dt
+        for k in range(nb):
+            s_dw1, s_dw2 = (dw1, dw2) if k == 0 else (-dw1, -dw2)
+            sqrt_v = torch.sqrt(v[k])
+            ls[k] = ls[k] + (drift_dt + nhdt * v[k]) + sqrt_v * s_dw1
+            v[k] = torch.clamp(omk * v[k] + ktheta_dt
+                               + xi * (sqrt_v * s_dw2), min=0.0)
+        cv_w = cv_w + sig_cv * dw1
+
+    n_calls = (num_steps + 1) // 2
+    for call in range(n_calls):
+        u = _pair_words(num_paths, call, _SVJ_DOMAIN, seed, device)
+        step(*box_muller(u[0], u[1]))
+        if 2 * call + 1 < num_steps:
+            step(*box_muller(u[2], u[3]))
+    u = _pair_words(num_paths, n_calls, _SVJ_DOMAIN, seed, device)
+    n_jump = count_from_table(u[0], binom_count_table(lam_dt, num_steps))
+    z_total, _ = box_muller(u[1], u[2])
+    jump_mean = mu_j * n_jump
+    jump_body = sig_j * torch.sqrt(n_jump) * z_total
+    g_total = float(np.float32(g_drift_dt) * np.float32(num_steps))
+    s_rows, g_rows = [], []
+    for k in range(nb):
+        sign_body, sign_w = ((jump_body, cv_w) if k == 0
+                             else (-jump_body, -cv_w))
+        s_rows.append(spot_f * torch.exp(ls[k] + jump_mean + sign_body))
+        g_rows.append(spot_f * torch.exp(g_total + sign_w))
+    return _stack_out((s_rows, v), companion, g_rows)
+
+
+def svj_terminal(params: SVJParams, spot, T, seed: int, *, num_paths: int,
+                 num_steps: int, antithetic: bool = True,
+                 companion: bool = False, device="cuda"
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor]]:
+    """K3 wrapper, the counterpart of `svj_terminal_pallas`: SVJ Euler
+    terminal (S, v, G or None), each (n_branch, num_paths), row 0 the base
+    branch, row 1 (antithetic) the negated normals. A CPU `device` takes the
+    plain version; a CUDA one launches the kernel or raises."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    kw = dict(num_paths=num_paths, num_steps=num_steps,
+              antithetic=antithetic, companion=companion)
+    if device.type == "cpu":
+        return svj_terminal_plain(params, spot, T, seed, device=device, **kw)
+    consts = _svj_prng_consts(params, spot, T, num_steps)
+    out = _launch_table_kernel(
+        "mcos_svj_terminal", consts, consts[9], seed, num_paths, num_steps,
+        2 if antithetic else 1, companion, device, "svj_terminal")
+    with _COUNT_LOCK:
+        svj_terminal.launches += 1
+    return out
+
+
+svj_terminal.launches = 0
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K4: SVJ QE terminal state from an in-kernel generator
+# ─────────────────────────────────────────────────────────────────────────────
+def svj_terminal_qe_plain(params: SVJParams, spot, T, seed: int, *,
+                          num_paths: int, num_steps: int,
+                          antithetic: bool = True, companion: bool = False,
+                          device="cpu"
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """Plain torch version of K4 on the kernel's Philox words: step t takes
+    counter (pair_lo, pair_hi, t, 3) (words 0, 1 → Box-Muller (z_x, z_v),
+    word 2 the exponential branch's uniform); call `num_steps` the jump
+    count and size. v is shared by the pair: both rows are equal."""
+    device = torch.device(device)
+    consts = _qe_consts(params, spot, T, num_steps)
+    c = _qe_dict(consts)
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    ls, lg = [zeros] * nb, [zeros] * nb
+    v = torch.full_like(zeros, c["v0"])
+    for t in range(num_steps):
+        u = _pair_words(num_paths, t, _QE_DOMAIN, seed, device)
+        z_x, z_v = box_muller(u[0], u[1])
+        v_next = qe_variance_step(v, z_v, u[2], c)
+        _qe_log_spot(c, v, v_next, ls, lg, z_x)
+        v = v_next
+    u = _pair_words(num_paths, num_steps, _QE_DOMAIN, seed, device)
+    n_jump = count_from_table(u[0], binom_count_table(c["lam_dt"],
+                                                      num_steps))
+    z_total, _ = box_muller(u[1], u[2])
+    jump_mean = c["mu_j"] * n_jump
+    jump_body = c["sig_j"] * torch.sqrt(n_jump) * z_total
+    s_rows = [c["spot"] * torch.exp(ls[k] + jump_mean
+                                    + (jump_body if k == 0 else -jump_body))
+              for k in range(nb)]
+    g_rows = [c["spot"] * torch.exp(lg[k]) for k in range(nb)]
+    return _stack_out((s_rows, [v] * nb), companion, g_rows)
+
+
+def svj_terminal_qe(params: SVJParams, spot, T, seed: int, *,
+                    num_paths: int, num_steps: int, antithetic: bool = True,
+                    companion: bool = False, device="cuda"
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
+    """K4 wrapper, the counterpart of `svj_terminal_qe_pallas`: Andersen QE
+    terminal (S, v, G or None), each (n_branch, num_paths); the antithetic
+    branch negates z_x and shares the variance path. A CPU `device` takes
+    the plain version; a CUDA one launches the kernel or raises."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    kw = dict(num_paths=num_paths, num_steps=num_steps,
+              antithetic=antithetic, companion=companion)
+    if device.type == "cpu":
+        return svj_terminal_qe_plain(params, spot, T, seed, device=device,
+                                     **kw)
+    consts = _qe_consts(params, spot, T, num_steps)
+    out = _launch_table_kernel(
+        "mcos_svj_terminal_qe", consts, consts[_QE_FIELDS.index("lam_dt")],
+        seed, num_paths, num_steps, 2 if antithetic else 1, companion,
+        device, "svj_terminal_qe")
+    with _COUNT_LOCK:
+        svj_terminal_qe.launches += 1
+    return out
+
+
+svj_terminal_qe.launches = 0
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K5: SVJ QE terminal state from streamed draws
+# ─────────────────────────────────────────────────────────────────────────────
+def svj_terminal_qe_from_draws_plain(
+    params: SVJParams, spot, T, z_x, u_v, u_jump, z_js, *, seed: int = 0,
+    antithetic: bool = True, companion: bool = False,
+    steps_major: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch version of K5: the same scalars, algebra (Acklam inverse
+    of u_v, `qe_variance_step`) and output layout, one step at a time.
+    u_jump=None draws the uniforms from `philox_jump_uniforms`."""
+    z_x, u_v, z_js = (_steps_major(x, steps_major) for x in (z_x, u_v, z_js))
+    num_steps, num_paths = z_x.shape
+    if u_jump is None:
+        u_jump = philox_jump_uniforms(num_steps, num_paths, seed, z_x.device)
+    else:
+        u_jump = _steps_major(u_jump, steps_major)
+    c = _qe_dict(_qe_consts(params, spot, T, num_steps))
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=z_x.device)
+    ls, lg = [zeros] * nb, [zeros] * nb
+    v = torch.full_like(zeros, c["v0"])
+    for t in range(num_steps):
+        v_next = qe_variance_step(v, ndtri_acklam(u_v[t]), u_v[t], c)
+        jumped = u_jump[t] < c["lam_dt"]
+        jump = [torch.where(jumped, c["mu_j"] + c["sig_j"] * sz_j,
+                            torch.zeros_like(sz_j))
+                for sz_j in (z_js[t], -z_js[t])[:nb]]
+        _qe_log_spot(c, v, v_next, ls, lg, z_x[t], jump)
+        v = v_next
+    s_rows = [c["spot"] * torch.exp(x) for x in ls]
+    g_rows = [c["spot"] * torch.exp(x) for x in lg]
+    return _stack_out((s_rows, [v] * nb), companion, g_rows)
+
+
+def svj_terminal_qe_from_draws(
+    params: SVJParams, spot, T, z_x: torch.Tensor, u_v: torch.Tensor,
+    u_jump: Optional[torch.Tensor], z_js: torch.Tensor, *, seed: int = 0,
+    antithetic: bool = True, companion: bool = False,
+    steps_major: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K5 wrapper, the counterpart of `svj_terminal_qe_from_draws_pallas`.
+
+    Args:
+        z_x, u_v, z_js, u_jump: float32 draws, (num_steps, num_paths) with
+            `steps_major=True` (what `sobol_qe_draws` gives) or
+            (num_paths, num_steps): log-spot normals, variance-transition
+            uniforms in (0, 1), jump-size normals, jump uniforms.
+            u_jump=None draws the jump uniforms in-kernel from K1's Philox
+            stream keyed on `seed`.
+    Returns:
+        (S, v, G or None), each (n_branch, num_paths); the antithetic row
+        negates z_x and z_js and shares u_v and u_jump, so both v rows are
+        equal.
+    """
+    draws = {"z_x": z_x, "u_v": u_v, "z_js": z_js}
+    if u_jump is not None:
+        draws["u_jump"] = u_jump
+    for name, x in draws.items():
+        _check_draw(name, x, z_x)
+    if z_x.dim() != 2 or z_x.numel() == 0:
+        raise ValueError(f"draws must be non-empty 2-D, got {tuple(z_x.shape)}")
+    if z_x.device.type == "cpu":
+        return svj_terminal_qe_from_draws_plain(
+            params, spot, T, z_x, u_v, u_jump, z_js, seed=seed,
+            antithetic=antithetic, companion=companion,
+            steps_major=steps_major)
+    if z_x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {z_x.device}")
+
+    draws = {k: _steps_major(x, steps_major).contiguous()
+             for k, x in draws.items()}
+    num_steps, num_paths = draws["z_x"].shape
+    n_branch = 2 if antithetic else 1
+    _seed_words(seed)
+    consts = _qe_consts(params, spot, T, num_steps)
+    out = torch.empty((3 if companion else 2, n_branch, num_paths),
+                      dtype=torch.float32, device=z_x.device)
+    lib = load_library()
+    with torch.cuda.device(z_x.device):
+        rc = lib.mcos_svj_terminal_qe_from_draws(
+            draws["z_x"].data_ptr(), draws["u_v"].data_ptr(),
+            draws["z_js"].data_ptr(),
+            draws["u_jump"].data_ptr() if u_jump is not None else None,
+            out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr() if companion else None,
+            num_paths, num_steps, n_branch, int(seed),
+            consts.ctypes.data, _stream_handle(z_x.device))
+    _check_rc(lib, rc, "svj_terminal_qe_from_draws")
+    with _COUNT_LOCK:
+        svj_terminal_qe_from_draws.launches += 1
+    return out[0], out[1], (out[2] if companion else None)
+
+
+svj_terminal_qe_from_draws.launches = 0
+
+
+_WRAPPERS = (svj_terminal_from_draws, gbm_terminal, svj_terminal,
+             svj_terminal_qe, svj_terminal_qe_from_draws)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     with _COUNT_LOCK:
-        svj_terminal_from_draws.launches = 0
-        gbm_terminal.launches = 0
+        for fn in _WRAPPERS:
+            fn.launches = 0
 
 
 def launch_counts() -> dict:
+    """{wrapper name: launches since the last reset}."""
     with _COUNT_LOCK:
-        return {"svj_terminal_from_draws": svj_terminal_from_draws.launches,
-                "gbm_terminal": gbm_terminal.launches}
+        return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -3,13 +3,16 @@
 
 These are the port's twins of the JAX package's `lax.scan` programs: a
 Python loop over steps carrying (log S/S0, v[, log G]) tensors, the same
-full-truncation log-Euler step (`_svj_step_core`), the same antithetic
-convention (normals negated, jump uniforms shared) and float32 throughout.
+full-truncation log-Euler step (`_svj_step_core`) and Andersen QE step
+(`qe_variance_step`), the same antithetic convention (normals negated, uniforms
+shared) and float32 throughout.
 
-The PRNG-driven programs take an explicit `torch.Generator` and draw all
-their randoms up front; their stream differs from the JAX package's
+The PRNG-driven programs (`simulate_terminal`, `simulate_terminal_qe`,
+`simulate_terminal_tilted`) take an explicit `torch.Generator` and draw
+all their randoms up front; their stream differs from the JAX package's
 threefry keys, so they are pinned to it by law only. The draws-driven
-`simulate_terminal_from_draws` is deterministic and pinned to f32 noise.
+`simulate_terminal_from_draws` and `simulate_terminal_qe_from_draws` are
+deterministic and pinned to f32 noise.
 """
 
 from __future__ import annotations
@@ -156,6 +159,203 @@ def simulate_paths_recorded(
         rows.append(log_s)
     paths = spot * torch.exp(torch.stack(rows, dim=1))
     return torch.cat([spot.expand(num_paths, 1), paths], dim=1)
+
+
+def _qe_constants(params: SVJParams, dt: torch.Tensor):
+    """QE transition and log-spot constants (Andersen eqs. 33-35, γ = ½),
+    float32 0-d tensors, as `simulate_terminal_qe` forms them."""
+    p = params
+    device = dt.device
+    kappa, theta, xi, rho = (_f32(x, device)
+                             for x in (p.kappa, p.theta, p.xi, p.rho))
+    e_kdt = torch.exp(-kappa * dt)
+    c_mean = 1.0 - e_kdt
+    xi_safe = torch.clamp(xi, min=1e-12)
+    k_over = kappa * rho / xi_safe - 0.5
+    k34 = 0.5 * dt * (1.0 - rho**2)
+    k_comp = torch.exp(_f32(p.mu_j + 0.5 * p.sigma_j**2, device)) - 1.0
+    return dict(
+        theta=theta, e_kdt=e_kdt,
+        var1=xi**2 * e_kdt * c_mean / torch.clamp(kappa, min=1e-12),
+        var2=theta * xi**2 * c_mean**2 / torch.clamp(2.0 * kappa, min=1e-12),
+        k0=-rho * kappa * theta * dt / xi_safe,
+        k1=0.5 * dt * k_over - rho / xi_safe,
+        k2=0.5 * dt * k_over + rho / xi_safe,
+        k3=k34, k4=k34,
+        drift_dt=(p.r - p.q - p.lambda_j * k_comp) * dt)
+
+
+def qe_variance_step(v: torch.Tensor, z_v: torch.Tensor, u_v: torch.Tensor,
+                     c: dict) -> torch.Tensor:
+    """Andersen QE variance transition v → v′: the quadratic branch
+    a·(√b² + z_v)² for ψ ≤ 1.5, else the exponential branch (mass p at 0)
+    on the uniform u_v. The twins pass z_v = `ndtri_safe(u_v)`; the
+    kernels' plain versions Acklam's inverse (K5) or a Box-Muller normal
+    (K4). One IEEE float32 operation per operation of
+    csrc/philox.cuh:qe_variance_step, whose branch selects a ulp could
+    flip; `c` holds theta, e_kdt, var1 and var2."""
+    m = c["theta"] + (v - c["theta"]) * c["e_kdt"]
+    s2 = v * c["var1"] + c["var2"]
+    psi = s2 / torch.clamp(m * m, min=1e-20)
+    # A tensor divide: torch's scalar ÷ tensor multiplies by a reciprocal.
+    two_over_psi = torch.full_like(psi, 2.0) / torch.clamp(psi, min=1e-12)
+    b2 = torch.clamp(
+        (two_over_psi - 1.0)
+        + torch.sqrt(torch.clamp(two_over_psi, min=1e-12))
+        * torch.sqrt(torch.clamp(two_over_psi - 1.0, min=0.0)), min=0.0)
+    a = m / (1.0 + b2)
+    x = torch.sqrt(b2) + z_v
+    v_quad = a * (x * x)
+    p_mass = torch.clamp((psi - 1.0) / (psi + 1.0), min=0.0, max=0.999)
+    beta = (1.0 - p_mass) / torch.clamp(m, min=1e-20)
+    # Python floats clamp a float32 tensor at their float32 roundings.
+    u_clip = torch.clamp(u_v, 1e-7, 1.0 - 1e-7)
+    v_exp = torch.where(
+        u_v <= p_mass, torch.zeros_like(v),
+        torch.log((1.0 - p_mass) / torch.clamp(1.0 - u_clip, min=1e-12))
+        / torch.clamp(beta, min=1e-20))
+    return torch.where(psi <= 1.5, v_quad, v_exp)
+
+
+def _qe_paths(params: SVJParams, spot, T, draws, n_branch: int,
+              num_paths: int, companion: bool, device):
+    """The QE scan over `draws` = (z_x, u_v, u_jump, z_js) per step (each
+    (num_paths,), steps-major stacks); antithetic negates z_x and z_js and
+    shares u_v and u_jump, so the variance path is common to the pair."""
+    z_x, u_v, u_jump, z_js = draws
+    num_steps = z_x.shape[0]
+    p = params
+    spot = _f32(spot, device)
+    dt = _f32(T, device) / num_steps
+    sqrt_dt = torch.sqrt(dt)
+    c = _qe_constants(p, dt)
+    sigma_cv, g_drift = _companion(p, dt, device)
+    sign = torch.tensor([1.0, -1.0][:n_branch], dtype=torch.float32,
+                        device=device)[:, None]
+    log_s = torch.zeros((n_branch, num_paths), dtype=torch.float32,
+                        device=device)
+    log_g = torch.zeros_like(log_s)
+    v = torch.full_like(log_s, float(np.float32(p.v0)))
+    for t in range(num_steps):
+        zx_b = z_x[t][None, :] * sign
+        zjs_b = z_js[t][None, :] * sign
+        u_t = u_v[t][None, :]
+        v_next = qe_variance_step(v, ndtri_safe(u_t), u_t, c)
+        jump = torch.where(u_jump[t][None, :] < p.lambda_j * dt,
+                           p.mu_j + p.sigma_j * zjs_b,
+                           torch.zeros_like(zjs_b))
+        diff_var = torch.clamp(c["k3"] * v + c["k4"] * v_next, min=0.0)
+        log_s = (log_s + c["drift_dt"] + c["k0"] + c["k1"] * v
+                 + c["k2"] * v_next + torch.sqrt(diff_var) * zx_b + jump)
+        if companion:
+            log_g = log_g + g_drift + sigma_cv * zx_b * sqrt_dt
+        v = v_next
+    return (spot * torch.exp(log_s), v,
+            spot * torch.exp(log_g) if companion else None)
+
+
+def simulate_terminal_qe(
+    params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
+    num_steps: int, antithetic: bool = True, companion: bool = False,
+    *, device="cpu",
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Andersen (2008) quadratic-exponential Heston scheme + Merton jumps,
+    with `generator`'s draws: per step two normals (z_x; z_js) and two
+    uniforms (u_v, the variance transition's; u_jump), drawn up front.
+
+    Returns (S, v, G or None), each (n_branch, num_paths); the pair shares
+    the variance path, so both v rows are equal.
+    """
+    device = torch.device(device)
+    z = torch.randn((num_steps, 2, num_paths), generator=generator,
+                    device=device, dtype=torch.float32)
+    u = torch.rand((num_steps, 2, num_paths), generator=generator,
+                   device=device, dtype=torch.float32)
+    return _qe_paths(params, spot, T, (z[:, 0], u[:, 0], u[:, 1], z[:, 1]),
+                     2 if antithetic else 1, num_paths, companion, device)
+
+
+def simulate_terminal_qe_from_draws(
+    params: SVJParams, spot, T, z_x: torch.Tensor, u_v: torch.Tensor,
+    u_jump: torch.Tensor, z_js: torch.Tensor, antithetic: bool = True,
+    companion: bool = False, steps_major: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Andersen QE driven by supplied randoms (the QMC driver): z_x the
+    log-spot normals, u_v the variance-transition uniforms, u_jump the jump
+    uniforms, z_js the jump-size normals; (num_paths, num_steps), or
+    (num_steps, num_paths) with `steps_major=True`.
+
+    Returns (S, v, G or None), each (n_branch, num_paths).
+    """
+    if not steps_major:
+        z_x, u_v, u_jump, z_js = z_x.T, u_v.T, u_jump.T, z_js.T
+    return _qe_paths(params, spot, T, (z_x, u_v, u_jump, z_js),
+                     2 if antithetic else 1, z_x.shape[1], companion,
+                     z_x.device)
+
+
+def simulate_terminal_tilted(
+    params: SVJParams, spot, T, generator: torch.Generator, shift,
+    num_paths: int, num_steps: int, antithetic: bool = True,
+    companion: bool = False, *, device="cpu",
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """`simulate_terminal` under an exponentially tilted spot Brownian.
+
+    Each spot-driving normal is drawn as z̃ + shift (z̃ = ±z on the two
+    antithetic branches); the variance Brownian, jump occurrences and jump
+    sizes keep their law. Each branch carries its exact likelihood ratio
+    log L = −shift·Σ z̃ − n·shift²/2, so E[L·f(path)] is the untilted
+    expectation. The companion leg rides the same tilted dW₁.
+
+    Returns (S, v, G or None, log_weight), each (n_branch, num_paths).
+    """
+    device = torch.device(device)
+    n_branch = 2 if antithetic else 1
+    spot = _f32(spot, device)
+    shift = float(np.float32(shift))
+    dt = _f32(T, device) / num_steps
+    sqrt_dt = torch.sqrt(dt)
+    z = torch.randn((num_steps, 3, num_paths), generator=generator,
+                    device=device, dtype=torch.float32)
+    u = torch.rand((num_steps, num_paths), generator=generator,
+                   device=device, dtype=torch.float32)
+    sign = torch.tensor([1.0, -1.0][:n_branch], dtype=torch.float32,
+                        device=device)[:, None]
+    log_s = torch.zeros((n_branch, num_paths), dtype=torch.float32,
+                        device=device)
+    log_g = torch.zeros_like(log_s)
+    log_w = torch.zeros_like(log_s)
+    v = torch.full_like(log_s, float(np.float32(params.v0)))
+    sigma_cv, g_drift = _companion(params, dt, device)
+    half_sq = float(np.float32(0.5) * np.float32(shift) * np.float32(shift))
+    for t in range(num_steps):
+        z1_std = z[t, 0] * sign
+        z1 = z1_std + shift
+        log_w = log_w - shift * z1_std - half_sq
+        log_s, v = _svj_step_core(params, dt, sqrt_dt, log_s, v, z1,
+                                  z[t, 1] * sign, u[t][None, :],
+                                  z[t, 2] * sign)
+        if companion:
+            log_g = log_g + g_drift + sigma_cv * z1 * sqrt_dt
+    return (spot * torch.exp(log_s), v,
+            spot * torch.exp(log_g) if companion else None, log_w)
+
+
+def optimal_tilt(params: SVJParams, spot, strike, T, num_steps: int) -> float:
+    """Per-step drift shift that aims the σ = √v0 GBM proxy's terminal
+    mean at the strike: shift = (log(K/S0) − (r − q − σ²/2)·T) / (σ√(nT)).
+    Positive for OTM calls, negative for OTM puts; any fixed shift keeps
+    the estimator unbiased."""
+    sigma = float(np.sqrt(float(params.v0)))
+    d = float(np.log(float(strike) / float(spot))
+              - (float(params.r) - float(params.q) - 0.5 * sigma * sigma)
+              * float(T))
+    return d / max(sigma * float(np.sqrt(num_steps * float(T))), 1e-12)
+
+
+def ndtri_safe(u: torch.Tensor) -> torch.Tensor:
+    """Inverse normal CDF with clipped tails (float32-safe)."""
+    return torch.special.ndtri(torch.clamp(u, 1e-7, 1.0 - 1e-7))
 
 
 def vanilla_payoff(s_final: torch.Tensor, strike, is_call: bool

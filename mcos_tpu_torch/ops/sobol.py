@@ -285,3 +285,43 @@ def sobol_svj_draws(num_paths: int, num_steps: int, seed: int = 0,
                 None if u_jump is None else u_jump.T.contiguous(),
                 z_js.T.contiguous())
     return z1, z2, u_jump, z_js
+
+
+def sobol_qe_draws(num_paths: int, num_steps: int, seed: int = 0,
+                   jump_uniforms: bool = True, *, device="cpu",
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor], torch.Tensor]:
+    """Draw set of the Andersen QE scheme from one scrambled Sobol stream.
+
+    Dimensions as in the JAX package: 0..s drive the log-spot motion
+    (Brownian-bridge reordered, as Euler's z1), s..2s are the
+    variance-transition uniforms (no inverse CDF: QE consumes uniforms),
+    clipped to [1e-7, 1 − 1e-7]; 2s..3s are jump-size normals. The
+    jump-occurrence uniforms come from a `torch.Generator` seeded with
+    seed + 1 (jump_uniforms=True), or from the kernel's Philox stream
+    (False, the serving path).
+
+    Returns (z_x, u_v, u_jump, z_js) float32, steps-major
+    (num_steps, num_paths).
+    """
+    device = torch.device(device)
+    m = int(np.ceil(np.log2(max(num_paths, 2))))
+    s = num_steps
+    sv = torch.as_tensor(sobol_direction_numbers(3 * s).astype(np.int64),
+                         device=device)
+    shift = torch.as_tensor(_scramble_shift(seed, 3 * s).astype(np.int64),
+                            device=device)
+    bb = torch.as_tensor(brownian_bridge_matrix(s), device=device)
+
+    z_x = _bb_normals(sv[:s], shift[:s], bb, num_paths, m)
+    u_v = torch.clamp(
+        _uniforms(_sobol_integers(sv[s:2 * s], shift[s:2 * s], num_paths, m)),
+        _CLIP, 1.0 - _CLIP)
+    z_js = _normals(sv[2 * s:], shift[2 * s:], num_paths, m)
+    u_jump = None
+    if jump_uniforms:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed) + 1)
+        u_jump = torch.rand((s, num_paths), generator=gen, device=device,
+                            dtype=torch.float32)
+    return z_x, u_v, u_jump, z_js

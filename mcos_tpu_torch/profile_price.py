@@ -1,16 +1,18 @@
-"""Where a warm default `/api/price` spends its time on one CUDA device.
+"""Where a warm `/api/price` spends its time on one CUDA device.
 
-    python -m mcos_tpu_torch.profile_price [--out FILE]
+    python -m mcos_tpu_torch.profile_price [--options JSON] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
-the solo path) on the default body (500k paths, T = 0.25 → 63 steps) and
-prints one JSON object:
+the solo path) on the default body (500k paths, T = 0.25 → 63 steps), with
+the request fields in `--options` merged in (for example
+'{"use_sobol": false}' or '{"scheme": "qe"}'), and prints one JSON object:
 
 - `wall_ms`: median host wall time of a warm call (every call ends in a
   device→host copy, so the device work is inside it);
 - `parts_ms`: the same call's pieces run alone and synchronised: a Sobol
-  net for a new seed (direction numbers cached), the price program (K1 +
-  payoff table + control variate), the 50-path recorder and the 1024-path
+  net for a new seed (direction numbers cached; only when the request uses
+  the Sobol driver), the price program (the request's kernel + payoff
+  table + control variate), the 50-path recorder and the 1024-path
   terminal sampler;
 - `profile`: from `torch.profiler` over 5 warm calls, the device time
   per call summed over kernels, the number of kernel launches per call,
@@ -51,31 +53,35 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile() -> dict:
+def profile(options: dict) -> dict:
     from mcos_tpu_torch.api import coalesce, schemas, server
     from mcos_tpu_torch.engine.pricer import MonteCarloEngine
 
     reps = 5
     device = torch.device("cuda", 0)
+    body = dict(BODY, **options)
     coalesce.coalescer.window_s = 0.0
     server.warm(device)
-    call = lambda: server.handle_price(dict(BODY), device=device)  # noqa
+    call = lambda: server.handle_price(dict(body), device=device)  # noqa
     call()
-    out = {"device": torch.cuda.get_device_name(device),
+    out = {"device": torch.cuda.get_device_name(device), "body": body,
            "wall_ms": _wall_ms(call, 2 * reps)}
 
-    req = schemas.PriceRequest(**BODY)
+    req = schemas.PriceRequest(**body)
     params = req.params.to_params()
-    eng = MonteCarloEngine(params, device=device)
+    kw = dict(num_paths=req.num_paths, use_sobol=req.use_sobol,
+              scheme=req.scheme, device=device)
+    eng = MonteCarloEngine(params, **kw)
     steps = eng._steps(req.T)
     seeds = iter(range(1000, 1000 + 4 * reps))
 
     def new_net():
-        MonteCarloEngine(params, seed=next(seeds),
-                         device=device)._sobol_draws(steps)
+        MonteCarloEngine(params, **dict(kw, seed=next(seeds)))._sobol_draws(
+            steps)
 
     out["parts_ms"] = {
-        "sobol_net_new_seed": _wall_ms(new_net, reps),
+        "sobol_net_new_seed": (_wall_ms(new_net, reps) if req.use_sobol
+                               else "not used"),
         "price_program": _wall_ms(
             lambda: eng.price_device(req.spot, req.strike, req.T), reps),
         "sample_paths_50": _wall_ms(
@@ -113,11 +119,14 @@ def profile() -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--options", default="{}",
+                        help="JSON object of request fields to merge into "
+                             "the default body")
     parser.add_argument("--out", default=None, help="also write JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_price needs a CUDA device")
-    res = profile()
+    res = profile(json.loads(args.options))
     text = json.dumps(res, indent=1)
     if args.out:
         with open(args.out, "w") as f:

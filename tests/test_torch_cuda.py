@@ -101,3 +101,133 @@ def test_engine_on_card_matches_cpu(cuda):
     b = MonteCarloEngine(p, device="cpu", **kw).price(22500.0, 22500.0, 0.2)
     for k in ("price", "std_error", "raw_mc_price", "bs_ref"):
         np.testing.assert_allclose(a[k], b[k], rtol=1e-4, err_msg=k)
+
+
+def _assert_terminal_close(ker, ref, companion):
+    """Kernel against plain on the same words. rtol 1e-5 on S and G: the
+    kernel's multiply-adds are contracted to FMAs and the plain version's
+    are not; v can sit at 0, so rtol 1e-4 beside atol 1e-6."""
+    assert (ker[2] is None) == (not companion)
+    torch.testing.assert_close(ker[0], ref[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(ker[1], ref[1], rtol=1e-4, atol=1e-6)
+    if companion:
+        torch.testing.assert_close(ker[2], ref[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("name", ["svj_terminal", "svj_terminal_qe"])
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("companion", [True, False])
+@pytest.mark.parametrize("steps", [1, 16, 63])
+def test_prng_kernels_match_plain(cuda, name, antithetic, companion, steps):
+    """K3 and K4 against their plain versions on the same Philox words."""
+    kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
+    kw = dict(num_paths=10_007, num_steps=steps, antithetic=antithetic,
+              companion=companion, device=cuda)
+    n0 = kernel.launches
+    ker = kernel(_P, 22500.0, 0.25, 11, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    ref = plain(_P, 22500.0, 0.25, 11, **kw)
+    _assert_terminal_close(ker, ref, companion)
+
+
+@pytest.mark.parametrize("name", ["svj_terminal", "svj_terminal_qe"])
+def test_prng_kernel_stream_is_shape_free(cuda, name):
+    """The first n pairs of a 2n launch are the n launch, bit for bit."""
+    kernel = getattr(ck, name)
+    kw = dict(num_steps=9, companion=True, device=cuda)
+    a = kernel(_P, 100.0, 0.5, 3, num_paths=5000, **kw)
+    b = kernel(_P, 100.0, 0.5, 3, num_paths=10_000, **kw)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y[:, :5000], rtol=0, atol=0)
+
+
+def test_k3_negative_v0_is_clamped(cuda):
+    p = _P.replace(v0=-0.01)
+    s, v, _ = ck.svj_terminal(p, 100.0, 0.5, 1, num_paths=4096,
+                              num_steps=12, device=cuda)
+    assert bool(torch.isfinite(s).all()) and bool((v >= 0).all())
+
+
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("companion", [True, False])
+@pytest.mark.parametrize("explicit_u", [True, False])
+def test_k5_kernel_matches_plain(cuda, antithetic, companion, explicit_u):
+    """K5 on a Sobol QE net against its plain version."""
+    z_x, u_v, u, z_js = sobol.sobol_qe_draws(10_007, 20, seed=6,
+                                             jump_uniforms=explicit_u,
+                                             device=cuda)
+    kw = dict(seed=9, antithetic=antithetic, companion=companion,
+              steps_major=True)
+    n0 = ck.svj_terminal_qe_from_draws.launches
+    ker = ck.svj_terminal_qe_from_draws(_P, 22500.0, 0.5, z_x, u_v, u, z_js,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert ck.svj_terminal_qe_from_draws.launches == n0 + 1
+    ref = ck.svj_terminal_qe_from_draws_plain(_P, 22500.0, 0.5, z_x, u_v, u,
+                                              z_js, **kw)
+    _assert_terminal_close(ker, ref, companion)
+
+
+def test_sobol_qe_on_card_equals_cpu(cuda):
+    a = sobol.sobol_qe_draws(5000, 9, seed=4, jump_uniforms=False,
+                             device=cuda)
+    b = sobol.sobol_qe_draws(5000, 9, seed=4, jump_uniforms=False)
+    for x, y in zip((a[0], a[1], a[3]), (b[0], b[1], b[3])):
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("extra, kernel", [
+    ({"use_sobol": False}, "svj_terminal"),
+    ({"use_sobol": False, "scheme": "qe"}, "svj_terminal_qe"),
+    ({"scheme": "qe"}, "svj_terminal_qe_from_draws"),
+    ({"rqmc_randomizations": 2}, "svj_terminal_from_draws"),
+    ({"use_importance": True, "strike": 28000.0}, None),
+])
+def test_handle_price_options_on_card(cuda, extra, kernel):
+    from mcos_tpu_torch.api import coalesce, server
+
+    body = dict({"spot": 22500.0, "strike": 22500.0, "T": 0.1,
+                 "num_paths": 20_000}, **extra)
+    window, coalesce.coalescer.window_s = coalesce.coalescer.window_s, 0.0
+    try:
+        before = ck.launch_counts()
+        res = server.handle_price(body, device=cuda)
+        after = ck.launch_counts()
+    finally:
+        coalesce.coalescer.window_s = window
+    assert np.isfinite(res["price"]) and res["std_error"] > 0
+    assert res["post_checks"]["pass"], res["post_checks"]
+    if kernel is not None:
+        n = extra.get("rqmc_randomizations", 1)
+        assert after[kernel] - before[kernel] == n
+
+
+def test_handle_convergence_on_card(cuda):
+    from mcos_tpu_torch.api import server
+
+    res = server.handle_convergence(
+        {"spot": 22500.0, "strike": 22500.0, "T": 0.1, "num_paths": 20_000},
+        device=cuda)
+    assert res["num_paths"][-1] == 20_000
+    assert all(np.isfinite(res["price"])) and res["std_error"][-1] > 0
+
+
+@pytest.mark.parametrize("scheme, kernel", [("euler", "svj_terminal"),
+                                            ("qe", "svj_terminal_qe")])
+def test_price_to_tolerance_on_card(cuda, scheme, kernel):
+    """The adaptive entry point at its own batch shapes (2^18 pairs and up):
+    one K3 (or K4) launch per batch, the pooled price within 4 se + 1 % of
+    the COS oracle (the 1 % covers the Euler/QE discretisation bias at 63
+    steps)."""
+    from mcos_tpu_torch.ops.cos_pricer import cos_price
+
+    eng = MonteCarloEngine(SVJParams(), scheme=scheme, device=cuda)
+    before = ck.launch_counts()
+    res = eng.price_to_tolerance(22500.0, 22500.0, 0.25, tolerance=5e-4,
+                                 max_paths=1 << 21, batch_paths=1 << 18)
+    after = ck.launch_counts()
+    assert res["num_batches"] >= 2
+    assert after[kernel] - before[kernel] == res["num_batches"]
+    cos = float(cos_price(SVJParams(), 22500.0, [22500.0], 0.25, True)[0])
+    assert abs(res["price"] - cos) < 4 * res["std_error"] + 0.01 * cos

@@ -112,13 +112,20 @@ def test_engine_viz_programs_shapes_and_law():
 
 
 def test_unported_options_raise():
+    """Only sharding is still unported; the PRNG driver and the QE draws
+    path, which raised before they were ported, now price."""
     p = SVJParams()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ppricer.MonteCarloEngine(p, use_sobol=False, device="cpu").price(
-            100.0, 100.0, 0.1)
+    assert set(ppricer.NOT_PORTED) == {"mesh"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ppricer.MonteCarloEngine(p, mesh="auto", device="cpu")
+    res = ppricer.MonteCarloEngine(p, num_paths=256, use_sobol=False,
+                                   device="cpu").price(100.0, 100.0, 0.1)
+    assert np.isfinite(res["price"]) and res["std_error"] > 0
     z = torch.zeros((4, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ppricer.mc_price_from_draws(p, 1.0, [1.0], 0.1, z, z, None, z,
-                                    scheme="qe")
+    u = torch.full((4, 8), 0.5)
+    res = ppricer.mc_price_from_draws(p, 1.0, [1.0], 0.1, z, u, None, z,
+                                      scheme="qe", steps_major=True)
+    assert bool(torch.isfinite(res["price"]).all())
+    with pytest.raises(ValueError):
+        ppricer.mc_price_from_draws(p, 1.0, [1.0], 0.1, z, u, None, z,
+                                    scheme="milstein")

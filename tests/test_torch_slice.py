@@ -95,9 +95,18 @@ def test_coalesced_batch_equals_solo(solo, monkeypatch):
     {"rqmc_randomizations": 4},
 ])
 def test_unported_options_answer_501(solo, extra):
-    with pytest.raises(pserver.ApiError) as e:
-        pserver.handle_price(dict(_BODY, **extra), device="cpu")
-    assert e.value.status == 501 and "ROADMAP.md" in e.value.detail
+    """The options that answered 501 before they were ported now answer as
+    the JAX handler does: the same keys, and prices within 4 combined
+    standard errors (PRNG streams differ between the two packages)."""
+    got, ref = _both(dict(_BODY, **extra))
+    assert got.keys() == ref.keys()
+    se = np.hypot(got["std_error"], ref["std_error"])
+    assert abs(got["price"] - ref["price"]) < 4 * se
+    assert got["post_checks"]["pass"] and ref["post_checks"]["pass"]
+    for k in ("num_paths_used", "randomizations"):
+        assert got.get(k) == ref.get(k), k
+    paths = np.asarray(json.loads(got["sample_paths"].raw))
+    assert paths.shape == (50, 51) and (paths > 0).all()
 
 
 def test_http_routes(solo, monkeypatch):
@@ -120,16 +129,38 @@ def test_http_routes(solo, monkeypatch):
         assert call("/api/health")[0] == 200
         assert call("/api/metrics")[0] == 404
         assert call("/api/greeks", _BODY)[0] == 404
-        assert call("/api/price", dict(_BODY, scheme="qe"))[0] == 501
         assert call("/api/price", dict(_BODY, num_paths=10))[0] == 422
         status, res = call("/api/price", dict(_BODY, num_paths=1024, T=0.05))
         assert status == 200 and res["post_checks"]["pass"]
         assert len(res["sample_paths"]) == 50
+        small = dict(_BODY, num_paths=1024, T=0.05)
+        status, res = call("/api/price", dict(small, scheme="qe"))
+        assert status == 200 and res["post_checks"]["pass"]
+        status, res = call("/api/convergence", small)
+        assert status == 200 and res["num_paths"][-1] == 1024
+        assert len(res["price"]) == len(res["std_error"]) == \
+            len(res["num_paths"])
+        assert call("/api/convergence", dict(small, num_paths=10))[0] == 422
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def test_handle_convergence_matches_jax(solo, monkeypatch):
+    body = dict(_BODY, num_paths=8192)
+    got = pserver.handle_convergence(dict(body), device="cpu")
+    ref = jserver.handle_convergence(dict(body))
+    assert got.keys() == ref.keys()
+    assert got["num_paths"] == ref["num_paths"]
+    se = np.hypot(got["std_error"][-1], ref["std_error"][-1])
+    assert abs(got["price"][-1] - ref["price"][-1]) < 4 * se
+    # num_paths is capped at 500 000 and the PRNG driver is used.
+    monkeypatch.setattr(pserver.MonteCarloEngine, "convergence",
+                        lambda self, *a: (self.num_paths, self.use_sobol))
+    assert pserver.handle_convergence(dict(body, num_paths=600_000),
+                                      device="cpu") == (500_000, False)
 
 
 def test_cpu_price_launches_no_kernel(solo):
