@@ -15,8 +15,13 @@
    K3 `svj_terminal` and K4 `svj_terminal_qe` at 500 000 pairs × 63 steps
    on the same Philox words as their plain versions, and
    K5 `svj_terminal_qe_from_draws` at 500 000 paths × 63 steps on the real
-   Sobol QE net (explicit jump uniforms, then in-kernel jumps). Each is
-   timed with CUDA events beside its plain version and its bound.
+   Sobol QE net (explicit jump uniforms, then in-kernel jumps);
+   K6 `svj_path_stats` at 200 000 pairs × 63 steps in four variants (no
+   bridge, single barrier above, corridor, each with the companion leg;
+   corridor with a step window and no companion) and at 252 steps, every
+   output against its plain version on the same Philox words, -inf
+   matching -inf on every path. Each is timed with CUDA events beside its
+   plain version and its bound.
 4. Main path, with every launch count set to 0 first: the port's HTTP
    server on 127.0.0.1 (GET /api/health; the default POST /api/price solo
    and as 4 concurrent requests that the coalescer batches; a degenerate
@@ -32,7 +37,19 @@
    POST /api/convergence; then the counts show K3 served every PRNG Euler
    request, K4 every PRNG QE request and K5 every Sobol QE request and
    QE RQMC replicate.
-6. Prints the kernels' JSON line, the card line and, last, the result line
+6. The exotics path, with the counts set to 0 again: a new server on
+   127.0.0.1 answers POST /api/exotic for every kind (Asian, barrier with
+   bridge monitoring and with a window, one-touch, double barrier, double
+   no-touch, lookback, digital, variance swap), at the default SVJ
+   parameters and, against the closed forms, at degenerate GBM parameters
+   (with the control variate on the price must equal the closed form; the
+   raw estimate must lie within 3 se of it, the se taken from the same
+   path set priced in process with the control variate off); a 252-step
+   request, a request that must answer 400, Greeks by autograd (Asian,
+   against a bump-and-reprice) and by re-pricing (discrete barrier), and 5
+   warm Asian requests for latency. Then the counts show K6 launched once
+   per priced request and K3 once per digital.
+7. Prints the kernels' JSON line, the card line and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -41,11 +58,14 @@ printed. Long output goes to chiprun_out/chip_smoke.json.
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -56,6 +76,7 @@ T_DEFAULT = 0.25          # 63 steps at the schema's 252 steps/year
 STEPS_DEFAULT = 63
 NUM_PATHS = 500_000       # PriceRequest default
 GBM_PAIRS, GBM_STEPS = 1 << 20, 252
+EXOTIC_PATHS = 200_000    # ExoticRequest default
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): device memory 3.35 TB/s;
 # float32 67 TFLOP/s, i.e. 132 SMs x 128 lanes x 1.98 GHz instruction
@@ -108,18 +129,51 @@ OPS = {
     "svj_terminal_qe_from_draws": 3 + (38 / 4 + 4 + 1) + QE_COMMON
     + QE_AT_ZERO + 4 + 2 + 2 * 3,
 }
+# K6 per antithetic pair-step. Shared by the pair: one Philox call, 4
+# uniforms, 1.5 Box-Muller pairs, dW1 1, dW2 2, the jump compare 1.
+K6_SHARED = 38 + 4 * 4 + 1.5 * 8 + 3 + 1
+# One SVJ branch: max, sqrt, log S 2, v 4, exp, two running sums, max, min.
+K6_SVJ = 13
+# The companion: sigma_cv dW1 once; per branch log G 1, exp, two sums, max,
+# min.
+K6_GBM_SHARED, K6_GBM = 1, 6
+# One single-barrier increment: the new distance 1 (the old one is last
+# step's), -2 d d' 2, divide, min, exp, min, log1p, two compares and a
+# select 3, the sum 1; the SVJ leg's max(v, 1e-12) dt adds 3 (the
+# companion's variance is a launch constant).
+K6_SINGLE, K6_SVJ_VAR = 12, 3
+# One corridor increment: b, delta, ssum, delta^2 4; four return images and
+# five crossings of 6 each (argument 3, min, exp, accumulate); clip 2, log,
+# four compares and a select 5, the sum 1.
+K6_CORRIDOR = 4 + 9 * 6 + 2 + 1 + 5 + 1
 
 
-def bound(name: str, units: int, in_bytes: int, out_bytes: int) -> dict:
+def k6_ops(bridge: str, companion: bool, window_share: float = 1.0) -> float:
+    """Operations per pair-step of K6 in one variant; `window_share` is the
+    share of steps whose bridge increment this run computes."""
+    inc = {"none": 0, "up": K6_SINGLE, "down": K6_SINGLE,
+           "corridor": K6_CORRIDOR}[bridge]
+    ops = K6_SHARED + 2 * K6_SVJ
+    if inc:
+        ops += 2 * (inc + K6_SVJ_VAR) * window_share
+    if companion:
+        ops += K6_GBM_SHARED + 2 * K6_GBM + 2 * inc * window_share
+    return ops
+
+
+
+
+def bound(name, units: int, in_bytes: int, out_bytes: int) -> dict:
     """The least time the card could take: the larger of the bytes read and
     written over the memory rate and the operations over the instruction
-    rate."""
+    rate. `name` is a key of OPS, or the operations per unit themselves."""
+    ops = OPS[name] if isinstance(name, str) else float(name)
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS[name] * units / INSTR_PER_S * 1e3
+    t_ops = ops * units / INSTR_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "operations_ms": t_ops,
-            "ops_per_unit": OPS[name], "units": units,
+            "ops_per_unit": ops, "units": units,
             "bytes": in_bytes + out_bytes}
 
 
@@ -318,6 +372,119 @@ def check_k5(device, ck, sobol, params):
         f"({b['bound_by']}); phase {time.perf_counter() - t0:.1f} s")
     return {"max_abs_err": max(errs), "v_bit_equal_share": min(exact),
             "ms": ms, "plain_ms": plain_ms, **b}
+
+
+# K6's variants: (name, steps, T, wrapper keywords, bridge of k6_ops). The
+# barriers sit 10-12 % from the spot, where a 63-step SVJ path set has
+# every state: dead at an endpoint, alive with a weight near 1, alive with
+# a weight near 0.
+K6_VARIANTS = (
+    ("no bridge + companion", 63, 0.25, dict(companion=True), "none"),
+    ("barrier above + companion", 63, 0.25,
+     dict(companion=True, bridge=True, bridge_up=True,
+          bridge_log_b=float(np.log(1.10))), "up"),
+    ("corridor + companion", 63, 0.25,
+     dict(companion=True, bridge=True, corridor=True,
+          bridge_log_b=float(np.log(1.12)),
+          bridge_log_l=float(np.log(0.88))), "corridor"),
+    ("corridor + window, no companion", 63, 0.25,
+     dict(companion=False, bridge=True, corridor=True, window=(13, 50),
+          bridge_log_b=float(np.log(1.12)),
+          bridge_log_l=float(np.log(0.88))), "corridor"),
+    ("corridor + companion, 252 steps", 252, 1.0,
+     dict(companion=True, bridge=True, corridor=True,
+          bridge_log_b=float(np.log(1.25)),
+          bridge_log_l=float(np.log(0.78))), "corridor"),
+)
+
+
+def compare_stats(name, ker, ref):
+    """Every output of K6 against its plain version on the same words.
+
+    The kernel rounds every operation on the carries and in the survival
+    increments as the plain version does (csrc/svj_stats.cu, "Rounding"),
+    so no path may differ in its dead/alive state: the limit is 0 paths.
+    Tolerances on what is finite in both: rtol 1e-5 on the spot-valued
+    outputs, atol 1e-5 on log_avg, atol 1e-4 on the log-survival sums (a
+    weight near 0 has no relative scale; up to 252 log1p terms of an ulp
+    or two each) and atol 1e-6 on exp(log_surv). Returns (max abs error
+    over all outputs, share of s_final bit-equal, paths dead)."""
+    check(set(ker) == set(ref), f"{name}: same outputs {sorted(ker)}")
+    worst, flips, dead = 0.0, 0, 0
+    for key in ker:
+        a, b = ker[key], ref[key]
+        check(a.shape == b.shape, f"{name}: {key} shape")
+        check(not bool(torch.isnan(a).any()), f"{name}: {key} has no NaN")
+        if key.endswith("log_surv"):
+            inf_a, inf_b = torch.isinf(a), torch.isinf(b)
+            flips += int((inf_a != inf_b).sum())
+            dead += int(inf_a.sum())
+            live = ~(inf_a | inf_b)
+            check(bool((a[inf_a] < 0).all()), f"{name}: {key} dead is -inf")
+            err = float((a[live] - b[live]).abs().max())
+            w_err = float((torch.exp(a) - torch.exp(b))[live].abs().max())
+            check(err < 1e-4 and w_err < 1e-6,
+                  f"{name}: {key} abs err {err:.3e}, weight err {w_err:.3e}")
+        else:
+            check(bool(torch.isfinite(a).all()), f"{name}: {key} finite")
+            err = float((a - b).abs().max())
+            if key.endswith("log_avg"):
+                check(err < 1e-5, f"{name}: {key} abs err {err:.3e}")
+            else:
+                r = rel_err(a, b)
+                check(r < 1e-5, f"{name}: {key} rel err {r:.3e}")
+        worst = max(worst, err)
+    exact = float((ker["s_final"] == ref["s_final"]).float().mean())
+    log(f"K6 {name}: max abs err {worst:.3e} over {len(ker)} outputs, "
+        f"s_final bit-equal share {exact:.6f}, dead-or-alive differs on "
+        f"{flips} paths (limit 0), {dead} dead path-legs")
+    check(flips == 0, f"{name}: dead/alive state differs on {flips} paths")
+    return worst, exact, dead
+
+
+def check_k6(device, ck, params):
+    """K6 in each variant at the exotic request's width, word for word
+    against its plain version on the same Philox stream."""
+    out = {}
+    for name, steps, T, kw, bridge in K6_VARIANTS:
+        t0 = time.perf_counter()
+        kw = dict(kw, num_paths=EXOTIC_PATHS, num_steps=steps,
+                  antithetic=True, device=device)
+        ker = ck.svj_path_stats(params, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        ref = ck.svj_path_stats_plain(params, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        err, exact, dead = compare_stats(name, ker, ref)
+        if kw.get("bridge"):
+            check(0 < dead < 2 * EXOTIC_PATHS * (2 if kw["companion"] else 1),
+                  f"{name}: some paths dead, some alive")
+        ms = cuda_ms(lambda: ck.svj_path_stats(params, SPOT, T, 43, **kw))
+        plain_ms = cuda_ms(lambda: ck.svj_path_stats_plain(
+            params, SPOT, T, 43, **kw), reps=2)
+        w0, w1 = kw.get("window") or (0, steps)
+        b = bound(k6_ops(bridge, kw["companion"], (w1 - w0) / steps),
+                  EXOTIC_PATHS * steps, 0, len(ker) * 2 * EXOTIC_PATHS * 4)
+        log(f"K6 {name} at {EXOTIC_PATHS} pairs x {steps} steps: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f}"
+            f" ms ({b['bound_by']}, {b['ops_per_unit']:.1f} per pair-step); "
+            f"phase {time.perf_counter() - t0:.1f} s")
+        out[name] = {"max_abs_err": err, "s_bit_equal_share": exact,
+                     "dead_path_legs": dead, "steps": steps, "ms": ms,
+                     "plain_ms": plain_ms, **b}
+    return out
+
+
+def kernel_resources(lib_path: str) -> dict:
+    """{kernel: (registers, stack bytes)} of K6's instantiations, from
+    `cuobjdump --dump-resource-usage`; empty when the tool is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    txt = subprocess.run([tool, "--dump-resource-usage", lib_path],
+                         capture_output=True, text=True, timeout=120).stdout
+    found = re.findall(r"Function (\S*svj_stats_kernel\S*):\s*REG:(\d+) "
+                       r"STACK:(\d+)", txt)
+    return {name: (int(reg), int(stack)) for name, reg, stack in found}
 
 
 # ─────────────────────────────────────────────────────────────────────────────
@@ -605,14 +772,271 @@ def options_path(device, ck, cos_price, bs_price, SVJParams, server):
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Exotics path
+# ─────────────────────────────────────────────────────────────────────────────
+GBM_SIGMA = 0.2
+GBM_FIELDS = {"kappa": 0.0, "theta": GBM_SIGMA**2, "xi": 0.0, "rho": 0.0,
+              "v0": GBM_SIGMA**2, "lambda_j": 0.0, "mu_j": 0.0,
+              "sigma_j": 0.0}
+R, Q = 0.065, 0.012       # the schema's default rate and yield
+
+
+def exotics_path(device, ck, ox, ExoticEngine, gbm_params, server):
+    """Every kind of POST /api/exotic over HTTP on a fresh server, with the
+    launch counts set to 0 just before; K6 must serve every priced request
+    and K3 the digital."""
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    common = {"spot": SPOT, "T": T_DEFAULT, "num_paths": EXOTIC_PATHS}
+    up, lo = 1.10 * SPOT, 0.90 * SPOT
+    expect = {"svj_path_stats": 0, "svj_terminal": 0}
+    out = {"requests": {}}
+    # The same path sets with the control variate off, priced in process:
+    # K6's stream depends on the seed only, so `price` there is the HTTP
+    # response's raw_mc_price and `std_error` is that estimate's.
+    raw = ExoticEngine(gbm_params(GBM_SIGMA, R, Q), num_paths=EXOTIC_PATHS,
+                       use_control_variate=False, device=device)
+
+    def ask(what, body, kernel="svj_path_stats", n=1):
+        status, res, ms = post(base, dict(common, **body),
+                               path="/api/exotic")
+        check(status == 200, f"{what}: status {status}")
+        for k in ("price", "std_error"):
+            check(k not in res or np.isfinite(res[k]), f"{what}: {k} finite")
+        check("elapsed_ms" in res, f"{what}: elapsed_ms")
+        if kernel:
+            expect[kernel] += n
+        out["requests"][what] = dict(res, latency_ms=ms)
+        return res
+
+    def gbm_gate(what, body, ref, raw_res, exact_with_cv=True):
+        """The degenerate-GBM request against the closed form `ref`."""
+        res = ask(what, dict(body, params=GBM_FIELDS))
+        expect["svj_path_stats"] += 1          # raw_res was one launch too
+        check(abs(res["raw_mc_price"] - raw_res["price"])
+              <= 1e-6 * abs(ref) + 1e-6, f"{what}: HTTP raw estimate "
+              f"{res['raw_mc_price']} == in-process {raw_res['price']}")
+        gap, se3 = abs(raw_res["price"] - ref), 3 * raw_res["std_error"]
+        log(f"{what}: raw {raw_res['price']:.6f} vs closed form {ref:.6f} "
+            f"(3 se = {se3:.6f}); with the control variate "
+            f"{res['price']:.6f}")
+        check(gap < se3, f"{what}: raw estimate within 3 se of closed form")
+        if exact_with_cv:
+            # The companion leg is the priced leg: the control removes all
+            # the noise, up to float32 sums (1e-4 of the price).
+            check(abs(res["price"] - ref) < 1e-4 * abs(ref) + 1e-4,
+                  f"{what}: with the control variate equals closed form")
+        return res
+
+    try:
+        # Asian, default SVJ parameters, then degenerate GBM (geometric).
+        res = ask("asian arithmetic", {"kind": "asian", "strike": STRIKE})
+        check("cv_beta" in res and res["num_steps"] == STEPS_DEFAULT,
+              "asian: cv_beta and 63 steps")
+        check(res["std_error"] > 0, "asian: std_error > 0")
+        log(f"asian arithmetic (SVJ): {res['price']:.4f} ± "
+            f"{res['std_error']:.4f}, cv_beta {res['cv_beta']:.4f}")
+        geo = float(ox.geometric_asian_bs(SPOT, STRIKE, T_DEFAULT, R, Q,
+                                          GBM_SIGMA, STEPS_DEFAULT, True))
+        gbm_gate("asian geometric GBM",
+                 {"kind": "asian", "strike": STRIKE, "averaging": "geometric"},
+                 geo, raw.price_asian(SPOT, STRIKE, T_DEFAULT,
+                                      averaging="geometric"))
+
+        # Up-and-out barrier under bridge monitoring.
+        bar = {"kind": "barrier", "strike": STRIKE, "barrier": up,
+               "monitoring": "bridge"}
+        gbm_gate("barrier up-and-out bridge GBM", bar,
+                 ox.barrier_bs(SPOT, STRIKE, T_DEFAULT, R, Q, GBM_SIGMA, up),
+                 raw.price_barrier(SPOT, STRIKE, T_DEFAULT, up,
+                                   monitoring="bridge"))
+        res = ask("barrier up-and-out bridge SVJ", bar)
+        svj_off = ExoticEngine(
+            server.schemas.SVJParamsRequest().to_params(),
+            num_paths=EXOTIC_PATHS, use_control_variate=False,
+            device=device).price_barrier(SPOT, STRIKE, T_DEFAULT, up,
+                                         monitoring="bridge")
+        expect["svj_path_stats"] += 1
+        log(f"barrier up-and-out bridge (SVJ): {res['price']:.4f} ± "
+            f"{res['std_error']:.4f} with the control variate, ± "
+            f"{svj_off['std_error']:.4f} without")
+        check(0 < res["std_error"] < svj_off["std_error"],
+              "barrier SVJ: the control variate lowers the standard error")
+
+        # One-touch (no control variate on any leg: a direct gate).
+        res = ask("one_touch bridge GBM",
+                  {"kind": "one_touch", "barrier": up, "monitoring": "bridge",
+                   "params": GBM_FIELDS})
+        ref = ox.one_touch_bs(SPOT, T_DEFAULT, R, Q, GBM_SIGMA, up)
+        log(f"one_touch bridge GBM: {res['price']:.6f} vs closed form "
+            f"{ref:.6f} (3 se = {3 * res['std_error']:.6f})")
+        check(abs(res["closed_form_gbm"] - ref) < 1e-12,
+              "one_touch: closed_form_gbm")
+        check(abs(res["price"] - ref) < 3 * res["std_error"],
+              "one_touch GBM within 3 se of one_touch_bs")
+
+        # Corridor kinds (bridge monitoring by default).
+        gbm_gate("double_barrier GBM",
+                 {"kind": "double_barrier", "strike": STRIKE, "barrier": up,
+                  "barrier_lo": lo},
+                 ox.double_barrier_bs(SPOT, STRIKE, T_DEFAULT, R, Q,
+                                      GBM_SIGMA, lo, up),
+                 raw.price_double_barrier(SPOT, STRIKE, T_DEFAULT, lo, up))
+        res = gbm_gate("double_no_touch GBM",
+                       {"kind": "double_no_touch", "barrier": up,
+                        "barrier_lo": lo},
+                       ox.double_no_touch_bs(SPOT, T_DEFAULT, R, Q, GBM_SIGMA,
+                                             lo, up),
+                       raw.price_double_no_touch(SPOT, T_DEFAULT, lo, up))
+        check(res["monitoring"] == "bridge", "corridor default is bridge")
+
+        # Window barrier: monitored on [0.05, 0.2] snapped to the grid.
+        win_raw = raw.price_barrier(SPOT, STRIKE, T_DEFAULT, up,
+                                    monitoring="bridge", window=(0.05, 0.2))
+        t1, t2 = win_raw["window_effective"]
+        res = gbm_gate("barrier window GBM", dict(bar, window=[0.05, 0.2]),
+                       ox.window_barrier_bs(SPOT, STRIKE, T_DEFAULT, R, Q,
+                                            GBM_SIGMA, up, t1, t2),
+                       win_raw)
+        check(res["window_effective"] == [t1, t2], "window_effective")
+
+        # Floating lookback: the grid minimum undershoots the continuous
+        # one. First-order BGK: min over the grid ~ e^{+beta sigma sqrt(dt)}
+        # x the continuous minimum, and call = S e^{-qT} - df E[min], so the
+        # discrete price is cf - (e^shift - 1)(S e^{-qT} - cf). Allowance:
+        # 3 se plus a tenth of that correction (it is first order only).
+        look_raw = raw.price_lookback(SPOT, T_DEFAULT)
+        res = ask("lookback floating GBM",
+                  {"kind": "lookback", "params": GBM_FIELDS})
+        expect["svj_path_stats"] += 1
+        cf = float(ox.lookback_float_bs(SPOT, T_DEFAULT, R, Q, GBM_SIGMA))
+        shift = ox.BGK_BETA * GBM_SIGMA * np.sqrt(T_DEFAULT / STEPS_DEFAULT)
+        corr = (np.exp(shift) - 1.0) * (SPOT * np.exp(-Q * T_DEFAULT) - cf)
+        tol = 3 * look_raw["std_error"] + 0.1 * corr
+        log(f"lookback floating GBM: raw {look_raw['price']:.4f}, with the "
+            f"control variate {res['price']:.4f}; continuous closed form "
+            f"{cf:.4f}, BGK-corrected {cf - corr:.4f} (tol {tol:.4f})")
+        check(abs(res["raw_mc_price"] - look_raw["price"]) < 1e-6 * cf,
+              "lookback: HTTP raw estimate == in-process")
+        check(abs(look_raw["price"] - (cf - corr)) < tol,
+              "lookback within the BGK allowance of lookback_float_bs")
+        check(abs(res["price"] - (cf - corr)) < tol,
+              "lookback with the control variate within the same window")
+
+        # Digital on K3, against e^{-rT} N(d2).
+        from scipy.stats import norm
+        res = ask("digital GBM", {"kind": "digital", "strike": STRIKE,
+                                  "params": GBM_FIELDS}, kernel="svj_terminal")
+        d2 = ((np.log(SPOT / STRIKE) + (R - Q - 0.5 * GBM_SIGMA**2)
+               * T_DEFAULT) / (GBM_SIGMA * np.sqrt(T_DEFAULT)))
+        ref = float(np.exp(-R * T_DEFAULT) * norm.cdf(d2))
+        log(f"digital GBM: {res['price']:.6f} vs closed form {ref:.6f} "
+            f"(3 se = {3 * res['std_error']:.6f}), delta {res['delta']:.3e}")
+        check(abs(res["price"] - ref) < 3 * res["std_error"],
+              "digital GBM within 3 se of e^-rT N(d2)")
+        check(np.isfinite(res["delta"]) and res["delta"] > 0, "digital delta")
+
+        res = ask("variance_swap", {"kind": "variance_swap"}, kernel=None)
+        # theta + (v0 - theta)(..) + lambda (mu_J^2 + sigma_J^2) at defaults
+        check(abs(res["fair_variance"] - (0.04 + 1.0 * (0.05**2 + 0.10**2)))
+              < 1e-12, f"variance_swap fair_variance {res['fair_variance']}")
+
+        res = ask("asian T=1.0", {"kind": "asian", "strike": STRIKE,
+                                  "T": 1.0})
+        check(res["num_steps"] == 252 and res["std_error"] > 0,
+              "asian at T = 1.0 runs 252 steps")
+
+        try:
+            post(base, dict(common, kind="barrier", strike=STRIKE),
+                 path="/api/exotic")
+            check(False, "barrier without barrier must answer 400")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"barrier without barrier: status {e.code}")
+            detail = json.loads(e.read())["detail"]
+            check("barrier" in detail, f"400 detail {detail!r}")
+
+        # Greeks. Asian: one autograd pass through the torch twin (no K6
+        # beyond the price's), against a central difference of the K6 price
+        # on the same seed, spot +- 1 %. The twin's stream is another than
+        # K6's, so the two deltas differ by Monte Carlo noise: window 0.02.
+        res = ask("asian with_greeks", {"kind": "asian", "strike": STRIKE,
+                                        "with_greeks": True})
+        g = res["greeks"]
+        check(g["method"] == "pathwise_ad", "asian greeks by autograd")
+        h = 0.01
+        hi_p = ask("asian spot +1%", {"kind": "asian", "strike": STRIKE,
+                                      "spot": SPOT * (1 + h)})["price"]
+        lo_p = ask("asian spot -1%", {"kind": "asian", "strike": STRIKE,
+                                      "spot": SPOT * (1 - h)})["price"]
+        fd = (hi_p - lo_p) / (2 * h * SPOT)
+        log(f"asian delta: autograd {g['delta']:.5f} vs bump-and-reprice "
+            f"{fd:.5f} (window 0.02); vega {g['vega']:.3f}, rho "
+            f"{g['rho']:.3f}")
+        check(abs(g["delta"] - fd) < 0.02, "asian delta vs bump-and-reprice")
+        check(abs(g["price"] - res["price"]) < 4 * res["std_error"]
+              + 1e-3 * res["price"], "asian greeks price vs K6 price")
+        # Discrete barrier: CRN central differences, so the request prices
+        # six times on K6 (the price, then base, spot up, spot down, v0 up,
+        # v0 down).
+        res = ask("barrier discrete with_greeks",
+                  {"kind": "barrier", "strike": STRIKE, "barrier": up,
+                   "with_greeks": True}, n=6)
+        g = res["greeks"]
+        check(g["method"] == "crn_fd_homogeneity" and np.isfinite(g["delta"])
+              and np.isfinite(g["vega"]), f"barrier greeks {g}")
+        # Bridge barrier: autograd through the bridge weight.
+        res = ask("barrier window with_greeks",
+                  dict(bar, window=[0.05, 0.2], with_greeks=True))
+        g = res["greeks"]
+        check(g["method"] == "pathwise_ad_bridge"
+              and all(np.isfinite(g[k]) for k in ("delta", "vega", "rho")),
+              f"bridge barrier greeks {g}")
+
+        lat = []
+        for _ in range(5):
+            status, res, ms = post(base, dict(common, kind="asian",
+                                              strike=STRIKE),
+                                   path="/api/exotic")
+            check(status == 200 and np.isfinite(res["price"]),
+                  "warm asian request")
+            lat.append(ms)
+        expect["svj_path_stats"] += 5
+        out["warm_latency_ms"] = statistics.median(lat)
+        out["warm_latencies_ms"] = lat
+        out["server_elapsed_ms"] = res["elapsed_ms"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    counts = ck.launch_counts()
+    log(f"launch counts over the exotics path: {counts} (expected {expect})")
+    for name, n in expect.items():
+        check(counts[name] == n, f"{name} launched once per request that "
+              f"runs it ({counts[name]} vs {n})")
+    for name in ("svj_terminal_from_draws", "gbm_terminal", "svj_terminal_qe",
+                 "svj_terminal_qe_from_draws"):
+        check(counts[name] == 0, f"no {name} on the exotics path")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
     from mcos_tpu_torch import bench
     from mcos_tpu_torch.api import server
-    from mcos_tpu_torch.models.params import SVJParams
+    from mcos_tpu_torch.engine.exotics import ExoticEngine
+    from mcos_tpu_torch.models.params import SVJParams, gbm_params
     from mcos_tpu_torch.ops import cuda_kernels as ck
+    from mcos_tpu_torch.ops import exotics as ox
     from mcos_tpu_torch.ops import sobol
     from mcos_tpu_torch.ops.bs import bs_price
     from mcos_tpu_torch.ops.cos_pricer import cos_price
@@ -622,6 +1046,11 @@ def main() -> None:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     ck.load_library()
     log(f"kernel build (nvcc sm_90a) + load: {ck.build_seconds():.2f} s")
+    resources = kernel_resources(ck._LIBRARY.path)
+    fattest = [v for k, v in resources.items() if "ILi2ELi3ELb1EE" in k]
+    log(f"K6 registers per thread over its {len(resources)} instantiations: "
+        f"{sorted({v[0] for v in resources.values()})}; corridor + companion"
+        f" (registers, stack bytes): {fattest or 'cuobjdump not found'}")
 
     params = SVJParams()
     k1 = check_k1(device, ck, sobol, params)
@@ -629,8 +1058,15 @@ def main() -> None:
     k3 = check_prng(device, ck, params, "svj_terminal")
     k4 = check_prng(device, ck, params, "svj_terminal_qe")
     k5 = check_k5(device, ck, sobol, params)
+    k6 = check_k6(device, ck, params)
     mp = main_path(device, ck, bench, cos_price, bs_price, SVJParams, server)
     op = options_path(device, ck, cos_price, bs_price, SVJParams, server)
+    xp = exotics_path(device, ck, ox, ExoticEngine, gbm_params, server)
+    log(f"warm /api/exotic (asian) latency: median "
+        f"{xp['warm_latency_ms']:.2f} ms over 5 "
+        f"({[round(x, 2) for x in xp['warm_latencies_ms']]}); server-side "
+        f"elapsed_ms {xp['server_elapsed_ms']}; exotics path "
+        f"{xp['wall_s']:.1f} s")
 
     # (name, source, TPU kernel body, its check, the path that launched it)
     table = (
@@ -639,6 +1075,12 @@ def main() -> None:
         ("svj_terminal", "svj.cu", 299, k3, op),
         ("svj_terminal_qe", "svj_qe.cu", 769, k4, op),
         ("svj_terminal_qe_from_draws", "svj_qe_draws.cu", 966, k5, op),
+        # K6's line carries the default Asian request's variant; its
+        # max_abs_err is the worst over all variants, which are listed
+        # under "variants".
+        ("svj_path_stats", "svj_stats.cu", 1141,
+         dict(k6["no bridge + companion"],
+              max_abs_err=max(v["max_abs_err"] for v in k6.values())), xp),
     )
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
@@ -651,11 +1093,17 @@ def main() -> None:
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": None}
         for name, src, line, res, path in table]
+    kernels[-1]["variants"] = [
+        {"name": name, **{k: v[k] for k in ("steps", "max_abs_err", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by")}}
+        for name, v in k6.items()]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": ck.build_seconds(), "k1": k1,
-                   "k2": k2, "k3": k3, "k4": k4, "k5": k5, "main_path": mp,
-                   "options_path": op}, f, indent=1)
+                   "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6,
+                   "k6_resources": resources, "main_path": mp,
+                   "options_path": op, "exotics_path": xp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Request schemas of the port's HTTP API: the part of
-`mcos_tpu/api/schemas.py` that `PriceRequest` needs, copied unchanged apart
-from the imports. tests/test_torch_copies.py holds the two equal.
+`mcos_tpu/api/schemas.py` that `PriceRequest` and `ExoticRequest` need,
+copied unchanged apart from the imports. tests/test_torch_copies.py holds
+the two equal.
 """
 
 from __future__ import annotations
@@ -100,3 +101,35 @@ class PriceRequest(BaseModel):
     dividends: Optional[list[DividendItem]] = Field(None, max_length=64)
     dividend_kind: str = Field("cash", pattern="^(cash|proportional)$")
     rate_curve: Optional[list[RateKnot]] = Field(None, max_length=64)
+
+
+class ExoticRequest(BaseModel):
+    """POST /api/exotic: Asian / barrier / lookback pricing."""
+    spot: float
+    T: float
+    # asian|barrier|lookback|digital|variance_swap|one_touch|
+    # double_barrier|double_no_touch|double_one_touch
+    kind: str
+    strike: Optional[float] = None       # None ⇒ floating-strike lookback
+    is_call: bool = True
+    averaging: str = "arithmetic"        # asian only
+    barrier: Optional[float] = None      # barrier kinds (upper for double_*)
+    barrier_lo: Optional[float] = None   # double_* kinds: lower barrier
+    knock: str = "out"                   # barrier only
+    # cash rebate on the dead branch (barrier / double_barrier kinds):
+    # paid on knock for KO, at expiry if never knocked for KI.
+    rebate: float = Field(default=0.0, ge=0.0)
+    rebate_at_hit: bool = False          # KO single barriers only
+    # window (partial) barrier: monitoring restricted to [t1, t2] ⊆ [0, T]
+    # (kind="barrier", monitoring="bridge" only)
+    window: Optional[list[float]] = Field(default=None, min_length=2,
+                                          max_length=2)
+    # barrier/one_touch: "discrete" (grid), "continuous" (BGK shift), or
+    # "bridge" (Brownian-bridge survival weights: exact continuous
+    # monitoring under GBM at any step count, smooth low-variance weight).
+    monitoring: str = Field("discrete",
+                            pattern="^(discrete|continuous|bridge)$")
+    pay_at_hit: bool = False             # one_touch only
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    with_greeks: bool = False  # delta/vega (AD; CRN-FD for barriers)

@@ -7,13 +7,16 @@ serving slice).
                              option but sharding: Sobol or PRNG driver, Euler
                              or QE, importance sampling, RQMC
     POST /api/convergence  — prefix-mean convergence series
+    POST /api/exotic       — Asian, single and double barriers, one-touch and
+                             no-touch digitals, lookback, digital, variance
+                             swap; optional Greeks
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
 Transport: the stdlib ThreadingHTTPServer. Every device program goes onto
 the device's default stream. Before it serves, `serve` builds the CUDA
 kernels and the default-shape Sobol net, so the first client request does
-not pay for either.
+not pay for either (kernel K6 of `/api/exotic` is in the same library).
 
     python -m mcos_tpu_torch.api.server --device cuda --port 8000
 """
@@ -29,6 +32,10 @@ import torch
 from pydantic import ValidationError
 
 from mcos_tpu_torch.api import coalesce, schemas
+from mcos_tpu_torch.engine.exotics import (
+    ExoticEngine,
+    variance_swap_fair_strike,
+)
 from mcos_tpu_torch.engine.guards import PricingGuard
 from mcos_tpu_torch.engine.pricer import MonteCarloEngine, to_host
 from mcos_tpu_torch.utils import fastjson
@@ -152,8 +159,171 @@ def handle_convergence(body: dict, device="cuda") -> dict:
         raise ApiError(400, str(e))
 
 
+def handle_exotic(body: dict, device="cuda") -> dict:
+    """`/api/exotic` on `device`: Asian, barrier, touch digitals, lookback,
+    digital and variance swap, the JAX handler's contract. Every priced kind
+    runs kernel K6 once (`digital` kernel K3); `with_greeks` adds the
+    autograd pass through the torch twin, or for discrete barriers five
+    more K6 prices."""
+    req = schemas.ExoticRequest(**body)
+    start = time.time()
+    _WINDOW_KINDS = ("barrier", "one_touch", "double_barrier",
+                     "double_no_touch", "double_one_touch")
+    if req.window is not None and req.kind not in _WINDOW_KINDS:
+        raise ApiError(400, f"window is not supported for kind "
+                            f"{req.kind!r} (barrier-family kinds only)")
+    eng = ExoticEngine(req.params.to_params(), num_paths=req.num_paths,
+                       device=device)
+    if req.kind == "asian":
+        if req.strike is None:
+            raise ApiError(400, "asian requires strike")
+        out = eng.price_asian(req.spot, req.strike, req.T, req.is_call,
+                              averaging=req.averaging)
+    elif req.kind == "barrier":
+        if req.strike is None or req.barrier is None:
+            raise ApiError(400, "barrier requires strike and barrier")
+        if req.rebate_at_hit and req.knock != "out":
+            raise ApiError(400, "rebate_at_hit only applies to knock-outs")
+        monitoring = req.monitoring
+        if req.window is not None:
+            if not 0.0 <= req.window[0] < req.window[1] <= req.T:
+                raise ApiError(400, "window needs 0 <= t1 < t2 <= T")
+            if req.rebate:
+                raise ApiError(400, "rebates on window barriers are not "
+                                    "offered")
+            # window barriers require the bridge estimator; default to it
+            # unless the body explicitly asked for something else
+            if "monitoring" not in body:
+                monitoring = "bridge"
+            elif monitoring != "bridge":
+                raise ApiError(400, "window barriers need "
+                                    "monitoring='bridge'")
+        try:
+            out = eng.price_barrier(
+                req.spot, req.strike, req.T, req.barrier, req.is_call,
+                knock=req.knock, monitoring=monitoring, rebate=req.rebate,
+                rebate_at_hit=req.rebate_at_hit,
+                window=tuple(req.window) if req.window else None)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+    elif req.kind == "one_touch":
+        if req.barrier is None:
+            raise ApiError(400, "one_touch requires barrier")
+        monitoring = req.monitoring
+        if req.window is not None:
+            if not 0.0 <= req.window[0] < req.window[1] <= req.T:
+                raise ApiError(400, "window needs 0 <= t1 < t2 <= T")
+            if "monitoring" not in body:
+                monitoring = "bridge"
+        try:
+            out = eng.price_one_touch(
+                req.spot, req.T, req.barrier, monitoring=monitoring,
+                pay_at_hit=req.pay_at_hit,
+                window=tuple(req.window) if req.window else None)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+    elif req.kind == "double_barrier":
+        if req.strike is None or req.barrier is None or req.barrier_lo is None:
+            raise ApiError(400, "double_barrier requires strike, barrier "
+                                "(upper) and barrier_lo (lower)")
+        if not req.barrier_lo < req.barrier:
+            raise ApiError(400, "double_barrier needs barrier_lo < barrier")
+        # bridge is the natural default for corridors (exact continuous
+        # monitoring); an explicit request body still wins
+        monitoring = req.monitoring if "monitoring" in body else "bridge"
+        if req.rebate_at_hit:
+            raise ApiError(400, "rebate_at_hit is not offered on double "
+                                "barriers (corridor rebates pay at expiry)")
+        if req.window is not None \
+                and not 0.0 <= req.window[0] < req.window[1] <= req.T:
+            raise ApiError(400, "window needs 0 <= t1 < t2 <= T")
+        try:
+            out = eng.price_double_barrier(
+                req.spot, req.strike, req.T, req.barrier_lo, req.barrier,
+                req.is_call, knock=req.knock, monitoring=monitoring,
+                rebate=req.rebate,
+                window=tuple(req.window) if req.window else None)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+    elif req.kind in ("double_no_touch", "double_one_touch"):
+        if req.barrier is None or req.barrier_lo is None:
+            raise ApiError(400, f"{req.kind} requires barrier (upper) and "
+                                "barrier_lo (lower)")
+        if not req.barrier_lo < req.barrier:
+            raise ApiError(400, f"{req.kind} needs barrier_lo < barrier")
+        monitoring = req.monitoring if "monitoring" in body else "bridge"
+        if req.window is not None \
+                and not 0.0 <= req.window[0] < req.window[1] <= req.T:
+            raise ApiError(400, "window needs 0 <= t1 < t2 <= T")
+        try:
+            out = eng.price_double_no_touch(
+                req.spot, req.T, req.barrier_lo, req.barrier,
+                touch=(req.kind == "double_one_touch"),
+                monitoring=monitoring,
+                window=tuple(req.window) if req.window else None)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+    elif req.kind == "lookback":
+        out = eng.price_lookback(req.spot, req.T, req.is_call,
+                                 strike=req.strike)
+    elif req.kind == "digital":
+        if req.strike is None:
+            raise ApiError(400, "digital requires strike")
+        out = eng.price_digital(req.spot, req.strike, req.T, req.is_call)
+    elif req.kind == "variance_swap":
+        out = variance_swap_fair_strike(req.params.to_params(), req.T)
+    else:
+        raise ApiError(400, f"unknown kind {req.kind!r}")
+    if req.with_greeks:
+        if req.kind in ("double_barrier", "double_no_touch",
+                        "double_one_touch"):
+            # corridor Greeks come from the bridge AD pass
+            out["greeks"] = eng.greeks(
+                req.spot, req.strike if req.strike is not None else 0.0,
+                req.T,
+                kind=("double_barrier" if req.kind == "double_barrier"
+                      else "double_no_touch"),
+                is_call=req.is_call, barrier=req.barrier,
+                barrier_lo=req.barrier_lo,
+                knock=("in" if req.kind == "double_one_touch"
+                       else req.knock),
+                monitoring="bridge", rebate=req.rebate,
+                window=tuple(req.window) if req.window else None)
+        elif req.kind == "one_touch":
+            out["greeks"] = eng.greeks(
+                req.spot, 0.0, req.T, kind="one_touch",
+                barrier=req.barrier, monitoring="bridge",
+                window=tuple(req.window) if req.window else None)
+        elif req.kind == "barrier" and req.window is not None:
+            out["greeks"] = eng.greeks(
+                req.spot, req.strike if req.strike is not None else 0.0,
+                req.T, kind="barrier", is_call=req.is_call,
+                barrier=req.barrier, knock=req.knock,
+                monitoring="bridge", window=tuple(req.window))
+        elif req.kind == "barrier" and req.rebate:
+            # rebated-contract greeks need the smooth bridge weight (the
+            # CRN-FD homogeneity identity breaks for cash rebates); the
+            # at-expiry rebate is what's differentiated — for at-hit
+            # contracts the closed-form discount ratio is held fixed.
+            out["greeks"] = eng.greeks(
+                req.spot, req.strike if req.strike is not None else 0.0,
+                req.T, kind="barrier", is_call=req.is_call,
+                barrier=req.barrier, knock=req.knock,
+                monitoring="bridge", rebate=req.rebate)
+        else:
+            out["greeks"] = eng.greeks(
+                req.spot,
+                req.strike if req.strike is not None else 0.0, req.T,
+                kind=req.kind, is_call=req.is_call, barrier=req.barrier,
+                knock=req.knock, averaging=req.averaging,
+                floating=req.kind == "lookback" and req.strike is None)
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
-                "/api/convergence": handle_convergence}
+                "/api/convergence": handle_convergence,
+                "/api/exotic": handle_exotic}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,

@@ -40,6 +40,7 @@ constexpr uint32_t kJumpDomain = 0u;   // K1/K5 per-step jump uniforms
 constexpr uint32_t kGbmDomain = 1u;    // K2
 constexpr uint32_t kSvjDomain = 2u;    // K3
 constexpr uint32_t kQeDomain = 3u;     // K4
+constexpr uint32_t kStatsDomain = 4u;  // K6
 
 __device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
   const uint32_t hi0 = __umulhi(kPhiloxSA, c.x);

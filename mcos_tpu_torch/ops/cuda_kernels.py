@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port, their wrappers, their plain torch
 versions and their build (counterpart of `mcos_tpu/ops/pallas_kernels.py`
-for the kernels on the `/api/price` and `/api/convergence` paths).
+for the kernels on the `/api/price`, `/api/convergence` and `/api/exotic`
+paths).
 
 K1 `svj_terminal_from_draws` (csrc/svj_draws.cu) replaces
     `svj_terminal_from_draws_pallas` / `_svj_draws_kernel`.
@@ -12,6 +13,8 @@ K4 `svj_terminal_qe` (csrc/svj_qe.cu) replaces
     `svj_terminal_qe_pallas` / `_svj_qe_kernel`.
 K5 `svj_terminal_qe_from_draws` (csrc/svj_qe_draws.cu) replaces
     `svj_terminal_qe_from_draws_pallas` / `_svj_qe_draws_kernel`.
+K6 `svj_path_stats` (csrc/svj_stats.cu) replaces
+    `svj_path_stats_pallas` / `_svj_stats_kernel`.
 
 The wrapper rule: a CPU input takes the plain torch version; a CUDA input
 launches the kernel or raises. There is no fallback from one to the other.
@@ -19,8 +22,9 @@ Each wrapper counts its launches in a plain int attribute, `.launches`,
 which it increments where it launches the kernel and nowhere else.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` compiles every source
-in `csrc/` into one shared library with a plain C interface, loaded with
-ctypes. It runs at first use, under a process-wide lock, into
+in `csrc/` (one nvcc process per source, all started together) and links
+them into one shared library with a plain C interface, loaded with ctypes.
+It runs at first use, under a process-wide lock, into
 `mcos_tpu_torch/_build/` (listed in .gitignore), and rebuilds when the
 sources' hash changes. `build_seconds()` reports how long it took.
 
@@ -28,13 +32,14 @@ The plain Philox4x32-10 below is the kernels' generator on int64 tensors
 with 32-bit masks (torch has no usable uint32 arithmetic); it gives the
 same words as csrc/philox.cuh, so a kernel's in-kernel random mode can be
 compared word for word with its plain version. Each kernel's stream has
-its own counter domain (word 3): K1/K5 jumps 0, K2 1, K3 2, K4 3.
+its own counter domain (word 3): K1/K5 jumps 0, K2 1, K3 2, K4 3, K6 4.
 
 The plain versions repeat each kernel's float32 operations in the same
 order. Where a result feeds a discontinuous select (the QE transition's
-branches), csrc/philox.cuh keeps nvcc from contracting multiply-adds and
-the plain version here performs the same IEEE operations; elsewhere the two
-differ by FMA rounding.
+branches; K6's dead-or-alive test on the log-spot carry), the CUDA source
+keeps nvcc from contracting multiply-adds and the plain version here
+performs the same IEEE operations; elsewhere the two differ by FMA
+rounding.
 """
 
 from __future__ import annotations
@@ -46,14 +51,19 @@ import math
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mcos_tpu_torch.models.params import SVJParams
+from mcos_tpu_torch.ops.exotics import (
+    corridor_surv_increment,
+    single_surv_increment,
+)
 from mcos_tpu_torch.ops.simulate import qe_variance_step
 from mcos_tpu_torch.ops.sobol import ndtri_acklam
 
@@ -61,7 +71,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _M32 = 0xFFFFFFFF
 
@@ -94,6 +104,35 @@ class _Library:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
                            "are built from mcos_tpu_torch/csrc at first use")
 
+    def _compile(self, cu_sources, lib_path: str) -> None:
+        """One nvcc per source, all running at once, then one link."""
+        nvcc = self._nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as obj_dir:
+            jobs = []
+            for src in cu_sources:
+                obj = os.path.join(
+                    obj_dir, os.path.basename(src)[:-len(".cu")] + ".o")
+                jobs.append((obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            failures = []
+            for obj, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    failures.append(f"nvcc failed ({proc.returncode}) on "
+                                    f"{os.path.basename(obj)}:\n{err}")
+            if failures:
+                raise RuntimeError("\n".join(failures))
+            tmp = os.path.join(obj_dir, "lib.so")
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                 *[obj for obj, _ in jobs]], capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            os.replace(tmp, lib_path)
+
     def get(self) -> ctypes.CDLL:
         if self._lib is not None:
             return self._lib
@@ -114,14 +153,8 @@ class _Library:
         lib_path = os.path.join(
             BUILD_DIR, f"libmcos_kernels_{digest.hexdigest()[:16]}.so")
         if not os.path.exists(lib_path):
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            cmd = [self._nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in sources if s.endswith(".cu")]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, lib_path)
+            self._compile([s for s in sources if s.endswith(".cu")],
+                          lib_path)
         lib = ctypes.CDLL(lib_path)
         vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_ulonglong,
@@ -139,6 +172,9 @@ class _Library:
         lib.mcos_svj_terminal_qe_from_draws.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, u64, vp, vp]
         lib.mcos_svj_terminal_qe_from_draws.restype = i32
+        lib.mcos_svj_path_stats.argtypes = [
+            vp, i64, i32, i32, i32, i32, i32, i32, u64, vp, vp]
+        lib.mcos_svj_path_stats.restype = i32
         lib.mcos_cuda_error_string.argtypes = [i32]
         lib.mcos_cuda_error_string.restype = ctypes.c_char_p
         self.path = lib_path
@@ -184,7 +220,8 @@ def _seed_words(seed: int) -> Tuple[int, int]:
 _PHILOX_10A, _PHILOX_10B = 0x9E3779B9, 0xBB67AE85
 _PHILOX_SA, _PHILOX_SB = 0xD2511F53, 0xCD9E8D57
 # Counter domains of csrc/philox.cuh (word 3 of the counter).
-_JUMP_DOMAIN, _GBM_DOMAIN, _SVJ_DOMAIN, _QE_DOMAIN = 0, 1, 2, 3
+_JUMP_DOMAIN, _GBM_DOMAIN, _SVJ_DOMAIN, _QE_DOMAIN, _STATS_DOMAIN = (
+    0, 1, 2, 3, 4)
 
 
 def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -877,8 +914,215 @@ def svj_terminal_qe_from_draws(
 svj_terminal_qe_from_draws.launches = 0
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# K6: SVJ path statistics from an in-kernel generator
+# ─────────────────────────────────────────────────────────────────────────────
+_STATS_ROWS = ("s_final", "avg", "log_avg", "max_s", "min_s", "log_surv")
+_STATS_G_ROWS = ("g_final", "g_avg", "g_log_avg", "g_max", "g_min",
+                 "g_log_surv")
+# Bridge modes of csrc/svj_stats.cu.
+_NO_BRIDGE, _BRIDGE_UP, _BRIDGE_DOWN, _CORRIDOR = 0, 1, 2, 3
+
+
+def _stats_consts(params: SVJParams, spot, T, num_steps: int,
+                  bridge_log_b=0.0, bridge_log_l=0.0) -> np.ndarray:
+    """The 18 float32 scalars of csrc/svj_stats.cu:StatsConsts: `_svj_consts`
+    (the arithmetic of `_pack_params`), the barrier logs log(B/S0) and
+    log(L/S0), and 1/steps."""
+    f = np.float32
+    extra = (f(bridge_log_b), f(bridge_log_l), f(1.0) / f(num_steps))
+    return np.concatenate([_svj_consts(params, spot, T, num_steps),
+                           np.asarray(extra, np.float32)])
+
+
+def _stats_mode(bridge: bool, bridge_up: bool, corridor: bool) -> int:
+    if corridor and not bridge:
+        raise ValueError("corridor=True needs bridge=True")
+    if not bridge:
+        return _NO_BRIDGE
+    if corridor:
+        return _CORRIDOR
+    return _BRIDGE_UP if bridge_up else _BRIDGE_DOWN
+
+
+def _stats_window(window, bridge: bool, num_steps: int) -> Tuple[int, int]:
+    if window is None:
+        return 0, num_steps
+    if not bridge:
+        raise ValueError("window needs bridge=True")
+    w0, w1 = int(window[0]), int(window[1])
+    if not 0 <= w0 < w1 <= num_steps:
+        raise ValueError(f"window needs 0 <= w0 < w1 <= {num_steps}, got "
+                         f"({w0}, {w1})")
+    return w0, w1
+
+
+def _stats_names(mode: int, companion: bool) -> Tuple[str, ...]:
+    keep = 5 if mode == _NO_BRIDGE else 6
+    return _STATS_ROWS[:keep] + (_STATS_G_ROWS[:keep] if companion else ())
+
+
+def svj_path_stats_plain(params: SVJParams, spot, T, seed: int, *,
+                         num_paths: int, num_steps: int,
+                         antithetic: bool = True, companion: bool = True,
+                         bridge: bool = False, bridge_up: bool = True,
+                         bridge_log_b=0.0, corridor: bool = False,
+                         bridge_log_l=0.0, window=None, device="cpu"
+                         ) -> Dict[str, torch.Tensor]:
+    """Plain torch version of K6 on the kernel's Philox words: steps 2i and
+    2i+1 take calls 2i and 2i+1 of counter (pair_lo, pair_hi, call, 4),
+    three Box-Muller pairs and two jump uniforms; an odd last step takes
+    calls steps−1 and steps. Each float32 operation on the carries and in
+    the survival increments is the kernel's, in its order, so on the card
+    the two agree bit for bit on which paths are dead. Returns the dict of
+    `svj_path_stats`."""
+    device = torch.device(device)
+    mode = _stats_mode(bridge, bridge_up, corridor)
+    w0, w1 = _stats_window(window, bridge, num_steps)
+    consts = _stats_consts(params, spot, T, num_steps, bridge_log_b,
+                           bridge_log_l)
+    (spot_f, v0, dt, sqrt_dt, kappa, theta, xi, rho, rho_perp, lam_dt, mu_j,
+     sig_j, drift_dt, g_drift_dt, sig_cv, _log_b, _log_l, inv_n) = (
+        float(x) for x in consts)
+    # 0-d float32 tensors where the survival increments take tensors.
+    dt_t, log_b, log_l, sig_cv_t, spot_t = (
+        torch.tensor(x, dtype=torch.float32, device=device)
+        for x in (dt, _log_b, _log_l, sig_cv, spot_f))
+    g_var = sig_cv_t * sig_cv_t
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    neg_inf = torch.full_like(zeros, -torch.inf)
+    leg = dict(x=zeros, sum_s=zeros, sum_l=zeros, max_l=neg_inf,
+               min_l=-neg_inf, surv=zeros)
+    svj = [dict(leg, v=torch.full_like(zeros, v0)) for _ in range(nb)]
+    gbm = [dict(leg) for _ in range(nb)]
+
+    def surv_inc(x_old, x_new, var_step):
+        if mode == _CORRIDOR:
+            return corridor_surv_increment(x_old, x_new, var_step, dt_t,
+                                           log_l, log_b)
+        return single_surv_increment(x_old, x_new, var_step, dt_t, log_b,
+                                     mode == _BRIDGE_UP)
+
+    def track(st, x_prev, x, var_step, in_win):
+        st["x"] = x
+        st["sum_s"] = st["sum_s"] + torch.exp(x)
+        st["sum_l"] = st["sum_l"] + x
+        st["max_l"] = torch.maximum(st["max_l"], x)
+        st["min_l"] = torch.minimum(st["min_l"], x)
+        if mode != _NO_BRIDGE and in_win:
+            st["surv"] = st["surv"] + surv_inc(x_prev, x, var_step)
+
+    def step(idx, z1, z2, z_js, u_jump):
+        in_win = w0 <= idx < w1
+        dw1 = z1 * sqrt_dt
+        dw2 = rho * dw1 + rho_perp * z2 * sqrt_dt
+        jumped = u_jump < lam_dt
+        jump_body = sig_j * z_js
+        cv_dw = sig_cv * dw1
+        for k in range(nb):
+            s_dw1, s_dw2, s_body, s_cv = (
+                (dw1, dw2, jump_body, cv_dw) if k == 0
+                else (-dw1, -dw2, -jump_body, -cv_dw))
+            st = svj[k]
+            v_pos = torch.clamp(st["v"], min=0.0)
+            sqrt_v = torch.sqrt(v_pos)
+            jump = torch.where(jumped, mu_j + s_body,
+                               torch.zeros_like(s_body))
+            x_prev = st["x"]
+            x = (x_prev + (drift_dt - 0.5 * v_pos * dt) + sqrt_v * s_dw1
+                 + jump)
+            st["v"] = torch.clamp(v_pos + kappa * (theta - v_pos) * dt
+                                  + xi * sqrt_v * s_dw2, min=0.0)
+            track(st, x_prev, x, torch.clamp(v_pos, min=1e-12), in_win)
+            if companion:
+                g_prev = gbm[k]["x"]
+                track(gbm[k], g_prev, g_prev + g_drift_dt + s_cv, g_var,
+                      in_win)
+
+    def uniforms(call):
+        return _pair_words(num_paths, call, _STATS_DOMAIN, seed, device)
+
+    for i in range(0, num_steps - 1, 2):
+        a, b = uniforms(i), uniforms(i + 1)
+        z_a, z_b = box_muller(a[0], a[1])
+        z_c, z_d = box_muller(a[2], a[3])
+        z_e, z_f = box_muller(b[0], b[1])
+        step(i, z_a, z_b, z_c, b[2])
+        step(i + 1, z_d, z_e, z_f, b[3])
+    if num_steps % 2 == 1:
+        a, b = uniforms(num_steps - 1), uniforms(num_steps)
+        z1, z2 = box_muller(a[0], a[1])
+        z_js, _ = box_muller(a[2], a[3])
+        step(num_steps - 1, z1, z2, z_js, b[0])
+
+    log_spot = torch.log(spot_t)
+
+    def rows(legs):
+        out = [spot_f * torch.exp(torch.stack([st["x"] for st in legs])),
+               spot_f * (torch.stack([st["sum_s"] for st in legs]) * inv_n),
+               log_spot + torch.stack([st["sum_l"] for st in legs]) * inv_n,
+               spot_f * torch.exp(torch.stack([st["max_l"] for st in legs])),
+               spot_f * torch.exp(torch.stack([st["min_l"] for st in legs]))]
+        if mode != _NO_BRIDGE:
+            out.append(torch.stack([st["surv"] for st in legs]))
+        return out
+
+    values = rows(svj) + (rows(gbm) if companion else [])
+    return dict(zip(_stats_names(mode, companion), values))
+
+
+def svj_path_stats(params: SVJParams, spot, T, seed: int, *, num_paths: int,
+                   num_steps: int, antithetic: bool = True,
+                   companion: bool = True, bridge: bool = False,
+                   bridge_up: bool = True, bridge_log_b=0.0,
+                   corridor: bool = False, bridge_log_l=0.0, window=None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """K6 wrapper, the counterpart of `svj_path_stats_pallas`: SVJ Euler
+    paths (one Bernoulli jump test per step) with running functionals.
+
+    Returns a dict of (n_branch, num_paths) float32 tensors: s_final, avg,
+    log_avg, max_s, min_s; with companion=True the GBM leg's g_final,
+    g_avg, g_log_avg, g_max, g_min; with bridge=True the Brownian-bridge
+    log-survival weights log_surv (and g_log_surv) against the barrier at
+    log(B/S0) = `bridge_log_b` (above the spot with `bridge_up`, else
+    below), or with corridor=True against exit from (`bridge_log_l`,
+    `bridge_log_b`). window=(w0, w1) restricts the bridge to the steps
+    w0..w1−1. A CPU `device` takes the plain version; a CUDA one launches
+    the kernel or raises."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    kw = dict(num_paths=num_paths, num_steps=num_steps,
+              antithetic=antithetic, companion=companion, bridge=bridge,
+              bridge_up=bridge_up, bridge_log_b=bridge_log_b,
+              corridor=corridor, bridge_log_l=bridge_log_l, window=window)
+    if device.type == "cpu":
+        return svj_path_stats_plain(params, spot, T, seed, device=device,
+                                    **kw)
+    mode = _stats_mode(bridge, bridge_up, corridor)
+    w0, w1 = _stats_window(window, bridge, num_steps)
+    consts = _stats_consts(params, spot, T, num_steps, bridge_log_b,
+                           bridge_log_l)
+    names = _stats_names(mode, companion)
+    n_branch = 2 if antithetic else 1
+    out = torch.empty((len(names), n_branch, num_paths), dtype=torch.float32,
+                      device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.mcos_svj_path_stats(
+            out.data_ptr(), num_paths, num_steps, n_branch, mode,
+            int(companion), w0, w1, int(seed), consts.ctypes.data,
+            _stream_handle(device))
+    _check_rc(lib, rc, "svj_path_stats")
+    with _COUNT_LOCK:
+        svj_path_stats.launches += 1
+    return dict(zip(names, out))
+
+
+svj_path_stats.launches = 0
+
+
 _WRAPPERS = (svj_terminal_from_draws, gbm_terminal, svj_terminal,
-             svj_terminal_qe, svj_terminal_qe_from_draws)
+             svj_terminal_qe, svj_terminal_qe_from_draws, svj_path_stats)
 
 
 def reset_launch_counts() -> None:

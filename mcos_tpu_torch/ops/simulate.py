@@ -70,7 +70,7 @@ def _companion(params: SVJParams, dt, device):
 def simulate_terminal(
     params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
     num_steps: int, antithetic: bool = True, companion: bool = False,
-    *, device="cpu",
+    *, device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Simulate SVJ paths with `generator`'s draws; terminal (S, v, G).
 
@@ -136,7 +136,7 @@ def simulate_terminal_from_draws(
 
 def simulate_paths_recorded(
     params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
-    num_steps: int, *, device="cpu",
+    num_steps: int, *, device="cuda",
 ) -> torch.Tensor:
     """Record full paths for visualization (≤ O(100) paths).
 
@@ -257,7 +257,7 @@ def _qe_paths(params: SVJParams, spot, T, draws, n_branch: int,
 def simulate_terminal_qe(
     params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
     num_steps: int, antithetic: bool = True, companion: bool = False,
-    *, device="cpu",
+    *, device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Andersen (2008) quadratic-exponential Heston scheme + Merton jumps,
     with `generator`'s draws: per step two normals (z_x; z_js) and two
@@ -297,7 +297,7 @@ def simulate_terminal_qe_from_draws(
 def simulate_terminal_tilted(
     params: SVJParams, spot, T, generator: torch.Generator, shift,
     num_paths: int, num_steps: int, antithetic: bool = True,
-    companion: bool = False, *, device="cpu",
+    companion: bool = False, *, device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """`simulate_terminal` under an exponentially tilted spot Brownian.
 

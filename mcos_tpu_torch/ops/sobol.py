@@ -242,7 +242,7 @@ def _bb_normals(sv, shift, bb: torch.Tensor, num_keep: int,
 
 def sobol_svj_draws(num_paths: int, num_steps: int, seed: int = 0,
                     layout: str = "steps", jump_uniforms: bool = True,
-                    *, device="cpu",
+                    *, device="cuda",
                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                Optional[torch.Tensor], torch.Tensor]:
     """Full SVJ draw set from one scrambled Sobol stream, on `device`.
@@ -288,7 +288,7 @@ def sobol_svj_draws(num_paths: int, num_steps: int, seed: int = 0,
 
 
 def sobol_qe_draws(num_paths: int, num_steps: int, seed: int = 0,
-                   jump_uniforms: bool = True, *, device="cpu",
+                   jump_uniforms: bool = True, *, device="cuda",
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor], torch.Tensor]:
     """Draw set of the Andersen QE scheme from one scrambled Sobol stream.

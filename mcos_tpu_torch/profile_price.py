@@ -1,6 +1,8 @@
-"""Where a warm `/api/price` spends its time on one CUDA device.
+"""Where a warm `/api/price` (or `/api/exotic`) spends its time on one CUDA
+device.
 
-    python -m mcos_tpu_torch.profile_price [--options JSON] [--out FILE]
+    python -m mcos_tpu_torch.profile_price [--route price|exotic]
+                                           [--options JSON] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
 the solo path) on the default body (500k paths, T = 0.25 → 63 steps), with
@@ -20,6 +22,13 @@ the request fields in `--options` merged in (for example
   time. If the profiler reports no device time, those fields say
   "not measured".
 
+With `--route exotic` it calls `handle_exotic` on an arithmetic Asian at
+the schema's default width (200k pairs, T = 0.25 → 63 steps; `--options`
+merges in, for example '{"kind": "double_no_touch", "barrier": 24750,
+"barrier_lo": 20250}'); `parts_ms` is then the whole handler and, for the
+Asian body, the price program alone (kernel K6 + payoff + control variate +
+the one device→host copy).
+
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
 
@@ -33,6 +42,7 @@ import time
 import torch
 
 BODY = {"spot": 22500.0, "strike": 22500.0, "T": 0.25}
+EXOTIC_BODY = dict(BODY, kind="asian")
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -90,6 +100,35 @@ def profile(options: dict) -> dict:
             lambda: eng.terminal_samples_device(req.spot, req.T), reps),
     }
 
+    out["profile"] = _profiled(call, reps)
+    return out
+
+
+def profile_exotic(options: dict) -> dict:
+    from mcos_tpu_torch.api import schemas, server
+    from mcos_tpu_torch.engine.exotics import ExoticEngine
+
+    reps = 5
+    device = torch.device("cuda", 0)
+    body = dict(EXOTIC_BODY, **options)
+    server.warm(device)
+    call = lambda: server.handle_exotic(dict(body), device=device)  # noqa
+    call()
+    out = {"device": torch.cuda.get_device_name(device), "body": body,
+           "wall_ms": _wall_ms(call, 4 * reps), "parts_ms": {}}
+    if body["kind"] == "asian":
+        req = schemas.ExoticRequest(**body)
+        eng = ExoticEngine(req.params.to_params(), num_paths=req.num_paths,
+                           device=device)
+        out["parts_ms"]["price_program"] = _wall_ms(
+            lambda: eng.price_asian(req.spot, req.strike, req.T, req.is_call,
+                                    averaging=req.averaging), 4 * reps)
+    out["profile"] = _profiled(call, reps)
+    return out
+
+
+def _profiled(call, reps: int) -> dict:
+    """Device time, launches and busy share per call under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -105,7 +144,7 @@ def profile(options: dict) -> dict:
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
     launches = sum(e.count for e in kernels) / reps
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
-    out["profile"] = {
+    return {
         "profiled_wall_ms": wall,
         "device_ms_per_call": dev_ms if kernels else "not measured",
         "kernel_launches_per_call": launches if kernels else "not measured",
@@ -114,11 +153,12 @@ def profile(options: dict) -> dict:
                          "device_ms_per_call": _device_us(e) / 1e3 / reps,
                          "launches_per_call": e.count / reps} for e in top],
     }
-    return out
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--route", default="price",
+                        choices=("price", "exotic"))
     parser.add_argument("--options", default="{}",
                         help="JSON object of request fields to merge into "
                              "the default body")
@@ -126,7 +166,8 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_price needs a CUDA device")
-    res = profile(json.loads(args.options))
+    run = profile if args.route == "price" else profile_exotic
+    res = run(json.loads(args.options))
     text = json.dumps(res, indent=1)
     if args.out:
         with open(args.out, "w") as f:

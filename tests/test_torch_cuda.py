@@ -89,7 +89,8 @@ def test_k2_kernel_matches_plain(cuda, steps):
 def test_sobol_on_card_equals_cpu(cuda):
     a = sobol.sobol_svj_draws(5000, 9, seed=4, jump_uniforms=False,
                               device=cuda)
-    b = sobol.sobol_svj_draws(5000, 9, seed=4, jump_uniforms=False)
+    b = sobol.sobol_svj_draws(5000, 9, seed=4, jump_uniforms=False,
+                              device="cpu")
     for x, y in zip((a[0], a[1], a[3]), (b[0], b[1], b[3])):
         torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-5)
 
@@ -172,7 +173,8 @@ def test_k5_kernel_matches_plain(cuda, antithetic, companion, explicit_u):
 def test_sobol_qe_on_card_equals_cpu(cuda):
     a = sobol.sobol_qe_draws(5000, 9, seed=4, jump_uniforms=False,
                              device=cuda)
-    b = sobol.sobol_qe_draws(5000, 9, seed=4, jump_uniforms=False)
+    b = sobol.sobol_qe_draws(5000, 9, seed=4, jump_uniforms=False,
+                             device="cpu")
     for x, y in zip((a[0], a[1], a[3]), (b[0], b[1], b[3])):
         torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-5)
 
@@ -231,3 +233,135 @@ def test_price_to_tolerance_on_card(cuda, scheme, kernel):
     assert after[kernel] - before[kernel] == res["num_batches"]
     cos = float(cos_price(SVJParams(), 22500.0, [22500.0], 0.25, True)[0])
     assert abs(res["price"] - cos) < 4 * res["std_error"] + 0.01 * cos
+
+
+# ── K6 `svj_path_stats` and the exotics engine ──────────────────────────────
+_K6_VARIANTS = {
+    "no_bridge": dict(),
+    "up": dict(bridge=True, bridge_up=True, bridge_log_b=0.08),
+    "down": dict(bridge=True, bridge_up=False, bridge_log_b=-0.08),
+    "corridor": dict(bridge=True, corridor=True, bridge_log_b=0.09,
+                     bridge_log_l=-0.09),
+}
+
+
+def _assert_stats_close(ker, ref):
+    """K6 against its plain version on the same words: the kernel rounds
+    each operation as the plain version does, so the dead/alive state is
+    equal on every path; rtol 1e-5 on what is finite (log sums: atol 1e-4)."""
+    assert set(ker) == set(ref)
+    for key in ker:
+        a, b = ker[key], ref[key]
+        if key.endswith("log_surv"):
+            assert bool((torch.isinf(a) == torch.isinf(b)).all()), key
+            live = ~torch.isinf(a)
+            torch.testing.assert_close(a[live], b[live], rtol=1e-5, atol=1e-4)
+        elif key.endswith("log_avg"):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+
+
+# (variant, steps, window); a window needs a bridge
+_K6_CASES = [(v, steps, window) for v in _K6_VARIANTS
+             for steps, window in ((1, None), (16, None), (63, None),
+                                   (63, (13, 50)))
+             if window is None or v != "no_bridge"]
+
+
+@pytest.mark.parametrize("variant,steps,window", _K6_CASES)
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("companion", [True, False])
+def test_k6_kernel_matches_plain(cuda, variant, antithetic, companion, steps,
+                                 window):
+    kw = dict(_K6_VARIANTS[variant], num_paths=20_011, num_steps=steps,
+              antithetic=antithetic, companion=companion, window=window,
+              device=cuda)
+    n0 = ck.svj_path_stats.launches
+    ker = ck.svj_path_stats(_P, 22500.0, 0.25, 11, **kw)
+    torch.cuda.synchronize()
+    assert ck.svj_path_stats.launches == n0 + 1
+    ref = ck.svj_path_stats_plain(_P, 22500.0, 0.25, 11, **kw)
+    assert len(ker) == (5 if variant == "no_bridge" else 6) * (
+        2 if companion else 1)
+    _assert_stats_close(ker, ref)
+
+
+def test_k6_stream_is_shape_free_and_v0_clamped(cuda):
+    kw = dict(_K6_VARIANTS["corridor"], num_steps=9, device=cuda)
+    a = ck.svj_path_stats(_P, 100.0, 0.5, 3, num_paths=5000, **kw)
+    b = ck.svj_path_stats(_P, 100.0, 0.5, 3, num_paths=10_000, **kw)
+    for k in a:
+        torch.testing.assert_close(a[k], b[k][:, :5000], rtol=0, atol=0)
+    # no companion: its volatility is sqrt(v0), as in the reference
+    neg = ck.svj_path_stats(_P.replace(v0=-0.01), 100.0, 0.5, 1,
+                            num_paths=4096, num_steps=12, companion=False,
+                            device=cuda)
+    assert all(bool(torch.isfinite(v).all()) for v in neg.values())
+    with pytest.raises(ValueError):
+        ck.svj_path_stats(_P, 100.0, 0.5, 1, num_paths=64, num_steps=4,
+                          window=(0, 2), device=cuda)
+
+
+@pytest.mark.parametrize("method, args, kernel, launches", [
+    ("price_asian", (22500.0, 22500.0, 0.25), "svj_path_stats", 1),
+    ("price_barrier", (22500.0, 22500.0, 0.25, 24500.0), "svj_path_stats", 1),
+    ("price_one_touch", (22500.0, 0.25, 24500.0), "svj_path_stats", 1),
+    ("price_double_barrier", (22500.0, 22500.0, 0.25, 20500.0, 24500.0),
+     "svj_path_stats", 1),
+    ("price_double_no_touch", (22500.0, 0.25, 20500.0, 24500.0),
+     "svj_path_stats", 1),
+    ("price_lookback", (22500.0, 0.25), "svj_path_stats", 1),
+    ("price_digital", (22500.0, 22500.0, 0.25), "svj_terminal", 1),
+])
+def test_exotic_engine_launch_counts(cuda, method, args, kernel, launches):
+    """Each pricing method launches its kernel once: K6, or K3 for the
+    digital; and the card's price is the CPU's (same words, plain version)
+    to float32 sums."""
+    from mcos_tpu_torch.engine.exotics import ExoticEngine
+
+    before = ck.launch_counts()
+    res = getattr(ExoticEngine(_P, num_paths=20_000, device=cuda),
+                  method)(*args)
+    after = ck.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {kernel: launches}
+    ref = getattr(ExoticEngine(_P, num_paths=20_000, device="cpu"),
+                  method)(*args)
+    assert ck.launch_counts() == after
+    assert res.keys() == ref.keys()
+    np.testing.assert_allclose(res["price"], ref["price"], rtol=2e-4)
+    np.testing.assert_allclose(res["std_error"], ref["std_error"], rtol=2e-3)
+
+
+def test_exotic_greeks_on_card(cuda):
+    """Autograd Greeks run the twin (no launch); discrete-barrier Greeks
+    re-price five times on K6."""
+    from mcos_tpu_torch.engine.exotics import ExoticEngine
+
+    eng = ExoticEngine(_P, num_paths=20_000, device=cuda)
+    before = ck.launch_counts()
+    g = eng.greeks(22500.0, 22500.0, 0.25, kind="asian")
+    assert ck.launch_counts() == before
+    assert g["method"] == "pathwise_ad" and 0.3 < g["delta"] < 0.8
+    g = eng.greeks(22500.0, 22500.0, 0.25, kind="barrier", barrier=24500.0,
+                   monitoring="bridge")
+    assert ck.launch_counts() == before and np.isfinite(g["vega"])
+    g = eng.greeks(22500.0, 22500.0, 0.25, kind="barrier", barrier=24500.0)
+    assert ck.launch_counts()["svj_path_stats"] \
+        == before["svj_path_stats"] + 5
+    assert g["method"] == "crn_fd_homogeneity" and np.isfinite(g["delta"])
+
+
+def test_handle_exotic_on_card(cuda):
+    from mcos_tpu_torch.api import server
+
+    before = ck.launch_counts()
+    res = server.handle_exotic(
+        {"spot": 22500.0, "T": 0.25, "kind": "double_barrier",
+         "strike": 22500.0, "barrier": 24500.0, "barrier_lo": 20500.0,
+         "num_paths": 20_000}, device=cuda)
+    assert ck.launch_counts()["svj_path_stats"] \
+        == before["svj_path_stats"] + 1
+    assert np.isfinite(res["price"]) and res["std_error"] > 0
+    assert res["monitoring"] == "bridge"

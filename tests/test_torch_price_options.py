@@ -103,14 +103,17 @@ def test_tilted_twin_weights_are_a_likelihood_ratio():
     the control variate assumes."""
     p = SVJParams(**_FIELDS)
     s, v, g, log_w = psim.simulate_terminal_tilted(
-        p, 22500.0, 0.3, _gen(5), 0.4, 1 << 15, 16, companion=True)
+        p, 22500.0, 0.3, _gen(5), 0.4, 1 << 15, 16, companion=True,
+        device="cpu")
     w = torch.exp(log_w).double()
     assert s.shape == v.shape == g.shape == log_w.shape == (2, 1 << 15)
     assert abs(float(w.mean()) - 1.0) < 5 * float(w.std()) / np.sqrt(w.numel())
     # Same draws, shift 0: the untilted twin (weights 1).
     s0, _, _, lw0 = psim.simulate_terminal_tilted(p, 22500.0, 0.3, _gen(5),
-                                                  0.0, 1024, 16)
-    s1, _, _ = psim.simulate_terminal(p, 22500.0, 0.3, _gen(5), 1024, 16)
+                                                  0.0, 1024, 16,
+                                                  device="cpu")
+    s1, _, _ = psim.simulate_terminal(p, 22500.0, 0.3, _gen(5), 1024, 16,
+                                      device="cpu")
     np.testing.assert_array_equal(lw0.numpy(), 0.0)
     np.testing.assert_array_equal(s0.numpy(), s1.numpy())
 
@@ -264,7 +267,8 @@ def test_convergence_prefix_means_are_exact():
     prices, errors = ppricer._convergence_core(
         p, 22500.0, 22500.0, 0.25, _gen(4), num_paths=4096, num_steps=16,
         is_call=True, antithetic=True, counts=counts, device="cpu")
-    s, _, _ = psim.simulate_terminal(p, 22500.0, 0.25, _gen(4), 4096, 16)
+    s, _, _ = psim.simulate_terminal(p, 22500.0, 0.25, _gen(4), 4096, 16,
+                                     device="cpu")
     pay = torch.clamp(s.double() - 22500.0, min=0.0).mean(dim=0).numpy()
     disc = np.exp(-0.065 * 0.25)
     for i, n in enumerate(counts):

@@ -178,12 +178,13 @@ def test_sobol_qe_draws_match(seed, steps):
     Acklam normals (and the bridge for z_x) within float32 noise."""
     n = 3000
     ref = jsobol.sobol_qe_draws(n, steps, seed=seed, jump_uniforms=False)
-    got = psobol.sobol_qe_draws(n, steps, seed=seed, jump_uniforms=False)
+    got = psobol.sobol_qe_draws(n, steps, seed=seed, jump_uniforms=False,
+                                device="cpu")
     assert ref[2] is None and got[2] is None
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
     for i in (0, 3):
         assert got[i].shape == (steps, n) and got[i].dtype == torch.float32
         np.testing.assert_allclose(got[i].numpy(), np.asarray(ref[i]),
                                    rtol=0, atol=1e-6)
-    u = psobol.sobol_qe_draws(n, steps, seed=seed)[2].numpy()
+    u = psobol.sobol_qe_draws(n, steps, seed=seed, device="cpu")[2].numpy()
     assert u.shape == (steps, n) and 0.0 <= u.min() and u.max() < 1.0

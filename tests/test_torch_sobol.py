@@ -61,14 +61,15 @@ def test_sobol_svj_draws_match(n, steps, seed):
     ref = jsobol.sobol_svj_draws(n, steps, seed=seed, layout="steps",
                                  jump_uniforms=False)
     got = psobol.sobol_svj_draws(n, steps, seed=seed, layout="steps",
-                                 jump_uniforms=False)
+                                 jump_uniforms=False, device="cpu")
     assert ref[2] is None and got[2] is None
     for r, g in ((ref[0], got[0]), (ref[1], got[1]), (ref[3], got[3])):
         assert g.shape == (steps, n) and g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
                                    atol=1e-5)
     # paths layout is the transpose; jump uniforms come from a Generator.
-    paths = psobol.sobol_svj_draws(n, steps, seed=seed, layout="paths")
+    paths = psobol.sobol_svj_draws(n, steps, seed=seed, layout="paths",
+                                   device="cpu")
     np.testing.assert_array_equal(paths[0].numpy(), got[0].numpy().T)
     u = paths[2].numpy()
     assert u.shape == (n, steps) and 0.0 <= u.min() and u.max() < 1.0
