@@ -20,8 +20,16 @@
    bridge, single barrier above, corridor, each with the companion leg;
    corridor with a step window and no companion) and at 252 steps, every
    output against its plain version on the same Philox words, -inf
-   matching -inf on every path. Each is timed with CUDA events beside its
-   plain version and its bound.
+   matching -inf on every path;
+   K7 `hhw_terminal` at 200 000 pairs × 128 (and 127) steps, K8
+   `svcj_terminal` at 200 000 pairs × 252 (and 63) steps, K9
+   `svj_terminal_td` at 200 000 pairs × 512 (and 63) steps over three
+   segments of different θ, ξ, λ and at 4096 steps with Σλᵢ·dt = 60 (a
+   count table longer than 64 entries), each on the same Philox words as
+   its plain version, with and without the companion leg where it has one; K7 also
+   against the exact discrete martingale E[D·S_T] = S0·e^{-qT} and the
+   Vasicek bond. Each is timed with CUDA events beside its plain version
+   and its bound.
 4. Main path, with every launch count set to 0 first: the port's HTTP
    server on 127.0.0.1 (GET /api/health; the default POST /api/price solo
    and as 4 concurrent requests that the coalescer batches; a degenerate
@@ -49,13 +57,26 @@
    against a bump-and-reprice) and by re-pricing (discrete barrier), and 5
    warm Asian requests for latency. Then the counts show K6 launched once
    per priced request and K3 once per digital.
-7. Prints the kernels' JSON line, the card line and, last, the result line
+7. The model families' path, with the counts set to 0 again: a new server
+   on 127.0.0.1 answers POST /api/hhw (price against `bsm_hullwhite` at
+   T = 1 and T = 10 with the variance frozen; impact; greeks against a
+   bump-and-reprice on K7; a correlation matrix that is not positive
+   definite → 400), POST /api/svcj (price and compare against
+   `svcj_cos_price`; smile; greeks) and POST /api/termsvj (price against
+   its own cos_price, also at Σλᵢ·dt = 60; compare; smile; varswap;
+   forward_start; cliquet; greeks; calibrate, on the host, recovering the
+   segments behind two exact chains; american → 501; no segments → 400), and
+   5 warm price requests per route for latency. Then the counts show K7,
+   K8 and K9 launched as often as the priced requests say, and K1-K6 not
+   at all.
+8. Prints the kernels' JSON line, the card line and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Long output goes to chiprun_out/chip_smoke.json.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -129,6 +150,16 @@ OPS = {
     "svj_terminal_qe_from_draws": 3 + (38 / 4 + 4 + 1) + QE_COMMON
     + QE_AT_ZERO + 4 + 2 + 2 * 3,
 }
+# K7 per pair-step: one Philox call, 3 uniforms, 1.5 Box-Muller pairs; the
+# Cholesky mixes zv 2 and zr 3; dW1, dWv and the OU shock 3; two branches of
+# 12 (max, sqrt, log S 3, v 4, the rate integral 1, the OU step 2).
+OPS["hhw_terminal"] = 38 + 3 * 4 + 1.5 * 8 + 2 + 3 + 3 + 2 * 12
+# K8 per pair-step, no jump in the step pair: two Philox calls per two
+# steps, 4 uniforms, 1.5 Box-Muller pairs, the jump compare 1, dW1 1, dW2
+# 2; two branches of 8 (max, sqrt, log S 2, v 4); the companion sum 1.
+OPS["svcj_terminal"] = 38 + 4 * 4 + 1.5 * 8 + 1 + 3 + 2 * 8 + 1
+# K9 per pair-step: K3's count, three table loads and kappa dt theta_i.
+OPS["svj_terminal_td"] = OPS["svj_terminal"] + 3 + 1
 # K6 per antithetic pair-step. Shared by the pair: one Philox call, 4
 # uniforms, 1.5 Box-Muller pairs, dW1 1, dW2 2, the jump compare 1.
 K6_SHARED = 38 + 4 * 4 + 1.5 * 8 + 3 + 1
@@ -474,15 +505,191 @@ def check_k6(device, ck, params):
     return out
 
 
-def kernel_resources(lib_path: str) -> dict:
-    """{kernel: (registers, stack bytes)} of K6's instantiations, from
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K7, K8, K9 against their plain versions
+# ─────────────────────────────────────────────────────────────────────────────
+FAMILY_PAIRS = 200_000    # HHWRequest, SVCJRequest and TermSVJRequest default
+TD_SEGMENTS = [{"t_end": 0.08, "theta": 0.04, "xi": 0.5, "lambda_j": 1.0},
+               {"t_end": 0.16, "theta": 0.06, "xi": 0.7, "lambda_j": 2.0},
+               {"t_end": 0.25, "theta": 0.09, "xi": 0.9, "lambda_j": 4.0}]
+# The /api/termsvj body with 60 expected jumps (sum of lambda_i dt = 60):
+# beyond the reference count table's 64 entries, whose mean is 5.6 % short
+# there. 4096 steps, so that one Bernoulli test per step (lambda dt = 1.5 %)
+# stays close to the oracle's Poisson clock: at 512 steps the scheme's own
+# bias is 2 %.
+TD_HEAVY = {"T": 3.0, "num_steps": 4096, "segments": [
+    {"t_end": 3.0, "theta": 0.04, "xi": 0.5, "lambda_j": 20.0}]}
+
+
+def compare_family(name, ker, ref, labels):
+    """A family kernel against its plain version on the same Philox words.
+    K7-K9 round every operation on their carries as the plain versions do
+    (csrc/philox.cuh: fmul, fadd, fsub), so what is left is the last exp:
+    rtol 2e-6 on every output (an ulp or two of float32). Returns (max abs
+    error over the outputs, {label: bit-equal share})."""
+    worst, exact = 0.0, {}
+    for label, a, b in zip(labels, ker, ref):
+        check((a is None) == (b is None), f"{name}: {label} present in both")
+        if a is None:
+            continue
+        check(a.shape == b.shape, f"{name}: {label} shape")
+        check(bool(torch.isfinite(a).all()), f"{name}: {label} finite")
+        err = rel_err(a, b)
+        check(err < 2e-6, f"{name}: {label} rel err {err:.3e} (rtol 2e-6)")
+        worst = max(worst, float((a - b).abs().max()))
+        exact[label] = float((a == b).float().mean())
+    log(f"{name}: max abs err {worst:.3e}, bit-equal shares "
+        f"{ {k: round(v, 6) for k, v in exact.items()} }")
+    return worst, exact
+
+
+def time_family(name, kernel, plain, args, kw, steps, n_out, in_bytes=0):
+    ms = cuda_ms(lambda: kernel(*args, **kw))
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=2)
+    b = bound(name, FAMILY_PAIRS * steps, in_bytes,
+              n_out * 2 * FAMILY_PAIRS * 4)
+    log(f"{name} at {FAMILY_PAIRS} pairs x {steps} steps: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {b['ops_per_unit']:.1f} per pair-step)")
+    return {"ms": ms, "plain_ms": plain_ms, "steps": steps, **b}
+
+
+def check_k7(device, ck, hhw):
+    """K7 at the route's width, word for word against its plain version,
+    and its own output against the model's two exact identities."""
+    t0 = time.perf_counter()
+    p = hhw.HHWParams(kappa=2.0, theta=0.05, xi=0.4, v0=0.04, a=0.1, b=0.05,
+                      sigma_r=0.012, r0=0.05, rho_sv=-0.6, rho_sr=0.3,
+                      rho_vr=0.1, q=0.01)
+    T, errs, exact = 2.0, [], {}
+    for steps, antithetic in ((128, True), (127, True), (127, False)):
+        kw = dict(num_paths=FAMILY_PAIRS, num_steps=steps,
+                  antithetic=antithetic, device=device)
+        ker = ck.hhw_terminal(p, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        ref = ck.hhw_terminal_plain(p, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        err, shares = compare_family(
+            f"K7 {steps} steps, {2 if antithetic else 1} branch(es)", ker,
+            ref, ("S", "D"))
+        errs.append(err)
+        exact = exact or shares
+        if steps == 128:
+            s, d = ker[0].double(), ker[1].double()
+    # E[D S_T] = S0 e^{-qT} exactly at any step count (left-point rule);
+    # E[D] carries the left-point O(dt) bias: 2e-4 relative at this T and
+    # step count, the allowance the reference's own test gives it.
+    ds = (s * d).mean(dim=0)
+    m, se = float(ds.mean()), float(ds.std()) / np.sqrt(FAMILY_PAIRS)
+    want = SPOT * np.exp(-p.q * T)
+    log(f"K7 martingale E[D S_T] {m:.4f} vs S0 e^-qT {want:.4f} "
+        f"(4 se = {4 * se:.4f})")
+    check(abs(m - want) < 4 * se, "K7 discounted spot is a martingale")
+    dm = d.mean(dim=0)
+    bond, bse = float(dm.mean()), float(dm.std()) / np.sqrt(FAMILY_PAIRS)
+    exact_bond = hhw.vasicek_bond(p, T)
+    log(f"K7 zero-coupon E[D] {bond:.6f} vs Vasicek {exact_bond:.6f} "
+        f"(4 se + 2e-4 = {4 * bse + 2e-4:.6f})")
+    check(abs(bond - exact_bond) < 4 * bse + 2e-4, "K7 bond vs vasicek_bond")
+    kw = dict(num_paths=FAMILY_PAIRS, num_steps=128, device=device)
+    out = time_family("hhw_terminal", ck.hhw_terminal, ck.hhw_terminal_plain,
+                      (p, SPOT, T, 43), kw, 128, 2)
+    log(f"K7 phase {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max(errs), "bit_equal_share": exact,
+            "martingale": {"mean": m, "exact": want, "se": se},
+            "bond": {"mc": bond, "exact": exact_bond, "se": bse}, **out}
+
+
+def check_k8(device, ck, SVCJParams):
+    """K8 at the route's width, word for word against its plain version."""
+    t0 = time.perf_counter()
+    p = SVCJParams()
+    errs, exact = [], {}
+    for steps, T, companion in ((252, 1.0, True), (252, 1.0, False),
+                                (63, 0.25, True)):
+        kw = dict(num_paths=FAMILY_PAIRS, num_steps=steps, antithetic=True,
+                  companion=companion, device=device)
+        ker = ck.svcj_terminal(p, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        ref = ck.svcj_terminal_plain(p, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        err, shares = compare_family(
+            f"K8 {steps} steps, companion {companion}", ker, ref,
+            ("S", "v", "G"))
+        errs.append(err)
+        exact = exact or shares
+    kw = dict(num_paths=FAMILY_PAIRS, num_steps=252, companion=True,
+              device=device)
+    out = time_family("svcj_terminal", ck.svcj_terminal,
+                      ck.svcj_terminal_plain, (p, SPOT, 1.0, 43), kw, 252, 3)
+    log(f"K8 phase {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max(errs), "bit_equal_share": exact, **out}
+
+
+def check_k9(device, ck, tdsvj, params):
+    """K9 at the route's width, word for word against its plain version at
+    every shape the families' path gives it: three segments of different
+    theta, xi and lambda at 512 and 63 steps, and the 60-expected-jumps
+    body's 4096 steps over one segment (the only shape whose count table is
+    longer than 64 entries and whose (4, steps) table is 64 KB)."""
+    t0 = time.perf_counter()
+    cases = [(TD_SEGMENTS, TD_SEGMENTS[-1]["t_end"], 512, True),
+             (TD_SEGMENTS, TD_SEGMENTS[-1]["t_end"], 512, False),
+             (TD_SEGMENTS, TD_SEGMENTS[-1]["t_end"], 63, True),
+             (TD_HEAVY["segments"], TD_HEAVY["T"], TD_HEAVY["num_steps"],
+              True)]
+    errs, exact, heavy = [], {}, {}
+    for segments, T, steps, companion in cases:
+        seg = [np.asarray([s[k] for s in segments])
+               for k in ("t_end", "theta", "xi", "lambda_j")]
+        levels = tdsvj.step_param_arrays(*seg, T, steps)
+        check(len({float(x) for x in levels[0]}) == len(segments),
+              "one theta level per segment")
+        kw = dict(num_paths=FAMILY_PAIRS, num_steps=steps, antithetic=True,
+                  companion=companion, device=device)
+        ker = ck.svj_terminal_td(params, *levels, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        ref = ck.svj_terminal_td_plain(params, *levels, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        err, shares = compare_family(
+            f"K9 {steps} steps, companion {companion}", ker, ref,
+            ("S", "v", "G"))
+        errs.append(err)
+        exact = exact or shares
+        if segments is TD_HEAVY["segments"]:
+            cdf_len = len(ck.poisson_binom_count_table(levels[2] * T / steps))
+            log(f"K9 {steps} steps, sum lambda dt = "
+                f"{float(levels[2].sum()) * T / steps:.1f}: count table of "
+                f"{cdf_len} entries, step table {4 * steps * 4} bytes")
+            check(cdf_len > 64, "the heavy shape's count table passes 64")
+            heavy = {"steps": steps, "cdf_len": cdf_len, "max_abs_err": err,
+                     "bit_equal_share": shares}
+    T = TD_SEGMENTS[-1]["t_end"]
+    seg = [np.asarray([s[k] for s in TD_SEGMENTS])
+           for k in ("t_end", "theta", "xi", "lambda_j")]
+    levels = tdsvj.step_param_arrays(*seg, T, 512)
+    kw = dict(num_paths=FAMILY_PAIRS, num_steps=512, companion=True,
+              device=device)
+    out = time_family("svj_terminal_td", ck.svj_terminal_td,
+                      ck.svj_terminal_td_plain,
+                      (params, *levels, SPOT, T, 43), kw, 512, 3,
+                      in_bytes=4 * 512 * 4 + 64 * 8)
+    log(f"K9 phase {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max(errs), "bit_equal_share": exact,
+            "heavy": heavy, **out}
+
+
+def kernel_resources(lib_path: str, pattern: str = "svj_stats_kernel") -> dict:
+    """{kernel: (registers, stack bytes)} of the instantiations whose name
+    matches `pattern` (K6's by default), from
     `cuobjdump --dump-resource-usage`; empty when the tool is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     txt = subprocess.run([tool, "--dump-resource-usage", lib_path],
                          capture_output=True, text=True, timeout=120).stdout
-    found = re.findall(r"Function (\S*svj_stats_kernel\S*):\s*REG:(\d+) "
+    found = re.findall(r"Function (\S*(?:" + pattern + r")\S*):\s*REG:(\d+) "
                        r"STACK:(\d+)", txt)
     return {name: (int(reg), int(stack)) for name, reg, stack in found}
 
@@ -1027,6 +1234,238 @@ def exotics_path(device, ck, ox, ExoticEngine, gbm_params, server):
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Model families' path
+# ─────────────────────────────────────────────────────────────────────────────
+def families_path(device, ck, hhw, svcj, tdsvj, server):
+    """POST /api/hhw, /api/svcj and /api/termsvj over HTTP on a fresh
+    server, with the launch counts set to 0 just before; K7, K8 and K9 must
+    serve every priced request and K1-K6 none."""
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    expect = {"hhw_terminal": 0, "svcj_terminal": 0, "svj_terminal_td": 0}
+    out = {"requests": {}}
+
+    def ask(route, what, body, kernel=None, n=1):
+        status, res, ms = post(base, body, path=f"/api/{route}")
+        check(status == 200 and "elapsed_ms" in res,
+              f"{what}: status {status}")
+        if kernel:
+            expect[kernel] += n
+        out["requests"][what] = dict(res, latency_ms=ms)
+        return res
+
+    def refused(route, what, body, code, needle):
+        try:
+            post(base, body, path=f"/api/{route}")
+            check(False, f"{what} must answer {code}")
+        except urllib.error.HTTPError as e:
+            check(e.code == code, f"{what}: status {e.code}")
+            detail = json.loads(e.read())["detail"]
+            check(needle in str(detail), f"{what}: detail {detail!r}")
+            log(f"{what}: {code} {detail!r}")
+
+    def warm_latency(route, body, kernel):
+        lat = []
+        for _ in range(5):
+            status, res, ms = post(base, body, path=f"/api/{route}")
+            check(status == 200 and np.isfinite(res["price"]),
+                  f"warm /api/{route}")
+            lat.append(ms)
+        expect[kernel] += 5
+        out[f"warm_{route}_ms"] = statistics.median(lat)
+        out[f"warm_{route}_server_ms"] = res["elapsed_ms"]
+        log(f"warm /api/{route} price latency: median "
+            f"{statistics.median(lat):.2f} ms over 5 "
+            f"({[round(x, 2) for x in lat]}); server-side elapsed_ms "
+            f"{res['elapsed_ms']}")
+
+    try:
+        # ── /api/hhw ────────────────────────────────────────────────────
+        # Variance frozen (xi = 1e-4, theta = v0): GBM + Vasicek rates, the
+        # closed form of `bsm_hullwhite`. The spot and rate steps are exact
+        # then; the left-point rate integral leaves an O(dt) bias, allowed
+        # 0.1 % of the price beside 3 se.
+        sig = 0.2
+        frozen = {"spot": SPOT, "strike": STRIKE, "xi": 1e-4,
+                  "theta": sig**2, "v0": sig**2, "rho_sv": 0.0}
+        for T in (1.0, 10.0):
+            res = ask("hhw", f"hhw price frozen variance T={T}",
+                      dict(frozen, T=T), "hhw_terminal")
+            req = server.schemas.HHWRequest(**dict(frozen, T=T))
+            p = hhw.HHWParams(**{k: getattr(req, k) for k in (
+                "kappa", "theta", "xi", "v0", "a", "b", "sigma_r", "r0",
+                "rho_sv", "rho_sr", "rho_vr", "q")})
+            ref = hhw.bsm_hullwhite(p, SPOT, STRIKE, T, sig, True)
+            tol = 3 * res["std_error"] + 1e-3 * ref
+            log(f"/api/hhw T={T}: {res['price']:.4f} ± "
+                f"{res['std_error']:.4f} vs bsm_hullwhite {ref:.4f} (tol 3 se "
+                f"+ 0.1% = {tol:.4f}); bond {res['zero_coupon_mc']:.6f} vs "
+                f"{res['zero_coupon_exact']:.6f}")
+            check(res["num_steps"] == 128 and res["num_paths_used"]
+                  == FAMILY_PAIRS, "hhw at the schema's width")
+            check(abs(res["price"] - ref) < tol, f"hhw T={T} vs bsm_hullwhite")
+        # The premium of stochastic rates, on common random numbers, against
+        # the closed form's own difference (the joint standard error is a
+        # loose allowance: the two legs share their normals).
+        res = ask("hhw", "hhw impact", dict(frozen, T=5.0, mode="impact"),
+                  "hhw_terminal", n=2)
+        req = server.schemas.HHWRequest(**dict(frozen, T=5.0))
+        p = hhw.HHWParams(**{k: getattr(req, k) for k in (
+            "kappa", "theta", "xi", "v0", "a", "b", "sigma_r", "r0",
+            "rho_sv", "rho_sr", "rho_vr", "q")})
+        ref = (hhw.bsm_hullwhite(p, SPOT, STRIKE, 5.0, sig, True)
+               - hhw.bsm_hullwhite(dataclasses.replace(p, sigma_r=1e-8),
+                                   SPOT, STRIKE, 5.0, sig, True))
+        log(f"/api/hhw impact T=5: {res['price']:.4f}, deterministic rates "
+            f"{res['price_deterministic_rates']:.4f}, premium "
+            f"{res['stochastic_rates_premium']:.4f} vs closed form {ref:.4f} "
+            f"(4 joint se = {4 * res['std_error']:.4f})")
+        check(res["stochastic_rates_premium"] > 0
+              and abs(res["stochastic_rates_premium"] - ref)
+              < 4 * res["std_error"], "hhw impact vs closed-form premium")
+        body = {"spot": SPOT, "strike": STRIKE, "T": 5.0}
+        g = ask("hhw", "hhw greeks", dict(body, T=1.0, mode="greeks"))
+        h = 0.01
+        hi_p = ask("hhw", "hhw spot +1%", dict(body, T=1.0,
+                                               spot=SPOT * (1 + h)),
+                   "hhw_terminal")["price"]
+        lo_p = ask("hhw", "hhw spot -1%", dict(body, T=1.0,
+                                               spot=SPOT * (1 - h)),
+                   "hhw_terminal")["price"]
+        fd = (hi_p - lo_p) / (2 * h * SPOT)
+        log(f"/api/hhw delta: autograd {g['delta']:.5f} vs bump-and-reprice "
+            f"on K7 {fd:.5f} (window 0.02); vega/vol pt "
+            f"{g['vega_per_vol_point']:.2f}, rate vega {g['rate_vega']:.2f}, "
+            f"rho rate {g['rho_rate']:.2f}")
+        check(abs(g["delta"] - fd) < 0.02, "hhw delta vs bump-and-reprice")
+        check(all(np.isfinite(g[k]) for k in (
+            "vega_per_vol_point", "rate_vega", "rho_rate")), "hhw greeks")
+        refused("hhw", "hhw correlation not positive definite",
+                dict(body, rho_sv=-0.999, rho_sr=0.999, rho_vr=0.999), 400,
+                "positive definite")
+        warm_latency("hhw", dict(body, T=1.0), "hhw_terminal")
+
+        # ── /api/svcj ───────────────────────────────────────────────────
+        sv = {"spot": SPOT, "T": 0.25}
+        p = server.schemas.SVCJParamsRequest().to_params()
+        res = ask("svcj", "svcj price", sv, "svcj_terminal")
+        cos = float(svcj.svcj_cos_price(p, SPOT, [SPOT], 0.25, True)[0])
+        tol = 4 * res["std_error"] + 0.01 * cos
+        log(f"/api/svcj price: {res['price']:.4f} ± {res['std_error']:.4f} vs "
+            f"svcj_cos_price {cos:.4f} (tol 4 se + 1% = {tol:.4f})")
+        check(res["num_steps"] == STEPS_DEFAULT and res["frac_nonfinite"] == 0,
+              "svcj at 63 steps, all paths finite")
+        check(abs(res["price"] - cos) < tol, "svcj price vs COS")
+        res = ask("svcj", "svcj compare T=1", dict(sv, T=1.0, mode="compare"),
+                  "svcj_terminal")
+        check(len(res["rows"]) == 5, "svcj compare: 5 rows")
+        for row in res["rows"]:
+            tol = 4 * row["std_error"] + 0.01 * row["cos_price"]
+            check(abs(row["mc_price"] - row["cos_price"]) < tol,
+                  f"svcj compare K={row['strike']:.0f}: {row['mc_price']:.3f}"
+                  f" vs {row['cos_price']:.3f} (tol {tol:.3f})")
+        log("/api/svcj compare T=1 (252 steps): err_sigmas "
+            f"{[round(r['err_sigmas'], 2) for r in res['rows']]}")
+        res = ask("svcj", "svcj smile", dict(sv, mode="smile"))
+        check(all(v is not None and 0.05 < v < 1.0 for v in res["iv"]),
+              f"svcj smile {res['iv']}")
+        check(res["iv"][0] > res["iv"][-1], "svcj smile is skewed down")
+        g = ask("svcj", "svcj greeks", dict(sv, mode="greeks"))
+        check(0.3 < g["delta"] < 0.9 and g["vega"] > 0, f"svcj greeks {g}")
+        warm_latency("svcj", sv, "svcj_terminal")
+
+        # ── /api/termsvj ────────────────────────────────────────────────
+        td = {"spot": SPOT, "T": 0.25, "segments": TD_SEGMENTS}
+        res = ask("termsvj", "termsvj price", td, "svj_terminal_td")
+        tol = 4 * res["std_error"] + 0.01 * res["cos_price"]
+        log(f"/api/termsvj price: {res['price']:.4f} ± "
+            f"{res['std_error']:.4f} vs its cos_price {res['cos_price']:.4f} "
+            f"(tol 4 se + 1% = {tol:.4f})")
+        check(abs(res["price"] - res["cos_price"]) < tol, "termsvj vs COS")
+        check(res["segments"]["lams"] == [1.0, 2.0, 4.0], "termsvj segments")
+        # TD_HEAVY: the shape `check_k9` also holds against the plain
+        # version word for word.
+        heavy = dict(TD_HEAVY, spot=SPOT)
+        res = ask("termsvj", "termsvj price, 60 expected jumps", heavy,
+                  "svj_terminal_td")
+        tol = 4 * res["std_error"] + 0.01 * res["cos_price"]
+        log(f"/api/termsvj lambda T = 60: {res['price']:.4f} ± "
+            f"{res['std_error']:.4f} vs cos_price {res['cos_price']:.4f} "
+            f"(tol {tol:.4f})")
+        check(abs(res["price"] - res["cos_price"]) < tol,
+              "termsvj at 60 expected jumps vs COS")
+        res = ask("termsvj", "termsvj compare", dict(td, mode="compare"),
+                  "svj_terminal_td")
+        for row in res["rows"]:
+            tol = 4 * row["std_error"] + 0.01 * row["cos_price"]
+            check(abs(row["price"] - row["cos_price"]) < tol,
+                  f"termsvj compare K={row['strike']:.0f}")
+        log("/api/termsvj compare: abs_error_sigma "
+            f"{[round(r['abs_error_sigma'], 2) for r in res['rows']]}")
+        res = ask("termsvj", "termsvj smile", dict(td, mode="smile"))
+        check(all(0.05 < r["iv"] < 1.5 for r in res["smile"]),
+              "termsvj smile ivs")
+        res = ask("termsvj", "termsvj varswap", dict(td, mode="varswap"))
+        log(f"/api/termsvj varswap: closed {res['fair_variance']:.6f}, MC "
+            f"{res['mc_fair_variance']:.6f} ± {res['mc_std_error']:.6f} "
+            f"({res['mc_vs_closed_sigmas']:.2f} sigmas)")
+        check(res["mc_vs_closed_sigmas"] < 4, "termsvj varswap MC vs closed")
+        res = ask("termsvj", "termsvj forward_start",
+                  dict(td, mode="forward_start", t1=0.1))
+        check(0 < res["price"] < 0.2 and res["std_error"] > 0
+              and abs(res["t1_effective"] - 0.1) < 1e-3,
+              f"termsvj forward_start {res}")
+        res = ask("termsvj", "termsvj cliquet", dict(td, mode="cliquet"))
+        check(0 < res["price"] < 4 * 0.08 and res["num_steps"] == 512,
+              f"termsvj cliquet {res}")
+        g = ask("termsvj", "termsvj greeks", dict(td, mode="greeks"))
+        check(0.3 < g["delta"] < 0.9 and g["vega"] > 0, f"termsvj greeks {g}")
+        refused("termsvj", "termsvj american", dict(td, mode="american"),
+                501, "not ported")
+        refused("termsvj", "termsvj without segments",
+                {"spot": SPOT, "T": 0.25}, 400, "segment")
+        # calibrate: the host-only bootstrap (scipy differential evolution
+        # over `cos_price_td`, no kernel) must recover, from two exact
+        # three-strike chains, the two segments that made them.
+        truth = [{"t_end": 0.25, "theta": 0.05, "xi": 0.6, "lambda_j": 1.5},
+                 {"t_end": 0.5, "theta": 0.08, "xi": 0.8, "lambda_j": 3.0}]
+        seg = [np.asarray([x[k] for x in truth])
+               for k in ("t_end", "theta", "xi", "lambda_j")]
+        chain = [SPOT * m for m in (0.9, 1.0, 1.1)]
+        shared = server.schemas.SVJParamsRequest().to_params()
+        market = [[float(x) for x in tdsvj.cos_price_td(
+            shared, SPOT, chain, T, *seg, True)] for T in (0.25, 0.5)]
+        res = ask("termsvj", "termsvj calibrate",
+                  {"spot": SPOT, "mode": "calibrate", "strikes": chain,
+                   "maturities": [0.25, 0.5], "market_prices": market})
+        log(f"/api/termsvj calibrate: {res['segments']} in "
+            f"{res['elapsed_ms']:.0f} ms (host)")
+        for fit, want in zip(res["segments"], truth):
+            check(all(abs(fit[k] - want[k]) < 1e-2 * want[k] for k in want),
+                  f"termsvj calibrate recovers {want}: {fit}")
+        warm_latency("termsvj", td, "svj_terminal_td")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    counts = ck.launch_counts()
+    log(f"launch counts over the families' path: {counts} (expected "
+        f"{expect})")
+    for name, n in counts.items():
+        check(n == expect.get(name, 0), f"{name} launched {n} times, "
+              f"expected {expect.get(name, 0)}")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"families' path: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
@@ -1034,10 +1473,10 @@ def main() -> None:
     from mcos_tpu_torch import bench
     from mcos_tpu_torch.api import server
     from mcos_tpu_torch.engine.exotics import ExoticEngine
-    from mcos_tpu_torch.models.params import SVJParams, gbm_params
+    from mcos_tpu_torch.models.params import SVCJParams, SVJParams, gbm_params
     from mcos_tpu_torch.ops import cuda_kernels as ck
     from mcos_tpu_torch.ops import exotics as ox
-    from mcos_tpu_torch.ops import sobol
+    from mcos_tpu_torch.ops import hhw, sobol, svcj, tdsvj
     from mcos_tpu_torch.ops.bs import bs_price
     from mcos_tpu_torch.ops.cos_pricer import cos_price
 
@@ -1052,6 +1491,10 @@ def main() -> None:
         f"{sorted({v[0] for v in resources.values()})}; corridor + companion"
         f" (registers, stack bytes): {fattest or 'cuobjdump not found'}")
 
+    fam = kernel_resources(ck._LIBRARY.path,
+                           "hhw_kernel|svcj_kernel|svj_td_kernel")
+    log(f"K7-K9 (registers, stack bytes) per instantiation: {fam}")
+
     params = SVJParams()
     k1 = check_k1(device, ck, sobol, params)
     k2 = check_k2(device, ck, bs_price)
@@ -1059,6 +1502,9 @@ def main() -> None:
     k4 = check_prng(device, ck, params, "svj_terminal_qe")
     k5 = check_k5(device, ck, sobol, params)
     k6 = check_k6(device, ck, params)
+    k7 = check_k7(device, ck, hhw)
+    k8 = check_k8(device, ck, SVCJParams)
+    k9 = check_k9(device, ck, tdsvj, params)
     mp = main_path(device, ck, bench, cos_price, bs_price, SVJParams, server)
     op = options_path(device, ck, cos_price, bs_price, SVJParams, server)
     xp = exotics_path(device, ck, ox, ExoticEngine, gbm_params, server)
@@ -1067,6 +1513,7 @@ def main() -> None:
         f"({[round(x, 2) for x in xp['warm_latencies_ms']]}); server-side "
         f"elapsed_ms {xp['server_elapsed_ms']}; exotics path "
         f"{xp['wall_s']:.1f} s")
+    fp = families_path(device, ck, hhw, svcj, tdsvj, server)
 
     # (name, source, TPU kernel body, its check, the path that launched it)
     table = (
@@ -1081,6 +1528,9 @@ def main() -> None:
         ("svj_path_stats", "svj_stats.cu", 1141,
          dict(k6["no bridge + companion"],
               max_abs_err=max(v["max_abs_err"] for v in k6.values())), xp),
+        ("hhw_terminal", "hhw.cu", 1498, k7, fp),
+        ("svcj_terminal", "svcj.cu", 1658, k8, fp),
+        ("svj_terminal_td", "svj_td.cu", 1833, k9, fp),
     )
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
@@ -1093,7 +1543,7 @@ def main() -> None:
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": None}
         for name, src, line, res, path in table]
-    kernels[-1]["variants"] = [
+    kernels[5]["variants"] = [
         {"name": name, **{k: v[k] for k in ("steps", "max_abs_err", "ms",
                                             "plain_ms", "bound_ms",
                                             "bound_by")}}
@@ -1102,8 +1552,10 @@ def main() -> None:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": ck.build_seconds(), "k1": k1,
                    "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6,
-                   "k6_resources": resources, "main_path": mp,
-                   "options_path": op, "exotics_path": xp}, f, indent=1)
+                   "k7": k7, "k8": k8, "k9": k9, "k6_resources": resources,
+                   "k7_k9_resources": fam, "main_path": mp,
+                   "options_path": op, "exotics_path": xp,
+                   "families_path": fp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came
     print(json.dumps({"ok": True, "device": {

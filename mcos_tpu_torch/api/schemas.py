@@ -1,21 +1,22 @@
 """Request schemas of the port's HTTP API: the part of
-`mcos_tpu/api/schemas.py` that `PriceRequest` and `ExoticRequest` need,
-copied unchanged apart from the imports. tests/test_torch_copies.py holds
-the two equal.
+`mcos_tpu/api/schemas.py` that `PriceRequest`, `ExoticRequest`,
+`HHWRequest`, `SVCJRequest` and `TermSVJRequest` need, copied unchanged
+apart from the imports. tests/test_torch_copies.py holds the two equal.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from pydantic import BaseModel, Field
+from pydantic import BaseModel, Field, model_validator
 
 from mcos_tpu_torch.config import DIVIDEND_YIELD, MAX_PATHS, RISK_FREE_RATE
-from mcos_tpu_torch.models.params import SVJParams
+from mcos_tpu_torch.models.params import SVCJParams, SVJParams
 
 # Compute-parameter admission bounds: path counts flow straight into device
 # allocations, so every request field that sizes a buffer is clamped here.
 _PATHS = dict(ge=1_000, le=MAX_PATHS)
+MAX_GRID_POINTS = 256
 
 
 class SVJParamsRequest(BaseModel):
@@ -33,6 +34,40 @@ class SVJParamsRequest(BaseModel):
 
     def to_params(self) -> SVJParams:
         return SVJParams(**self.model_dump())
+
+
+class SVCJParamsRequest(SVJParamsRequest):
+    # The docstring is part of the JSON schema the copies test compares.
+    """SVJ block + the two variance-jump fields (models/params.py:SVCJParams)."""
+    mu_v: float = Field(0.05, ge=0.0, le=1.0,
+                        description="Mean variance jump E[Z_v]")
+    rho_j: float = Field(-0.5, ge=-10.0, le=10.0,
+                         description="Jump correlation loading (Z_s on Z_v)")
+
+    @model_validator(mode="after")
+    def _compensator_exists(self):
+        if self.rho_j * self.mu_v >= 1.0:
+            raise ValueError(
+                f"rho_j*mu_v={self.rho_j * self.mu_v:.3f} >= 1: "
+                "the jump compensator E[e^Z_s] diverges")
+        return self
+
+    def to_params(self) -> SVCJParams:
+        return SVCJParams(**self.model_dump())
+
+
+class SVCJRequest(BaseModel):
+    """POST /api/svcj: correlated price/variance jumps (engine/svcj.py)."""
+    spot: float = Field(gt=0)
+    T: float = Field(gt=0, le=10.0)
+    # "price" | "greeks" | "smile" | "compare" (MC vs COS oracle rows)
+    mode: str = "price"
+    strike: float = 0.0                      # 0 → ATM
+    strikes: Optional[list] = Field(None, max_length=MAX_GRID_POINTS)
+    is_call: bool = True
+    params: SVCJParamsRequest = SVCJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    num_steps: Optional[int] = Field(None, ge=4, le=8192)
 
 
 class DividendItem(BaseModel):
@@ -133,3 +168,84 @@ class ExoticRequest(BaseModel):
     params: SVJParamsRequest = SVJParamsRequest()
     num_paths: int = Field(200_000, **_PATHS)
     with_greeks: bool = False  # delta/vega (AD; CRN-FD for barriers)
+
+
+class HHWRequest(BaseModel):
+    """POST /api/hhw: Heston-Hull-White hybrid pricing (stochastic vol and
+    stochastic rates; engine/hhw.py)."""
+    spot: float = Field(gt=0)
+    strike: float = Field(gt=0)
+    T: float = Field(gt=0, le=30.0)
+    is_call: bool = True
+    mode: str = "price"              # "price" | "greeks" | "impact"
+    # Heston block
+    kappa: float = Field(2.0, gt=0, le=50)
+    theta: float = Field(0.04, gt=0, le=4.0)
+    xi: float = Field(0.4, gt=0, le=10.0)
+    v0: float = Field(0.04, gt=0, le=4.0)
+    rho_sv: float = Field(-0.7, ge=-0.999, le=0.999)
+    # Hull-White block
+    a: float = Field(0.1, gt=0, le=10.0)
+    b: float = Field(0.05, ge=-0.1, le=1.0)
+    sigma_r: float = Field(0.01, ge=0.0, le=0.5)
+    r0: float = Field(0.05, ge=-0.1, le=1.0)
+    rho_sr: float = Field(0.3, ge=-0.999, le=0.999)
+    rho_vr: float = Field(0.0, ge=-0.999, le=0.999)
+    q: float = DIVIDEND_YIELD
+    num_paths: int = Field(200_000, **_PATHS)
+    num_steps: int = Field(128, ge=8, le=1024)
+
+
+class TermSVJSegment(BaseModel):
+    """One piecewise-constant segment of the time-dependent SVJ model:
+    (θ, ξ, λ) on calendar time up to `t_end` (years). Bounds mirror
+    TERM_STRUCTURE_BOUNDS (config.py)."""
+    t_end: float = Field(gt=0.0, le=30.0)
+    theta: float = Field(0.04, ge=0.005, le=2.0)
+    xi: float = Field(0.5, ge=0.05, le=5.0)
+    lambda_j: float = Field(1.0, ge=0.0, le=20.0)
+
+
+class TermSVJRequest(BaseModel):
+    """POST /api/termsvj: one consistent time-dependent SVJ process
+    (ops/tdsvj.py).
+
+    Modes: price (td MC + exact td-COS), compare (MC-vs-oracle rows),
+    smile (exact COS-implied vols), forward_start, cliquet, greeks,
+    varswap, american, calibrate (sequential segment bootstrap against
+    per-expiry chains)."""
+    spot: float = Field(gt=0)
+    T: float = Field(0.25, gt=0, le=10.0)
+    mode: str = "price"
+    strike: float = 0.0                      # 0 → ATM
+    strikes: Optional[list[float]] = Field(None, max_length=MAX_GRID_POINTS)
+    is_call: bool = True
+    # Global (κ, ρ, v0, μ_J, σ_J, r, q); its θ/ξ/λ are ignored in favor of
+    # the segments.
+    params: SVJParamsRequest = SVJParamsRequest()
+    segments: list[TermSVJSegment] = Field(default_factory=list,
+                                           max_length=64)
+    num_paths: int = Field(200_000, **_PATHS)
+    num_steps: int = Field(512, ge=4, le=8192)
+    # forward_start mode: reset date (years); `strike` is then the
+    # performance strike k in max(±(S_T/S_t1 − k), 0), defaulting to 1.0.
+    t1: Optional[float] = Field(None, gt=0.0, le=10.0)
+    # cliquet mode terms.
+    n_periods: int = Field(4, ge=1, le=64)
+    local_floor: float = 0.0
+    local_cap: float = 0.08
+    global_floor: float = 0.0
+    global_cap: float = 1e18
+    notional: float = Field(1.0, gt=0, le=1e12)
+    # calibrate mode inputs: one chain per maturity.
+    maturities: Optional[list[float]] = Field(None,
+                                              max_length=MAX_GRID_POINTS)
+    market_prices: Optional[list[list[float]]] = None
+
+    @model_validator(mode="after")
+    def _segments_ascending(self):
+        ends = [s.t_end for s in self.segments]
+        if any(b <= a for a, b in zip(ends, ends[1:])):
+            raise ValueError("segment t_end values must be strictly "
+                             "ascending")
+        return self

@@ -10,13 +10,19 @@ serving slice).
     POST /api/exotic       — Asian, single and double barriers, one-touch and
                              no-touch digitals, lookback, digital, variance
                              swap; optional Greeks
+    POST /api/hhw          — Heston-Hull-White hybrid: price, greeks, impact
+    POST /api/svcj         — SVCJ: price, greeks, smile, compare
+    POST /api/termsvj      — time-dependent SVJ: price, compare, smile,
+                             forward_start, cliquet, greeks, varswap,
+                             calibrate (american answers 501)
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
 Transport: the stdlib ThreadingHTTPServer. Every device program goes onto
 the device's default stream. Before it serves, `serve` builds the CUDA
 kernels and the default-shape Sobol net, so the first client request does
-not pay for either (kernel K6 of `/api/exotic` is in the same library).
+not pay for either (the kernels of `/api/exotic`, `/api/hhw`, `/api/svcj`
+and `/api/termsvj` are in the same library).
 
     python -m mcos_tpu_torch.api.server --device cuda --port 8000
 """
@@ -28,6 +34,8 @@ import json
 import logging
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
 import torch
 from pydantic import ValidationError
 
@@ -37,7 +45,12 @@ from mcos_tpu_torch.engine.exotics import (
     variance_swap_fair_strike,
 )
 from mcos_tpu_torch.engine.guards import PricingGuard
+from mcos_tpu_torch.engine.hhw import HHWEngine
 from mcos_tpu_torch.engine.pricer import MonteCarloEngine, to_host
+from mcos_tpu_torch.engine.surface import implied_vol
+from mcos_tpu_torch.engine.svcj import SVCJEngine
+from mcos_tpu_torch.engine.termsvj import TDSVJEngine, bootstrap_calibrate_td
+from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
 from mcos_tpu_torch.utils import fastjson
 
 logger = logging.getLogger("mcos_tpu_torch.api")
@@ -321,9 +334,182 @@ def handle_exotic(body: dict, device="cuda") -> dict:
     return out
 
 
+def handle_hhw(body: dict, device="cuda") -> dict:
+    """`/api/hhw` on `device`: Heston-Hull-White hybrid, the JAX handler's
+    contract. Modes price (kernel K7 once), impact (K7 twice, on common
+    random numbers) and greeks (autograd through the torch twin). A
+    correlation matrix that is not positive definite answers 400: each of
+    the three correlations is bounded on its own, which does not bound the
+    matrix."""
+    req = schemas.HHWRequest(**body)
+    start = time.time()
+    params = HHWParams(kappa=req.kappa, theta=req.theta, xi=req.xi,
+                       v0=req.v0, a=req.a, b=req.b, sigma_r=req.sigma_r,
+                       r0=req.r0, rho_sv=req.rho_sv, rho_sr=req.rho_sr,
+                       rho_vr=req.rho_vr, q=req.q)
+    try:
+        hhw_cholesky(params)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    eng = HHWEngine(params, num_paths=req.num_paths,
+                    num_steps=req.num_steps, device=device)
+    if req.mode == "price":
+        out = eng.price(req.spot, req.strike, req.T, is_call=req.is_call)
+    elif req.mode == "greeks":
+        out = eng.greeks(req.spot, req.strike, req.T, is_call=req.is_call)
+    elif req.mode == "impact":
+        out = eng.rate_vol_impact(req.spot, req.strike, req.T,
+                                  is_call=req.is_call)
+    else:
+        raise ApiError(400, f"unknown mode {req.mode!r}")
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_svcj(body: dict, device="cuda") -> dict:
+    """`/api/svcj` on `device`: correlated price/variance jumps, the JAX
+    handler's contract. Modes price and compare (kernel K8 once), greeks
+    (autograd through the torch twin), smile (exact COS-implied vols, host
+    only)."""
+    req = schemas.SVCJRequest(**body)
+    start = time.time()
+    p = req.params.to_params()
+    kwargs = {"num_paths": req.num_paths}
+    if req.num_steps is not None:
+        kwargs["num_steps"] = req.num_steps
+    eng = SVCJEngine(p, device=device, **kwargs)
+    strike = req.strike if req.strike > 0 else req.spot
+    strikes = req.strikes or [m * req.spot
+                              for m in (0.9, 0.95, 1.0, 1.05, 1.1)]
+    if req.mode == "price":
+        out = eng.price(req.spot, strike, req.T, req.is_call)
+    elif req.mode == "greeks":
+        out = eng.greeks(req.spot, strike, req.T, req.is_call)
+    elif req.mode == "smile":
+        out = eng.smile(req.spot, req.T, strikes)
+    elif req.mode == "compare":
+        out = eng.mc_vs_cos(req.spot, strikes, req.T, req.is_call)
+    else:
+        raise ApiError(400, f"unknown mode {req.mode!r} "
+                            "(price|greeks|smile|compare)")
+    warnings = p.validate()
+    if warnings:
+        out["model_warnings"] = warnings
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_termsvj(body: dict, device="cuda") -> dict:
+    """`/api/termsvj` on `device`: one piecewise-constant (θ(t), ξ(t),
+    λ(t)) SVJ process across all expiries, the JAX handler's contract.
+    Modes price and compare (kernel K9 once, beside the exact
+    chained-Riccati COS), smile and calibrate (host only), forward_start,
+    cliquet, greeks and varswap (the torch twins). mode="american" answers
+    501: it waits on the port of engine/american.py."""
+    req = schemas.TermSVJRequest(**body)
+    start = time.time()
+    shared = req.params.to_params()
+
+    if req.mode == "calibrate":
+        if not req.maturities or req.market_prices is None:
+            raise ApiError(400, "calibrate mode needs maturities and "
+                                "market_prices (one chain per maturity)")
+        if not req.strikes:
+            raise ApiError(400, "calibrate mode needs strikes")
+        try:
+            fit = bootstrap_calibrate_td(
+                req.spot, req.maturities, req.strikes,
+                np.asarray(req.market_prices, np.float64), shared,
+                is_call=req.is_call)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        return {
+            "segments": [
+                {"t_end": float(t), "theta": float(th), "xi": float(x),
+                 "lambda_j": float(lm)}
+                for t, th, x, lm in zip(fit["seg_ends"], fit["thetas"],
+                                        fit["xis"], fit["lams"])
+            ],
+            "errors": {str(k): v for k, v in fit["errors"].items()},
+            "elapsed_ms": round((time.time() - start) * 1000, 1),
+        }
+
+    if not req.segments:
+        raise ApiError(400, "need at least one segment")
+    seg_ends = [s.t_end for s in req.segments]
+    thetas = [s.theta for s in req.segments]
+    xis = [s.xi for s in req.segments]
+    lams = [s.lambda_j for s in req.segments]
+    eng = TDSVJEngine(shared, seg_ends, thetas, xis, lams,
+                      num_paths=req.num_paths, num_steps=req.num_steps,
+                      device=device)
+    strike = req.strike if req.strike > 0 else req.spot
+    strikes = req.strikes or [m * req.spot
+                              for m in (0.9, 0.95, 1.0, 1.05, 1.1)]
+
+    if req.mode == "price":
+        out = eng.price(req.spot, strike, req.T, req.is_call)
+        out["cos_price"] = float(
+            eng.cos_chain(req.spot, [strike], req.T, req.is_call)[0])
+        out["segments"] = eng.segments_dict()
+    elif req.mode == "compare":
+        exact = eng.cos_chain(req.spot, strikes, req.T, req.is_call)
+        rows = eng.price_batch(req.spot, strikes, req.T, req.is_call)
+        out = {"rows": [
+            {**row, "cos_price": float(exact[i]),
+             "abs_error_sigma": (abs(row["price"] - float(exact[i]))
+                                 / max(row["std_error"], 1e-12))}
+            for i, row in enumerate(rows)
+        ]}
+    elif req.mode == "smile":
+        prices = eng.cos_chain(req.spot, strikes, req.T, True)
+        smile = []
+        for k, p in zip(strikes, prices):
+            iv = implied_vol(float(p), req.spot, float(k), req.T,
+                             float(shared.r), float(shared.q), True)
+            smile.append({"strike": float(k), "price": float(p),
+                          "iv": iv if iv is not None else 0.0})
+        out = {"smile": smile}
+    elif req.mode == "forward_start":
+        if not (req.t1 and 0.0 < req.t1 < req.T):
+            raise ApiError(400, "forward_start mode needs 0 < t1 < T")
+        k_perf = req.strike if req.strike > 0 else 1.0
+        try:
+            out = eng.price_forward_start(req.spot, req.t1, req.T,
+                                          k=k_perf, is_call=req.is_call)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        out["segments"] = eng.segments_dict()
+    elif req.mode == "cliquet":
+        out = eng.price_cliquet(
+            req.T, n_periods=req.n_periods, local_floor=req.local_floor,
+            local_cap=req.local_cap, global_floor=req.global_floor,
+            global_cap=req.global_cap, notional=req.notional)
+        out["segments"] = eng.segments_dict()
+    elif req.mode == "greeks":
+        out = eng.greeks(req.spot, strike, req.T, req.is_call)
+    elif req.mode == "american":
+        try:
+            out = eng.price_american(req.spot, strike, req.T, req.is_call)
+        except NotImplementedError as e:
+            raise ApiError(501, str(e))
+        out["segments"] = eng.segments_dict()
+    elif req.mode == "varswap":
+        out = eng.variance_swap(req.T)
+    else:
+        raise ApiError(400, f"unknown mode {req.mode!r} "
+                            "(price|compare|smile|forward_start|cliquet|"
+                            "greeks|american|varswap|calibrate)")
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
                 "/api/convergence": handle_convergence,
-                "/api/exotic": handle_exotic}
+                "/api/exotic": handle_exotic,
+                "/api/hhw": handle_hhw,
+                "/api/svcj": handle_svcj,
+                "/api/termsvj": handle_termsvj}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,

@@ -20,7 +20,9 @@
 //     the inlined sinf/cosf/logf);
 //   - acklam_ndtri rounds each Horner step once, in double, where the float
 //     product is exact; that is the plain version's float64 (a*x + c).
-// Elsewhere nvcc contracts freely, and the kernels differ from the plain
+// K6 (dead-or-alive selects on the log-spot carry) and K7-K9 (hundreds of
+// dependent steps) write their carries the same way. In K1-K5's Euler
+// updates nvcc contracts freely, and those kernels differ from the plain
 // versions by FMA rounding (K2 keeps sincospif: its only consumer is a
 // continuous sum).
 #pragma once
@@ -41,6 +43,23 @@ constexpr uint32_t kGbmDomain = 1u;    // K2
 constexpr uint32_t kSvjDomain = 2u;    // K3
 constexpr uint32_t kQeDomain = 3u;     // K4
 constexpr uint32_t kStatsDomain = 4u;  // K6
+constexpr uint32_t kHhwDomain = 5u;    // K7
+constexpr uint32_t kSvcjDomain = 6u;   // K8
+constexpr uint32_t kTdDomain = 7u;     // K9
+
+// IEEE float32 multiply, add and subtract that nvcc never contracts into an
+// FMA. K7, K8 and K9 write every operation on their carries with these, in
+// their plain versions' order, so on the card kernel and plain version
+// agree bit for bit at any step count.
+__device__ __forceinline__ float fmul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float fadd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float fsub(float a, float b) {
+  return __fsub_rn(a, b);
+}
 
 __device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
   const uint32_t hi0 = __umulhi(kPhiloxSA, c.x);

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from mcos_tpu_torch.config import DEFAULT_NUM_PATHS, scaled_steps
-from mcos_tpu_torch.engine.pricer import to_host
+from mcos_tpu_torch.engine.pricer import seeded_generator, to_host
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import cuda_kernels
 from mcos_tpu_torch.ops import exotics as ops_exotics
@@ -237,10 +237,7 @@ def _price_exotic_core(
             torch.clamp(_f32(barrier, device), min=1e-30) / spot)
         bridge_log_l = torch.log(
             torch.clamp(_f32(barrier_lo, device), min=1e-30) / spot)
-        generator = None
-        if draws is None:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(int(seed))
+        generator = seeded_generator(seed, device) if draws is None else None
         stats = ops_exotics.simulate_path_stats(
             params, spot, T, generator, bridge_log_b=bridge_log_b,
             bridge_log_l=bridge_log_l, draws=draws, device=device, **sim)

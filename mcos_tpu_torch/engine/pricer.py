@@ -49,6 +49,9 @@ from mcos_tpu_torch.ops.bs import bs_price
 #: Not yet ported: ROADMAP.md queue 1 item that will port each option.
 NOT_PORTED = {
     "mesh": "ROADMAP.md queue 1, item 7 (sharding over NCCL)",
+    "TDSVJEngine.price_american":
+        "ROADMAP.md queue 1, item 5 (engine/american.py: lsm_price with a "
+        "td sheet recorder)",
 }
 
 
@@ -349,6 +352,14 @@ def _convergence_core(
     mean_c = csum[idx] / n
     var = torch.clamp(csum_sq[idx] / n - mean_c**2, min=0.0)
     return discount * (center + mean_c), discount * torch.sqrt(var / n)
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A `torch.Generator` on `device` seeded with `seed`: what drives a
+    torch twin where a kernel takes the seed itself."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
 
 
 def to_host(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -723,9 +734,7 @@ class MonteCarloEngine:
         }
 
     def _seeded(self, seed: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        return gen
+        return seeded_generator(seed, self.device)
 
     def sample_paths_device(self, spot: float, T: float,
                             num_samples: int = 50) -> torch.Tensor:

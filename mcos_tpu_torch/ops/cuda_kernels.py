@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their wrappers, their plain torch
 versions and their build (counterpart of `mcos_tpu/ops/pallas_kernels.py`
-for the kernels on the `/api/price`, `/api/convergence` and `/api/exotic`
-paths).
+for the kernels on the `/api/price`, `/api/convergence`, `/api/exotic`,
+`/api/hhw`, `/api/svcj` and `/api/termsvj` paths).
 
 K1 `svj_terminal_from_draws` (csrc/svj_draws.cu) replaces
     `svj_terminal_from_draws_pallas` / `_svj_draws_kernel`.
@@ -15,6 +15,12 @@ K5 `svj_terminal_qe_from_draws` (csrc/svj_qe_draws.cu) replaces
     `svj_terminal_qe_from_draws_pallas` / `_svj_qe_draws_kernel`.
 K6 `svj_path_stats` (csrc/svj_stats.cu) replaces
     `svj_path_stats_pallas` / `_svj_stats_kernel`.
+K7 `hhw_terminal` (csrc/hhw.cu) replaces
+    `hhw_terminal_pallas` / `_hhw_kernel`.
+K8 `svcj_terminal` (csrc/svcj.cu) replaces
+    `svcj_terminal_pallas` / `_svcj_kernel`.
+K9 `svj_terminal_td` (csrc/svj_td.cu) replaces
+    `svj_terminal_td_pallas` / `_svj_td_kernel`.
 
 The wrapper rule: a CPU input takes the plain torch version; a CUDA input
 launches the kernel or raises. There is no fallback from one to the other.
@@ -32,14 +38,15 @@ The plain Philox4x32-10 below is the kernels' generator on int64 tensors
 with 32-bit masks (torch has no usable uint32 arithmetic); it gives the
 same words as csrc/philox.cuh, so a kernel's in-kernel random mode can be
 compared word for word with its plain version. Each kernel's stream has
-its own counter domain (word 3): K1/K5 jumps 0, K2 1, K3 2, K4 3, K6 4.
+its own counter domain (word 3): K1/K5 jumps 0, K2 1, K3 2, K4 3, K6 4,
+K7 5, K8 6, K9 7.
 
 The plain versions repeat each kernel's float32 operations in the same
 order. Where a result feeds a discontinuous select (the QE transition's
-branches; K6's dead-or-alive test on the log-spot carry), the CUDA source
-keeps nvcc from contracting multiply-adds and the plain version here
-performs the same IEEE operations; elsewhere the two differ by FMA
-rounding.
+branches; K6's dead-or-alive test on the log-spot carry), and in K7-K9
+(hundreds of dependent steps), the CUDA source keeps nvcc from contracting
+multiply-adds and the plain version here performs the same IEEE
+operations; elsewhere the two differ by FMA rounding.
 """
 
 from __future__ import annotations
@@ -59,11 +66,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mcos_tpu_torch.models.params import SVJParams
+from mcos_tpu_torch.models.params import SVCJParams, SVJParams
 from mcos_tpu_torch.ops.exotics import (
     corridor_surv_increment,
     single_surv_increment,
 )
+from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
 from mcos_tpu_torch.ops.simulate import qe_variance_step
 from mcos_tpu_torch.ops.sobol import ndtri_acklam
 
@@ -175,6 +183,14 @@ class _Library:
         lib.mcos_svj_path_stats.argtypes = [
             vp, i64, i32, i32, i32, i32, i32, i32, u64, vp, vp]
         lib.mcos_svj_path_stats.restype = i32
+        lib.mcos_hhw_terminal.argtypes = [vp, vp, i64, i32, i32, u64, vp, vp]
+        lib.mcos_hhw_terminal.restype = i32
+        lib.mcos_svcj_terminal.argtypes = [
+            vp, vp, vp, i64, i32, i32, u64, vp, vp]
+        lib.mcos_svcj_terminal.restype = i32
+        lib.mcos_svj_terminal_td.argtypes = [
+            vp, vp, vp, vp, vp, i32, i64, i32, i32, u64, vp, vp]
+        lib.mcos_svj_terminal_td.restype = i32
         lib.mcos_cuda_error_string.argtypes = [i32]
         lib.mcos_cuda_error_string.restype = ctypes.c_char_p
         self.path = lib_path
@@ -220,8 +236,8 @@ def _seed_words(seed: int) -> Tuple[int, int]:
 _PHILOX_10A, _PHILOX_10B = 0x9E3779B9, 0xBB67AE85
 _PHILOX_SA, _PHILOX_SB = 0xD2511F53, 0xCD9E8D57
 # Counter domains of csrc/philox.cuh (word 3 of the counter).
-_JUMP_DOMAIN, _GBM_DOMAIN, _SVJ_DOMAIN, _QE_DOMAIN, _STATS_DOMAIN = (
-    0, 1, 2, 3, 4)
+(_JUMP_DOMAIN, _GBM_DOMAIN, _SVJ_DOMAIN, _QE_DOMAIN, _STATS_DOMAIN,
+ _HHW_DOMAIN, _SVCJ_DOMAIN, _TD_DOMAIN) = range(8)
 
 
 def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -345,6 +361,54 @@ def _device_table(lam_dt: float, num_steps: int, device: str) -> torch.Tensor:
     """The count table on `device`, built and copied once per shape."""
     return torch.as_tensor(binom_count_table(lam_dt, num_steps),
                            dtype=torch.float64, device=device)
+
+
+def poisson_binom_count_table(p_steps) -> np.ndarray:
+    """CDF of a path's jump count under per-step jump probabilities
+    `p_steps` (the Poisson-binomial law of Σᵢ Bernoulli(pᵢ), pᵢ = λᵢ·dt
+    clipped to [0, 1]), in float64: entry k is P(count ≤ k), for k up to
+    the first whose upper tail is below 2⁻²⁴ (and at least 64 entries;
+    entries past the step count are 1).
+
+    The counterpart of `_poisson_binom_cdf` without its fault: that
+    64-entry float32 table divides by its last entry, which conditions the
+    count on < 64 (Σpᵢ reaches 200 over HTTP). The pmf is built by the same
+    recursion, pmf ← (1 − pᵢ)·pmf + pᵢ·shift(pmf), on a window of the first
+    L counts (exact for those counts, whatever lies beyond), and L doubles
+    until the tail beyond the window is below 2⁻²⁴.
+    """
+    p = np.clip(np.asarray(p_steps, np.float64).reshape(-1), 0.0, 1.0)
+    n = p.size
+    mean = float(p.sum())
+    window = int(min(n + 1, max(_COUNT_MIN_LEN,
+                                math.ceil(mean + 8.0 * math.sqrt(mean) + 32))))
+    while True:
+        pmf = np.zeros(window)
+        pmf[0] = 1.0
+        for p_i in p:
+            pmf[1:] = (1.0 - p_i) * pmf[1:] + p_i * pmf[:-1]
+            pmf[0] *= 1.0 - p_i
+        cdf = np.minimum(np.cumsum(pmf), 1.0)
+        upper = 1.0 - cdf
+        if window == n + 1:
+            upper[-1] = 0.0
+        below = upper < _COUNT_TAIL
+        if below.any():
+            break
+        window = min(n + 1, 2 * window)
+    cdf = cdf[:int(np.argmax(below)) + 1]
+    if cdf.size < _COUNT_MIN_LEN:
+        cdf = np.concatenate([cdf, np.ones(_COUNT_MIN_LEN - cdf.size)])
+    return cdf
+
+
+@functools.lru_cache(maxsize=64)
+def _device_td_table(p_bytes: bytes, device: str) -> torch.Tensor:
+    """The Poisson-binomial count table on `device`, built and copied once
+    per (λᵢ·dt) array."""
+    return torch.as_tensor(
+        poisson_binom_count_table(np.frombuffer(p_bytes, np.float64)),
+        dtype=torch.float64, device=device)
 
 
 # ─────────────────────────────────────────────────────────────────────────────
@@ -1121,8 +1185,387 @@ def svj_path_stats(params: SVJParams, spot, T, seed: int, *, num_paths: int,
 svj_path_stats.launches = 0
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# K7: Heston-Hull-White terminal spot and discount factor
+# ─────────────────────────────────────────────────────────────────────────────
+def _hhw_consts(params: HHWParams, spot, T, num_steps: int) -> np.ndarray:
+    """The 17 float32 scalars of csrc/hhw.cu:HhwConsts, in the order of
+    mcos_tpu/ops/pallas_kernels.py:_H_SPOT.._H_L33, computed in float64 and
+    cast once. The Cholesky rows come from `hhw_cholesky`, which raises
+    ValueError for a correlation matrix that is not positive definite;
+    s_ou keeps the reference's max(2a, 1e-12) divisor."""
+    p = params
+    chol = hhw_cholesky(p)
+    dt = float(T) / num_steps
+    a = float(p.a)
+    e_adt = math.exp(-a * dt)
+    s_ou = float(p.sigma_r) * math.sqrt((1.0 - e_adt**2)
+                                        / max(2.0 * a, 1e-12))
+    vals = (float(spot), dt, math.sqrt(dt), float(p.kappa), float(p.theta),
+            float(p.xi), float(p.v0), float(p.q), e_adt, s_ou, float(p.b),
+            float(p.r0), chol[1, 0], chol[1, 1], chol[2, 0], chol[2, 1],
+            chol[2, 2])
+    return np.asarray(vals, np.float32)
+
+
+def hhw_terminal_plain(params: HHWParams, spot, T, seed: int, *,
+                       num_paths: int, num_steps: int,
+                       antithetic: bool = True, device="cpu"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K7 on the kernel's Philox words: steps 2i and
+    2i+1 take calls 2i and 2i+1 of counter (pair_lo, pair_hi, call, 5):
+    words a0..a3, b0, b1 give three Box-Muller pairs (z_a, z_b), (z_c, z_d),
+    (z_e, z_f); step 2i runs on (z_a, z_b, z_c), step 2i+1 on (z_d, z_e,
+    z_f); b2, b3 are spare. An odd last step takes call steps−1 alone:
+    (z1, z2) from a0, a1 and z3 from a2, a3. Each float32 operation on the
+    carries is the kernel's, in its order. Returns (S, D), each
+    (n_branch, num_paths)."""
+    device = torch.device(device)
+    (spot_f, dt, sqrt_dt, kappa, theta, xi, v0, q, e_adt, s_ou, b, r0, l21,
+     l22, l31, l32, l33) = (
+        float(x) for x in _hhw_consts(params, spot, T, num_steps))
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    ls, int_r = [zeros] * nb, [zeros] * nb
+    v = [torch.full_like(zeros, v0)] * nb
+    r = [torch.full_like(zeros, r0)] * nb
+
+    def step(z1, z2, z3):
+        zv = l21 * z1 + l22 * z2
+        zr = (l31 * z1 + l32 * z2) + l33 * z3
+        dw1, dwv, ou = z1 * sqrt_dt, zv * sqrt_dt, s_ou * zr
+        for k in range(nb):
+            s_dw1, s_dwv, s_ou_k = ((dw1, dwv, ou) if k == 0
+                                    else (-dw1, -dwv, -ou))
+            v_pos = torch.clamp(v[k], min=0.0)
+            sqrt_v = torch.sqrt(v_pos)
+            drift = ((r[k] - q) - 0.5 * v_pos) * dt
+            ls[k] = ls[k] + (drift + sqrt_v * s_dw1)
+            v[k] = torch.clamp(
+                (v_pos + (kappa * (theta - v_pos)) * dt)
+                + (xi * sqrt_v) * s_dwv, min=0.0)
+            int_r[k] = int_r[k] + r[k] * dt                 # left point
+            r[k] = (b + (r[k] - b) * e_adt) + s_ou_k
+
+    def uniforms(call):
+        return _pair_words(num_paths, call, _HHW_DOMAIN, seed, device)
+
+    for i in range(0, num_steps - 1, 2):
+        a, c = uniforms(i), uniforms(i + 1)
+        z_a, z_b = box_muller(a[0], a[1])
+        z_c, z_d = box_muller(a[2], a[3])
+        z_e, z_f = box_muller(c[0], c[1])
+        step(z_a, z_b, z_c)
+        step(z_d, z_e, z_f)
+    if num_steps % 2 == 1:
+        a = uniforms(num_steps - 1)
+        z1, z2 = box_muller(a[0], a[1])
+        z3, _ = box_muller(a[2], a[3])
+        step(z1, z2, z3)
+    return (spot_f * torch.exp(torch.stack(ls)),
+            torch.exp(-torch.stack(int_r)))
+
+
+def hhw_terminal(params: HHWParams, spot, T, seed: int, *, num_paths: int,
+                 num_steps: int, antithetic: bool = True, device="cuda"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 wrapper, the counterpart of `hhw_terminal_pallas`: terminal spots
+    and pathwise discount factors exp(−∫r dt) of the Heston-Hull-White
+    hybrid, each (n_branch, num_paths), row 0 the base branch, row 1
+    (antithetic) all three normals negated. The normals depend on (seed,
+    pair, step) only, so two parameter sets on one seed share their random
+    numbers. A CPU `device` takes the plain version; a CUDA one launches
+    the kernel or raises. ValueError for a correlation matrix that is not
+    positive definite."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    if device.type == "cpu":
+        return hhw_terminal_plain(params, spot, T, seed, num_paths=num_paths,
+                                  num_steps=num_steps, antithetic=antithetic,
+                                  device=device)
+    consts = _hhw_consts(params, spot, T, num_steps)
+    n_branch = 2 if antithetic else 1
+    out = torch.empty((2, n_branch, num_paths), dtype=torch.float32,
+                      device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.mcos_hhw_terminal(
+            out[0].data_ptr(), out[1].data_ptr(), num_paths, num_steps,
+            n_branch, int(seed), consts.ctypes.data, _stream_handle(device))
+    _check_rc(lib, rc, "hhw_terminal")
+    with _COUNT_LOCK:
+        hhw_terminal.launches += 1
+    return out[0], out[1]
+
+
+hhw_terminal.launches = 0
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K8: SVCJ terminal state (correlated jumps in price and variance)
+# ─────────────────────────────────────────────────────────────────────────────
+def _svcj_consts(params: SVCJParams, spot, T, num_steps: int) -> np.ndarray:
+    """The 17 float32 scalars of csrc/svcj.cu:SvcjConsts, in the order of
+    mcos_tpu/ops/pallas_kernels.py:_C_SPOT.._C_SIG_CV, computed in float64
+    and cast once."""
+    p = params
+    dt = float(T) / num_steps
+    k_bar = (math.exp(float(p.mu_j) + 0.5 * float(p.sigma_j) ** 2)
+             / (1.0 - float(p.rho_j) * float(p.mu_v)) - 1.0)
+    with np.errstate(all="ignore"):
+        sigma_cv = float(np.sqrt(np.float64(p.v0)))
+        rho_perp = float(np.sqrt(np.float64(1.0 - float(p.rho) ** 2)))
+    vals = (float(spot), float(p.v0), dt, math.sqrt(dt), float(p.kappa),
+            float(p.theta), float(p.xi), float(p.rho), rho_perp,
+            float(p.lambda_j) * dt, float(p.mu_j), float(p.sigma_j),
+            float(p.mu_v), float(p.rho_j),
+            (float(p.r) - float(p.q) - float(p.lambda_j) * k_bar) * dt,
+            (float(p.r) - float(p.q) - 0.5 * sigma_cv**2) * dt, sigma_cv)
+    return np.asarray(vals, np.float32)
+
+
+def svcj_terminal_plain(params: SVCJParams, spot, T, seed: int, *,
+                        num_paths: int, num_steps: int,
+                        antithetic: bool = True, companion: bool = False,
+                        device="cpu"
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor]]:
+    """Plain torch version of K8 on the kernel's Philox words: steps 2i and
+    2i+1 take calls 3i, 3i+1, 3i+2 of counter (pair_lo, pair_hi, call, 6):
+    a0..a3 the Box-Muller pairs (z1, z2) of the two steps, b0, b1 the pair
+    of jump-size normals, b2, b3 the two jump uniforms, c0, c1 the two
+    exponential uniforms (the variance jump is −μ_v·log(u), u strictly
+    inside (0, 1)). An odd last step takes calls 3⌊steps/2⌋ and the next:
+    (z1, z2) from a0, a1, z_js from a2, a3, jump uniform b0, exponential
+    uniform b1. Each float32 operation on the carries is the kernel's, in
+    its order. Returns (S, v, G or None), each (n_branch, num_paths)."""
+    device = torch.device(device)
+    (spot_f, v0, dt, sqrt_dt, kappa, theta, xi, rho, rho_perp, lam_dt, mu_j,
+     sig_j, mu_v, rho_j, drift_dt, g_drift_dt, sig_cv) = (
+        float(x) for x in _svcj_consts(params, spot, T, num_steps))
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    ls = [zeros] * nb
+    v = [torch.full_like(zeros, v0)] * nb
+    cv_w = zeros
+
+    def step(z1, z2, z_js, u_jump, u_exp):
+        nonlocal cv_w
+        dw1 = z1 * sqrt_dt
+        dw2 = rho * dw1 + (rho_perp * z2) * sqrt_dt
+        jumped = u_jump < lam_dt
+        jump_v = torch.where(jumped, mu_v * (-torch.log(u_exp)), zeros)
+        jump_base = torch.where(jumped, mu_j + rho_j * jump_v, zeros)
+        jump_odd = torch.where(jumped, sig_j * z_js, zeros)
+        for k in range(nb):
+            s_dw1, s_dw2, s_odd = ((dw1, dw2, jump_odd) if k == 0
+                                   else (-dw1, -dw2, -jump_odd))
+            v_pos = torch.clamp(v[k], min=0.0)
+            sqrt_v = torch.sqrt(v_pos)
+            x = ls[k] + (drift_dt - (0.5 * v_pos) * dt)
+            x = x + sqrt_v * s_dw1
+            ls[k] = (x + jump_base) + s_odd
+            w = v_pos + (kappa * (theta - v_pos)) * dt
+            w = w + (xi * sqrt_v) * s_dw2
+            v[k] = torch.clamp(w + jump_v, min=0.0)
+        cv_w = cv_w + sig_cv * dw1
+
+    def uniforms(call):
+        return _pair_words(num_paths, call, _SVCJ_DOMAIN, seed, device)
+
+    call = 0
+    for _ in range(num_steps // 2):
+        a, b, c = uniforms(call), uniforms(call + 1), uniforms(call + 2)
+        z1a, z2a = box_muller(a[0], a[1])
+        z1b, z2b = box_muller(a[2], a[3])
+        zja, zjb = box_muller(b[0], b[1])
+        step(z1a, z2a, zja, b[2], c[0])
+        step(z1b, z2b, zjb, b[3], c[1])
+        call += 3
+    if num_steps % 2 == 1:
+        a, b = uniforms(call), uniforms(call + 1)
+        z1, z2 = box_muller(a[0], a[1])
+        z_js, _ = box_muller(a[2], a[3])
+        step(z1, z2, z_js, b[0], b[1])
+    g_total = float(np.float32(g_drift_dt) * np.float32(num_steps))
+    s_rows = [spot_f * torch.exp(x) for x in ls]
+    g_rows = [spot_f * torch.exp(g_total + (cv_w if k == 0 else -cv_w))
+              for k in range(nb)]
+    return _stack_out((s_rows, v), companion, g_rows)
+
+
+def svcj_terminal(params: SVCJParams, spot, T, seed: int, *, num_paths: int,
+                  num_steps: int, antithetic: bool = True,
+                  companion: bool = False, device="cuda"
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """K8 wrapper, the counterpart of `svcj_terminal_pallas`: SVCJ Euler
+    terminal (S, v, G or None), each (n_branch, num_paths); the antithetic
+    row negates the normals and shares the jump uniforms and the
+    exponential variance jumps. A CPU `device` takes the plain version; a
+    CUDA one launches the kernel or raises."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    if device.type == "cpu":
+        return svcj_terminal_plain(
+            params, spot, T, seed, num_paths=num_paths, num_steps=num_steps,
+            antithetic=antithetic, companion=companion, device=device)
+    consts = _svcj_consts(params, spot, T, num_steps)
+    n_branch = 2 if antithetic else 1
+    out = torch.empty((3 if companion else 2, n_branch, num_paths),
+                      dtype=torch.float32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.mcos_svcj_terminal(
+            out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr() if companion else None, num_paths, num_steps,
+            n_branch, int(seed), consts.ctypes.data, _stream_handle(device))
+    _check_rc(lib, rc, "svcj_terminal")
+    with _COUNT_LOCK:
+        svcj_terminal.launches += 1
+    return out[0], out[1], (out[2] if companion else None)
+
+
+svcj_terminal.launches = 0
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K9: SVJ terminal state under piecewise-constant θ(t), ξ(t), λ(t)
+# ─────────────────────────────────────────────────────────────────────────────
+def _td_consts(params: SVJParams, theta_t, xi_t, lam_t, spot, T,
+               num_steps: int):
+    """(the 12 float32 scalars of csrc/svj_td.cu:TdConsts, the (4, steps)
+    float32 table with rows (θᵢ, ξᵢ, λᵢ·dt, drift_dtᵢ), the float64 per-step
+    jump probabilities λᵢ·dt), computed in float64 and cast once."""
+    p = params
+    levels = []
+    for name, x in (("theta_t", theta_t), ("xi_t", xi_t), ("lam_t", lam_t)):
+        arr = np.asarray(x, np.float64).reshape(-1)
+        if arr.size != num_steps:
+            raise ValueError(f"{name} has {arr.size} entries for "
+                             f"{num_steps} steps")
+        levels.append(arr)
+    theta, xi, lam = levels
+    dt = float(T) / num_steps
+    k_bar = math.exp(float(p.mu_j) + 0.5 * float(p.sigma_j) ** 2) - 1.0
+    with np.errstate(all="ignore"):
+        sigma_cv = float(np.sqrt(np.float64(p.v0)))
+        rho_perp = float(np.sqrt(np.float64(1.0 - float(p.rho) ** 2)))
+    kappa = float(p.kappa)
+    consts = np.asarray((
+        float(spot), float(p.v0), math.sqrt(dt), float(p.rho), rho_perp,
+        float(p.mu_j), float(p.sigma_j),
+        (float(p.r) - float(p.q) - 0.5 * sigma_cv**2) * dt, sigma_cv,
+        -0.5 * dt, 1.0 - kappa * dt, kappa * dt), np.float32)
+    lam_dt = lam * dt
+    table = np.stack([theta, xi, lam_dt,
+                      (float(p.r) - float(p.q) - lam * k_bar) * dt])
+    return consts, np.ascontiguousarray(table, np.float32), lam_dt
+
+
+def svj_terminal_td_plain(params: SVJParams, theta_t, xi_t, lam_t, spot, T,
+                          seed: int, *, num_paths: int, num_steps: int,
+                          antithetic: bool = True, companion: bool = False,
+                          device="cpu"
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """Plain torch version of K9 on the kernel's Philox words, K3's layout
+    in domain 7: call c of counter (pair_lo, pair_hi, c, 7) drives steps 2c
+    and 2c+1, call ⌈steps/2⌉ the jump count (word 0, inverted through
+    `poisson_binom_count_table`) and size (words 1, 2). The variance carry
+    starts at max(v0, 0). Each float32 operation on the carries is the
+    kernel's, in its order. Returns (S, v, G or None), each
+    (n_branch, num_paths)."""
+    device = torch.device(device)
+    consts, table, lam_dt = _td_consts(params, theta_t, xi_t, lam_t, spot, T,
+                                       num_steps)
+    (spot_f, v0, sqrt_dt, rho, rho_perp, mu_j, sig_j, g_drift_dt, sig_cv,
+     nhdt, omk, _kappa_dt) = (float(x) for x in consts)
+    ktheta_dt = consts[11] * table[0]          # float32 products, as fmul
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    ls = [zeros] * nb
+    v = [torch.full_like(zeros, max(v0, 0.0))] * nb
+    cv_w = zeros
+
+    def step(idx, z1, z2):
+        nonlocal cv_w
+        xi_i, drift_i = float(table[1, idx]), float(table[3, idx])
+        kth = float(ktheta_dt[idx])
+        dw1 = z1 * sqrt_dt
+        dw2 = rho * dw1 + (rho_perp * z2) * sqrt_dt
+        for k in range(nb):
+            s_dw1, s_dw2 = (dw1, dw2) if k == 0 else (-dw1, -dw2)
+            sqrt_v = torch.sqrt(v[k])
+            ls[k] = (ls[k] + (drift_i + nhdt * v[k])) + sqrt_v * s_dw1
+            v[k] = torch.clamp((omk * v[k] + kth)
+                               + xi_i * (sqrt_v * s_dw2), min=0.0)
+        cv_w = cv_w + sig_cv * dw1
+
+    n_calls = (num_steps + 1) // 2
+    for call in range(n_calls):
+        u = _pair_words(num_paths, call, _TD_DOMAIN, seed, device)
+        step(2 * call, *box_muller(u[0], u[1]))
+        if 2 * call + 1 < num_steps:
+            step(2 * call + 1, *box_muller(u[2], u[3]))
+    u = _pair_words(num_paths, n_calls, _TD_DOMAIN, seed, device)
+    n_jump = count_from_table(u[0], poisson_binom_count_table(lam_dt))
+    z_total, _ = box_muller(u[1], u[2])
+    jump_mean = mu_j * n_jump
+    jump_body = (sig_j * torch.sqrt(n_jump)) * z_total
+    g_total = float(np.float32(g_drift_dt) * np.float32(num_steps))
+    s_rows, g_rows = [], []
+    for k in range(nb):
+        sign_body, sign_w = ((jump_body, cv_w) if k == 0
+                             else (-jump_body, -cv_w))
+        s_rows.append(spot_f * torch.exp((ls[k] + jump_mean) + sign_body))
+        g_rows.append(spot_f * torch.exp(g_total + sign_w))
+    return _stack_out((s_rows, v), companion, g_rows)
+
+
+def svj_terminal_td(params: SVJParams, theta_t, xi_t, lam_t, spot, T,
+                    seed: int, *, num_paths: int, num_steps: int,
+                    antithetic: bool = True, companion: bool = False,
+                    device="cuda"
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
+    """K9 wrapper, the counterpart of `svj_terminal_td_pallas`: SVJ Euler
+    terminal (S, v, G or None), each (n_branch, num_paths), under the
+    (num_steps,) per-step levels `theta_t`, `xi_t`, `lam_t`
+    (`tdsvj.step_param_arrays`; `params`' own θ, ξ, λ are not read). The
+    jump count is drawn once per path from the Poisson-binomial law of the
+    per-step λᵢ·dt. A CPU `device` takes the plain version; a CUDA one
+    launches the kernel or raises."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    if device.type == "cpu":
+        return svj_terminal_td_plain(
+            params, theta_t, xi_t, lam_t, spot, T, seed, num_paths=num_paths,
+            num_steps=num_steps, antithetic=antithetic, companion=companion,
+            device=device)
+    consts, table, lam_dt = _td_consts(params, theta_t, xi_t, lam_t, spot, T,
+                                       num_steps)
+    cdf = _device_td_table(lam_dt.tobytes(), str(device))
+    table_dev = torch.as_tensor(table, device=device)
+    n_branch = 2 if antithetic else 1
+    out = torch.empty((3 if companion else 2, n_branch, num_paths),
+                      dtype=torch.float32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.mcos_svj_terminal_td(
+            out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr() if companion else None, table_dev.data_ptr(),
+            cdf.data_ptr(), int(cdf.numel()), num_paths, num_steps, n_branch,
+            int(seed), consts.ctypes.data, _stream_handle(device))
+    _check_rc(lib, rc, "svj_terminal_td")
+    with _COUNT_LOCK:
+        svj_terminal_td.launches += 1
+    return out[0], out[1], (out[2] if companion else None)
+
+
+svj_terminal_td.launches = 0
+
+
 _WRAPPERS = (svj_terminal_from_draws, gbm_terminal, svj_terminal,
-             svj_terminal_qe, svj_terminal_qe_from_draws, svj_path_stats)
+             svj_terminal_qe, svj_terminal_qe_from_draws, svj_path_stats,
+             hhw_terminal, svcj_terminal, svj_terminal_td)
 
 
 def reset_launch_counts() -> None:

@@ -1,8 +1,8 @@
-"""Where a warm `/api/price` (or `/api/exotic`) spends its time on one CUDA
-device.
+"""Where a warm `/api/price` (or `/api/exotic`, `/api/hhw`, `/api/svcj`,
+`/api/termsvj`) spends its time on one CUDA device.
 
-    python -m mcos_tpu_torch.profile_price [--route price|exotic]
-                                           [--options JSON] [--out FILE]
+    python -m mcos_tpu_torch.profile_price
+        [--route price|exotic|hhw|svcj|termsvj] [--options JSON] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
 the solo path) on the default body (500k paths, T = 0.25 → 63 steps), with
@@ -29,6 +29,13 @@ merges in, for example '{"kind": "double_no_touch", "barrier": 24750,
 Asian body, the price program alone (kernel K6 + payoff + control variate +
 the one device→host copy).
 
+With `--route hhw`, `svcj` or `termsvj` it calls that route's handler on
+its schema defaults (`hhw`: 200k pairs × 128 steps, T = 1; `svcj`: 200k
+pairs, T = 0.25 → 63 steps; `termsvj`: 200k pairs × 512 steps, T = 0.25,
+three segments), mode "price" unless `--options` says otherwise (for
+example '{"mode": "greeks"}'); the handler is timed whole (`wall_ms`,
+`profile`), without `parts_ms`.
+
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
 
@@ -43,6 +50,14 @@ import torch
 
 BODY = {"spot": 22500.0, "strike": 22500.0, "T": 0.25}
 EXOTIC_BODY = dict(BODY, kind="asian")
+FAMILY_BODIES = {
+    "hhw": {"spot": 22500.0, "strike": 22500.0, "T": 1.0},
+    "svcj": {"spot": 22500.0, "T": 0.25},
+    "termsvj": {"spot": 22500.0, "T": 0.25, "segments": [
+        {"t_end": 0.08, "theta": 0.04, "xi": 0.5, "lambda_j": 1.0},
+        {"t_end": 0.16, "theta": 0.06, "xi": 0.7, "lambda_j": 2.0},
+        {"t_end": 0.25, "theta": 0.09, "xi": 0.9, "lambda_j": 4.0}]},
+}
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -127,6 +142,22 @@ def profile_exotic(options: dict) -> dict:
     return out
 
 
+def profile_family(route: str, options: dict) -> dict:
+    """`/api/hhw`, `/api/svcj` or `/api/termsvj`: the whole handler."""
+    from mcos_tpu_torch.api import server
+
+    reps = 5
+    device = torch.device("cuda", 0)
+    body = dict(FAMILY_BODIES[route], **options)
+    handler = getattr(server, f"handle_{route}")
+    server.warm(device)
+    call = lambda: handler(dict(body), device=device)  # noqa
+    call()
+    return {"device": torch.cuda.get_device_name(device), "body": body,
+            "wall_ms": _wall_ms(call, 4 * reps),
+            "profile": _profiled(call, reps)}
+
+
 def _profiled(call, reps: int) -> dict:
     """Device time, launches and busy share per call under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -158,7 +189,7 @@ def _profiled(call, reps: int) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--route", default="price",
-                        choices=("price", "exotic"))
+                        choices=("price", "exotic", *FAMILY_BODIES))
     parser.add_argument("--options", default="{}",
                         help="JSON object of request fields to merge into "
                              "the default body")
@@ -166,8 +197,11 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_price needs a CUDA device")
-    run = profile if args.route == "price" else profile_exotic
-    res = run(json.loads(args.options))
+    options = json.loads(args.options)
+    if args.route in FAMILY_BODIES:
+        res = profile_family(args.route, options)
+    else:
+        res = (profile if args.route == "price" else profile_exotic)(options)
     text = json.dumps(res, indent=1)
     if args.out:
         with open(args.out, "w") as f:

@@ -214,3 +214,150 @@ def test_corridor_density_and_constants_equal():
             np.testing.assert_array_equal(a, b)
         for a, b in zip(pexotics._hermgauss(n), jexotics._hermgauss(n)):
             np.testing.assert_array_equal(a, b)
+
+
+# ── the model families' host copies (HHW, SVCJ, td-SVJ) ─────────────────────
+def _svcj_pair(**fields):
+    from mcos_tpu.models.params import SVCJParams as JSVCJParams
+    from mcos_tpu_torch.models.params import SVCJParams
+
+    return JSVCJParams(**fields), SVCJParams(**fields)
+
+
+@pytest.mark.parametrize("fields,T", [
+    (dict(), 0.25), (dict(mu_v=0.1, rho_j=-1.5, lambda_j=3.0), 1.0),
+    (dict(mu_v=1e-9), 0.5)])
+def test_svcj_oracle_equal(fields, T):
+    import mcos_tpu.ops.svcj as jsvcj
+    import mcos_tpu_torch.ops.svcj as psvcj
+
+    jp, pp = _svcj_pair(**fields)
+    u = np.linspace(0.0, 40.0, 17)
+    np.testing.assert_allclose(psvcj.svcj_cf(u, pp, T, 100.0),
+                               jsvcj.svcj_cf(u, jp, T, 100.0), rtol=0,
+                               atol=1e-12)
+    strikes = [80.0, 100.0, 125.0]
+    for is_call in (True, False):
+        np.testing.assert_allclose(
+            psvcj.svcj_cos_price(pp, 100.0, strikes, T, is_call),
+            jsvcj.svcj_cos_price(jp, 100.0, strikes, T, is_call), rtol=0,
+            atol=1e-12)
+    with pytest.raises(ValueError):
+        psvcj.svcj_cf(u, pp.replace(rho_j=30.0, mu_v=0.05), T, 100.0)
+
+
+_TD_SEG = ([0.2, 0.5, 1.0], [0.04, 0.09, 0.05], [0.4, 1.1, 0.6],
+           [0.5, 8.0, 2.0])
+
+
+@pytest.mark.parametrize("T", [0.1, 0.5, 1.0, 1.7])
+def test_tdsvj_host_copies_equal(T):
+    import mcos_tpu.ops.tdsvj as jtd
+    import mcos_tpu_torch.ops.tdsvj as ptd
+
+    jp, pp = JSVJParams(kappa=2.5, v0=0.05), SVJParams(kappa=2.5, v0=0.05)
+    strikes = [80.0, 100.0, 125.0]
+    for is_call in (True, False):
+        np.testing.assert_allclose(
+            ptd.cos_price_td(pp, 100.0, strikes, T, *_TD_SEG, is_call),
+            jtd.cos_price_td(jp, 100.0, strikes, T, *_TD_SEG, is_call),
+            rtol=0, atol=1e-12)
+    a = ptd.td_variance_swap_fair_strike(pp, *_TD_SEG, T)
+    b = jtd.td_variance_swap_fair_strike(jp, *_TD_SEG, T)
+    assert a.keys() == b.keys()
+    for k in b:
+        assert a[k] == pytest.approx(b[k], rel=0, abs=1e-12), k
+    for x, y in zip(ptd.normalize_segments(*_TD_SEG, T),
+                    jtd.normalize_segments(*_TD_SEG, T)):
+        np.testing.assert_array_equal(x, y)
+    seg = [np.asarray(x) for x in _TD_SEG]
+    for x, y in zip(ptd.step_param_arrays(*seg, 1.0, 37),
+                    jtd.step_param_arrays(*seg, 1.0, 37)):
+        np.testing.assert_array_equal(x, y)
+    with pytest.raises(ValueError):
+        ptd.normalize_segments([0.5, 0.2], [1, 1], [1, 1], [1, 1], T)
+
+
+@pytest.mark.parametrize("T", [0.5, 5.0, 30.0])
+def test_hhw_closed_forms_equal(T):
+    import mcos_tpu.ops.hhw as jhhw
+    import mcos_tpu_torch.ops.hhw as phhw
+
+    fields = dict(a=0.15, b=0.04, sigma_r=0.015, r0=0.03, rho_sr=0.4, q=0.02)
+    jp, pp = jhhw.HHWParams(**fields), phhw.HHWParams(**fields)
+    assert phhw.vasicek_bond(pp, T) == pytest.approx(
+        jhhw.vasicek_bond(jp, T), rel=0, abs=1e-12)
+    for is_call in (True, False):
+        for K in (80.0, 100.0, 130.0):
+            assert phhw.bsm_hullwhite(pp, 100.0, K, T, 0.25, is_call) \
+                == pytest.approx(jhhw.bsm_hullwhite(jp, 100.0, K, T, 0.25,
+                                                    is_call),
+                                 rel=0, abs=1e-12)
+    assert ({f.name: f.default for f in dataclasses.fields(phhw.HHWParams)}
+            == {f.name: f.default
+                for f in dataclasses.fields(jhhw.HHWParams)})
+
+
+def test_implied_vol_copies_equal():
+    import mcos_tpu.engine.surface as jsurf
+    import mcos_tpu_torch.engine.surface as psurf
+
+    K = np.array([[80.0, 100.0, 120.0]])
+    T = np.array([[0.1], [1.0]])
+    price = jsurf._bs_price_np(100.0, K, T, 0.05, 0.01, 0.3, True)
+    price[0, 0] = 1.0                     # below intrinsic: not bracketed
+    got = psurf.implied_vol_grid(price, 100.0, K, T, 0.05, 0.01)
+    ref = jsurf.implied_vol_grid(price, 100.0, K, T, 0.05, 0.01)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12, equal_nan=True)
+    assert np.isnan(got[0, 0]) and got[1, 1] == pytest.approx(0.3, abs=1e-9)
+    assert psurf.implied_vol(1.0, 100.0, 80.0, 0.1, 0.05, 0.01) is None
+    assert psurf.implied_vol(float(price[1, 2]), 100.0, 120.0, 1.0, 0.05,
+                             0.01, True) == jsurf.implied_vol(
+        float(price[1, 2]), 100.0, 120.0, 1.0, 0.05, 0.01, True)
+
+
+@pytest.mark.parametrize("is_call", [True, False])
+def test_cliquet_closed_forms_equal(is_call):
+    import mcos_tpu.engine.cliquet as jcl
+    import mcos_tpu_torch.engine.cliquet as pcl
+
+    for k in (0.0, 0.95, 1.0, 1.1):
+        assert pcl.forward_start_bs(0.3, 1.0, k, 0.05, 0.01, 0.25, is_call) \
+            == pytest.approx(jcl.forward_start_bs(0.3, 1.0, k, 0.05, 0.01,
+                                                  0.25, is_call),
+                             rel=0, abs=1e-12)
+    for floor, cap in ((0.0, 0.08), (-0.02, 0.05)):
+        assert pcl.cliquet_bs(1.0, 4, 0.05, 0.01, 0.25, floor, cap, 100.0) \
+            == pytest.approx(jcl.cliquet_bs(1.0, 4, 0.05, 0.01, 0.25, floor,
+                                            cap, 100.0), rel=0, abs=1e-12)
+    import torch
+
+    dlog = np.random.default_rng(0).normal(0.0, 0.05, (4, 2, 64)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        pcl._cliquet_payoff(torch.from_numpy(dlog), 0.0, 0.08, 0.0,
+                            0.2).numpy(),
+        np.asarray(jcl._cliquet_payoff(dlog, 0.0, 0.08, 0.0, 0.2)),
+        rtol=1e-6, atol=1e-7)
+
+
+def test_family_request_schemas_equal():
+    for name in ("HHWRequest", "SVCJParamsRequest", "SVCJRequest",
+                 "TermSVJSegment", "TermSVJRequest"):
+        ja = getattr(jschemas, name).model_json_schema()
+        jb = getattr(pschemas, name).model_json_schema()
+        ja.pop("description", None), jb.pop("description", None)
+        assert ja == jb, name
+    body = {"spot": 100.0, "T": 0.5, "mode": "cliquet", "n_periods": 3,
+            "segments": [{"t_end": 0.2, "theta": 0.05},
+                         {"t_end": 0.5, "xi": 0.9, "lambda_j": 3.0}]}
+    assert (jschemas.TermSVJRequest(**body).model_dump()
+            == pschemas.TermSVJRequest(**body).model_dump())
+    body = {"spot": 100.0, "T": 0.5, "params": {"mu_v": 0.1, "rho_j": -2.0}}
+    a, b = jschemas.SVCJRequest(**body), pschemas.SVCJRequest(**body)
+    assert a.model_dump() == b.model_dump()
+    assert b.params.to_params().as_dict() == {
+        k: float(v) for k, v in a.params.to_params().as_dict().items()}
+    body = {"spot": 100.0, "strike": 95.0, "T": 12.0, "mode": "impact"}
+    assert (jschemas.HHWRequest(**body).model_dump()
+            == pschemas.HHWRequest(**body).model_dump())

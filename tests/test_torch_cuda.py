@@ -365,3 +365,131 @@ def test_handle_exotic_on_card(cuda):
         == before["svj_path_stats"] + 1
     assert np.isfinite(res["price"]) and res["std_error"] > 0
     assert res["monitoring"] == "bridge"
+
+
+# ── K7 `hhw_terminal`, K8 `svcj_terminal`, K9 `svj_terminal_td` ─────────────
+def _family_case(name, steps):
+    """(kernel, plain, positional arguments) of one model-family kernel."""
+    from mcos_tpu_torch.models.params import SVCJParams
+    from mcos_tpu_torch.ops.hhw import HHWParams
+
+    if name == "hhw_terminal":
+        return ck.hhw_terminal, ck.hhw_terminal_plain, (
+            HHWParams(rho_vr=0.2), 22500.0, 2.0, 11)
+    if name == "svcj_terminal":
+        # lambda_j = 8: a few jumps on most paths, so the jump branch runs
+        return ck.svcj_terminal, ck.svcj_terminal_plain, (
+            SVCJParams(lambda_j=8.0), 22500.0, 0.5, 11)
+    idx = np.arange(steps)
+    levels = (np.where(idx < steps // 2, 0.04, 0.09),
+              np.where(idx < steps // 3, 0.5, 0.9),
+              np.where(idx < steps // 2, 1.0, 6.0))
+    return ck.svj_terminal_td, ck.svj_terminal_td_plain, (
+        _P, *levels, 22500.0, 0.5, 11)
+
+
+@pytest.mark.parametrize("name", ["hhw_terminal", "svcj_terminal",
+                                  "svj_terminal_td"])
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("steps", [1, 2, 7, 128])
+def test_family_kernels_match_plain(cuda, name, antithetic, steps):
+    """K7, K8 and K9 against their plain versions on the same Philox words.
+    Their carries are written with uncontracted IEEE operations in the
+    plain versions' order, so the tolerance is tight: rtol 2e-6 (the exp at
+    the end may differ by an ulp between the two libraries), and on v,
+    which no exp touches, equality."""
+    kernel, plain, args = _family_case(name, steps)
+    kw = dict(num_paths=10_007, num_steps=steps, antithetic=antithetic,
+              device=cuda)
+    if name != "hhw_terminal":
+        kw["companion"] = True
+    n0 = kernel.launches
+    ker = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    ref = plain(*args, **kw)
+    assert kernel.launches == n0 + 1
+    for a, b in zip(ker, ref):
+        assert a.shape == (2 if antithetic else 1, 10_007)
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=0)
+    if name != "hhw_terminal":
+        torch.testing.assert_close(ker[1], ref[1], rtol=0, atol=0)
+        no_g = kernel(*args, **dict(kw, companion=False))
+        assert no_g[2] is None
+        torch.testing.assert_close(no_g[0], ker[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["hhw_terminal", "svcj_terminal",
+                                  "svj_terminal_td"])
+def test_family_kernel_stream_is_shape_free(cuda, name):
+    """The first n pairs of a 2n launch are the n launch, bit for bit."""
+    kernel, _, args = _family_case(name, 9)
+    a = kernel(*args, num_paths=5000, num_steps=9, device=cuda)
+    b = kernel(*args, num_paths=10_000, num_steps=9, device=cuda)
+    for x, y in zip(a, b):
+        if x is not None:
+            torch.testing.assert_close(x, y[:, :5000], rtol=0, atol=0)
+
+
+def test_k7_common_random_numbers_and_bad_correlation(cuda):
+    """Two parameter sets on one seed share their normals: with sigma_r
+    tiny the discount factor is the deterministic one on every path, and
+    the spot moves little. A correlation matrix that is not positive
+    definite raises before any launch."""
+    from mcos_tpu_torch.ops.hhw import HHWParams
+
+    p = HHWParams()
+    kw = dict(num_paths=4096, num_steps=16, device=cuda)
+    s, _ = ck.hhw_terminal(p, 100.0, 1.0, 3, **kw)
+    s0, d0 = ck.hhw_terminal(HHWParams(sigma_r=1e-8), 100.0, 1.0, 3, **kw)
+    assert float(d0.std()) < 1e-6
+    assert float((s / s0 - 1).abs().max()) < 0.05
+    n0 = ck.hhw_terminal.launches
+    with pytest.raises(ValueError, match="positive definite"):
+        ck.hhw_terminal(HHWParams(rho_sv=-0.999, rho_sr=0.999, rho_vr=0.999),
+                        100.0, 1.0, 3, **kw)
+    assert ck.hhw_terminal.launches == n0
+
+
+def test_k9_negative_v0_is_clamped(cuda):
+    levels = (np.full(12, 0.04), np.full(12, 0.5), np.full(12, 1.0))
+    s, v, _ = ck.svj_terminal_td(_P.replace(v0=-0.01), *levels, 100.0, 0.5,
+                                 1, num_paths=4096, num_steps=12,
+                                 device=cuda)
+    assert bool(torch.isfinite(s).all()) and bool((v >= 0).all())
+
+
+@pytest.mark.parametrize("family", ["hhw", "svcj", "termsvj"])
+def test_family_engines_launch_once(cuda, family):
+    """`HHWEngine.price`, `SVCJEngine.price` and `TDSVJEngine.price` each
+    launch their kernel once and no other; the card's price is the CPU's
+    (same words, plain version) to float32 sums."""
+    from mcos_tpu_torch.engine.hhw import HHWEngine
+    from mcos_tpu_torch.engine.svcj import SVCJEngine
+    from mcos_tpu_torch.engine.termsvj import TDSVJEngine
+    from mcos_tpu_torch.models.params import SVCJParams
+    from mcos_tpu_torch.ops.hhw import HHWParams
+
+    def engine(device):
+        if family == "hhw":
+            return HHWEngine(HHWParams(), num_paths=20_000, num_steps=32,
+                             device=device), "hhw_terminal"
+        if family == "svcj":
+            return SVCJEngine(SVCJParams(), num_paths=20_000,
+                              device=device), "svcj_terminal"
+        return TDSVJEngine(_P, [0.1, 0.25], [0.04, 0.09], [0.5, 0.8],
+                           [1.0, 3.0], num_paths=20_000, num_steps=32,
+                           device=device), "svj_terminal_td"
+
+    eng, kernel = engine(cuda)
+    before = ck.launch_counts()
+    res = eng.price(22500.0, 22500.0, 0.25)
+    after = ck.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {kernel: 1}
+    ref = engine("cpu")[0].price(22500.0, 22500.0, 0.25)
+    assert ck.launch_counts() == after
+    assert res.keys() == ref.keys()
+    np.testing.assert_allclose(res["price"], ref["price"], rtol=2e-4)
+    np.testing.assert_allclose(res["std_error"], ref["std_error"], rtol=2e-3)

@@ -112,10 +112,11 @@ def test_engine_viz_programs_shapes_and_law():
 
 
 def test_unported_options_raise():
-    """Only sharding is still unported; the PRNG driver and the QE draws
-    path, which raised before they were ported, now price."""
+    """Only sharding and the td-SVJ American pricer (which waits on the
+    American engine) are still unported; PRNG-driven pricing and the QE
+    draws path, which raised before they were ported, now price."""
     p = SVJParams()
-    assert set(ppricer.NOT_PORTED) == {"mesh"}
+    assert set(ppricer.NOT_PORTED) == {"mesh", "TDSVJEngine.price_american"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ppricer.MonteCarloEngine(p, mesh="auto", device="cpu")
     res = ppricer.MonteCarloEngine(p, num_paths=256, use_sobol=False,
