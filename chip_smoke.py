@@ -69,7 +69,25 @@
    5 warm price requests per route for latency. Then the counts show K7,
    K8 and K9 launched as often as the priced requests say, and K1-K6 not
    at all.
-8. Prints the kernels' JSON line, the card line and, last, the result line
+8. The rough Bergomi path, with the counts set to 0 again: a new server on
+   127.0.0.1 answers POST /api/rough in every mode: price at 128 steps (the
+   exact sampler) and at 512 (K10), the latter against the exact sampler at
+   512 steps priced in process; at eta = rho = 0 both against
+   Black-Scholes at sigma = sqrt(xi); smile and skew at 512 steps (K10);
+   asian, barrier out and in (their sum against the vanilla) and lookback
+   at 512 steps (K11), and at eta = 0 each against the port's ExoticEngine
+   under GBM on the same grid; greeks at 128 and 512 steps against a
+   bump-and-reprice on common random numbers (with the request's peak
+   device memory); use_sobol against the PRNG price; a tiny calibrate that
+   must recover (H, eta, rho, xi); six requests that must answer 400; 5 warm
+   requests each of price at 128 and 512 steps and asian at 512. Then the
+   counts show K10 launched once per priced lift request of price, smile
+   and skew, K11 once per lift exotic, K1-K9 not at all.
+   Before the paths, K10 `rbergomi_lift_integrals` and K11
+   `rbergomi_lift_stats` are held against their plain versions at 131 072
+   pairs × 512 and 511 steps (H = 0.07, 25 factors) and at H = 0.5 (one
+   factor), and timed beside them and their bounds.
+9. Prints the kernels' JSON line, the card line and, last, the result line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -78,6 +96,7 @@ printed. Long output goes to chiprun_out/chip_smoke.json.
 
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -678,6 +697,86 @@ def check_k9(device, ck, tdsvj, params):
     log(f"K9 phase {time.perf_counter() - t0:.1f} s")
     return {"max_abs_err": max(errs), "bit_equal_share": exact,
             "heavy": heavy, **out}
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K10, K11 against their plain versions
+# ─────────────────────────────────────────────────────────────────────────────
+ROUGH_PAIRS = 131_072     # RoughRequest default
+ROUGH_T, ROUGH_H = 0.25, 0.07
+# Per pair-step, m factors. K10: half a Philox call 19, 2 uniforms 8, one
+# Box-Muller pair 8, the mix w 1 + m (one multiply, then one FFMA per
+# factor), eta w 1, dW 1, two branches of 5 (add e_i, exp, sqrt, the I1
+# FFMA, the I2 add), the factor update 2m (a multiply and an FFMA each):
+# 48 + 3m. K11: one Philox call 38, 3 uniforms 12, 1.5 Box-Muller pairs 12,
+# the mix 1 + m, eta w 1, dW 1, dz 3, two branches of 10 (add e_i, exp,
+# sqrt, drift 1 FFMA, log S 2, exp, sum, max, min), the factor update 2m:
+# 88 + 3m. The tables' loads are two a step, read by every thread of a warp
+# at one address (counted: 2).
+def rough_ops(name: str, m: int) -> float:
+    base = {"rbergomi_lift_integrals": 48, "rbergomi_lift_stats": 88}[name]
+    return base + 3 * m + 2
+
+
+def check_rough_kernel(device, ck, rough, name):
+    """K10 or K11 word for word against its plain version at the lift
+    body's width (131 072 pairs x 512 steps, H = 0.07, m = 25), at 511
+    steps (the odd tail) and at H = 0.5 (m = 1) at a small shape; timed at
+    512 steps beside the plain version and the bound."""
+    t0 = time.perf_counter()
+    kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
+    labels = (("I1", "I2") if name == "rbergomi_lift_integrals"
+              else ("S_T", "mean", "max", "min"))
+
+    def call(fn, h, steps, pairs, seed):
+        c, d, g, tail = rough.rbergomi_lift(h, ROUGH_T, steps)
+        kw = dict(num_paths=pairs, num_steps=steps, device=device)
+        if name == "rbergomi_lift_integrals":
+            out = fn(1.9, ROUGH_T, seed, c, d, g, tail, h, xi_flat=0.04,
+                     **kw)
+        else:
+            out = tuple(fn((1.9, -0.9, R, Q, 0.04, SPOT), ROUGH_T, seed,
+                           c, d, g, tail, h, **kw).values())
+        return out, len(c)
+
+    errs, exact, cases = [], {}, {}
+    for h, steps, pairs in ((ROUGH_H, 512, ROUGH_PAIRS),
+                            (ROUGH_H, 511, ROUGH_PAIRS), (0.5, 64, 16_384)):
+        ker, m = call(kernel, h, steps, pairs, 42)
+        torch.cuda.synchronize()
+        ref, _ = call(plain, h, steps, pairs, 42)
+        torch.cuda.synchronize()
+        check(m == (1 if h == 0.5 else 25), f"{name}: m = {m} at H = {h}")
+        worst, shares = 0.0, {}
+        for label, a, b in zip(labels, ker, ref):
+            check(a.shape == b.shape == (2, pairs), f"{name}: {label} shape")
+            check(bool(torch.isfinite(a).all()), f"{name}: {label} finite")
+            err = float((a - b).abs().max())
+            # The carries are uncontracted, in the plain version's order,
+            # and the exps and square roots are the same library calls:
+            # any difference is a fault.
+            check(err == 0.0, f"{name} {steps} steps, H = {h}: {label} max "
+                  f"abs err {err:.3e} (bit for bit)")
+            worst = max(worst, err)
+            shares[label] = float((a == b).float().mean())
+        log(f"{name} H = {h} (m = {m}), {pairs} pairs x {steps} steps: max "
+            f"abs err {worst:.3e}, bit-equal shares {shares}")
+        errs.append(worst)
+        cases[f"H={h},steps={steps}"] = {"m": m, "max_abs_err": worst,
+                                         "bit_equal_share": shares}
+        exact = exact or shares
+    ms = cuda_ms(lambda: call(kernel, ROUGH_H, 512, ROUGH_PAIRS, 43))
+    plain_ms = cuda_ms(lambda: call(plain, ROUGH_H, 512, ROUGH_PAIRS, 43),
+                       reps=1)
+    b = bound(rough_ops(name, 25), ROUGH_PAIRS * 512, 2 * 512 * 4,
+              len(labels) * 2 * ROUGH_PAIRS * 4)
+    log(f"{name} at {ROUGH_PAIRS} pairs x 512 steps: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {b['ops_per_unit']:.0f} per pair-step); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max(errs), "bit_equal_share": exact,
+            "cases": cases, "ms": ms, "plain_ms": plain_ms, "steps": 512,
+            **b}
 
 
 def kernel_resources(lib_path: str, pattern: str = "svj_stats_kernel") -> dict:
@@ -1466,6 +1565,269 @@ def families_path(device, ck, hhw, svcj, tdsvj, server):
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Rough Bergomi path
+# ─────────────────────────────────────────────────────────────────────────────
+def bs64(spot, strike, T, r, q, sigma, is_call=True) -> float:
+    """Black-Scholes in float64 (the eta = 0 limit of every rough price)."""
+    sd = sigma * np.sqrt(T)
+    d1 = (np.log(spot / strike) + (r - q + 0.5 * sigma**2) * T) / sd
+    d2 = d1 - sd
+    ncdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))  # noqa
+    call = (spot * np.exp(-q * T) * ncdf(d1)
+            - strike * np.exp(-r * T) * ncdf(d2))
+    return float(call if is_call
+                 else call - spot * np.exp(-q * T) + strike * np.exp(-r * T))
+
+
+def rough_path(device, ck, rough, rough_engine, ExoticEngine, gbm_params,
+               server):
+    """POST /api/rough in every mode over HTTP on a fresh server, with the
+    launch counts set to 0 just before: K10 must serve every priced lift
+    request of price, smile and skew, K11 every lift exotic, K1-K9 none."""
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    common = {"spot": SPOT, "T": ROUGH_T}
+    lift = dict(common, num_steps=512)
+    expect = {"rbergomi_lift_integrals": 0, "rbergomi_lift_stats": 0}
+    out = {"requests": {}}
+
+    def ask(what, body, kernel=None, n=1):
+        status, res, ms = post(base, body, path="/api/rough")
+        check(status == 200 and "elapsed_ms" in res, f"{what}: status "
+              f"{status}")
+        for k in ("price", "std_error"):
+            check(k not in res or np.isfinite(res[k]), f"{what}: {k} finite")
+        if kernel:
+            expect[kernel] += n
+        out["requests"][what] = dict(res, latency_ms=ms)
+        return res
+
+    def refused(what, body, needle):
+        try:
+            post(base, body, path="/api/rough")
+            check(False, f"{what} must answer 400")
+        except urllib.error.HTTPError as e:
+            detail = json.loads(e.read())["detail"]
+            check(e.code == 400 and needle in str(detail),
+                  f"{what}: {e.code} {detail!r}")
+            log(f"/api/rough {what}: 400 {detail!r}")
+
+    def warm_latency(what, body, kernel):
+        lat = []
+        for _ in range(5):
+            res = ask(f"warm {what}", body, kernel)
+            lat.append(out["requests"][f"warm {what}"]["latency_ms"])
+        out[f"warm_{what}_ms"] = statistics.median(lat)
+        out[f"warm_{what}_server_ms"] = res["elapsed_ms"]
+        log(f"warm /api/rough {what}: median {statistics.median(lat):.2f} ms "
+            f"over 5 ({[round(x, 2) for x in lat]}); server-side "
+            f"elapsed_ms {res['elapsed_ms']}")
+
+    try:
+        # ── price: exact sampler at 128 steps, K10 at 512 ───────────────
+        ex = ask("price 128 steps (exact)", common)
+        li = ask("price 512 steps (K10)", lift, "rbergomi_lift_integrals")
+        check(ex["estimator"] == "conditional-black"
+              and li["estimator"] == "conditional-black+lift-cuda",
+              f"estimators {ex['estimator']}, {li['estimator']}")
+        check(ex["num_paths_used"] == ROUGH_PAIRS and li["num_steps"] == 512,
+              "/api/rough at the schema's width")
+        p = rough.RoughBergomiParams(xi=0.04, eta=1.9, rho=-0.9, r=R, q=Q,
+                                     hurst=ROUGH_H)
+        t0 = time.perf_counter()
+        exact512 = rough_engine.RoughBergomiEngine(
+            p, num_paths=ROUGH_PAIRS, num_steps=512, sampler="exact",
+            device=device).price(
+            SPOT, SPOT, ROUGH_T)
+        exact512_s = time.perf_counter() - t0
+        joint = float(np.hypot(li["std_error"], exact512["std_error"]))
+        tol = max(5 * joint, 0.02 * exact512["price"])
+        log(f"/api/rough price: exact 128 steps {ex['price']:.4f} ± "
+            f"{ex['std_error']:.4f}; K10 512 steps {li['price']:.4f} ± "
+            f"{li['std_error']:.4f} vs the exact sampler at 512 steps in "
+            f"process {exact512['price']:.4f} ± {exact512['std_error']:.4f} "
+            f"(tol {tol:.4f}; the exact 512-step price took "
+            f"{exact512_s * 1e3:.1f} ms)")
+        check(abs(li["price"] - exact512["price"]) < tol,
+              "K10 lift price vs the exact sampler at 512 steps")
+        out["exact_512"] = dict(exact512, wall_ms=exact512_s * 1e3)
+
+        # ── the Black-Scholes limit: eta = 0, rho = 0 ───────────────────
+        bs = bs64(SPOT, SPOT, ROUGH_T, R, Q, 0.2)
+        for what, body, kernel in (
+                ("exact", common, None),
+                ("K10", lift, "rbergomi_lift_integrals")):
+            res = ask(f"BS limit {what}", dict(body, eta=0.0, rho=0.0),
+                      kernel)
+            rel = abs(res["price"] / bs - 1.0)
+            log(f"/api/rough eta = rho = 0 ({what}): {res['price']:.6f} vs "
+                f"Black-Scholes {bs:.6f} (rel {rel:.2e}, limit 1e-4)")
+            check(rel < 1e-4, f"BS limit on the {what} sampler")
+
+        # ── smile and skew at 512 steps (K10 once each) ─────────────────
+        sm = ask("smile 512", dict(lift, mode="smile"),
+                 "rbergomi_lift_integrals")
+        ivs = sm["implied_vols"]
+        check(len(ivs) == 13 and all(v is not None and 0.05 < v < 1.0
+                                     for v in ivs), f"smile ivs {ivs}")
+        check(ivs[0] > ivs[6] > ivs[-1], "rough smile skewed down")
+        sk = ask("skew 512", dict(lift, mode="skew"),
+                 "rbergomi_lift_integrals")
+        check(sk["skew"] < 0, f"ATM skew {sk}")
+        log(f"/api/rough smile 512: ivs {[round(v, 4) for v in ivs]}; skew "
+            f"{sk['skew']:.4f}, atm vol {sk['atm_vol']:.4f}")
+
+        # ── exotics at 512 steps (K11 once each) ────────────────────────
+        asian = ask("asian 512", dict(lift, mode="asian"),
+                    "rbergomi_lift_stats")
+        up = 1.1 * SPOT
+        ko = ask("barrier out 512", dict(lift, mode="barrier", barrier=up),
+                 "rbergomi_lift_stats")
+        ki = ask("barrier in 512", dict(lift, mode="barrier", barrier=up,
+                                        knock="in"), "rbergomi_lift_stats")
+        lb = ask("lookback 512", dict(lift, mode="lookback"),
+                 "rbergomi_lift_stats")
+        gap = abs(ko["price"] + ki["price"] - li["price"])
+        tol = 4 * (ko["std_error"] + ki["std_error"] + li["std_error"])
+        log(f"/api/rough 512 steps: asian {asian['price']:.4f}, up-and-out "
+            f"{ko['price']:.4f} + up-and-in {ki['price']:.4f} vs the vanilla "
+            f"{li['price']:.4f} (gap {gap:.4f}, tol {tol:.4f}); hit fraction "
+            f"{ko['hit_fraction']:.4f}; lookback {lb['price']:.4f}")
+        check(gap < tol, "barrier in + out vs the vanilla")
+        check(0 < asian["price"] < li["price"], "asian below the vanilla")
+        # At eta = 0 the variance is flat: K11's statistics against the
+        # port's ExoticEngine under GBM(sqrt(xi)) on the same 512-step grid
+        # (its twin, control variate off, so no other kernel runs here).
+        gbm = ExoticEngine(gbm_params(0.2, R, Q), num_paths=ROUGH_PAIRS,
+                           num_steps=int(512 / ROUGH_T), seed=11,
+                           use_control_variate=False, backend="torch",
+                           device=device)
+        flat = dict(lift, eta=0.0)
+        for what, body, ref in (
+                ("asian", dict(flat, mode="asian"),
+                 gbm.price_asian(SPOT, SPOT, ROUGH_T)),
+                ("barrier", dict(flat, mode="barrier", barrier=up),
+                 gbm.price_barrier(SPOT, SPOT, ROUGH_T, up)),
+                ("lookback", dict(flat, mode="lookback"),
+                 gbm.price_lookback(SPOT, ROUGH_T))):
+            res = ask(f"{what} eta = 0", body, "rbergomi_lift_stats")
+            joint = float(np.hypot(res["std_error"], ref["std_error"]))
+            log(f"/api/rough {what} at eta = 0: {res['price']:.4f} ± "
+                f"{res['std_error']:.4f} vs ExoticEngine GBM "
+                f"{ref['price']:.4f} ± {ref['std_error']:.4f} (4 joint se = "
+                f"{4 * joint:.4f}; {ref['num_steps']} steps)")
+            check(ref["num_steps"] == 512, "ExoticEngine on the same grid")
+            check(abs(res["price"] - ref["price"]) < 4 * joint,
+                  f"{what} at eta = 0 vs ExoticEngine")
+
+        # ── greeks against a CRN bump-and-reprice ───────────────────────
+        h = 0.01 * SPOT
+        for steps in (128, 512):
+            body = dict(common, num_steps=steps, mode="greeks")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            g = ask(f"greeks {steps}", body)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            # The same twin on the same generator seed (the engine's
+            # common random numbers); at 512 steps that is the lift twin,
+            # not K10, whose stream is Philox.
+            eng = rough_engine.RoughBergomiEngine(
+                p, num_paths=ROUGH_PAIRS, num_steps=steps, backend="torch",
+                device=device)
+            pr = [eng.price(SPOT + k * h, SPOT, ROUGH_T)["price"]
+                  for k in (-1, 0, 1)]
+            delta = (pr[2] - pr[0]) / (2 * h)
+            gamma = (pr[2] - 2 * pr[1] + pr[0]) / h**2
+            log(f"/api/rough greeks {steps} steps: delta {g['delta']:.6f} "
+                f"vs bump {delta:.6f}, gamma {g['gamma']:.4e} vs bump "
+                f"{gamma:.4e}; price {g['price']:.4f} vs {pr[1]:.4f}; "
+                f"{out['requests'][f'greeks {steps}']['latency_ms']:.1f} ms, "
+                f"peak device memory {peak:.2f} GiB; vega_xi "
+                f"{g['vega_xi']:.2f}, d_eta {g['d_eta']:.3f}, d_rho "
+                f"{g['d_rho']:.3f}, rho_rate {g['rho_rate']:.2f}")
+            check(abs(g["delta"] - delta) < 3e-3, f"delta at {steps} steps")
+            check(abs(g["gamma"] / gamma - 1.0) < 0.03,
+                  f"gamma at {steps} steps")
+            check(all(np.isfinite(g[k]) for k in (
+                "vega_xi", "d_eta", "d_rho", "rho_rate")), "greeks finite")
+            out[f"greeks_{steps}"] = {"peak_gib": peak, "bump_delta": delta,
+                                      "bump_gamma": gamma}
+
+        # ── RQMC against the PRNG price ─────────────────────────────────
+        qmc = ask("price sobol", dict(common, use_sobol=True))
+        joint = float(np.hypot(qmc["std_error"], ex["std_error"]))
+        log(f"/api/rough use_sobol: {qmc['price']:.4f} ± "
+            f"{qmc['std_error']:.4f} ({qmc['estimator']}) vs PRNG "
+            f"{ex['price']:.4f} ± {ex['std_error']:.4f}")
+        check(qmc["estimator"] == "conditional-black+rqmc"
+              and abs(qmc["price"] - ex["price"]) < 4 * joint,
+              "RQMC vs PRNG within their bars")
+
+        # ── a tiny calibration: 2 maturities x 3 strikes, 2 Hurst points ─
+        mats = [0.1, 0.5]
+        ks = [[SPOT * m for m in (0.95, 1.0, 1.05)] for _ in mats]
+        truth = rough_engine.RoughBergomiEngine(p, num_steps=32, seed=99,
+                                                device=device)
+        market = [truth.price(SPOT, k, t)["price"] for t, k in zip(mats, ks)]
+        res = ask("calibrate", dict(spot=SPOT, T=0.5, mode="calibrate",
+                                    num_paths=16_384, num_steps=32,
+                                    maturities=mats, cal_strikes=ks,
+                                    market_prices=market,
+                                    hurst_grid=[ROUGH_H, 0.3]))
+        fit = res["params"]
+        log(f"/api/rough calibrate: {fit}, rmse {res['rmse_price']:.4f} in "
+            f"{res['elapsed_ms']:.0f} ms; per H "
+            f"{ {k: round(v['objective'], 4) for k, v in res['hurst_grid'].items()} }")
+        check(fit["hurst"] == ROUGH_H and abs(fit["eta"] - 1.9) < 0.5
+              and abs(fit["rho"] + 0.9) < 0.15
+              and abs(fit["xi"] - 0.04) < 0.006,
+              f"calibrate recovers (H, eta, rho, xi): {fit}")
+
+        # ── the 400s ────────────────────────────────────────────────────
+        refused("moneyness grid > 256",
+                dict(common, mode="smile", moneyness=[1.0] * 257), "> 256")
+        refused("barrier <= 0", dict(common, mode="barrier"), "barrier > 0")
+        refused("calibrate without a grid", dict(common, mode="calibrate"),
+                "needs maturities")
+        refused("calibrate shapes", dict(common, mode="calibrate",
+                                         maturities=[0.1, 0.5],
+                                         cal_strikes=[[SPOT]],
+                                         market_prices=[[1.0], [2.0]]),
+                "must be (m, k)")
+        refused("calibration grid too large",
+                dict(common, mode="calibrate", maturities=[0.5],
+                     cal_strikes=[[SPOT] * 2049],
+                     market_prices=[[1.0] * 2049]), "too large")
+        refused("unknown mode", dict(common, mode="american"), "unknown mode")
+
+        warm_latency("price 128", common, None)
+        warm_latency("price 512", lift, "rbergomi_lift_integrals")
+        warm_latency("asian 512", dict(lift, mode="asian"),
+                     "rbergomi_lift_stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    counts = ck.launch_counts()
+    log(f"launch counts over the rough path: {counts} (expected {expect})")
+    for name, n in counts.items():
+        check(n == expect.get(name, 0), f"{name} launched {n} times, "
+              f"expected {expect.get(name, 0)}")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"rough path: {out['wall_s']:.1f} s")
+    return out
+
+
+T_START = time.perf_counter()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
@@ -1476,7 +1838,8 @@ def main() -> None:
     from mcos_tpu_torch.models.params import SVCJParams, SVJParams, gbm_params
     from mcos_tpu_torch.ops import cuda_kernels as ck
     from mcos_tpu_torch.ops import exotics as ox
-    from mcos_tpu_torch.ops import hhw, sobol, svcj, tdsvj
+    from mcos_tpu_torch.engine import rough as rough_engine
+    from mcos_tpu_torch.ops import hhw, rough, sobol, svcj, tdsvj
     from mcos_tpu_torch.ops.bs import bs_price
     from mcos_tpu_torch.ops.cos_pricer import cos_price
 
@@ -1494,6 +1857,9 @@ def main() -> None:
     fam = kernel_resources(ck._LIBRARY.path,
                            "hhw_kernel|svcj_kernel|svj_td_kernel")
     log(f"K7-K9 (registers, stack bytes) per instantiation: {fam}")
+    rough_res = kernel_resources(ck._LIBRARY.path,
+                                 "rbergomi_lift_kernel|rbergomi_stats_kernel")
+    log(f"K10-K11 (registers, stack bytes) per instantiation: {rough_res}")
 
     params = SVJParams()
     k1 = check_k1(device, ck, sobol, params)
@@ -1505,6 +1871,8 @@ def main() -> None:
     k7 = check_k7(device, ck, hhw)
     k8 = check_k8(device, ck, SVCJParams)
     k9 = check_k9(device, ck, tdsvj, params)
+    k10 = check_rough_kernel(device, ck, rough, "rbergomi_lift_integrals")
+    k11 = check_rough_kernel(device, ck, rough, "rbergomi_lift_stats")
     mp = main_path(device, ck, bench, cos_price, bs_price, SVJParams, server)
     op = options_path(device, ck, cos_price, bs_price, SVJParams, server)
     xp = exotics_path(device, ck, ox, ExoticEngine, gbm_params, server)
@@ -1514,6 +1882,8 @@ def main() -> None:
         f"elapsed_ms {xp['server_elapsed_ms']}; exotics path "
         f"{xp['wall_s']:.1f} s")
     fp = families_path(device, ck, hhw, svcj, tdsvj, server)
+    rp = rough_path(device, ck, rough, rough_engine, ExoticEngine,
+                    gbm_params, server)
 
     # (name, source, TPU kernel body, its check, the path that launched it)
     table = (
@@ -1531,6 +1901,8 @@ def main() -> None:
         ("hhw_terminal", "hhw.cu", 1498, k7, fp),
         ("svcj_terminal", "svcj.cu", 1658, k8, fp),
         ("svj_terminal_td", "svj_td.cu", 1833, k9, fp),
+        ("rbergomi_lift_integrals", "rbergomi_lift.cu", 2015, k10, rp),
+        ("rbergomi_lift_stats", "rbergomi_stats.cu", 2162, k11, rp),
     )
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
@@ -1552,10 +1924,12 @@ def main() -> None:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": ck.build_seconds(), "k1": k1,
                    "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6,
-                   "k7": k7, "k8": k8, "k9": k9, "k6_resources": resources,
-                   "k7_k9_resources": fam, "main_path": mp,
+                   "k7": k7, "k8": k8, "k9": k9, "k10": k10, "k11": k11,
+                   "k6_resources": resources, "k7_k9_resources": fam,
+                   "k10_k11_resources": rough_res, "main_path": mp,
                    "options_path": op, "exotics_path": xp,
-                   "families_path": fp}, f, indent=1)
+                   "families_path": fp, "rough_path": rp}, f, indent=1)
+    log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 The JAX package `mcos_tpu` is the reference; this package imports neither
 JAX nor `mcos_tpu`. Its layout mirrors the reference's (`config`, `models`,
 `ops`, `engine`, `api`, `utils`), with the hand-written CUDA sources in
-`csrc/`. Ported so far: the default `/api/price` path (Sobol draws, kernel
-K1, companion control variate, guards, coalescer, HTTP server) and the GBM
-benchmark kernel K2. ROADMAP.md lists what is left.
+`csrc/`: one kernel for each of the JAX package's eleven Pallas kernels
+(K1-K11). It serves `/api/price`, `/api/convergence`, `/api/exotic`,
+`/api/hhw`, `/api/svcj`, `/api/termsvj` and `/api/rough`. ROADMAP.md lists
+what is left.
 """
 
 from mcos_tpu_torch.engine.pricer import MonteCarloEngine, mc_price_from_draws

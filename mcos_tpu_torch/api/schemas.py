@@ -1,7 +1,7 @@
 """Request schemas of the port's HTTP API: the part of
 `mcos_tpu/api/schemas.py` that `PriceRequest`, `ExoticRequest`,
-`HHWRequest`, `SVCJRequest` and `TermSVJRequest` need, copied unchanged
-apart from the imports. tests/test_torch_copies.py holds the two equal.
+`HHWRequest`, `SVCJRequest`, `TermSVJRequest` and `RoughRequest` need,
+copied unchanged apart from the imports. tests/test_torch_copies.py holds the two equal.
 """
 
 from __future__ import annotations
@@ -249,3 +249,35 @@ class TermSVJRequest(BaseModel):
             raise ValueError("segment t_end values must be strictly "
                              "ascending")
         return self
+
+
+class RoughRequest(BaseModel):
+    """POST /api/rough — rough Bergomi pricing/smile/Greeks
+    (engine/rough.py; model family beyond the reference)."""
+    spot: float = Field(gt=0)
+    T: float = Field(gt=0, le=10.0)
+    # "price" | "greeks" | "smile" | "skew" | "asian" | "barrier" | "lookback"
+    mode: str = "price"
+    strike: float = 0.0              # 0 → ATM (price/greeks/exotic modes)
+    is_call: bool = True
+    # barrier-mode terms
+    barrier: float = 0.0
+    knock: str = "out"               # "out" | "in"
+    # model parameters
+    hurst: float = Field(0.07, gt=0.0, le=0.5)
+    xi: float = Field(0.04, gt=0.0, le=4.0)
+    eta: float = Field(1.9, ge=0.0, le=10.0)
+    rho: float = Field(-0.9, ge=-0.999, le=0.999)
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    # discretization
+    num_paths: int = Field(131_072, **_PATHS)
+    num_steps: int = Field(128, ge=8, le=512)
+    # Owen-Sobol through the PCA factor + RQMC error bars (price mode)
+    use_sobol: bool = False
+    moneyness: Optional[list] = None  # smile mode grid (≤ MAX_GRID_POINTS)
+    # calibrate mode: (m,) maturities, (m, k) strikes and call prices
+    maturities: Optional[list] = None
+    cal_strikes: Optional[list] = None
+    market_prices: Optional[list] = None
+    hurst_grid: Optional[list] = None

@@ -15,14 +15,16 @@ serving slice).
     POST /api/termsvj      — time-dependent SVJ: price, compare, smile,
                              forward_start, cliquet, greeks, varswap,
                              calibrate (american answers 501)
+    POST /api/rough        — rough Bergomi: price, greeks, smile, skew,
+                             asian, barrier, lookback, calibrate
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
 Transport: the stdlib ThreadingHTTPServer. Every device program goes onto
 the device's default stream. Before it serves, `serve` builds the CUDA
 kernels and the default-shape Sobol net, so the first client request does
-not pay for either (the kernels of `/api/exotic`, `/api/hhw`, `/api/svcj`
-and `/api/termsvj` are in the same library).
+not pay for either (the kernels of `/api/exotic`, `/api/hhw`, `/api/svcj`,
+`/api/termsvj` and `/api/rough` are in the same library).
 
     python -m mcos_tpu_torch.api.server --device cuda --port 8000
 """
@@ -47,10 +49,12 @@ from mcos_tpu_torch.engine.exotics import (
 from mcos_tpu_torch.engine.guards import PricingGuard
 from mcos_tpu_torch.engine.hhw import HHWEngine
 from mcos_tpu_torch.engine.pricer import MonteCarloEngine, to_host
+from mcos_tpu_torch.engine.rough import RoughBergomiEngine, calibrate_rbergomi
 from mcos_tpu_torch.engine.surface import implied_vol
 from mcos_tpu_torch.engine.svcj import SVCJEngine
 from mcos_tpu_torch.engine.termsvj import TDSVJEngine, bootstrap_calibrate_td
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
+from mcos_tpu_torch.ops.rough import RoughBergomiParams
 from mcos_tpu_torch.utils import fastjson
 
 logger = logging.getLogger("mcos_tpu_torch.api")
@@ -504,12 +508,76 @@ def handle_termsvj(body: dict, device="cuda") -> dict:
     return out
 
 
+def handle_rough(body: dict, device="cuda") -> dict:
+    """`/api/rough` on `device`: rough Bergomi, the JAX handler's contract.
+    At num_steps = 512 without Sobol the engine lifts: price, smile and
+    skew launch kernel K10 once, asian, barrier and lookback kernel K11
+    once; below 512 steps, or with use_sobol, the exact sampler (one
+    matmul) runs. greeks ride the differentiable twins, calibrate the
+    batched DE + Adam over the exact sampler."""
+    req = schemas.RoughRequest(**body)
+    if req.moneyness is not None and len(req.moneyness) > schemas.MAX_GRID_POINTS:
+        raise ApiError(400, f"moneyness grid > {schemas.MAX_GRID_POINTS}")
+    start = time.time()
+    params = RoughBergomiParams(xi=req.xi, eta=req.eta, rho=req.rho,
+                                r=req.r, q=req.q, hurst=req.hurst)
+    eng = RoughBergomiEngine(params, num_paths=req.num_paths,
+                             num_steps=req.num_steps,
+                             use_sobol=req.use_sobol, device=device)
+    strike = req.strike if req.strike > 0 else req.spot
+    if req.mode == "price":
+        out = eng.price(req.spot, strike, req.T, is_call=req.is_call)
+    elif req.mode == "greeks":
+        out = eng.greeks(req.spot, strike, req.T, is_call=req.is_call)
+    elif req.mode == "smile":
+        out = eng.smile(req.spot, req.T, moneyness=req.moneyness)
+    elif req.mode == "skew":
+        out = eng.atm_skew(req.spot, req.T)
+    elif req.mode == "asian":
+        out = eng.price_asian(req.spot, strike, req.T, is_call=req.is_call)
+    elif req.mode == "barrier":
+        if req.barrier <= 0:
+            raise ApiError(400, "barrier mode needs barrier > 0")
+        out = eng.price_barrier(req.spot, strike, req.T, req.barrier,
+                                is_call=req.is_call, knock=req.knock)
+    elif req.mode == "lookback":
+        out = eng.price_lookback(
+            req.spot, req.T, is_call=req.is_call,
+            strike=req.strike if req.strike > 0 else None)
+    elif req.mode == "calibrate":
+        if not (req.maturities and req.cal_strikes and req.market_prices):
+            raise ApiError(400, "calibrate mode needs maturities, "
+                                "cal_strikes, market_prices")
+        mkt = np.asarray(req.market_prices, np.float64)
+        ks = np.asarray(req.cal_strikes, np.float64)
+        if ks.shape != mkt.shape or ks.shape[0] != len(req.maturities):
+            raise ApiError(400, "cal_strikes/market_prices must be (m, k) "
+                                "matching maturities")
+        if mkt.size > schemas.MAX_GRID_POINTS * 8:
+            raise ApiError(400, "calibration grid too large")
+        kw = {}
+        if req.hurst_grid:
+            kw["hurst_grid"] = tuple(float(h) for h in req.hurst_grid[:8])
+        out = calibrate_rbergomi(
+            req.spot, req.maturities, ks, mkt, r=req.r, q=req.q,
+            num_paths=min(req.num_paths, 65_536), num_steps=req.num_steps,
+            device=device, **kw)
+        p = out.pop("params")
+        out["params"] = {"hurst": p.hurst, "eta": float(p.eta),
+                         "rho": float(p.rho), "xi": float(p.xi)}
+    else:
+        raise ApiError(400, f"unknown mode {req.mode!r}")
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
                 "/api/convergence": handle_convergence,
                 "/api/exotic": handle_exotic,
                 "/api/hhw": handle_hhw,
                 "/api/svcj": handle_svcj,
-                "/api/termsvj": handle_termsvj}
+                "/api/termsvj": handle_termsvj,
+                "/api/rough": handle_rough}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,
@@ -578,12 +646,18 @@ class _Handler(BaseHTTPRequestHandler):
 
 def warm(device) -> None:
     """Build the CUDA kernels (on a CUDA device) and the default-shape Sobol
-    net before serving."""
+    net before serving. On a CUDA device, also run one tiny rough Bergomi
+    `greeks` on the lift: its first `torch.utils.checkpoint` pass imports
+    torch's compiler modules, seconds that would otherwise land on the
+    first such request."""
     device = torch.device(device)
     if device.type == "cuda":
         from mcos_tpu_torch.ops import cuda_kernels
 
         cuda_kernels.load_library()
+        RoughBergomiEngine(RoughBergomiParams(), num_paths=256, num_steps=8,
+                           sampler="lift", device=device).greeks(
+            1.0, 1.0, 0.25)
     req = schemas.PriceRequest(spot=22500.0, strike=22500.0, T=0.25)
     eng = MonteCarloEngine(req.params.to_params(), num_paths=req.num_paths,
                            device=device)

@@ -20,8 +20,8 @@
 //     the inlined sinf/cosf/logf);
 //   - acklam_ndtri rounds each Horner step once, in double, where the float
 //     product is exact; that is the plain version's float64 (a*x + c).
-// K6 (dead-or-alive selects on the log-spot carry) and K7-K9 (hundreds of
-// dependent steps) write their carries the same way. In K1-K5's Euler
+// K6 (dead-or-alive selects on the log-spot carry) and K7-K11 (hundreds
+// of dependent steps) write their carries the same way. In K1-K5's Euler
 // updates nvcc contracts freely, and those kernels differ from the plain
 // versions by FMA rounding (K2 keeps sincospif: its only consumer is a
 // continuous sum).
@@ -46,9 +46,11 @@ constexpr uint32_t kStatsDomain = 4u;  // K6
 constexpr uint32_t kHhwDomain = 5u;    // K7
 constexpr uint32_t kSvcjDomain = 6u;   // K8
 constexpr uint32_t kTdDomain = 7u;     // K9
+constexpr uint32_t kRoughDomain = 8u;  // K10
+constexpr uint32_t kRoughStatsDomain = 9u;  // K11
 
 // IEEE float32 multiply, add and subtract that nvcc never contracts into an
-// FMA. K7, K8 and K9 write every operation on their carries with these, in
+// FMA. K7-K11 write every operation on their carries with these, in
 // their plain versions' order, so on the card kernel and plain version
 // agree bit for bit at any step count.
 __device__ __forceinline__ float fmul(float a, float b) {

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their wrappers, their plain torch
 versions and their build (counterpart of `mcos_tpu/ops/pallas_kernels.py`
 for the kernels on the `/api/price`, `/api/convergence`, `/api/exotic`,
-`/api/hhw`, `/api/svcj` and `/api/termsvj` paths).
+`/api/hhw`, `/api/svcj`, `/api/termsvj` and `/api/rough` paths).
 
 K1 `svj_terminal_from_draws` (csrc/svj_draws.cu) replaces
     `svj_terminal_from_draws_pallas` / `_svj_draws_kernel`.
@@ -21,6 +21,10 @@ K8 `svcj_terminal` (csrc/svcj.cu) replaces
     `svcj_terminal_pallas` / `_svcj_kernel`.
 K9 `svj_terminal_td` (csrc/svj_td.cu) replaces
     `svj_terminal_td_pallas` / `_svj_td_kernel`.
+K10 `rbergomi_lift_integrals` (csrc/rbergomi_lift.cu) replaces
+    `rbergomi_lift_integrals_pallas` / `_rbergomi_lift_kernel`.
+K11 `rbergomi_lift_stats` (csrc/rbergomi_stats.cu) replaces
+    `rbergomi_lift_stats_pallas` / `_rbergomi_lift_stats_kernel`.
 
 The wrapper rule: a CPU input takes the plain torch version; a CUDA input
 launches the kernel or raises. There is no fallback from one to the other.
@@ -39,11 +43,11 @@ with 32-bit masks (torch has no usable uint32 arithmetic); it gives the
 same words as csrc/philox.cuh, so a kernel's in-kernel random mode can be
 compared word for word with its plain version. Each kernel's stream has
 its own counter domain (word 3): K1/K5 jumps 0, K2 1, K3 2, K4 3, K6 4,
-K7 5, K8 6, K9 7.
+K7 5, K8 6, K9 7, K10 8, K11 9.
 
 The plain versions repeat each kernel's float32 operations in the same
 order. Where a result feeds a discontinuous select (the QE transition's
-branches; K6's dead-or-alive test on the log-spot carry), and in K7-K9
+branches; K6's dead-or-alive test on the log-spot carry), and in K7-K11
 (hundreds of dependent steps), the CUDA source keeps nvcc from contracting
 multiply-adds and the plain version here performs the same IEEE
 operations; elsewhere the two differ by FMA rounding.
@@ -191,6 +195,12 @@ class _Library:
         lib.mcos_svj_terminal_td.argtypes = [
             vp, vp, vp, vp, vp, i32, i64, i32, i32, u64, vp, vp]
         lib.mcos_svj_terminal_td.restype = i32
+        lib.mcos_rbergomi_lift_integrals.argtypes = [
+            vp, vp, vp, i64, i32, i32, u64, vp, vp, i32, vp]
+        lib.mcos_rbergomi_lift_integrals.restype = i32
+        lib.mcos_rbergomi_lift_stats.argtypes = [
+            vp, vp, i64, i32, i32, u64, vp, vp, i32, vp]
+        lib.mcos_rbergomi_lift_stats.restype = i32
         lib.mcos_cuda_error_string.argtypes = [i32]
         lib.mcos_cuda_error_string.restype = ctypes.c_char_p
         self.path = lib_path
@@ -237,7 +247,8 @@ _PHILOX_10A, _PHILOX_10B = 0x9E3779B9, 0xBB67AE85
 _PHILOX_SA, _PHILOX_SB = 0xD2511F53, 0xCD9E8D57
 # Counter domains of csrc/philox.cuh (word 3 of the counter).
 (_JUMP_DOMAIN, _GBM_DOMAIN, _SVJ_DOMAIN, _QE_DOMAIN, _STATS_DOMAIN,
- _HHW_DOMAIN, _SVCJ_DOMAIN, _TD_DOMAIN) = range(8)
+ _HHW_DOMAIN, _SVCJ_DOMAIN, _TD_DOMAIN, _ROUGH_DOMAIN,
+ _ROUGH_STATS_DOMAIN) = range(10)
 
 
 def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1563,9 +1574,271 @@ def svj_terminal_td(params: SVJParams, theta_t, xi_t, lam_t, spot, T,
 svj_terminal_td.launches = 0
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# K10, K11: rough Bergomi Markovian lift (integrals; path statistics)
+# ─────────────────────────────────────────────────────────────────────────────
+_MAX_FACTORS = 32     # csrc/rbergomi_lift.cu, rbergomi_stats.cu: kMaxFactors
+
+
+def _rough_tables(eta, xi_flat, hurst: float, T, num_steps: int, c, d, g,
+                  tail, xi_t=None, spot_leg=None
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The launch scalars, the (3, m) factor table and the (2, steps) step
+    table of K10/K11, computed in float64 on the host and cast once.
+
+    scalars: [eta, sqrt_dt, dt], and with `spot_leg` = (rho, r, q) also
+    [rho, orth = sqrt(max(1 - rho^2, 0)), mu_dt = (r - q) dt, 1/steps];
+    factor table: rows c, d, g (`ops/rough.py:rbergomi_lift`);
+    step table: rows e_i = ln xi_i - eta^2/2 t_i^{2H} and sqrt(tail_{i-1})
+    at the left points t_i = i dt (t_0 row first: t^{2H} = 0 and the tail
+    0 there), with xi_i from `xi_t` or the flat `xi_flat`."""
+    n = int(num_steps)
+    cdg = np.ascontiguousarray(np.stack([np.asarray(x, np.float32).reshape(-1)
+                                         for x in (c, d, g)]))
+    m = cdg.shape[1]
+    if not 1 <= m <= _MAX_FACTORS:
+        raise ValueError(f"the lift kernels take 1..{_MAX_FACTORS} factors, "
+                         f"got {m}")
+    tail = np.asarray(tail, np.float64).reshape(-1)
+    if tail.size != n:
+        raise ValueError(f"tail has {tail.size} entries for {n} steps")
+    eta = float(eta)
+    dt = float(T) / n
+    wick_left = (dt * np.arange(n)) ** (2.0 * float(hurst))
+    xi = (np.full(n, float(xi_flat)) if xi_t is None
+          else np.asarray(xi_t, np.float64).reshape(-1))
+    if xi.size != n:
+        raise ValueError(f"xi_t has {xi.size} entries for {n} steps")
+    e_tab = np.log(xi) - 0.5 * eta * eta * wick_left
+    sqrt_tail_left = np.concatenate([[0.0], np.sqrt(tail[:-1])])
+    tab = np.ascontiguousarray(np.stack([e_tab, sqrt_tail_left]), np.float32)
+    scalars = [eta, math.sqrt(dt), dt]
+    if spot_leg is not None:
+        rho, r, q = (float(x) for x in spot_leg)
+        scalars += [rho, math.sqrt(max(1.0 - rho * rho, 0.0)), (r - q) * dt,
+                    1.0 / n]
+    return np.asarray(scalars, np.float32), cdg, tab
+
+
+@functools.lru_cache(maxsize=64)
+def _device_step_table(tab_bytes: bytes, num_steps: int,
+                       device: str) -> torch.Tensor:
+    """The (2, steps) step table on `device`, copied once per table: a
+    warm request then launches without a synchronous host-to-device copy
+    in front of the kernel."""
+    return torch.as_tensor(
+        np.frombuffer(tab_bytes, np.float32).reshape(2, num_steps),
+        device=device)
+
+
+def _lift_state(cdg: np.ndarray, num_paths: int, device):
+    """(c, d, g as (m, 1) float32 columns, the zero (m, paths) factor
+    state) for the plain versions."""
+    cols = [torch.as_tensor(row, device=device)[:, None] for row in cdg]
+    return cols, torch.zeros((cdg.shape[1], num_paths), dtype=torch.float32,
+                             device=device)
+
+
+def _lift_mix(tab: np.ndarray, idx: int, z_zeta, c_col, y):
+    """w = sqrt(tail_i)·zeta + Σ_j c_j y_j, summed over j in order (the
+    kernels' order; the products c_j y_j are elementwise)."""
+    prod = c_col * y
+    w = float(tab[1, idx]) * z_zeta
+    for j in range(prod.shape[0]):
+        w = w + prod[j]
+    return w
+
+
+def rbergomi_lift_integrals_plain(eta, T, seed: int, c, d, g, tail,
+                                  hurst: float, *, num_paths: int,
+                                  num_steps: int, xi_t=None, xi_flat=0.04,
+                                  antithetic: bool = True, device="cpu"
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K10 on the kernel's Philox words: call i of
+    counter (pair_lo, pair_hi, i, 8) gives Box-Muller(a0, a1) = (z_dW,
+    z_zeta) for step 2i and Box-Muller(a2, a3) for step 2i+1; an odd last
+    step uses a0, a1 of its own call. One factor state serves both
+    branches (the minus branch's is exactly its negation). Each float32
+    operation is the kernel's, in its order; I2 is scaled by dt at the end.
+    Returns (I1, I2), each (n_branch, num_paths)."""
+    device = torch.device(device)
+    p, cdg, tab = _rough_tables(eta, xi_flat, hurst, T, num_steps, c, d, g,
+                                tail, xi_t)
+    eta_f, sqrt_dt, dt = (float(x) for x in p)
+    (c_col, d_col, g_col), y = _lift_state(cdg, num_paths, device)
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    i1, i2 = [zeros] * nb, [zeros] * nb
+
+    def step(idx, z_dw, z_zeta):
+        nonlocal y
+        ew = eta_f * _lift_mix(tab, idx, z_zeta, c_col, y)
+        e_i = float(tab[0, idx])
+        dw = z_dw * sqrt_dt
+        for k in range(nb):
+            s_ew, s_dw = (ew, dw) if k == 0 else (-ew, -dw)
+            v = torch.exp(s_ew + e_i)
+            i1[k] = i1[k] + torch.sqrt(v) * s_dw
+            i2[k] = i2[k] + v
+        y = d_col * y + g_col * dw[None]
+
+    for call in range((num_steps + 1) // 2):
+        u = _pair_words(num_paths, call, _ROUGH_DOMAIN, seed, device)
+        step(2 * call, *box_muller(u[0], u[1]))
+        if 2 * call + 1 < num_steps:
+            step(2 * call + 1, *box_muller(u[2], u[3]))
+    return torch.stack(i1), torch.stack([x * dt for x in i2])
+
+
+def rbergomi_lift_integrals(eta, T, seed: int, c, d, g, tail, hurst: float,
+                            *, num_paths: int, num_steps: int, xi_t=None,
+                            xi_flat=0.04, antithetic: bool = True,
+                            device="cuda"
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 wrapper, the counterpart of `rbergomi_lift_integrals_pallas`:
+    the Romano-Touzi integrals (I1 = Σ √v dW, I2 = Σ v dt), each
+    (n_branch, num_paths), row 0 the base branch, row 1 (antithetic) every
+    normal negated, of the m-factor lift with tables `c, d, g, tail` from
+    `ops/rough.py:rbergomi_lift` (m ≤ 32); `hurst` must be the one the
+    tables were built with. The normals depend on (seed, pair, step) only.
+    A CPU `device` takes the plain version; a CUDA one launches the kernel
+    or raises."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    kw = dict(num_paths=num_paths, num_steps=num_steps, xi_t=xi_t,
+              xi_flat=xi_flat, antithetic=antithetic)
+    if device.type == "cpu":
+        return rbergomi_lift_integrals_plain(eta, T, seed, c, d, g, tail,
+                                             hurst, device=device, **kw)
+    p, cdg, tab = _rough_tables(eta, xi_flat, hurst, T, num_steps, c, d, g,
+                                tail, xi_t)
+    tab_dev = _device_step_table(tab.tobytes(), num_steps, str(device))
+    n_branch = 2 if antithetic else 1
+    out = torch.empty((2, n_branch, num_paths), dtype=torch.float32,
+                      device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.mcos_rbergomi_lift_integrals(
+            out[0].data_ptr(), out[1].data_ptr(), tab_dev.data_ptr(),
+            num_paths, num_steps, n_branch, int(seed), p.ctypes.data,
+            cdg.ctypes.data, int(cdg.shape[1]), _stream_handle(device))
+    _check_rc(lib, rc, "rbergomi_lift_integrals")
+    with _COUNT_LOCK:
+        rbergomi_lift_integrals.launches += 1
+    return out[0], out[1]
+
+
+rbergomi_lift_integrals.launches = 0
+
+_ROUGH_STATS = ("s_terminal", "s_mean", "s_max", "s_min")
+
+
+def rbergomi_lift_stats_plain(params_vec, T, seed: int, c, d, g, tail,
+                              hurst: float, *, num_paths: int,
+                              num_steps: int, xi_t=None,
+                              antithetic: bool = True, device="cpu"
+                              ) -> Dict[str, torch.Tensor]:
+    """Plain torch version of K11 on the kernel's Philox words, K7's layout
+    in domain 9: steps 2i and 2i+1 take calls 2i and 2i+1 of counter
+    (pair_lo, pair_hi, call, 9): words a0..a3, b0, b1 give three Box-Muller
+    pairs; step 2i runs on (z_dW, z_zeta, z_perp) = (z_a, z_b, z_c), step
+    2i+1 on (z_d, z_e, z_f). An odd last step takes call steps−1 alone:
+    (z1, z2) from a0, a1 and z3 from a2, a3. Each float32 operation is the
+    kernel's, in its order; the statistics are then scaled by the spot.
+    `params_vec` = (eta, rho, r, q, xi, spot). Returns the dict of
+    (n_branch, num_paths) s_terminal, s_mean, s_max, s_min over
+    t_1..t_n."""
+    device = torch.device(device)
+    eta, rho, r, q, xi_flat, spot = params_vec
+    p, cdg, tab = _rough_tables(eta, xi_flat, hurst, T, num_steps, c, d, g,
+                                tail, xi_t, spot_leg=(rho, r, q))
+    eta_f, sqrt_dt, dt, rho_f, orth, mu_dt, inv_n = (float(x) for x in p)
+    (c_col, d_col, g_col), y = _lift_state(cdg, num_paths, device)
+    nb = 2 if antithetic else 1
+    zeros = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    ls, sum_s = [zeros] * nb, [zeros] * nb
+    max_ls = [torch.full_like(zeros, -math.inf)] * nb
+    min_ls = [torch.full_like(zeros, math.inf)] * nb
+
+    def step(idx, z_dw, z_zeta, z_perp):
+        nonlocal y
+        ew = eta_f * _lift_mix(tab, idx, z_zeta, c_col, y)
+        e_i = float(tab[0, idx])
+        dw = z_dw * sqrt_dt
+        dz = (rho_f * z_dw + orth * z_perp) * sqrt_dt
+        for k in range(nb):
+            s_ew, s_dz = (ew, dz) if k == 0 else (-ew, -dz)
+            v = torch.exp(s_ew + e_i)
+            drift = mu_dt - (0.5 * v) * dt
+            ls[k] = (ls[k] + drift) + torch.sqrt(v) * s_dz
+            sum_s[k] = sum_s[k] + torch.exp(ls[k])
+            max_ls[k] = torch.maximum(max_ls[k], ls[k])
+            min_ls[k] = torch.minimum(min_ls[k], ls[k])
+        y = d_col * y + g_col * dw[None]
+
+    def uniforms(call):
+        return _pair_words(num_paths, call, _ROUGH_STATS_DOMAIN, seed, device)
+
+    for i in range(0, num_steps - 1, 2):
+        a, b = uniforms(i), uniforms(i + 1)
+        z_a, z_b = box_muller(a[0], a[1])
+        z_c, z_d = box_muller(a[2], a[3])
+        z_e, z_f = box_muller(b[0], b[1])
+        step(i, z_a, z_b, z_c)
+        step(i + 1, z_d, z_e, z_f)
+    if num_steps % 2 == 1:
+        a = uniforms(num_steps - 1)
+        z1, z2 = box_muller(a[0], a[1])
+        z3, _ = box_muller(a[2], a[3])
+        step(num_steps - 1, z1, z2, z3)
+    spot_f = float(np.float32(spot))
+    rows = (torch.exp(torch.stack(ls)), torch.stack(sum_s) * inv_n,
+            torch.exp(torch.stack(max_ls)), torch.exp(torch.stack(min_ls)))
+    return {k: spot_f * x for k, x in zip(_ROUGH_STATS, rows)}
+
+
+def rbergomi_lift_stats(params_vec, T, seed: int, c, d, g, tail,
+                        hurst: float, *, num_paths: int, num_steps: int,
+                        xi_t=None, antithetic: bool = True, device="cuda"
+                        ) -> Dict[str, torch.Tensor]:
+    """K11 wrapper, the counterpart of `rbergomi_lift_stats_pallas`: the
+    dict of (n_branch, num_paths) path statistics (s_terminal, s_mean,
+    s_max, s_min over t_1..t_n) of the lift plus its spot leg.
+    `params_vec` = (eta, rho, r, q, xi, spot); `c, d, g, tail` from
+    `ops/rough.py:rbergomi_lift`, `hurst` the tables'. A CPU `device` takes
+    the plain version; a CUDA one launches the kernel or raises."""
+    device = _check_prng_args(num_paths, num_steps, seed, device)
+    if device.type == "cpu":
+        return rbergomi_lift_stats_plain(
+            params_vec, T, seed, c, d, g, tail, hurst, num_paths=num_paths,
+            num_steps=num_steps, xi_t=xi_t, antithetic=antithetic,
+            device=device)
+    eta, rho, r, q, xi_flat, spot = params_vec
+    p, cdg, tab = _rough_tables(eta, xi_flat, hurst, T, num_steps, c, d, g,
+                                tail, xi_t, spot_leg=(rho, r, q))
+    tab_dev = _device_step_table(tab.tobytes(), num_steps, str(device))
+    n_branch = 2 if antithetic else 1
+    out = torch.empty((4, n_branch, num_paths), dtype=torch.float32,
+                      device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.mcos_rbergomi_lift_stats(
+            out.data_ptr(), tab_dev.data_ptr(), num_paths, num_steps,
+            n_branch, int(seed), p.ctypes.data, cdg.ctypes.data,
+            int(cdg.shape[1]), _stream_handle(device))
+    _check_rc(lib, rc, "rbergomi_lift_stats")
+    with _COUNT_LOCK:
+        rbergomi_lift_stats.launches += 1
+    spot_f = float(np.float32(spot))
+    return {k: spot_f * out[i] for i, k in enumerate(_ROUGH_STATS)}
+
+
+rbergomi_lift_stats.launches = 0
+
+
 _WRAPPERS = (svj_terminal_from_draws, gbm_terminal, svj_terminal,
              svj_terminal_qe, svj_terminal_qe_from_draws, svj_path_stats,
-             hhw_terminal, svcj_terminal, svj_terminal_td)
+             hhw_terminal, svcj_terminal, svj_terminal_td,
+             rbergomi_lift_integrals, rbergomi_lift_stats)
 
 
 def reset_launch_counts() -> None:

@@ -115,13 +115,31 @@ def _threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray
     return x[0], x[1]
 
 
+def _seed_key(seed: int) -> Tuple[int, int]:
+    """The key words of `jax.random.key(seed)`: (seed >> 32, seed & 2³²−1)."""
+    seed = int(seed)
+    return (seed >> 32) & _M32, seed & _M32
+
+
+def _fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
+    """The key words of `jax.random.fold_in(key, data)`: threefry2x32 of the
+    counter (0, data) under `key`."""
+    a, b = _threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
+                         np.full(1, int(data) & _M32, np.uint32))
+    return int(a[0]), int(b[0])
+
+
 def _scramble_shift(seed: int, dims: int) -> np.ndarray:
     """(dims,) uint32 scramble words, bit-equal to the JAX package's
-    `_scramble_shift(jax.random.key(seed), dims)` (partitionable threefry:
-    key = (seed >> 32, seed & 0xFFFFFFFF), counter = 64-bit iota split into
-    (hi, lo) words, output = the two hash words XOR-ed)."""
-    seed = int(seed)
-    k1, k2 = (seed >> 32) & _M32, seed & _M32
+    `_scramble_shift(jax.random.key(seed), dims)`."""
+    return _scramble_words(_seed_key(seed), dims)
+
+
+def _scramble_words(key: Tuple[int, int], dims: int) -> np.ndarray:
+    """(dims,) uint32 scramble words of `jax.random.bits(key, (dims,))`
+    masked to 30 bits (partitionable threefry: counter = 64-bit iota split
+    into (hi, lo) words, output = the two hash words XOR-ed)."""
+    k1, k2 = key
     idx = np.arange(dims, dtype=np.uint64)
     hi = (idx >> np.uint64(32)).astype(np.uint32)
     lo = (idx & np.uint64(_M32)).astype(np.uint32)
@@ -238,6 +256,24 @@ def _bb_normals(sv, shift, bb: torch.Tensor, num_keep: int,
     num_steps = bb.shape[0]
     return torch.matmul(bb, z) * float(np.sqrt(np.float32(num_steps),
                                                dtype=np.float32))
+
+
+def sobol_normals(num_paths: int, dims: int, seed: int = 0,
+                  stream: int = 0, *, device="cuda") -> torch.Tensor:
+    """Owen-scrambled Sobol standard normals, (num_paths, dims) float32 on
+    `device`: the point count rounds up to a power of two for the bit
+    expansion and the first `num_paths` points are kept. `stream`
+    decouples the scrambles of independent blocks: its key is
+    `jax.random.fold_in(jax.random.key(seed), stream)`, as in the JAX
+    package, so the integers are bit-equal to its `sobol_normals`."""
+    device = torch.device(device)
+    m = int(np.ceil(np.log2(max(num_paths, 2))))
+    sv = torch.as_tensor(sobol_direction_numbers(dims).astype(np.int64),
+                         device=device)
+    shift = torch.as_tensor(
+        _scramble_words(_fold_in(_seed_key(seed), stream), dims).astype(
+            np.int64), device=device)
+    return _normals(sv, shift, num_paths, m).T.contiguous()
 
 
 def sobol_svj_draws(num_paths: int, num_steps: int, seed: int = 0,

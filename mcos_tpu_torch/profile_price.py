@@ -1,8 +1,9 @@
 """Where a warm `/api/price` (or `/api/exotic`, `/api/hhw`, `/api/svcj`,
-`/api/termsvj`) spends its time on one CUDA device.
+`/api/termsvj`, `/api/rough`) spends its time on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj] [--options JSON] [--out FILE]
+        [--route price|exotic|hhw|svcj|termsvj|rough] [--options JSON]
+        [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
 the solo path) on the default body (500k paths, T = 0.25 → 63 steps), with
@@ -29,12 +30,14 @@ merges in, for example '{"kind": "double_no_touch", "barrier": 24750,
 Asian body, the price program alone (kernel K6 + payoff + control variate +
 the one device→host copy).
 
-With `--route hhw`, `svcj` or `termsvj` it calls that route's handler on
-its schema defaults (`hhw`: 200k pairs × 128 steps, T = 1; `svcj`: 200k
-pairs, T = 0.25 → 63 steps; `termsvj`: 200k pairs × 512 steps, T = 0.25,
-three segments), mode "price" unless `--options` says otherwise (for
-example '{"mode": "greeks"}'); the handler is timed whole (`wall_ms`,
-`profile`), without `parts_ms`.
+With `--route hhw`, `svcj`, `termsvj` or `rough` it calls that route's
+handler on its schema defaults (`hhw`: 200k pairs × 128 steps, T = 1;
+`svcj`: 200k pairs, T = 0.25 → 63 steps; `termsvj`: 200k pairs × 512
+steps, T = 0.25, three segments; `rough`: 131 072 pairs × 128 steps,
+T = 0.25, the exact sampler), mode "price" unless `--options` says
+otherwise (for example '{"mode": "greeks"}', or '{"num_steps": 512,
+"mode": "asian"}' for kernel K11); the handler is timed whole (`wall_ms`,
+`profile`) with one warm call's peak device memory, without `parts_ms`.
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -57,6 +60,7 @@ FAMILY_BODIES = {
         {"t_end": 0.08, "theta": 0.04, "xi": 0.5, "lambda_j": 1.0},
         {"t_end": 0.16, "theta": 0.06, "xi": 0.7, "lambda_j": 2.0},
         {"t_end": 0.25, "theta": 0.09, "xi": 0.9, "lambda_j": 4.0}]},
+    "rough": {"spot": 22500.0, "T": 0.25},
 }
 
 
@@ -143,7 +147,8 @@ def profile_exotic(options: dict) -> dict:
 
 
 def profile_family(route: str, options: dict) -> dict:
-    """`/api/hhw`, `/api/svcj` or `/api/termsvj`: the whole handler."""
+    """`/api/hhw`, `/api/svcj`, `/api/termsvj` or `/api/rough`: the whole
+    handler, and one call's peak device memory."""
     from mcos_tpu_torch.api import server
 
     reps = 5
@@ -153,8 +158,14 @@ def profile_family(route: str, options: dict) -> dict:
     server.warm(device)
     call = lambda: handler(dict(body), device=device)  # noqa
     call()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    call()
+    torch.cuda.synchronize(device)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     return {"device": torch.cuda.get_device_name(device), "body": body,
             "wall_ms": _wall_ms(call, 4 * reps),
+            "peak_device_memory_gib": peak_gib,
             "profile": _profiled(call, reps)}
 
 

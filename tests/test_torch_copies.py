@@ -343,7 +343,7 @@ def test_cliquet_closed_forms_equal(is_call):
 
 def test_family_request_schemas_equal():
     for name in ("HHWRequest", "SVCJParamsRequest", "SVCJRequest",
-                 "TermSVJSegment", "TermSVJRequest"):
+                 "TermSVJSegment", "TermSVJRequest", "RoughRequest"):
         ja = getattr(jschemas, name).model_json_schema()
         jb = getattr(pschemas, name).model_json_schema()
         ja.pop("description", None), jb.pop("description", None)
@@ -361,3 +361,45 @@ def test_family_request_schemas_equal():
     body = {"spot": 100.0, "strike": 95.0, "T": 12.0, "mode": "impact"}
     assert (jschemas.HHWRequest(**body).model_dump()
             == pschemas.HHWRequest(**body).model_dump())
+    body = {"spot": 100.0, "T": 0.5, "mode": "calibrate", "num_steps": 512,
+            "maturities": [0.1], "cal_strikes": [[95.0]],
+            "market_prices": [[6.0]], "hurst_grid": [0.1]}
+    assert (jschemas.RoughRequest(**body).model_dump()
+            == pschemas.RoughRequest(**body).model_dump())
+
+
+_EDGES = np.array([0.0, 0.25, 1.0])
+_VALS = np.array([0.04, 0.0633])
+
+
+@pytest.mark.parametrize("name,args", [
+    ("roughheston.lifted_kernel_nodes", (0.07, 1.0, 1.0 / 64, 24)),
+    ("roughheston.lifted_kernel_nodes", (0.5, 0.25, 0.25 / 512, 24)),
+    ("roughheston.lifted_kernel_error", (0.1, 0.5, 0.5 / 128, 8)),
+    ("rough.volterra_cov", (np.linspace(0.0, 1.0, 9)[:, None],
+                            np.linspace(0.1, 2.0, 7)[None, :], 0.07)),
+    ("rough.volterra_cov", (0.5, 0.5, 0.5)),
+    ("rough.volterra_increment_cov", (np.linspace(0.1, 1.0, 10), 0.2, 0.1)),
+    ("rough._lift_cached", (0.07, 0.25, 512, 24)),
+    ("rough._lift_cached", (0.5, 1.0, 64, 24)),
+    ("rough._lift_cached", (0.25, 2.0, 33, 8)),
+    ("rough.xi_curve_from_variance_swaps", ([0.25, 1.0, 2.0],
+                                            [0.2, 0.22, 0.21])),
+    ("rough.sample_xi_curve", (_EDGES, _VALS, 1.5, 12)),
+])
+def test_rough_host_copies_equal(name, args):
+    """The host float64 functions the rough Bergomi slice copied: the same
+    outputs as the JAX package's (the lift tables through the rough Heston
+    kernel fit)."""
+    import importlib
+
+    mod, fn = name.split(".")
+    got = getattr(importlib.import_module(f"mcos_tpu_torch.ops.{mod}"),
+                  fn)(*args)
+    ref = getattr(importlib.import_module(f"mcos_tpu.ops.{mod}"), fn)(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12,
+                                   atol=0)

@@ -493,3 +493,133 @@ def test_family_engines_launch_once(cuda, family):
     assert res.keys() == ref.keys()
     np.testing.assert_allclose(res["price"], ref["price"], rtol=2e-4)
     np.testing.assert_allclose(res["std_error"], ref["std_error"], rtol=2e-3)
+
+
+def _rough_case(name, hurst, steps, T=0.25, seed=7):
+    from mcos_tpu_torch.ops.rough import rbergomi_lift
+
+    c, d, g, tail = rbergomi_lift(hurst, T, steps)
+    kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
+    if name == "rbergomi_lift_integrals":
+        args = (1.9, T, seed, c, d, g, tail, hurst)
+        kw = {"xi_flat": 0.04}
+    else:
+        args = ((1.9, -0.9, 0.05, 0.01, 0.04, 100.0), T, seed, c, d, g, tail,
+                hurst)
+        kw = {}
+    return kernel, plain, args, kw, len(c)
+
+
+def _as_tuple(out):
+    return tuple(out.values()) if isinstance(out, dict) else tuple(out)
+
+
+@pytest.mark.parametrize("name", ["rbergomi_lift_integrals",
+                                  "rbergomi_lift_stats"])
+@pytest.mark.parametrize("hurst", [0.07, 0.5])
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("steps", [1, 2, 7, 64])
+def test_rough_kernels_match_plain(cuda, name, hurst, antithetic, steps):
+    """K10 and K11 against their plain versions on the same Philox words, at
+    25 factors (H = 0.07) and one (H = 0.5), even and odd step counts: every
+    operation on the carries is the plain version's IEEE operation in its
+    order, and the exps and square roots are the same library calls, so
+    every output is equal bit for bit."""
+    kernel, plain, args, kw, m = _rough_case(name, hurst, steps)
+    assert m == (1 if hurst == 0.5 else 25)
+    kw = dict(kw, num_paths=10_007, num_steps=steps, antithetic=antithetic,
+              device=cuda)
+    n0 = kernel.launches
+    ker = _as_tuple(kernel(*args, **kw))
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    ref = _as_tuple(plain(*args, **kw))
+    assert kernel.launches == n0 + 1
+    for a, b in zip(ker, ref):
+        assert a.shape == (2 if antithetic else 1, 10_007)
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["rbergomi_lift_integrals",
+                                  "rbergomi_lift_stats"])
+def test_rough_kernel_stream_is_shape_free(cuda, name):
+    """The first n pairs of a 2n launch are the n launch, bit for bit, and
+    the single-branch launch is the antithetic one's base branch."""
+    kernel, _, args, kw, _ = _rough_case(name, 0.07, 9)
+    a = _as_tuple(kernel(*args, num_paths=5000, num_steps=9, device=cuda,
+                         **kw))
+    b = _as_tuple(kernel(*args, num_paths=10_000, num_steps=9, device=cuda,
+                         **kw))
+    c = _as_tuple(kernel(*args, num_paths=5000, num_steps=9,
+                         antithetic=False, device=cuda, **kw))
+    for x, y, z in zip(a, b, c):
+        torch.testing.assert_close(x, y[:, :5000], rtol=0, atol=0)
+        torch.testing.assert_close(x[:1], z, rtol=0, atol=0)
+
+
+def test_rough_kernels_take_a_curve_and_refuse_many_factors(cuda):
+    """A forward-variance curve rides the step table (kernel equal to its
+    plain version); more than 32 factors raise before any launch."""
+    kernel, plain, args, kw, _ = _rough_case("rbergomi_lift_integrals",
+                                             0.1, 16)
+    xi_t = np.linspace(0.02, 0.06, 16)
+    kw = dict(num_paths=4096, num_steps=16, xi_t=xi_t, device=cuda)
+    for a, b in zip(kernel(*args, **kw), plain(*args, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    c = np.ones(33, np.float32)
+    n0 = kernel.launches
+    with pytest.raises(ValueError, match="factors"):
+        kernel(1.9, 0.25, 1, c, c, c, np.zeros(16, np.float32), 0.1,
+               num_paths=64, num_steps=16, device=cuda)
+    assert kernel.launches == n0
+
+
+@pytest.mark.parametrize("mode", ["price", "asian"])
+def test_rough_engine_launches_once(cuda, mode):
+    """At 512 steps `RoughBergomiEngine.price` launches K10 once and
+    `price_asian` K11 once, and no other kernel; the card's price is the
+    CPU's (same words, plain version) to float32 sums."""
+    from mcos_tpu_torch.engine.rough import RoughBergomiEngine
+    from mcos_tpu_torch.ops.rough import RoughBergomiParams
+
+    def run(device):
+        eng = RoughBergomiEngine(RoughBergomiParams(), num_paths=8192,
+                                 num_steps=512, device=device)
+        if mode == "price":
+            return eng.price(100.0, [95.0, 100.0], 0.25)
+        return eng.price_asian(100.0, 100.0, 0.25)
+
+    kernel = ("rbergomi_lift_integrals" if mode == "price"
+              else "rbergomi_lift_stats")
+    before = ck.launch_counts()
+    res = run(cuda)
+    after = ck.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {kernel: 1}
+    ref = run("cpu")
+    assert res.keys() == ref.keys()
+    np.testing.assert_allclose(res["price"], ref["price"], rtol=2e-4)
+    np.testing.assert_allclose(res["std_error"], ref["std_error"], rtol=2e-3)
+
+
+def test_handle_rough_on_card(cuda):
+    """Every mode of /api/rough answers on the card at a small width; the
+    lift requests launch K10 or K11 once each."""
+    from mcos_tpu_torch.api import server
+
+    body = {"spot": 100.0, "T": 0.25, "num_paths": 4096}
+    before = ck.launch_counts()
+    for extra in ({}, {"num_steps": 512}, {"use_sobol": True},
+                  {"mode": "smile", "num_steps": 512},
+                  {"mode": "skew"}, {"mode": "greeks"},
+                  {"mode": "greeks", "num_steps": 512},
+                  {"mode": "asian", "num_steps": 512},
+                  {"mode": "barrier", "barrier": 110.0, "num_steps": 512},
+                  {"mode": "lookback", "num_steps": 512}):
+        res = server.handle_rough(dict(body, **extra), device=cuda)
+        assert "elapsed_ms" in res
+    after = ck.launch_counts()
+    assert after["rbergomi_lift_integrals"] \
+        - before["rbergomi_lift_integrals"] == 2
+    assert after["rbergomi_lift_stats"] - before["rbergomi_lift_stats"] == 3
