@@ -320,7 +320,8 @@ def check_k2(device, ck, bs_price):
     torch.cuda.synchronize()
     err = rel_err(ker, ref)
     log(f"K2 vs plain (same Philox words): S rel err {err:.3e} (rtol 1e-5: "
-        "float32, sincospif against sin/cos of a float64 angle)")
+        "float32; the kernel's hardware log2, rsqrt and sincos against the "
+        "plain version's log, sqrt and sin/cos of a float64 angle)")
     check(err < 1e-5, "K2 vs plain")
     lr = torch.log(ker.double() / SPOT)
     drift = (r - q - 0.5 * sigma**2) * T
@@ -1854,6 +1855,8 @@ def main() -> None:
         f"{sorted({v[0] for v in resources.values()})}; corridor + companion"
         f" (registers, stack bytes): {fattest or 'cuobjdump not found'}")
 
+    gbm_res = kernel_resources(ck._LIBRARY.path, "gbm_kernel")
+    log(f"K2 (registers, stack bytes): {gbm_res}")
     fam = kernel_resources(ck._LIBRARY.path,
                            "hhw_kernel|svcj_kernel|svj_td_kernel")
     log(f"K7-K9 (registers, stack bytes) per instantiation: {fam}")
@@ -1925,6 +1928,7 @@ def main() -> None:
         json.dump({"card": card, "build_s": ck.build_seconds(), "k1": k1,
                    "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6,
                    "k7": k7, "k8": k8, "k9": k9, "k10": k10, "k11": k11,
+                   "k2_resources": gbm_res,
                    "k6_resources": resources, "k7_k9_resources": fam,
                    "k10_k11_resources": rough_res, "main_path": mp,
                    "options_path": op, "exotics_path": xp,

@@ -23,8 +23,8 @@
 // K6 (dead-or-alive selects on the log-spot carry) and K7-K11 (hundreds
 // of dependent steps) write their carries the same way. In K1-K5's Euler
 // updates nvcc contracts freely, and those kernels differ from the plain
-// versions by FMA rounding (K2 keeps sincospif: its only consumer is a
-// continuous sum).
+// versions by FMA rounding (K2 takes the hardware's approximate log2,
+// rsqrt and sincos, gbm.cu: its only consumer is a continuous sum).
 #pragma once
 
 #include <cstdint>
@@ -82,11 +82,52 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   return philox_round(ctr, key);
 }
 
+// The ten round keys of a seed (key + i (kPhilox10A, kPhilox10B) mod 2^32),
+// made once on the host and passed to a kernel by value, so they sit in the
+// constant bank and each round's xor reads its key from there instead of
+// re-running the key schedule in every thread. K2 and K9 use them.
+struct PhiloxKeys {
+  uint32_t k0[10], k1[10];
+};
+
+inline PhiloxKeys philox_round_keys(unsigned long long seed) {
+  PhiloxKeys keys;
+  uint32_t k0 = static_cast<uint32_t>(seed);
+  uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  for (int i = 0; i < 10; ++i) {
+    keys.k0[i] = k0;
+    keys.k1[i] = k1;
+    k0 += kPhilox10A;
+    k1 += kPhilox10B;
+  }
+  return keys;
+}
+
+// philox4x32_10 with the round keys precomputed: the same words.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr,
+                                               const PhiloxKeys& keys) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    ctr = philox_round(ctr, make_uint2(keys.k0[i], keys.k1[i]));
+  }
+  return ctr;
+}
+
 // Top 23 bits plus half an ulp: u = ((bits >> 9) + 0.5) * 2^-23, strictly
 // inside (0, 1) and exact in float32 (mcos_tpu/ops/pallas_kernels.py:
 // _bits_to_uniform).
 __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
   return (static_cast<float>(bits >> 9) + 0.5f) * 1.1920928955078125e-07f;
+}
+
+// The same value as bits_to_uniform, bit for bit, with no integer-to-float
+// conversion (I2F runs on a slower pipe than FADD): the top 23 bits become
+// the mantissa of a float in [1, 2), and subtracting float32(1 - 2^-24)
+// leaves (m + 1/2) 2^-23. The subtraction is exact (Sterbenz: the operands
+// are within a factor 2), so no rounding differs. K2 and K9 use it.
+__device__ __forceinline__ float bits_to_uniform_bitcast(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3f800000u) -
+         __uint_as_float(0x3f7fffffu);
 }
 
 __device__ __forceinline__ uint32_t word_of(const uint4& w, int lane) {

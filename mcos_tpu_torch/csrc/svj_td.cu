@@ -24,13 +24,26 @@
 //   - the variance carry starts from max(v0, 0); the TPU kernel starts from
 //     v0 and takes sqrt(v) unclamped, so a negative v0 gives NaN paths.
 //
-// What bounds it on an H100: arithmetic, as K3. The table is at most
-// 4 x 8192 floats (128 KB, more than constant memory holds): it stays in
-// global memory and is read with __ldg. Every thread of a warp reads the
-// same three addresses in a step, so the loads broadcast and hit L1. Per
-// pair-step: half a Philox4x32-10 call, a Box-Muller pair, three loads, two
-// branches of Euler update, at least 57 operation slots (chip_smoke.py's
-// count).
+// What bounds it on an H100: instruction issue. Bit-equality with the plain
+// version fixes every carry operation (uncontracted, in its order) and the
+// accurate logf, sqrtf, sinf and cosf, so the step loop is mostly library
+// sequences: 167 instructions a pair-step by cuobjdump -sass without the
+// never-taken slow paths (python -m mcos_tpu_torch.kernel_lab --sass),
+// against the 57 operation slots chip_smoke.py counts. Within that:
+//   - sincosf shares one range reduction between the sine and the cosine
+//     and gives their bits (held over every uniform of the grid by
+//     tests/test_torch_cuda.py); the uniforms need no I2F
+//     (philox.cuh:bits_to_uniform_bitcast); the Philox round keys come
+//     from the constant bank;
+//   - the table is at most 4 x 8192 floats (128 KB, more than constant
+//     memory holds): it stays in global memory behind __ldg, every thread
+//     of a warp reads the same three addresses in a step, so the loads
+//     broadcast and hit L1; loading them a call ahead cost 7 registers and
+//     time, so they are loaded where they are used;
+//   - one thread per pair at most 40 registers: the route's 200 000 pairs
+//     fit one wave (below). The wrapper keeps the table on the device
+//     (cuda_kernels.py:_device_step_table), so a warm call copies nothing
+//     before the launch.
 //
 // Stream: counter (pair_lo, pair_hi, call, kTdDomain), key = seed; call c
 // drives steps 2c and 2c + 1 (an odd last step uses the first pair only);
@@ -51,6 +64,8 @@ namespace {
 using mcos::fadd;
 using mcos::fmul;
 
+constexpr int kThreads = 256;
+
 // Per-launch scalars, computed on the host in float64 and cast once
 // (cuda_kernels.py:_td_consts).
 struct TdConsts {
@@ -59,18 +74,41 @@ struct TdConsts {
 };
 static_assert(sizeof(TdConsts) == 12 * sizeof(float), "packed");
 
+// One step's row of the (4, steps) table: theta_i, xi_i, drift_dt_i.
+struct StepLevels {
+  float theta, xi, drift;
+};
+
+__device__ __forceinline__ StepLevels load_levels(
+    const float* __restrict__ table, int steps, int idx) {
+  return {__ldg(table + idx), __ldg(table + steps + idx),
+          __ldg(table + 3 * steps + idx)};
+}
+
+// philox.cuh:box_muller with one shared range reduction for the sine and
+// the cosine: sincosf gives the bits of sinf and cosf (held over every
+// uniform of the grid by tests/test_torch_cuda.py).
+__device__ __forceinline__ void box_muller_sincos(float u1, float u2,
+                                                  float& za, float& zb) {
+  const float rad = sqrtf(fmul(-2.0f, logf(u1)));
+  float s, c;
+  sincosf(fmul(mcos::kTwoPi, u2), &s, &c);
+  za = fmul(rad, c);
+  zb = fmul(rad, s);
+}
+
+// One pair's carry: log spot and variance per branch, the companion sum.
+template <int NB>
+struct Carry {
+  float ls[NB], v[NB], cv_w;
+};
+
 // One Euler step for both branches at the step's (theta_i, xi_i,
 // drift_dt_i) (pallas_kernels.py:_svj_td_kernel one_step).
 template <int NB>
-__device__ __forceinline__ void td_step(const TdConsts& c,
-                                        const float* __restrict__ table,
-                                        int steps, int idx, float z1, float z2,
-                                        float (&ls)[NB], float (&v)[NB],
-                                        float& cv_w) {
-  const float theta_i = __ldg(table + idx);
-  const float xi_i = __ldg(table + steps + idx);
-  const float drift_i = __ldg(table + 3 * steps + idx);
-  const float ktheta_dt = fmul(c.kappa_dt, theta_i);
+__device__ __forceinline__ void td_step(const TdConsts& c, StepLevels lv,
+                                        float z1, float z2, Carry<NB>& st) {
+  const float ktheta_dt = fmul(c.kappa_dt, lv.theta);
   const float dw1 = fmul(z1, c.sqrt_dt);
   const float dw2 =
       fadd(fmul(c.rho, dw1), fmul(fmul(c.rho_perp, z2), c.sqrt_dt));
@@ -78,70 +116,79 @@ __device__ __forceinline__ void td_step(const TdConsts& c,
   for (int k = 0; k < NB; ++k) {
     const float s_dw1 = k == 0 ? dw1 : -dw1;
     const float s_dw2 = k == 0 ? dw2 : -dw2;
-    const float sqrt_v = sqrtf(v[k]);
-    ls[k] = fadd(fadd(ls[k], fadd(drift_i, fmul(c.nhdt, v[k]))),
-                 fmul(sqrt_v, s_dw1));
-    v[k] = fmaxf(fadd(fadd(fmul(c.omk, v[k]), ktheta_dt),
-                      fmul(xi_i, fmul(sqrt_v, s_dw2))),
-                 0.0f);
+    const float sqrt_v = sqrtf(st.v[k]);
+    st.ls[k] = fadd(fadd(st.ls[k], fadd(lv.drift, fmul(c.nhdt, st.v[k]))),
+                    fmul(sqrt_v, s_dw1));
+    st.v[k] = fmaxf(fadd(fadd(fmul(c.omk, st.v[k]), ktheta_dt),
+                         fmul(lv.xi, fmul(sqrt_v, s_dw2))),
+                    0.0f);
   }
-  cv_w = fadd(cv_w, fmul(c.sig_cv, dw1));
+  st.cv_w = fadd(st.cv_w, fmul(c.sig_cv, dw1));
 }
 
+__device__ __forceinline__ uint4 td_words(long long p, int call,
+                                         const mcos::PhiloxKeys& keys) {
+  return mcos::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(p),
+                 static_cast<uint32_t>(static_cast<uint64_t>(p) >> 32),
+                 static_cast<uint32_t>(call), mcos::kTdDomain),
+      keys);
+}
+
+// One thread per antithetic pair. At most 40 registers (6 blocks of 256
+// an SM), so the route's 200 000 pairs (782 blocks) run in one wave on 132
+// SMs (792 block slots) instead of a ragged second one.
 template <int NB>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads, 6)
     svj_td_kernel(float* __restrict__ s_out, float* __restrict__ v_out,
                   float* __restrict__ g_out, const float* __restrict__ table,
                   const double* __restrict__ cdf, int cdf_len, long long n,
-                  int steps, uint2 key, TdConsts c) {
+                  int steps, mcos::PhiloxKeys keys, TdConsts c) {
   const long long p =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const uint32_t p_lo = static_cast<uint32_t>(p);
-  const uint32_t p_hi = static_cast<uint32_t>(static_cast<uint64_t>(p) >> 32);
-
-  float ls[NB], v[NB];
+  Carry<NB> st;
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
-    ls[k] = 0.0f;
-    v[k] = fmaxf(c.v0, 0.0f);
+    st.ls[k] = 0.0f;
+    st.v[k] = fmaxf(c.v0, 0.0f);
   }
-  float cv_w = 0.0f;
-  const int n_calls = (steps + 1) >> 1;
-  for (int call = 0; call < n_calls; ++call) {
-    const uint4 b = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(call), mcos::kTdDomain),
-        key);
+  st.cv_w = 0.0f;
+  const int full_calls = steps >> 1;
+  for (int call = 0; call < full_calls; ++call) {
+    const uint4 b = td_words(p, call, keys);
     float za, zb;
-    mcos::box_muller(mcos::bits_to_uniform(b.x), mcos::bits_to_uniform(b.y),
-                     za, zb);
-    td_step<NB>(c, table, steps, 2 * call, za, zb, ls, v, cv_w);
-    if (2 * call + 1 < steps) {
-      mcos::box_muller(mcos::bits_to_uniform(b.z),
-                       mcos::bits_to_uniform(b.w), za, zb);
-      td_step<NB>(c, table, steps, 2 * call + 1, za, zb, ls, v, cv_w);
-    }
+    box_muller_sincos(mcos::bits_to_uniform_bitcast(b.x),
+                      mcos::bits_to_uniform_bitcast(b.y), za, zb);
+    td_step<NB>(c, load_levels(table, steps, 2 * call), za, zb, st);
+    box_muller_sincos(mcos::bits_to_uniform_bitcast(b.z),
+                      mcos::bits_to_uniform_bitcast(b.w), za, zb);
+    td_step<NB>(c, load_levels(table, steps, 2 * call + 1), za, zb, st);
   }
-  const uint4 e = mcos::philox4x32_10(
-      make_uint4(p_lo, p_hi, static_cast<uint32_t>(n_calls), mcos::kTdDomain),
-      key);
-  const float n_jump = static_cast<float>(
-      mcos::count_from_table(cdf, cdf_len, mcos::bits_to_uniform(e.x)));
+  if (steps & 1) {  // the odd last step takes the first pair of its call
+    const uint4 b = td_words(p, full_calls, keys);
+    float za, zb;
+    box_muller_sincos(mcos::bits_to_uniform_bitcast(b.x),
+                      mcos::bits_to_uniform_bitcast(b.y), za, zb);
+    td_step<NB>(c, load_levels(table, steps, steps - 1), za, zb, st);
+  }
+  const uint4 e = td_words(p, (steps + 1) >> 1, keys);
+  const float n_jump = static_cast<float>(mcos::count_from_table(
+      cdf, cdf_len, mcos::bits_to_uniform_bitcast(e.x)));
   float z_total, unused;
-  mcos::box_muller(mcos::bits_to_uniform(e.y), mcos::bits_to_uniform(e.z),
-                   z_total, unused);
+  box_muller_sincos(mcos::bits_to_uniform_bitcast(e.y),
+                    mcos::bits_to_uniform_bitcast(e.z), z_total, unused);
   const float jump_mean = fmul(c.mu_j, n_jump);
   const float jump_body = fmul(fmul(c.sig_j, sqrtf(n_jump)), z_total);
   const float g_drift_total = fmul(c.g_drift_dt, static_cast<float>(steps));
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
     const float sj = k == 0 ? jump_body : -jump_body;
-    s_out[k * n + p] =
-        fmul(c.spot, expf(fadd(fadd(ls[k], jump_mean), sj)));
-    v_out[k * n + p] = v[k];
+    s_out[k * n + p] = fmul(c.spot, expf(fadd(fadd(st.ls[k], jump_mean), sj)));
+    v_out[k * n + p] = st.v[k];
     if (g_out != nullptr) {
       g_out[k * n + p] =
-          fmul(c.spot, expf(fadd(g_drift_total, k == 0 ? cv_w : -cv_w)));
+          fmul(c.spot, expf(fadd(g_drift_total, k == 0 ? st.cv_w : -st.cv_w)));
     }
   }
 }
@@ -161,17 +208,15 @@ extern "C" int mcos_svj_terminal_td(float* s_out, float* v_out, float* g_out,
                                     const float* consts_host, void* stream) {
   TdConsts c;
   std::memcpy(&c, consts_host, sizeof(c));
-  const uint2 key = make_uint2(static_cast<uint32_t>(seed),
-                               static_cast<uint32_t>(seed >> 32));
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+  const mcos::PhiloxKeys keys = mcos::philox_round_keys(seed);
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_branch == 2) {
-    svj_td_kernel<2><<<blocks, threads, 0, st>>>(
-        s_out, v_out, g_out, table, cdf, cdf_len, n, steps, key, c);
+    svj_td_kernel<2><<<blocks, kThreads, 0, st>>>(
+        s_out, v_out, g_out, table, cdf, cdf_len, n, steps, keys, c);
   } else if (n_branch == 1) {
-    svj_td_kernel<1><<<blocks, threads, 0, st>>>(
-        s_out, v_out, g_out, table, cdf, cdf_len, n, steps, key, c);
+    svj_td_kernel<1><<<blocks, kThreads, 0, st>>>(
+        s_out, v_out, g_out, table, cdf, cdf_len, n, steps, keys, c);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

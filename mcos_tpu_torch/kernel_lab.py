@@ -1,0 +1,580 @@
+"""Look inside K2 (`csrc/gbm.cu`) and K9 (`csrc/svj_td.cu`) on one CUDA
+card: what the compiler made of them, how accurate their special functions
+are, and how fast one version runs against another.
+
+    python -m mcos_tpu_torch.kernel_lab [--csrc LABEL=DIR ...]
+        [--sass] [--dump DIR] [--probes] [--time] [--out FILE]
+
+Each `--csrc LABEL=DIR` names a directory holding a version of `gbm.cu`,
+`svj_td.cu` and `philox.cuh` (default: `new=` the package's own `csrc/`).
+Every version is compiled (all at once, one nvcc each, with the package's
+NVCC_FLAGS plus `-Xptxas -v`) into its own shared library.
+
+- `--sass`: per kernel, the registers, stack and spills that ptxas reports,
+  and, from `cuobjdump -sass`, the instructions of each loop (a backward
+  branch and the code it jumps over) by class: FFMA, FADD, FMUL; IMAD,
+  IMAD.WIDE, IADD3, LOP3, SHF; I2F, F2I; MUFU by function; loads; branches
+  and calls. How many quads (K2) or calls (K9, two steps each) one pass of
+  a loop covers is read from its MUFU and multiply counts; `--dump DIR`
+  writes each kernel's listing there to read it.
+- `--probes`: over all 2^23 uniforms of the grid ((m + 1/2) 2^-23), the
+  error of K2's Box-Muller radius and angle functions against float64
+  (`gbm.cu:box_muller_fast`), and whether K9's `sincosf` gives the bits of
+  `sinf`, `cosf` and of torch's `sin`/`cos` (the plain version's) on the
+  angle 2 pi u.
+- `--time`: the versions in turns (A B ... B A), CUDA events: K2 at
+  2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K9 at
+  200 000 pairs x 512 and x 4096 steps with the companion, its table on
+  the device ("kernel") and copied from the host before every launch, as
+  a wrapper without a device cache does ("upload"). Each version's outputs
+  are first held against the plain torch versions.
+
+Prints a summary and writes everything to `--out` (default
+mcos_tpu_torch/_build/lab/kernel_lab.json). Needs a CUDA card and nvcc;
+the card's `nvidia-smi` name and power limit go beside every number.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import hashlib
+import json
+import os
+import re
+import subprocess
+
+import numpy as np
+import torch
+
+from mcos_tpu_torch.ops import cuda_kernels as ck
+
+_LAB_DIR = os.path.join(ck.BUILD_DIR, "lab")
+_KERNELS = ("gbm.cu", "svj_td.cu")
+
+# Probe kernels over the uniform grid. The file includes the version's
+# gbm.cu and svj_td.cu, so the probes call the very helpers the kernels do.
+_PROBE_SRC = r'''
+#include "gbm.cu"
+#include "svj_td.cu"
+
+namespace {
+__device__ __forceinline__ float grid_u(int m) {
+  return mcos::bits_to_uniform_bitcast(static_cast<uint32_t>(m) << 9);
+}
+__global__ void k2_bm_probe(float* out, int n) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= n) return;
+  float za, zb;
+  box_muller_fast(grid_u(m), 0.75f, za, zb);  // zb = r sin(3 pi / 2) = -r
+  out[m] = -zb;
+  box_muller_fast(0.36787944f, grid_u(m), za, zb);   // radius sqrt 2
+  out[n + m] = za;
+  out[2 * n + m] = zb;
+}
+__global__ void sincos_probe(float* out, int n) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= n) return;
+  const float ang = __fmul_rn(mcos::kTwoPi, grid_u(m));
+  float s, c;
+  sincosf(ang, &s, &c);
+  out[m] = ang;
+  out[n + m] = s;
+  out[2 * n + m] = c;
+}
+__global__ void sin_probe(float* out, int n) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= n) return;
+  out[m] = sinf(__fmul_rn(mcos::kTwoPi, grid_u(m)));
+}
+__global__ void cos_probe(float* out, int n) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= n) return;
+  out[m] = cosf(__fmul_rn(mcos::kTwoPi, grid_u(m)));
+}
+}  // namespace
+
+extern "C" int mcos_probe(int which, float* out, int n) {
+  const int blocks = (n + 255) / 256;
+  switch (which) {
+    case 0: k2_bm_probe<<<blocks, 256>>>(out, n); break;
+    case 1: sincos_probe<<<blocks, 256>>>(out, n); break;
+    case 2: sin_probe<<<blocks, 256>>>(out, n); break;
+    case 3: cos_probe<<<blocks, 256>>>(out, n); break;
+    default: return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+_GRID = 1 << 23
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Build
+# ─────────────────────────────────────────────────────────────────────────────
+def _nvcc() -> str:
+    return ck._Library._nvcc()
+
+
+def build(versions: dict) -> dict:
+    """{label: {"lib": path, "ptxas": text, "probe_lib": path}}: each
+    version's gbm.cu and svj_td.cu compiled with `-Xptxas -v` and linked
+    into one library, plus its probe library; all nvcc processes at once."""
+    os.makedirs(_LAB_DIR, exist_ok=True)
+    nvcc, jobs, out = _nvcc(), [], {}
+    for label, src_dir in versions.items():
+        digest = hashlib.sha256(" ".join(ck.NVCC_FLAGS).encode())
+        for name in (*_KERNELS, "philox.cuh"):
+            with open(os.path.join(src_dir, name), "rb") as f:
+                digest.update(name.encode() + f.read())
+        work = os.path.join(_LAB_DIR, f"{label}_{digest.hexdigest()[:12]}")
+        os.makedirs(work, exist_ok=True)
+        objs = []
+        for name in _KERNELS:
+            obj = os.path.join(work, name[:-3] + ".o")
+            objs.append(obj)
+            jobs.append((label, name, subprocess.Popen(
+                [nvcc, *ck.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                 os.path.join(src_dir, name)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        with open(os.path.join(src_dir, "gbm.cu")) as f:
+            has_probes = "box_muller_fast" in f.read()
+        if has_probes:      # the probes call this design's helpers
+            probe = os.path.join(work, "probes.cu")
+            with open(probe, "w") as f:
+                f.write(_PROBE_SRC)
+            jobs.append((label, "probes", subprocess.Popen(
+                [nvcc, *ck.NVCC_FLAGS, "-I", src_dir, "-shared", "-o",
+                 os.path.join(work, "libprobe.so"), probe],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        out[label] = {"dir": src_dir, "work": work, "objs": objs,
+                      "ptxas": {}}
+    for label, name, proc in jobs:
+        so, se = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {label}/{name}:\n{se}")
+        if name != "probes":
+            out[label]["ptxas"][name] = so + se
+    for label, info in out.items():
+        lib = os.path.join(info["work"], "libk.so")
+        link = subprocess.run([nvcc, *ck.NVCC_FLAGS, "-shared", "-o", lib,
+                               *info["objs"]], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"link failed for {label}:\n{link.stderr}")
+        info["lib"] = lib
+        probe_lib = os.path.join(info["work"], "libprobe.so")
+        info["probe_lib"] = probe_lib if os.path.exists(probe_lib) else None
+    return out
+
+
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_ulonglong,
+                              ctypes.c_float)
+    if hasattr(lib, "mcos_gbm_terminal"):
+        lib.mcos_gbm_terminal.argtypes = [vp, i64, i32, i32, u64, f32, f32,
+                                          f32, vp]
+        lib.mcos_gbm_terminal.restype = i32
+        lib.mcos_svj_terminal_td.argtypes = [vp, vp, vp, vp, vp, i32, i64,
+                                             i32, i32, u64, vp, vp]
+        lib.mcos_svj_terminal_td.restype = i32
+    if hasattr(lib, "mcos_probe"):
+        lib.mcos_probe.argtypes = [i32, vp, i32]
+        lib.mcos_probe.restype = i32
+    return lib
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# ptxas and SASS
+# ─────────────────────────────────────────────────────────────────────────────
+def ptxas_resources(text: str) -> dict:
+    """{mangled kernel: {registers, stack, spill_stores, spill_loads}}."""
+    out, fn, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn and props == fn:
+            out.setdefault(fn, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
+def _op_class(op: str) -> str:
+    base = op.split(".")[0]
+    base = {"I2FP": "I2F", "F2IP": "F2I"}.get(base, base)
+    if op.startswith("IMAD.WIDE"):
+        return "IMAD.WIDE"
+    if op.startswith("IMAD.HI"):
+        return "IMAD.HI"
+    if base == "MUFU":
+        return op
+    if base in ("FFMA", "FADD", "FMUL", "IMAD", "IADD3", "LOP3", "SHF",
+                "I2F", "F2I", "F2F", "LDG", "LDC", "LDS", "STG", "BRA",
+                "CALL", "BSSY", "BSYNC", "RET", "EXIT", "ISETP", "FSETP",
+                "FSEL", "SEL", "FMNMX", "MOV", "LEA", "PRMT", "ULDC"):
+        return base
+    if base.startswith("U"):
+        return "uniform"
+    return "other"
+
+
+def sass_functions(lib_path: str) -> dict:
+    """{mangled function: [(address, opcode, text)]} from cuobjdump -sass."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    txt = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, cur, labels = {}, None, {}
+    pending = []
+    for line in txt.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and cur is not None:
+            addr = int(m.group(1), 16)
+            ins = m.group(2).strip()
+            for lab in pending:
+                labels[(id(cur), lab)] = addr
+            pending = []
+            toks = ins.split()
+            op = toks[1] if toks[0].startswith("@") else toks[0]
+            cur.append((addr, op, ins))
+    # resolve label targets to addresses
+    for name, ins_list in funcs.items():
+        fixed = []
+        for addr, op, ins in ins_list:
+            m = re.search(r"\(?(\.L_x_\d+)\)?", ins)
+            if m and (id(ins_list), m.group(1)) in labels:
+                ins = ins.replace(m.group(1), hex(
+                    labels[(id(ins_list), m.group(1))]))
+            fixed.append((addr, op, ins))
+        funcs[name] = fixed
+    return funcs
+
+
+def _target(ins: str):
+    found = re.findall(r"0x([0-9a-f]+)", ins)
+    return int(found[-1], 16) if found else None
+
+
+def _cold(body) -> set:
+    """Addresses inside a loop body that the kernels' arguments never
+    reach: what a conditional forward branch jumps over when it guards an
+    out-of-line slow path, namely a call (IEEE sqrt's special inputs: the
+    few instructions around CALL) or the trig functions' Payne-Hanek
+    reduction (the branch on the predicate of `|x| >= 105615`)."""
+    end = body[-1][0]
+    cold, huge = set(), None      # huge: the predicate |x| >= 105615 set
+    for addr, op, ins in body:
+        toks = ins.split()
+        dest = toks[2 if toks[0].startswith("@") else 1].rstrip(",")
+        if op.startswith("FSETP") and "105615" in ins:
+            huge = dest
+        elif dest == huge:
+            huge = None
+        tgt = _target(ins) if op.startswith("BRA") else None
+        if not ins.startswith("@") or tgt is None or not addr < tgt <= end:
+            continue
+        skipped = [x for x in body if addr < x[0] < tgt]
+        short_call = (len(skipped) <= 5
+                      and any(o.startswith("CALL") for _, o, _ in skipped))
+        if short_call or (huge and toks[0] == f"@!{huge}"):
+            cold.update(x[0] for x in skipped)
+    return cold
+
+
+def loop_counts(ins_list) -> list:
+    """Per backward branch: the loop's span, its instruction count by class
+    (all of it, and without the slow paths it jumps over: "hot") and the
+    branches from inside it to code beyond its end."""
+    loops = []
+    for addr, op, ins in ins_list:
+        target = _target(ins) if op.startswith("BRA") else None
+        if target is None or target > addr:
+            continue
+        body = [x for x in ins_list if target <= x[0] <= addr]
+        cold = _cold(body)
+        counts = collections.Counter(_op_class(op2) for _, op2, _ in body)
+        hot = collections.Counter(_op_class(op2) for a2, op2, _ in body
+                                  if a2 not in cold)
+        exits = sum(1 for _, op2, ins2 in body
+                    if op2.startswith(("BRA", "CALL"))
+                    and (_target(ins2) or 0) > addr)
+        loops.append({"start": target, "end": addr, "instructions": len(body),
+                      "hot_instructions": len(body) - len(cold),
+                      "exits_to_slow_paths": exits,
+                      "by_class": dict(sorted(counts.items())),
+                      "hot_by_class": dict(sorted(hot.items()))})
+    return sorted(loops, key=lambda d: -d["instructions"])
+
+
+def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
+                dump_prefix: str = "") -> dict:
+    """Per kernel matching `pattern`: instruction counts by class, whole and
+    per loop; with `dump_prefix`, each kernel's listing is also written to
+    `<dump_prefix><kernel>.sass`."""
+    out = {}
+    for name, ins in sass_functions(lib_path).items():
+        if not re.search(pattern, name):
+            continue
+        if dump_prefix:
+            short = re.sub(r"\W", "_", name.split("N_")[-1])[:60]
+            with open(f"{dump_prefix}{short}.sass", "w") as f:
+                f.writelines(f"{addr:#06x}  {text}\n" for addr, _, text in ins)
+        total = collections.Counter(_op_class(op) for _, op, _ in ins)
+        out[name] = {"instructions": len(ins),
+                     "by_class": dict(sorted(total.items())),
+                     "loops": [lp for lp in loop_counts(ins)
+                               if lp["instructions"] >= 20]}
+    return out
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Probes
+# ─────────────────────────────────────────────────────────────────────────────
+def run_probe(lib: ctypes.CDLL, which: int, rows: int, device) -> torch.Tensor:
+    out = torch.empty((rows, _GRID), dtype=torch.float32, device=device)
+    rc = lib.mcos_probe(which, out.data_ptr(), _GRID)
+    if rc != 0:
+        raise RuntimeError(f"probe {which} failed: CUDA error {rc}")
+    torch.cuda.synchronize()
+    return out
+
+
+def probes(lib: ctypes.CDLL, device) -> dict:
+    m = torch.arange(_GRID, dtype=torch.float64, device=device)
+    u = (m + 0.5) * 2.0 ** -23
+    rad_exact = torch.sqrt(-2.0 * torch.log(u))
+    k2 = run_probe(lib, 0, 3, device).double()
+    # Row 0: the radius at the angle whose sine is 1 (u2 = 3/4), so the
+    # probe's error is the radius's plus at most that of sin near pi/2.
+    rad_err = (k2[0] - rad_exact).abs()
+    worst = int(rad_err.argmax())
+    # Rows 1, 2: at u1 = float32(e^-1/2)... radius sqrt(-2 log u1).
+    r0 = float(np.sqrt(-2.0 * np.log(np.float64(np.float32(0.36787944)))))
+    ang = 2.0 * np.pi * u
+    cos_err = (k2[1] - r0 * torch.cos(ang)).abs() / r0
+    sin_err = (k2[2] - r0 * torch.sin(ang)).abs() / r0
+    sc = run_probe(lib, 1, 3, device)
+    sin_only = run_probe(lib, 2, 1, device)[0]
+    cos_only = run_probe(lib, 3, 1, device)[0]
+    return {
+        "k2_radius_max_abs_err": float(rad_err.max()),
+        "k2_radius_worst_u1": float(u[worst]),
+        "k2_radius_finite_positive": bool(torch.isfinite(k2[0]).all()
+                                          and (k2[0] > 0).all()),
+        "k2_radius_max_abs_err_u1_below_1_minus_2^-7": float(
+            rad_err[u < 1 - 2.0 ** -7].max()),
+        "k2_radius_max_abs_err_u1_above_1_minus_2^-7": float(
+            rad_err[u >= 1 - 2.0 ** -7].max()),
+        "k2_cos_max_abs_err": float(cos_err.max()),
+        "k2_sin_max_abs_err": float(sin_err.max()),
+        "k9_sincosf_equals_sinf": bool((sc[1] == sin_only).all()),
+        "k9_sincosf_equals_cosf": bool((sc[2] == cos_only).all()),
+        "k9_sincosf_equals_torch_sin": bool((sc[1] == torch.sin(sc[0])).all()),
+        "k9_sincosf_equals_torch_cos": bool((sc[2] == torch.cos(sc[0])).all()),
+    }
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Timing
+# ─────────────────────────────────────────────────────────────────────────────
+K2_SHAPES = ((1 << 20, 252, 20), (1 << 22, 1024, 3))
+K9_PAIRS = 200_000
+K9_SHAPES = ((512, 20), (4096, 3))
+TD_SEGMENTS = ((0.08, 0.04, 0.5, 1.0), (0.16, 0.06, 0.7, 2.0),
+               (0.25, 0.09, 0.9, 4.0))
+
+
+def _events_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _k2_call(lib, out, pairs, steps, seed):
+    spot, drift, sig = ck._gbm_consts(22500.0, 0.2, 0.065, 0.012, 1.0, steps)
+    rc = lib.mcos_gbm_terminal(out.data_ptr(), pairs, steps, 2, seed,
+                               float(spot), float(drift), float(sig),
+                               torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: {rc}")
+
+
+def _td_case(steps: int):
+    from mcos_tpu_torch.models.params import SVJParams
+    from mcos_tpu_torch.ops import tdsvj
+
+    if steps == 4096:       # chip_smoke.py's TD_HEAVY body
+        seg = [np.asarray([3.0]), np.asarray([0.04]), np.asarray([0.5]),
+               np.asarray([20.0])]
+        T = 3.0
+    else:
+        seg = [np.asarray(col) for col in zip(*TD_SEGMENTS)]
+        T = 0.25
+    levels = tdsvj.step_param_arrays(*seg, T, steps)
+    return SVJParams(), levels, T
+
+
+def _k9_call(lib, out, steps, case, device, upload: bool, seed=43,
+             pairs=K9_PAIRS):
+    params, levels, T = case
+    consts, table, lam_dt = ck._td_consts(params, *levels, 22500.0, T, steps)
+    cdf = ck._device_td_table(lam_dt.tobytes(), str(device))
+    tab = (torch.as_tensor(table, device=device) if upload
+           else ck._device_step_table(table.tobytes(), steps, str(device)))
+    rc = lib.mcos_svj_terminal_td(
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        tab.data_ptr(), cdf.data_ptr(), int(cdf.numel()), pairs, steps, 2,
+        seed, consts.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K9 launch failed: {rc}")
+
+
+def check_outputs(lib, device) -> dict:
+    """A version's K2 and K9 against the plain torch versions."""
+    res = {}
+    for pairs, steps in ((1 << 21, 252), (50_001, 1), (50_001, 13)):
+        out = torch.empty((2, pairs), device=device)
+        _k2_call(lib, out, pairs, steps, 7)
+        ref = ck.gbm_terminal_plain(22500.0, 0.2, 0.065, 0.012, 1.0, 7,
+                                    num_paths=pairs, num_steps=steps,
+                                    device=device)
+        res[f"k2_{pairs}x{steps}_max_rel_err"] = float(
+            ((out - ref).abs() / ref.abs()).max())
+    for pairs, steps in ((200_003, 512), (10_007, 63)):
+        case = _td_case(steps)
+        out = torch.empty((3, 2, pairs), device=device)
+        _k9_call(lib, out, steps, case, device, False, seed=42, pairs=pairs)
+        ref = ck.svj_terminal_td_plain(case[0], *case[1], 22500.0, case[2],
+                                       42, num_paths=pairs, num_steps=steps,
+                                       companion=True, device=device)
+        res[f"k9_{pairs}x{steps}_max_abs_err"] = max(
+            float((a - b).abs().max()) for a, b in zip(out, ref))
+        res[f"k9_{pairs}x{steps}_v_bit_equal"] = bool((out[1] == ref[1]).all())
+    torch.cuda.synchronize()
+    return res
+
+
+def time_versions(libs: dict, device) -> dict:
+    """Each shape timed over the versions in turns: A B ... B A."""
+    order = list(libs) + list(reversed(list(libs)))
+    res = {}
+    for pairs, steps, reps in K2_SHAPES:
+        out = torch.empty((2, pairs), device=device)
+        runs = collections.defaultdict(list)
+        for label in order:
+            runs[label].append(_events_ms(
+                lambda: _k2_call(libs[label], out, pairs, steps, 8), reps))
+        res[f"k2_{pairs}x{steps}"] = dict(runs)
+    out = torch.empty((3, 2, K9_PAIRS), device=device)
+    for steps, reps in K9_SHAPES:
+        case = _td_case(steps)
+        for upload in (False, True):
+            runs = collections.defaultdict(list)
+            for label in order:
+                runs[label].append(_events_ms(
+                    lambda: _k9_call(libs[label], out, steps, case, device,
+                                     upload), reps))
+            res[f"k9_{K9_PAIRS}x{steps}_{'upload' if upload else 'kernel'}"
+                ] = dict(runs)
+    return res
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--csrc", action="append", default=[],
+                    help="LABEL=DIR holding gbm.cu, svj_td.cu, philox.cuh")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--probes", action="store_true")
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--dump", default="",
+                    help="directory for each kernel's SASS listing")
+    ap.add_argument("--out", default=os.path.join(_LAB_DIR,
+                                                  "kernel_lab.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_lab needs a CUDA device")
+    versions = dict(v.split("=", 1) for v in args.csrc) or {
+        "new": ck.CSRC_DIR}
+    device = torch.device("cuda", 0)
+    report = {"card": card_line(), "torch": torch.__version__,
+              "cuda": torch.version.cuda, "versions": versions}
+    print(f"card: {report['card']}", flush=True)
+    built = build(versions)
+    libs = {label: _load(info["lib"]) for label, info in built.items()}
+    for label, info in built.items():
+        entry = report.setdefault(label, {})
+        entry["ptxas"] = {}
+        for text in info["ptxas"].values():
+            entry["ptxas"].update(ptxas_resources(text))
+        print(f"[{label}] ptxas: {json.dumps(entry['ptxas'])}", flush=True)
+        if args.sass:
+            prefix = ""
+            if args.dump:
+                os.makedirs(args.dump, exist_ok=True)
+                prefix = os.path.join(args.dump, f"{label}_")
+            entry["sass"] = sass_report(info["lib"], dump_prefix=prefix)
+            for fn, rep in entry["sass"].items():
+                print(f"[{label}] {fn}: {rep['instructions']} instructions",
+                      flush=True)
+                for lp in rep["loops"]:
+                    print(f"    loop {lp['start']:#x}-{lp['end']:#x}: "
+                          f"{lp['instructions']} instructions "
+                          f"({lp['hot_instructions']} hot), "
+                          f"{lp['exits_to_slow_paths']} exits; "
+                          f"hot {lp['hot_by_class']}", flush=True)
+        if args.probes and info["probe_lib"]:
+            entry["probes"] = probes(_load(info["probe_lib"]), device)
+            print(f"[{label}] probes: {json.dumps(entry['probes'])}",
+                  flush=True)
+        if args.time:
+            entry["checks"] = check_outputs(libs[label], device)
+            print(f"[{label}] checks: {json.dumps(entry['checks'])}",
+                  flush=True)
+    if args.time:
+        report["times_ms"] = time_versions(libs, device)
+        for shape, runs in report["times_ms"].items():
+            print(f"{shape}: " + ", ".join(
+                f"{label} {np.mean(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
+                for label, v in runs.items()), flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"card: {report['card']}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

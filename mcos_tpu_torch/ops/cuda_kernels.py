@@ -50,7 +50,10 @@ order. Where a result feeds a discontinuous select (the QE transition's
 branches; K6's dead-or-alive test on the log-spot carry), and in K7-K11
 (hundreds of dependent steps), the CUDA source keeps nvcc from contracting
 multiply-adds and the plain version here performs the same IEEE
-operations; elsewhere the two differ by FMA rounding.
+operations; elsewhere the two differ by FMA rounding. K2 also takes the
+hardware's approximate log2, rsqrt and sincos where its plain version
+calls torch's accurate functions (csrc/gbm.cu says how far apart they
+are).
 """
 
 from __future__ import annotations
@@ -420,6 +423,18 @@ def _device_td_table(p_bytes: bytes, device: str) -> torch.Tensor:
     return torch.as_tensor(
         poisson_binom_count_table(np.frombuffer(p_bytes, np.float64)),
         dtype=torch.float64, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_step_table(tab_bytes: bytes, num_steps: int,
+                       device: str) -> torch.Tensor:
+    """A (rows, steps) float32 step table (K9's four rows, K10/K11's two)
+    on `device`, copied once per table: a warm request then launches
+    without a synchronous host-to-device copy in front of the kernel. The
+    bytes are copied into a writable array first, so torch does not warn
+    about wrapping a read-only buffer."""
+    tab = np.frombuffer(bytearray(tab_bytes), np.float32)
+    return torch.as_tensor(tab.reshape(-1, num_steps), device=device)
 
 
 # ─────────────────────────────────────────────────────────────────────────────
@@ -1554,7 +1569,7 @@ def svj_terminal_td(params: SVJParams, theta_t, xi_t, lam_t, spot, T,
     consts, table, lam_dt = _td_consts(params, theta_t, xi_t, lam_t, spot, T,
                                        num_steps)
     cdf = _device_td_table(lam_dt.tobytes(), str(device))
-    table_dev = torch.as_tensor(table, device=device)
+    table_dev = _device_step_table(table.tobytes(), num_steps, str(device))
     n_branch = 2 if antithetic else 1
     out = torch.empty((3 if companion else 2, n_branch, num_paths),
                       dtype=torch.float32, device=device)
@@ -1618,17 +1633,6 @@ def _rough_tables(eta, xi_flat, hurst: float, T, num_steps: int, c, d, g,
         scalars += [rho, math.sqrt(max(1.0 - rho * rho, 0.0)), (r - q) * dt,
                     1.0 / n]
     return np.asarray(scalars, np.float32), cdg, tab
-
-
-@functools.lru_cache(maxsize=64)
-def _device_step_table(tab_bytes: bytes, num_steps: int,
-                       device: str) -> torch.Tensor:
-    """The (2, steps) step table on `device`, copied once per table: a
-    warm request then launches without a synchronous host-to-device copy
-    in front of the kernel."""
-    return torch.as_tensor(
-        np.frombuffer(tab_bytes, np.float32).reshape(2, num_steps),
-        device=device)
 
 
 def _lift_state(cdg: np.ndarray, num_paths: int, device):

@@ -86,6 +86,42 @@ def test_k2_kernel_matches_plain(cuda, steps):
     torch.testing.assert_close(ker, ref, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("steps", [4, 8, 11, 18, 1024])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_k2_unrolled_quads_match_plain(cuda, steps, antithetic):
+    """K2 takes two quads an iteration, then at most one full quad and one
+    partial one: step counts that end on each, at an odd pair count that
+    fills no whole block, against the plain version (rtol 1e-5)."""
+    kw = dict(num_paths=65_537, num_steps=steps, antithetic=antithetic,
+              device=cuda)
+    n0 = ck.gbm_terminal.launches
+    ker = ck.gbm_terminal(22500.0, 0.2, 0.065, 0.012, 1.0, 5, **kw)
+    torch.cuda.synchronize()
+    assert ck.gbm_terminal.launches == n0 + 1
+    assert ker.shape == (2 if antithetic else 1, 65_537)
+    ref = ck.gbm_terminal_plain(22500.0, 0.2, 0.065, 0.012, 1.0, 5, **kw)
+    torch.testing.assert_close(ker, ref, rtol=1e-5, atol=0)
+
+
+def test_k2_box_muller_and_k9_sincos_on_every_uniform(cuda):
+    """Over all 2^23 uniforms of the grid: K2's radius (hardware log2 and
+    rsqrt, the series near u1 = 1) is finite, positive and within 1e-5 of
+    float64, and so are its cosine and sine (hardware __sincosf on the
+    centred angle); K9's sincosf gives the bits of sinf and cosf and of
+    torch's sin and cos, which the plain version calls."""
+    from mcos_tpu_torch import kernel_lab
+
+    built = kernel_lab.build({"new": ck.CSRC_DIR})["new"]
+    res = kernel_lab.probes(kernel_lab._load(built["probe_lib"]), cuda)
+    assert res["k2_radius_finite_positive"]
+    assert res["k2_radius_max_abs_err"] < 1e-5
+    assert res["k2_cos_max_abs_err"] < 1e-5
+    assert res["k2_sin_max_abs_err"] < 1e-5
+    for key in ("k9_sincosf_equals_sinf", "k9_sincosf_equals_cosf",
+                "k9_sincosf_equals_torch_sin", "k9_sincosf_equals_torch_cos"):
+        assert res[key], key
+
+
 def test_sobol_on_card_equals_cpu(cuda):
     a = sobol.sobol_svj_draws(5000, 9, seed=4, jump_uniforms=False,
                               device=cuda)
@@ -450,6 +486,34 @@ def test_k7_common_random_numbers_and_bad_correlation(cuda):
         ck.hhw_terminal(HHWParams(rho_sv=-0.999, rho_sr=0.999, rho_vr=0.999),
                         100.0, 1.0, 3, **kw)
     assert ck.hhw_terminal.launches == n0
+
+
+@pytest.mark.parametrize("pairs", [10_007, 200_003])
+@pytest.mark.parametrize("steps", [63, 64])
+def test_k9_bit_equal_at_ragged_pair_counts(cuda, pairs, steps):
+    """K9 at pair counts that fill no whole block or wave, even and odd
+    step counts: S and G within rtol 2e-6, v equal bit for bit; one launch
+    a call, and a warm call with the same table finds it on the device
+    (no host-to-device copy of the step table)."""
+    kernel, plain, args = _family_case("svj_terminal_td", steps)
+    kw = dict(num_paths=pairs, num_steps=steps, antithetic=True,
+              companion=True, device=cuda)
+    n0 = kernel.launches
+    ker = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    ref = plain(*args, **kw)
+    for a, b in zip(ker, ref):
+        assert a.shape == (2, pairs) and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=0)
+    torch.testing.assert_close(ker[1], ref[1], rtol=0, atol=0)
+    info = ck._device_step_table.cache_info()
+    again = kernel(*args, **kw)
+    assert kernel.launches == n0 + 2
+    assert ck._device_step_table.cache_info().hits == info.hits + 1
+    assert ck._device_step_table.cache_info().misses == info.misses
+    for a, b in zip(again, ker):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_k9_negative_v0_is_clamped(cuda):
