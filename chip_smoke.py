@@ -85,8 +85,9 @@
    and skew, K11 once per lift exotic, K1-K9 not at all.
    Before the paths, K10 `rbergomi_lift_integrals` and K11
    `rbergomi_lift_stats` are held against their plain versions at 131 072
-   pairs × 512 and 511 steps (H = 0.07, 25 factors) and at H = 0.5 (one
-   factor), and timed beside them and their bounds.
+   pairs × 512 and 511 steps (H = 0.07, 25 factors), at H = 0.5 (one
+   factor) and at 24 factors, and timed beside them and their bounds, with
+   the route instantiation's registers, blocks an SM and waves.
 9. Prints the kernels' JSON line, the card line and, last, the result line
    {"ok": true, "device": {...}}.
 
@@ -719,18 +720,24 @@ def rough_ops(name: str, m: int) -> float:
     return base + 3 * m + 2
 
 
-def check_rough_kernel(device, ck, rough, name):
+def check_rough_kernel(device, ck, rough, name, route_res):
     """K10 or K11 word for word against its plain version at the lift
     body's width (131 072 pairs x 512 steps, H = 0.07, m = 25), at 511
-    steps (the odd tail) and at H = 0.5 (m = 1) at a small shape; timed at
-    512 steps beside the plain version and the bound."""
+    steps (the odd tail), at H = 0.5 (m = 1) and with the H = 0.07 tables'
+    first 24 factors (the exact m = 24 instantiation) at a small shape;
+    timed at 512 steps beside the plain version and the bound, with the
+    route instantiation's `route_res` (registers, stack bytes) and the
+    blocks an SM and waves they give."""
+    from mcos_tpu_torch.kernel_lab import occupancy
+
     t0 = time.perf_counter()
     kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
     labels = (("I1", "I2") if name == "rbergomi_lift_integrals"
               else ("S_T", "mean", "max", "min"))
 
-    def call(fn, h, steps, pairs, seed):
+    def call(fn, h, steps, pairs, seed, m=None):
         c, d, g, tail = rough.rbergomi_lift(h, ROUGH_T, steps)
+        c, d, g = c[:m], d[:m], g[:m]
         kw = dict(num_paths=pairs, num_steps=steps, device=device)
         if name == "rbergomi_lift_integrals":
             out = fn(1.9, ROUGH_T, seed, c, d, g, tail, h, xi_flat=0.04,
@@ -741,13 +748,16 @@ def check_rough_kernel(device, ck, rough, name):
         return out, len(c)
 
     errs, exact, cases = [], {}, {}
-    for h, steps, pairs in ((ROUGH_H, 512, ROUGH_PAIRS),
-                            (ROUGH_H, 511, ROUGH_PAIRS), (0.5, 64, 16_384)):
-        ker, m = call(kernel, h, steps, pairs, 42)
+    for h, steps, pairs, want_m in ((ROUGH_H, 512, ROUGH_PAIRS, 25),
+                                    (ROUGH_H, 511, ROUGH_PAIRS, 25),
+                                    (0.5, 64, 16_384, 1),
+                                    (ROUGH_H, 64, 16_384, 24)):
+        cut = 24 if want_m == 24 else None
+        ker, m = call(kernel, h, steps, pairs, 42, cut)
         torch.cuda.synchronize()
-        ref, _ = call(plain, h, steps, pairs, 42)
+        ref, _ = call(plain, h, steps, pairs, 42, cut)
         torch.cuda.synchronize()
-        check(m == (1 if h == 0.5 else 25), f"{name}: m = {m} at H = {h}")
+        check(m == want_m, f"{name}: m = {m} at H = {h}")
         worst, shares = 0.0, {}
         for label, a, b in zip(labels, ker, ref):
             check(a.shape == b.shape == (2, pairs), f"{name}: {label} shape")
@@ -763,20 +773,27 @@ def check_rough_kernel(device, ck, rough, name):
         log(f"{name} H = {h} (m = {m}), {pairs} pairs x {steps} steps: max "
             f"abs err {worst:.3e}, bit-equal shares {shares}")
         errs.append(worst)
-        cases[f"H={h},steps={steps}"] = {"m": m, "max_abs_err": worst,
-                                         "bit_equal_share": shares}
+        cases[f"H={h},steps={steps},m={m}"] = {
+            "m": m, "max_abs_err": worst, "bit_equal_share": shares}
         exact = exact or shares
     ms = cuda_ms(lambda: call(kernel, ROUGH_H, 512, ROUGH_PAIRS, 43))
     plain_ms = cuda_ms(lambda: call(plain, ROUGH_H, 512, ROUGH_PAIRS, 43),
                        reps=1)
     b = bound(rough_ops(name, 25), ROUGH_PAIRS * 512, 2 * 512 * 4,
               len(labels) * 2 * ROUGH_PAIRS * 4)
+    regs, stack = route_res or (None, None)
+    occ = (occupancy(regs, 256, -(-ROUGH_PAIRS // 256)) if regs
+           else {"blocks_per_sm": None, "waves": float("nan")})
     log(f"{name} at {ROUGH_PAIRS} pairs x 512 steps: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}, {b['ops_per_unit']:.0f} per pair-step); phase "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"({b['bound_by']}, {b['ops_per_unit']:.0f} per pair-step); route "
+        f"instantiation {regs} registers, stack {stack} B, "
+        f"{occ['blocks_per_sm']} blocks of 256 an SM, {occ['waves']:.3f} "
+        f"waves; phase {time.perf_counter() - t0:.1f} s")
     return {"max_abs_err": max(errs), "bit_equal_share": exact,
             "cases": cases, "ms": ms, "plain_ms": plain_ms, "steps": 512,
+            "registers": regs, "stack_bytes": stack,
+            "blocks_per_sm": occ["blocks_per_sm"], "waves": occ["waves"],
             **b}
 
 
@@ -1874,8 +1891,14 @@ def main() -> None:
     k7 = check_k7(device, ck, hhw)
     k8 = check_k8(device, ck, SVCJParams)
     k9 = check_k9(device, ck, tdsvj, params)
-    k10 = check_rough_kernel(device, ck, rough, "rbergomi_lift_integrals")
-    k11 = check_rough_kernel(device, ck, rough, "rbergomi_lift_stats")
+    # The route's instantiations: two branches, exactly 25 factors.
+    route = {k: v for k, v in rough_res.items() if "ILi2ELi25ELb1E" in k}
+    k10 = check_rough_kernel(device, ck, rough, "rbergomi_lift_integrals",
+                             next((v for k, v in route.items()
+                                   if "rbergomi_lift_kernel" in k), None))
+    k11 = check_rough_kernel(device, ck, rough, "rbergomi_lift_stats",
+                             next((v for k, v in route.items()
+                                   if "rbergomi_stats_kernel" in k), None))
     mp = main_path(device, ck, bench, cos_price, bs_price, SVJParams, server)
     op = options_path(device, ck, cos_price, bs_price, SVJParams, server)
     xp = exotics_path(device, ck, ox, ExoticEngine, gbm_params, server)

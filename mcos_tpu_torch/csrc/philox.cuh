@@ -85,7 +85,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
 // The ten round keys of a seed (key + i (kPhilox10A, kPhilox10B) mod 2^32),
 // made once on the host and passed to a kernel by value, so they sit in the
 // constant bank and each round's xor reads its key from there instead of
-// re-running the key schedule in every thread. K2 and K9 use them.
+// re-running the key schedule in every thread. K2 and K9-K11 use them.
 struct PhiloxKeys {
   uint32_t k0[10], k1[10];
 };
@@ -124,7 +124,7 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
 // conversion (I2F runs on a slower pipe than FADD): the top 23 bits become
 // the mantissa of a float in [1, 2), and subtracting float32(1 - 2^-24)
 // leaves (m + 1/2) 2^-23. The subtraction is exact (Sterbenz: the operands
-// are within a factor 2), so no rounding differs. K2 and K9 use it.
+// are within a factor 2), so no rounding differs. K2 and K9-K11 use it.
 __device__ __forceinline__ float bits_to_uniform_bitcast(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3f800000u) -
          __uint_as_float(0x3f7fffffu);
@@ -145,6 +145,19 @@ __device__ __forceinline__ void box_muller(float u1, float u2, float& za,
   const float ang = __fmul_rn(kTwoPi, u2);
   za = __fmul_rn(rad, cosf(ang));
   zb = __fmul_rn(rad, sinf(ang));
+}
+
+// box_muller with one shared range reduction for the sine and the cosine:
+// sincosf gives the bits of sinf and cosf (held over every uniform of the
+// grid by tests/test_torch_cuda.py), so the normals are box_muller's bit
+// for bit. K9, K10 and K11 use it.
+__device__ __forceinline__ void box_muller_sincos(float u1, float u2,
+                                                  float& za, float& zb) {
+  const float rad = sqrtf(fmul(-2.0f, logf(u1)));
+  float s, c;
+  sincosf(fmul(kTwoPi, u2), &s, &c);
+  za = fmul(rad, c);
+  zb = fmul(rad, s);
 }
 
 // Jump count by inverse CDF: the number of entries of the nondecreasing

@@ -14,13 +14,23 @@
 // (sum times float32(1/n)), max S/S0, min S/S0; the wrapper scales by the
 // spot (max and min commute with the monotone spot exp(.)).
 //
-// What bounds it on an H100: arithmetic. The same (2, steps) table as K10
-// is read (a broadcast from L1), 32 B per pair are written; each pair-step
-// needs one Philox4x32-10 call, three uniforms, one and a half Box-Muller
-// pairs, 3m + 1 multiply-adds for the mix and the factor update, dz, and
-// two branches of exp, sqrt, the log-spot update, exp, sum, max and min:
-// 88 + 3m operation slots, 163 at m = 25 (chip_smoke.py's count). One
-// thread per antithetic pair, the m factors in registers as in K10.
+// What bounds it on an H100: instruction issue. The same (2, steps) table
+// as K10 is read (a broadcast from L1), 32 B per pair are written; each
+// pair-step needs one Philox4x32-10 call, three uniforms, one and a half
+// Box-Muller pairs, the 5m + 1 uncontracted operations of the mix and the
+// factor update, dz, and two branches of exp, sqrt, the log-spot update,
+// exp, sum, max and min. Bit-equality fixes the carries' operations and
+// the accurate special functions, so a pair-step takes 430 instructions at
+// m = 25 by cuobjdump -sass without the never-taken slow paths (275 at
+// m = 1), against the 165 operation slots chip_smoke.py counts
+// (88 + 3m + 2). The design is K10's (rbergomi_lift.cu): one thread per
+// antithetic pair, the factors in registers, loops unrolled to the exact
+// m for m in {1, 24, 25} and guarded for every other m <= 32,
+// box_muller_sincos, the conversion-free uniform, round keys in the
+// constant bank. The route's instantiation holds 64 registers with no
+// spill, 4 blocks of 256 an SM, so its 512 blocks run in one wave on 132
+// SMs: one register more and only 3 blocks fit, 1.29 waves
+// (tests/test_torch_cuda.py holds the count).
 //
 // Stream: K7's layout in its own domain. Counter (pair_lo, pair_hi, call,
 // kRoughStatsDomain), key = seed. Steps 2i and 2i + 1 take calls 2i and
@@ -42,39 +52,47 @@
 
 namespace {
 
+using mcos::box_muller_sincos;
 using mcos::fadd;
 using mcos::fmul;
 using mcos::fsub;
 
 constexpr int kMaxFactors = 32;
+constexpr int kThreads = 256;
 
 // Per-launch scalars and factor tables (cuda_kernels.py:_rough_tables).
 struct StatsConsts {
   float eta, sqrt_dt, dt, rho, orth, mu_dt, inv_n;
   int m;
-  float c[kMaxFactors], d[kMaxFactors], g[kMaxFactors];
+  float c[kMaxFactors];
+  float2 dg[kMaxFactors];  // (d_j, g_j): one 8-byte constant-bank read
 };
 
-template <int NB, int MMAX>
+template <int NB, int M>
 struct Carry {
-  float y[MMAX];
+  float y[M];
   float ls[NB], sum[NB], mx[NB], mn[NB];
 };
 
+__device__ __forceinline__ float unit(uint32_t bits) {
+  return mcos::bits_to_uniform_bitcast(bits);
+}
+
 // One step for both branches (pallas_kernels.py:_rbergomi_lift_stats_kernel
-// one_step).
-template <int NB, int MMAX>
+// one_step). M is the factor count when EXACT; else the loops run to M
+// under the launch's guard j < m.
+template <int NB, int M, bool EXACT>
 __device__ __forceinline__ void stats_step(const StatsConsts& c,
                                            const float* __restrict__ tab,
                                            int steps, int idx, float z_dw,
                                            float z_zeta, float z_perp,
-                                           Carry<NB, MMAX>& s) {
+                                           Carry<NB, M>& s) {
   const float e_i = __ldg(tab + idx);
   const float sqrt_tail = __ldg(tab + steps + idx);
   float w = fmul(sqrt_tail, z_zeta);
 #pragma unroll
-  for (int j = 0; j < MMAX; ++j) {
-    if (j < c.m) w = fadd(w, fmul(c.c[j], s.y[j]));
+  for (int j = 0; j < M; ++j) {
+    if (EXACT || j < c.m) w = fadd(w, fmul(c.c[j], s.y[j]));
   }
   const float ew = fmul(c.eta, w);
   const float dw = fmul(z_dw, c.sqrt_dt);
@@ -90,25 +108,33 @@ __device__ __forceinline__ void stats_step(const StatsConsts& c,
     s.mn[k] = fminf(s.mn[k], s.ls[k]);
   }
 #pragma unroll
-  for (int j = 0; j < MMAX; ++j) {
-    if (j < c.m) s.y[j] = fadd(fmul(c.d[j], s.y[j]), fmul(c.g[j], dw));
+  for (int j = 0; j < M; ++j) {
+    if (EXACT || j < c.m) {
+      s.y[j] = fadd(fmul(c.dg[j].x, s.y[j]), fmul(c.dg[j].y, dw));
+    }
   }
 }
 
-template <int NB, int MMAX>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ uint4 stats_words(long long p, int call,
+                                            const mcos::PhiloxKeys& keys) {
+  return mcos::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(p),
+                 static_cast<uint32_t>(static_cast<uint64_t>(p) >> 32),
+                 static_cast<uint32_t>(call), mcos::kRoughStatsDomain),
+      keys);
+}
+
+template <int NB, int M, bool EXACT>
+__global__ void __launch_bounds__(kThreads)
     rbergomi_stats_kernel(float* __restrict__ out,
                           const float* __restrict__ tab, long long n,
-                          int steps, uint2 key, StatsConsts c) {
+                          int steps, mcos::PhiloxKeys keys, StatsConsts c) {
   const long long p =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const uint32_t p_lo = static_cast<uint32_t>(p);
-  const uint32_t p_hi = static_cast<uint32_t>(static_cast<uint64_t>(p) >> 32);
-
-  Carry<NB, MMAX> s;
+  Carry<NB, M> s;
 #pragma unroll
-  for (int j = 0; j < MMAX; ++j) s.y[j] = 0.0f;
+  for (int j = 0; j < M; ++j) s.y[j] = 0.0f;
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
     s.ls[k] = 0.0f;
@@ -117,35 +143,24 @@ __global__ void __launch_bounds__(256)
     s.mn[k] = INFINITY;
   }
   for (int i = 0; i + 1 < steps; i += 2) {
-    const uint4 a = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(i),
-                   mcos::kRoughStatsDomain),
-        key);
-    const uint4 b = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(i + 1),
-                   mcos::kRoughStatsDomain),
-        key);
-    float z_a, z_b, z_c, z_d, z_e, z_f;
-    mcos::box_muller(mcos::bits_to_uniform(a.x), mcos::bits_to_uniform(a.y),
-                     z_a, z_b);
-    mcos::box_muller(mcos::bits_to_uniform(a.z), mcos::bits_to_uniform(a.w),
-                     z_c, z_d);
-    mcos::box_muller(mcos::bits_to_uniform(b.x), mcos::bits_to_uniform(b.y),
-                     z_e, z_f);
-    stats_step<NB, MMAX>(c, tab, steps, i, z_a, z_b, z_c, s);
-    stats_step<NB, MMAX>(c, tab, steps, i + 1, z_d, z_e, z_f, s);
+    // Step i runs on (z_a, z_b, z_c), step i + 1 on (z_d, z_e, z_f); call
+    // i + 1 is made after step i, so only z_d waits across it.
+    const uint4 a = stats_words(p, i, keys);
+    float z_a, z_b, z_c, z_d;
+    box_muller_sincos(unit(a.x), unit(a.y), z_a, z_b);
+    box_muller_sincos(unit(a.z), unit(a.w), z_c, z_d);
+    stats_step<NB, M, EXACT>(c, tab, steps, i, z_a, z_b, z_c, s);
+    const uint4 b = stats_words(p, i + 1, keys);
+    float z_e, z_f;
+    box_muller_sincos(unit(b.x), unit(b.y), z_e, z_f);
+    stats_step<NB, M, EXACT>(c, tab, steps, i + 1, z_d, z_e, z_f, s);
   }
   if (steps & 1) {
-    const uint4 a = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(steps - 1),
-                   mcos::kRoughStatsDomain),
-        key);
+    const uint4 a = stats_words(p, steps - 1, keys);
     float z1, z2, z3, unused;
-    mcos::box_muller(mcos::bits_to_uniform(a.x), mcos::bits_to_uniform(a.y),
-                     z1, z2);
-    mcos::box_muller(mcos::bits_to_uniform(a.z), mcos::bits_to_uniform(a.w),
-                     z3, unused);
-    stats_step<NB, MMAX>(c, tab, steps, steps - 1, z1, z2, z3, s);
+    box_muller_sincos(unit(a.x), unit(a.y), z1, z2);
+    box_muller_sincos(unit(a.z), unit(a.w), z3, unused);
+    stats_step<NB, M, EXACT>(c, tab, steps, steps - 1, z1, z2, z3, s);
   }
   const long long plane = NB * n;
 #pragma unroll
@@ -157,24 +172,33 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int NB, int MMAX>
-void launch(float* out, const float* tab, long long n, int steps, uint2 key,
-            const StatsConsts& c, cudaStream_t st) {
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  rbergomi_stats_kernel<NB, MMAX>
-      <<<blocks, threads, 0, st>>>(out, tab, n, steps, key, c);
+template <int NB, int M, bool EXACT>
+void launch(float* out, const float* tab, long long n, int steps,
+            const mcos::PhiloxKeys& keys, const StatsConsts& c,
+            cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  rbergomi_stats_kernel<NB, M, EXACT>
+      <<<blocks, kThreads, 0, st>>>(out, tab, n, steps, keys, c);
 }
 
+// As K10 (rbergomi_lift.cu:dispatch): m in {1, 24, 25} with no guard,
+// every other m <= 32 guarded.
 template <int NB>
 void dispatch(float* out, const float* tab, long long n, int steps,
-              uint2 key, const StatsConsts& c, cudaStream_t st) {
-  if (c.m == 1) {
-    launch<NB, 1>(out, tab, n, steps, key, c, st);
-  } else if (c.m <= 25) {
-    launch<NB, 25>(out, tab, n, steps, key, c, st);
-  } else {
-    launch<NB, kMaxFactors>(out, tab, n, steps, key, c, st);
+              const mcos::PhiloxKeys& keys, const StatsConsts& c,
+              cudaStream_t st) {
+  switch (c.m) {
+    case 1:
+      launch<NB, 1, true>(out, tab, n, steps, keys, c, st);
+      break;
+    case 24:
+      launch<NB, 24, true>(out, tab, n, steps, keys, c, st);
+      break;
+    case 25:
+      launch<NB, 25, true>(out, tab, n, steps, keys, c, st);
+      break;
+    default:
+      launch<NB, kMaxFactors, false>(out, tab, n, steps, keys, c, st);
   }
 }
 
@@ -204,15 +228,15 @@ extern "C" int mcos_rbergomi_lift_stats(float* out, const float* tab,
   c.inv_n = p_host[6];
   c.m = m;
   std::memcpy(c.c, cdg_host, m * sizeof(float));
-  std::memcpy(c.d, cdg_host + m, m * sizeof(float));
-  std::memcpy(c.g, cdg_host + 2 * m, m * sizeof(float));
-  const uint2 key = make_uint2(static_cast<uint32_t>(seed),
-                               static_cast<uint32_t>(seed >> 32));
+  for (int j = 0; j < m; ++j) {
+    c.dg[j] = make_float2(cdg_host[m + j], cdg_host[2 * m + j]);
+  }
+  const mcos::PhiloxKeys keys = mcos::philox_round_keys(seed);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_branch == 2) {
-    dispatch<2>(out, tab, n, steps, key, c, st);
+    dispatch<2>(out, tab, n, steps, keys, c, st);
   } else if (n_branch == 1) {
-    dispatch<1>(out, tab, n, steps, key, c, st);
+    dispatch<1>(out, tab, n, steps, keys, c, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

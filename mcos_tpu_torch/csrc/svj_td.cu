@@ -61,6 +61,7 @@
 
 namespace {
 
+using mcos::box_muller_sincos;
 using mcos::fadd;
 using mcos::fmul;
 
@@ -83,18 +84,6 @@ __device__ __forceinline__ StepLevels load_levels(
     const float* __restrict__ table, int steps, int idx) {
   return {__ldg(table + idx), __ldg(table + steps + idx),
           __ldg(table + 3 * steps + idx)};
-}
-
-// philox.cuh:box_muller with one shared range reduction for the sine and
-// the cosine: sincosf gives the bits of sinf and cosf (held over every
-// uniform of the grid by tests/test_torch_cuda.py).
-__device__ __forceinline__ void box_muller_sincos(float u1, float u2,
-                                                  float& za, float& zb) {
-  const float rad = sqrtf(fmul(-2.0f, logf(u1)));
-  float s, c;
-  sincosf(fmul(mcos::kTwoPi, u2), &s, &c);
-  za = fmul(rad, c);
-  zb = fmul(rad, s);
 }
 
 // One pair's carry: log spot and variance per branch, the companion sum.

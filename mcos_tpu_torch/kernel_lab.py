@@ -1,33 +1,45 @@
-"""Look inside K2 (`csrc/gbm.cu`) and K9 (`csrc/svj_td.cu`) on one CUDA
-card: what the compiler made of them, how accurate their special functions
-are, and how fast one version runs against another.
+"""Look inside four hand-written kernels on one CUDA card: K2
+(`csrc/gbm.cu`), K9 (`csrc/svj_td.cu`), K10 (`csrc/rbergomi_lift.cu`) and
+K11 (`csrc/rbergomi_stats.cu`): what the compiler made of them, how
+accurate their special functions are, and how fast one version runs
+against another.
 
     python -m mcos_tpu_torch.kernel_lab [--csrc LABEL=DIR ...]
-        [--sass] [--dump DIR] [--probes] [--time] [--out FILE]
+        [--kernels k2,k9,k10,k11] [--sass] [--dump DIR] [--probes] [--time]
+        [--out FILE]
 
-Each `--csrc LABEL=DIR` names a directory holding a version of `gbm.cu`,
-`svj_td.cu` and `philox.cuh` (default: `new=` the package's own `csrc/`).
-Every version is compiled (all at once, one nvcc each, with the package's
-NVCC_FLAGS plus `-Xptxas -v`) into its own shared library.
+Each `--csrc LABEL=DIR` names a directory holding a version of the chosen
+kernels' sources and `philox.cuh` (default: `new=` the package's own
+`csrc/`). Every version is compiled (all at once, one nvcc per source,
+with the package's NVCC_FLAGS plus `-Xptxas -v`) into its own shared
+library. `--kernels` picks the kernels (default all four).
 
-- `--sass`: per kernel, the registers, stack and spills that ptxas reports,
-  and, from `cuobjdump -sass`, the instructions of each loop (a backward
-  branch and the code it jumps over) by class: FFMA, FADD, FMUL; IMAD,
-  IMAD.WIDE, IADD3, LOP3, SHF; I2F, F2I; MUFU by function; loads; branches
-  and calls. How many quads (K2) or calls (K9, two steps each) one pass of
-  a loop covers is read from its MUFU and multiply counts; `--dump DIR`
-  writes each kernel's listing there to read it.
-- `--probes`: over all 2^23 uniforms of the grid ((m + 1/2) 2^-23), the
-  error of K2's Box-Muller radius and angle functions against float64
-  (`gbm.cu:box_muller_fast`), and whether K9's `sincosf` gives the bits of
-  `sinf`, `cosf` and of torch's `sin`/`cos` (the plain version's) on the
-  angle 2 pi u.
+- Always: per kernel, the registers, stack and spills that ptxas reports,
+  and from the registers the blocks of 256 threads an SM holds and the
+  waves the kernel's timed launch takes on 132 SMs (`occupancy`).
+- `--sass`: from `cuobjdump -sass`, the instructions of each loop (a
+  backward branch and the code it jumps over) by class: FFMA, FADD, FMUL;
+  IMAD, IMAD.WIDE, IADD3, LOP3, SHF; I2F, F2I; MUFU by function; loads;
+  branches and calls. How many quads (K2) or calls (K9, two steps each)
+  one pass of a loop covers is read from its MUFU and multiply counts; for
+  K10 and K11 the pair-steps a pass covers are its MUFU.EX2 count over the
+  exps a step takes (one a branch in K10, two in K11), and the counts are
+  also given per pair-step. `--dump DIR` writes each kernel's listing there
+  to read it.
+- `--probes` (K2, K9): over all 2^23 uniforms of the grid
+  ((m + 1/2) 2^-23), the error of K2's Box-Muller radius and angle
+  functions against float64 (`gbm.cu:box_muller_fast`), and whether
+  `sincosf` (K9-K11's Box-Muller) gives the bits of `sinf`, `cosf` and of
+  torch's `sin`/`cos` (the plain versions') on the angle 2 pi u.
 - `--time`: the versions in turns (A B ... B A), CUDA events: K2 at
   2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K9 at
   200 000 pairs x 512 and x 4096 steps with the companion, its table on
   the device ("kernel") and copied from the host before every launch, as
-  a wrapper without a device cache does ("upload"). Each version's outputs
-  are first held against the plain torch versions.
+  a wrapper without a device cache does ("upload"); K10 and K11 at the
+  route's 131 072 pairs x 512 and x 511 steps with 25 lift factors
+  (H = 0.07). Each version's outputs are first held against the plain
+  torch versions (K9-K11 bit for bit, also K10/K11 at 24 factors, at one
+  and in the guarded fallback).
 
 Prints a summary and writes everything to `--out` (default
 mcos_tpu_torch/_build/lab/kernel_lab.json). Needs a CUDA card and nvcc;
@@ -51,7 +63,16 @@ import torch
 from mcos_tpu_torch.ops import cuda_kernels as ck
 
 _LAB_DIR = os.path.join(ck.BUILD_DIR, "lab")
-_KERNELS = ("gbm.cu", "svj_td.cu")
+# The kernels the lab knows, by short name: their source.
+_KERNELS = {"k2": "gbm.cu", "k9": "svj_td.cu", "k10": "rbergomi_lift.cu",
+            "k11": "rbergomi_stats.cu"}
+_SASS_PATTERN = {"k2": "gbm_kernel", "k9": "svj_td_kernel",
+                 "k10": "rbergomi_lift_kernel",
+                 "k11": "rbergomi_stats_kernel"}
+
+# The card (NVIDIA H100 SXM): 132 SMs of 65 536 registers, handed out to
+# a warp in units of 256 (8 a thread), at most 64 warps and 32 blocks an SM.
+SMS, REGS_PER_SM, REG_UNIT, MAX_WARPS, MAX_BLOCKS = 132, 65_536, 8, 64, 32
 
 # Probe kernels over the uniform grid. The file includes the version's
 # gbm.cu and svj_td.cu, so the probes call the very helpers the kernels do.
@@ -117,29 +138,33 @@ def _nvcc() -> str:
     return ck._Library._nvcc()
 
 
-def build(versions: dict) -> dict:
-    """{label: {"lib": path, "ptxas": text, "probe_lib": path}}: each
-    version's gbm.cu and svj_td.cu compiled with `-Xptxas -v` and linked
-    into one library, plus its probe library; all nvcc processes at once."""
+def build(versions: dict, kernels=tuple(_KERNELS)) -> dict:
+    """{label: {"lib": path, "ptxas": {source: text}, "probe_lib": path}}:
+    each version's sources of `kernels` compiled with `-Xptxas -v` and
+    linked into one library, plus its probe library when K2 and K9 are
+    among them; all nvcc processes at once."""
     os.makedirs(_LAB_DIR, exist_ok=True)
     nvcc, jobs, out = _nvcc(), [], {}
+    sources = [_KERNELS[k] for k in kernels]
     for label, src_dir in versions.items():
         digest = hashlib.sha256(" ".join(ck.NVCC_FLAGS).encode())
-        for name in (*_KERNELS, "philox.cuh"):
+        for name in (*sources, "philox.cuh"):
             with open(os.path.join(src_dir, name), "rb") as f:
                 digest.update(name.encode() + f.read())
         work = os.path.join(_LAB_DIR, f"{label}_{digest.hexdigest()[:12]}")
         os.makedirs(work, exist_ok=True)
         objs = []
-        for name in _KERNELS:
+        for name in sources:
             obj = os.path.join(work, name[:-3] + ".o")
             objs.append(obj)
             jobs.append((label, name, subprocess.Popen(
                 [nvcc, *ck.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
                  os.path.join(src_dir, name)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        with open(os.path.join(src_dir, "gbm.cu")) as f:
-            has_probes = "box_muller_fast" in f.read()
+        has_probes = False
+        if "k2" in kernels and "k9" in kernels:
+            with open(os.path.join(src_dir, "gbm.cu")) as f:
+                has_probes = "box_muller_fast" in f.read()
         if has_probes:      # the probes call this design's helpers
             probe = os.path.join(work, "probes.cu")
             with open(probe, "w") as f:
@@ -149,7 +174,7 @@ def build(versions: dict) -> dict:
                  os.path.join(work, "libprobe.so"), probe],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         out[label] = {"dir": src_dir, "work": work, "objs": objs,
-                      "ptxas": {}}
+                      "ptxas": {}, "has_probes": has_probes}
     for label, name, proc in jobs:
         so, se = proc.communicate()
         if proc.returncode != 0:
@@ -163,8 +188,8 @@ def build(versions: dict) -> dict:
         if link.returncode != 0:
             raise RuntimeError(f"link failed for {label}:\n{link.stderr}")
         info["lib"] = lib
-        probe_lib = os.path.join(info["work"], "libprobe.so")
-        info["probe_lib"] = probe_lib if os.path.exists(probe_lib) else None
+        info["probe_lib"] = (os.path.join(info["work"], "libprobe.so")
+                             if info.pop("has_probes") else None)
     return out
 
 
@@ -173,16 +198,21 @@ def _load(path: str) -> ctypes.CDLL:
     vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
-    if hasattr(lib, "mcos_gbm_terminal"):
-        lib.mcos_gbm_terminal.argtypes = [vp, i64, i32, i32, u64, f32, f32,
-                                          f32, vp]
-        lib.mcos_gbm_terminal.restype = i32
-        lib.mcos_svj_terminal_td.argtypes = [vp, vp, vp, vp, vp, i32, i64,
-                                             i32, i32, u64, vp, vp]
-        lib.mcos_svj_terminal_td.restype = i32
-    if hasattr(lib, "mcos_probe"):
-        lib.mcos_probe.argtypes = [i32, vp, i32]
-        lib.mcos_probe.restype = i32
+    signatures = {
+        "mcos_gbm_terminal": [vp, i64, i32, i32, u64, f32, f32, f32, vp],
+        "mcos_svj_terminal_td": [vp, vp, vp, vp, vp, i32, i64, i32, i32,
+                                 u64, vp, vp],
+        "mcos_rbergomi_lift_integrals": [vp, vp, vp, i64, i32, i32, u64, vp,
+                                         vp, i32, vp],
+        "mcos_rbergomi_lift_stats": [vp, vp, i64, i32, i32, u64, vp, vp, i32,
+                                     vp],
+        "mcos_probe": [i32, vp, i32],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32
     return lib
 
 
@@ -210,6 +240,20 @@ def ptxas_resources(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
+def occupancy(registers: int, threads: int = 256, blocks=None) -> dict:
+    """Blocks of `threads` an SM holds at `registers` a thread (the
+    register file alone: these kernels use no shared memory) and, for a
+    launch of `blocks`, the waves it takes on the card's 132 SMs."""
+    warps_per_block = -(-threads // 32)
+    regs_per_warp = -(-registers // REG_UNIT) * REG_UNIT * 32
+    warps = min(REGS_PER_SM // regs_per_warp, MAX_WARPS)
+    per_sm = min(warps // warps_per_block, MAX_BLOCKS)
+    out = {"blocks_per_sm": per_sm, "slots": per_sm * SMS}
+    if blocks is not None:
+        out.update(blocks=blocks, waves=blocks / (per_sm * SMS))
     return out
 
 
@@ -286,7 +330,8 @@ def _cold(body) -> set:
     cold, huge = set(), None      # huge: the predicate |x| >= 105615 set
     for addr, op, ins in body:
         toks = ins.split()
-        dest = toks[2 if toks[0].startswith("@") else 1].rstrip(",")
+        at = 2 if toks[0].startswith("@") else 1
+        dest = toks[at].rstrip(",") if len(toks) > at else ""
         if op.startswith("FSETP") and "105615" in ins:
             huge = dest
         elif dest == huge:
@@ -327,24 +372,49 @@ def loop_counts(ins_list) -> list:
     return sorted(loops, key=lambda d: -d["instructions"])
 
 
+def _short_name(name: str) -> str:
+    """A mangled kernel name cut to its base name and template arguments,
+    e.g. `rbergomi_lift_kernelILi2ELi25ELb1EE`: one file per
+    instantiation."""
+    m = re.search(r"([a-z_]+_kernel)((?:I(?:L[ib]\d+E)+E)?)", name)
+    return m.group(1) + m.group(2) if m else re.sub(r"\W", "_", name)[-60:]
+
+
+def exps_per_pair_step(name: str):
+    """The expf calls one pair-step of a K10 or K11 instantiation makes
+    (one a branch in K10; two in K11: the variance and the spot), read
+    from the branch count in its mangled name; None for other kernels."""
+    m = re.search(r"rbergomi_(lift|stats)_kernelILi(\d)E", name)
+    if not m:
+        return None
+    return int(m.group(2)) * (1 if m.group(1) == "lift" else 2)
+
+
 def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
                 dump_prefix: str = "") -> dict:
     """Per kernel matching `pattern`: instruction counts by class, whole and
-    per loop; with `dump_prefix`, each kernel's listing is also written to
+    per loop; for K10/K11 each loop's pair-steps (its MUFU.EX2 count over
+    the exps a pair-step takes) and hot count per pair-step; with
+    `dump_prefix`, each kernel's listing is also written to
     `<dump_prefix><kernel>.sass`."""
     out = {}
     for name, ins in sass_functions(lib_path).items():
         if not re.search(pattern, name):
             continue
         if dump_prefix:
-            short = re.sub(r"\W", "_", name.split("N_")[-1])[:60]
+            short = _short_name(name)
             with open(f"{dump_prefix}{short}.sass", "w") as f:
                 f.writelines(f"{addr:#06x}  {text}\n" for addr, _, text in ins)
         total = collections.Counter(_op_class(op) for _, op, _ in ins)
+        loops = [lp for lp in loop_counts(ins) if lp["instructions"] >= 20]
+        exps = exps_per_pair_step(name)
+        for lp in loops:
+            ex2 = lp["hot_by_class"].get("MUFU.EX2", 0)
+            if exps and ex2:
+                lp["pair_steps"] = ex2 / exps
+                lp["hot_per_pair_step"] = lp["hot_instructions"] * exps / ex2
         out[name] = {"instructions": len(ins),
-                     "by_class": dict(sorted(total.items())),
-                     "loops": [lp for lp in loop_counts(ins)
-                               if lp["instructions"] >= 20]}
+                     "by_class": dict(sorted(total.items())), "loops": loops}
     return out
 
 
@@ -456,10 +526,77 @@ def _k9_call(lib, out, steps, case, device, upload: bool, seed=43,
         raise RuntimeError(f"K9 launch failed: {rc}")
 
 
-def check_outputs(lib, device) -> dict:
-    """A version's K2 and K9 against the plain torch versions."""
+ROUGH_PAIRS = 131_072     # RoughRequest default
+ROUGH_SHAPES = ((512, 20), (511, 20))
+ROUGH_T, ROUGH_H = 0.25, 0.07
+# (pairs, steps, factors, H) of the bit-for-bit checks: the route's m = 25
+# at both step parities, the exact m = 24 (the H = 0.07 tables' first 24
+# rows) and m = 1 (H = 1/2), and the guarded fallback at m = 2, 7 and 32
+# (the 25 rows and then the first 7 again: bit-equality needs no law).
+ROUGH_CHECKS = ((ROUGH_PAIRS, 512, 25, ROUGH_H),
+                (ROUGH_PAIRS, 511, 25, ROUGH_H), (10_007, 64, 24, ROUGH_H),
+                (10_007, 63, 1, 0.5), (10_007, 64, 2, ROUGH_H),
+                (10_007, 9, 7, ROUGH_H), (10_007, 64, 32, ROUGH_H))
+# Timed launch of each kernel: (pairs, one thread each, blocks of 256).
+TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k9": K9_PAIRS, "k10": ROUGH_PAIRS,
+               "k11": ROUGH_PAIRS}
+
+
+def _rough_case(steps: int, m: int = 25, hurst: float = ROUGH_H):
+    """(c, d, g, tail, hurst): the lift's tables at `hurst`, cut or
+    repeated to m factors."""
+    from mcos_tpu_torch.ops.rough import rbergomi_lift
+
+    c, d, g, tail = rbergomi_lift(hurst, ROUGH_T, steps)
+    rows = [np.resize(np.asarray(x, np.float32), m) for x in (c, d, g)]
+    return (*rows, tail, hurst)
+
+
+def _rough_args(kernel: str, steps: int, case, device):
+    """The launch scalars, factor table and device step table of K10
+    (`kernel` "k10") or K11 for `case`, made once outside the timing."""
+    c, d, g, tail, hurst = case
+    leg = None if kernel == "k10" else (-0.9, 0.05, 0.01)
+    p, cdg, tab = ck._rough_tables(1.9, 0.04, hurst, ROUGH_T, steps, c, d, g,
+                                   tail, spot_leg=leg)
+    return p, cdg, ck._device_step_table(tab.tobytes(), steps, str(device))
+
+
+def _rough_call(lib, kernel: str, out, pairs: int, steps: int, args,
+                seed=43):
+    p, cdg, tab = args
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "k10":
+        rc = lib.mcos_rbergomi_lift_integrals(
+            out[0].data_ptr(), out[1].data_ptr(), tab.data_ptr(), pairs,
+            steps, 2, seed, p.ctypes.data, cdg.ctypes.data,
+            int(cdg.shape[1]), stream)
+    else:
+        rc = lib.mcos_rbergomi_lift_stats(
+            out.data_ptr(), tab.data_ptr(), pairs, steps, 2, seed,
+            p.ctypes.data, cdg.ctypes.data, int(cdg.shape[1]), stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel.upper()} launch failed: {rc}")
+
+
+def _rough_plain(kernel: str, pairs: int, steps: int, case, device,
+                 seed=42):
+    c, d, g, tail, hurst = case
+    kw = dict(num_paths=pairs, num_steps=steps, device=device)
+    if kernel == "k10":
+        return torch.stack(ck.rbergomi_lift_integrals_plain(
+            1.9, ROUGH_T, seed, c, d, g, tail, hurst, xi_flat=0.04, **kw))
+    return torch.stack(list(ck.rbergomi_lift_stats_plain(
+        (1.9, -0.9, 0.05, 0.01, 0.04, 1.0), ROUGH_T, seed, c, d, g, tail,
+        hurst, **kw).values()))
+
+
+def check_outputs(lib, device, kernels=tuple(_KERNELS)) -> dict:
+    """A version's kernels against the plain torch versions."""
     res = {}
     for pairs, steps in ((1 << 21, 252), (50_001, 1), (50_001, 13)):
+        if "k2" not in kernels:
+            break
         out = torch.empty((2, pairs), device=device)
         _k2_call(lib, out, pairs, steps, 7)
         ref = ck.gbm_terminal_plain(22500.0, 0.2, 0.065, 0.012, 1.0, 7,
@@ -468,6 +605,8 @@ def check_outputs(lib, device) -> dict:
         res[f"k2_{pairs}x{steps}_max_rel_err"] = float(
             ((out - ref).abs() / ref.abs()).max())
     for pairs, steps in ((200_003, 512), (10_007, 63)):
+        if "k9" not in kernels:
+            break
         case = _td_case(steps)
         out = torch.empty((3, 2, pairs), device=device)
         _k9_call(lib, out, steps, case, device, False, seed=42, pairs=pairs)
@@ -477,15 +616,27 @@ def check_outputs(lib, device) -> dict:
         res[f"k9_{pairs}x{steps}_max_abs_err"] = max(
             float((a - b).abs().max()) for a, b in zip(out, ref))
         res[f"k9_{pairs}x{steps}_v_bit_equal"] = bool((out[1] == ref[1]).all())
+    for kernel in ("k10", "k11"):
+        if kernel not in kernels:
+            continue
+        for pairs, steps, m, hurst in ROUGH_CHECKS:
+            case = _rough_case(steps, m, hurst)
+            out = torch.empty((2 if kernel == "k10" else 4, 2, pairs),
+                              device=device)
+            _rough_call(lib, kernel, out, pairs, steps,
+                        _rough_args(kernel, steps, case, device), seed=42)
+            ref = _rough_plain(kernel, pairs, steps, case, device)
+            res[f"{kernel}_{pairs}x{steps}_m{m}_bit_equal"] = bool(
+                (out == ref).all())
     torch.cuda.synchronize()
     return res
 
 
-def time_versions(libs: dict, device) -> dict:
+def time_versions(libs: dict, device, kernels=tuple(_KERNELS)) -> dict:
     """Each shape timed over the versions in turns: A B ... B A."""
     order = list(libs) + list(reversed(list(libs)))
     res = {}
-    for pairs, steps, reps in K2_SHAPES:
+    for pairs, steps, reps in K2_SHAPES if "k2" in kernels else ():
         out = torch.empty((2, pairs), device=device)
         runs = collections.defaultdict(list)
         for label in order:
@@ -493,7 +644,7 @@ def time_versions(libs: dict, device) -> dict:
                 lambda: _k2_call(libs[label], out, pairs, steps, 8), reps))
         res[f"k2_{pairs}x{steps}"] = dict(runs)
     out = torch.empty((3, 2, K9_PAIRS), device=device)
-    for steps, reps in K9_SHAPES:
+    for steps, reps in K9_SHAPES if "k9" in kernels else ():
         case = _td_case(steps)
         for upload in (False, True):
             runs = collections.defaultdict(list)
@@ -503,6 +654,19 @@ def time_versions(libs: dict, device) -> dict:
                                      upload), reps))
             res[f"k9_{K9_PAIRS}x{steps}_{'upload' if upload else 'kernel'}"
                 ] = dict(runs)
+    for kernel in ("k10", "k11"):
+        if kernel not in kernels:
+            continue
+        out = torch.empty((2 if kernel == "k10" else 4, 2, ROUGH_PAIRS),
+                          device=device)
+        for steps, reps in ROUGH_SHAPES:
+            args = _rough_args(kernel, steps, _rough_case(steps), device)
+            runs = collections.defaultdict(list)
+            for label in order:
+                runs[label].append(_events_ms(
+                    lambda: _rough_call(libs[label], kernel, out,
+                                        ROUGH_PAIRS, steps, args), reps))
+            res[f"{kernel}_{ROUGH_PAIRS}x{steps}"] = dict(runs)
     return res
 
 
@@ -516,7 +680,9 @@ def card_line() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", action="append", default=[],
-                    help="LABEL=DIR holding gbm.cu, svj_td.cu, philox.cuh")
+                    help="LABEL=DIR holding the kernels' sources, philox.cuh")
+    ap.add_argument("--kernels", default=",".join(_KERNELS),
+                    help="comma-separated subset of " + ",".join(_KERNELS))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--time", action="store_true")
@@ -525,35 +691,53 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join(_LAB_DIR,
                                                   "kernel_lab.json"))
     args = ap.parse_args()
+    kernels = tuple(k for k in args.kernels.split(",") if k)
+    unknown = set(kernels) - set(_KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_lab needs a CUDA device")
     versions = dict(v.split("=", 1) for v in args.csrc) or {
         "new": ck.CSRC_DIR}
     device = torch.device("cuda", 0)
     report = {"card": card_line(), "torch": torch.__version__,
-              "cuda": torch.version.cuda, "versions": versions}
+              "cuda": torch.version.cuda, "versions": versions,
+              "kernels": kernels}
     print(f"card: {report['card']}", flush=True)
-    built = build(versions)
+    built = build(versions, kernels)
     libs = {label: _load(info["lib"]) for label, info in built.items()}
+    pattern = "|".join(_SASS_PATTERN[k] for k in kernels)
     for label, info in built.items():
         entry = report.setdefault(label, {})
         entry["ptxas"] = {}
         for text in info["ptxas"].values():
             entry["ptxas"].update(ptxas_resources(text))
-        print(f"[{label}] ptxas: {json.dumps(entry['ptxas'])}", flush=True)
+        for fn, res in entry["ptxas"].items():
+            kernel = next(k for k in kernels if _SASS_PATTERN[k] in fn)
+            blocks = -(-TIMED_PAIRS[kernel] // 256)
+            res["occupancy"] = occupancy(res["registers"], 256, blocks)
+            occ = res["occupancy"]
+            print(f"[{label}] {fn}: {res['registers']} registers, stack "
+                  f"{res.get('stack')} B, spills {res.get('spill_stores')}/"
+                  f"{res.get('spill_loads')} B; {occ['blocks_per_sm']} blocks"
+                  f" of 256 an SM, {blocks} blocks = {occ['waves']:.3f} "
+                  f"waves", flush=True)
         if args.sass:
             prefix = ""
             if args.dump:
                 os.makedirs(args.dump, exist_ok=True)
                 prefix = os.path.join(args.dump, f"{label}_")
-            entry["sass"] = sass_report(info["lib"], dump_prefix=prefix)
+            entry["sass"] = sass_report(info["lib"], pattern, prefix)
             for fn, rep in entry["sass"].items():
                 print(f"[{label}] {fn}: {rep['instructions']} instructions",
                       flush=True)
                 for lp in rep["loops"]:
+                    per = (f", {lp['pair_steps']:g} pair-steps a pass, "
+                           f"{lp['hot_per_pair_step']:.1f} hot a pair-step"
+                           if "pair_steps" in lp else "")
                     print(f"    loop {lp['start']:#x}-{lp['end']:#x}: "
                           f"{lp['instructions']} instructions "
-                          f"({lp['hot_instructions']} hot), "
+                          f"({lp['hot_instructions']} hot){per}, "
                           f"{lp['exits_to_slow_paths']} exits; "
                           f"hot {lp['hot_by_class']}", flush=True)
         if args.probes and info["probe_lib"]:
@@ -561,11 +745,11 @@ def main() -> None:
             print(f"[{label}] probes: {json.dumps(entry['probes'])}",
                   flush=True)
         if args.time:
-            entry["checks"] = check_outputs(libs[label], device)
+            entry["checks"] = check_outputs(libs[label], device, kernels)
             print(f"[{label}] checks: {json.dumps(entry['checks'])}",
                   flush=True)
     if args.time:
-        report["times_ms"] = time_versions(libs, device)
+        report["times_ms"] = time_versions(libs, device, kernels)
         for shape, runs in report["times_ms"].items():
             print(f"{shape}: " + ", ".join(
                 f"{label} {np.mean(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
@@ -574,7 +758,6 @@ def main() -> None:
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(f"card: {report['card']}", flush=True)
-
 
 if __name__ == "__main__":
     main()

@@ -7,6 +7,8 @@ conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -637,6 +639,73 @@ def test_rough_kernels_take_a_curve_and_refuse_many_factors(cuda):
         kernel(1.9, 0.25, 1, c, c, c, np.zeros(16, np.float32), 0.1,
                num_paths=64, num_steps=16, device=cuda)
     assert kernel.launches == n0
+
+
+def _rough_call_at_m(name, m, steps, pairs, device, fn="kernel"):
+    """K10/K11 (or, with fn="plain", its plain version) on the H = 0.07
+    tables cut or repeated to m factors: bit-equality needs no law, only
+    the same tables."""
+    kernel, plain, args, kw, _ = _rough_case(name, 0.07, steps)
+    c, d, g = (np.resize(np.asarray(x, np.float32), m) for x in args[3:6])
+    args = (*args[:3], c, d, g, *args[6:])
+    f = kernel if fn == "kernel" else plain
+    return _as_tuple(f(*args, num_paths=pairs, num_steps=steps,
+                       device=device, **kw))
+
+
+@pytest.mark.parametrize("name", ["rbergomi_lift_integrals",
+                                  "rbergomi_lift_stats"])
+@pytest.mark.parametrize("m", [24, 2, 7, 32])
+@pytest.mark.parametrize("steps", [7, 64])
+def test_rough_kernels_bit_equal_at_each_factor_count(cuda, name, m, steps):
+    """m = 24 (the route's tables without the top-up node) runs the exact
+    24-factor instantiation; m = 2, 7 and 32 the guarded fallback. Each is
+    its plain version bit for bit."""
+    n0 = getattr(ck, name).launches
+    ker = _rough_call_at_m(name, m, steps, 10_007, cuda)
+    torch.cuda.synchronize()
+    assert getattr(ck, name).launches == n0 + 1
+    ref = _rough_call_at_m(name, m, steps, 10_007, cuda, fn="plain")
+    for a, b in zip(ker, ref):
+        assert a.shape == (2, 10_007)
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["rbergomi_lift_integrals",
+                                  "rbergomi_lift_stats"])
+@pytest.mark.parametrize("pairs", [131_071, 131_073, 135_169])
+def test_rough_kernels_bit_equal_at_ragged_pair_counts(cuda, name, pairs):
+    """Pair counts just below and above the route's 131 072 (512 blocks of
+    256) and at 528 blocks plus one pair (one more than 4 blocks an SM on
+    132 SMs): the last block's idle threads write nothing and every pair
+    is its plain version's, bit for bit, at 25 factors."""
+    ker = _rough_call_at_m(name, 25, 16, pairs, cuda)
+    torch.cuda.synchronize()
+    ref = _rough_call_at_m(name, 25, 16, pairs, cuda, fn="plain")
+    for a, b in zip(ker, ref):
+        assert a.shape == (2, pairs)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_rough_route_instantiations_fit_one_wave(cuda):
+    """The route's instantiations (two branches, exact m = 25) spill
+    nothing and hold at most 64 registers: 4 blocks of 256 an SM, so the
+    route's 512 blocks run in one wave on the card's 132 SMs."""
+    from mcos_tpu_torch import kernel_lab
+
+    built = kernel_lab.build({"new": ck.CSRC_DIR}, ("k10", "k11"))["new"]
+    res = {}
+    for text in built["ptxas"].values():
+        res.update(kernel_lab.ptxas_resources(text))
+    route = {fn: r for fn, r in res.items()
+             if re.search(r"rbergomi_(lift|stats)_kernelILi2ELi25ELb1E", fn)}
+    assert len(route) == 2
+    for fn, r in route.items():
+        assert r["spill_stores"] == r["spill_loads"] == 0, fn
+        assert r["registers"] <= 64, fn
+        occ = kernel_lab.occupancy(r["registers"], 256, 512)
+        assert occ["blocks_per_sm"] >= 4 and occ["waves"] <= 1, fn
 
 
 @pytest.mark.parametrize("mode", ["price", "asian"])

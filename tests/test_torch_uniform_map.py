@@ -1,7 +1,7 @@
 """The conversion-free uniform map of csrc/philox.cuh
-(`bits_to_uniform_bitcast`, used by K2 and K9) against the port's plain
-`bits_to_uniform` on every value of the top 23 bits: the kernels' map puts
-the bits in the mantissa of a float in [1, 2) and subtracts
+(`bits_to_uniform_bitcast`, used by K2, K9, K10 and K11) against the port's
+plain `bits_to_uniform` on every value of the top 23 bits: the kernels' map
+puts the bits in the mantissa of a float in [1, 2) and subtracts
 float32(1 - 2^-24), emulated here with numpy's float32 view."""
 
 import numpy as np
