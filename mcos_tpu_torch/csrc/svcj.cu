@@ -14,13 +14,24 @@
 // mix, the jump indicator and the jump magnitudes are computed once per
 // pair.
 //
-// What bounds it on an H100: arithmetic. Nothing is read and 12 to 24 B per
-// pair are written; each pair-step needs one Philox4x32-10 call, four
-// uniforms, 1.5 Box-Muller pairs and two branches of Euler update, at least
-// 87 operation slots (chip_smoke.py's count). The exponential's uniforms
-// come from a third Philox call that a thread makes only for a step pair in
-// which a jump lands (lambda dt is a few per mille), so the common case
-// pays two calls per two steps.
+// What bounds it on an H100: instruction issue. Nothing is read and 12 to
+// 24 B per pair are written; each pair-step needs one Philox4x32-10 call,
+// four uniforms, Box-Muller and two branches of Euler update, at least 79
+// operation slots with no jump in the step pair (chip_smoke.py's count).
+// Bit-equality with the plain version fixes every carry operation and the
+// accurate library functions; within that the design takes:
+//   - lazy jump draws: the jump-size normals' Box-Muller pair and the
+//     exponential's uniforms come from a third Philox call that a thread
+//     makes only for a step pair in which a jump lands (z_js is read only
+//     on a jump step, so the bits do not move); at lambda dt = 0.4 % a
+//     thread needs it on one step pair in 126, a warp of 32 on 22 %;
+//   - Box-Muller through philox.cuh:box_muller_sincos and the uniforms
+//     through bits_to_uniform_bitcast: neither moves a bit. The Philox
+//     round keys from the constant bank (PhiloxKeys) gained nothing here
+//     (ptxas then splits each product into IMAD.HI and IMAD), so the key
+//     schedule runs in every thread;
+//   - one thread per pair at most 40 registers: the route's 200 000 pairs
+//     (782 blocks of 256) fit one wave on 132 SMs.
 //
 // Stream: counter (pair_lo, pair_hi, call, kSvcjDomain), key = seed. Steps
 // 2i and 2i + 1 take calls 3i, 3i + 1 and 3i + 2: a0..a3 give the
@@ -41,6 +52,7 @@
 
 namespace {
 
+using mcos::box_muller_sincos;
 using mcos::fadd;
 using mcos::fmul;
 using mcos::fsub;
@@ -86,6 +98,10 @@ __device__ __forceinline__ void svcj_step(const SvcjConsts& c, float z1,
   cv_w = fadd(cv_w, fmul(c.sig_cv, dw1));
 }
 
+__device__ __forceinline__ float unit(uint32_t bits) {
+  return mcos::bits_to_uniform_bitcast(bits);
+}
+
 template <int NB>
 __global__ void __launch_bounds__(256)
     svcj_kernel(float* __restrict__ s_out, float* __restrict__ v_out,
@@ -112,20 +128,18 @@ __global__ void __launch_bounds__(256)
   for (int i = 0; i + 1 < steps; i += 2, call += 3) {
     const uint4 a = words(call);
     const uint4 b = words(call + 1);
-    float z1a, z2a, z1b, z2b, zja, zjb;
-    mcos::box_muller(mcos::bits_to_uniform(a.x), mcos::bits_to_uniform(a.y),
-                     z1a, z2a);
-    mcos::box_muller(mcos::bits_to_uniform(a.z), mcos::bits_to_uniform(a.w),
-                     z1b, z2b);
-    mcos::box_muller(mcos::bits_to_uniform(b.x), mcos::bits_to_uniform(b.y),
-                     zja, zjb);
-    const bool jump_a = mcos::bits_to_uniform(b.z) < c.lam_dt;
-    const bool jump_b = mcos::bits_to_uniform(b.w) < c.lam_dt;
-    float ue_a = 1.0f, ue_b = 1.0f;
+    float z1a, z2a, z1b, z2b;
+    box_muller_sincos(unit(a.x), unit(a.y), z1a, z2a);
+    box_muller_sincos(unit(a.z), unit(a.w), z1b, z2b);
+    const bool jump_a = unit(b.z) < c.lam_dt;
+    const bool jump_b = unit(b.w) < c.lam_dt;
+    // read only on a jump step: made only for a step pair that jumps
+    float zja = 0.0f, zjb = 0.0f, ue_a = 1.0f, ue_b = 1.0f;
     if (jump_a || jump_b) {
       const uint4 e = words(call + 2);
-      ue_a = mcos::bits_to_uniform(e.x);
-      ue_b = mcos::bits_to_uniform(e.y);
+      ue_a = unit(e.x);
+      ue_b = unit(e.y);
+      box_muller_sincos(unit(b.x), unit(b.y), zja, zjb);
     }
     svcj_step<NB>(c, z1a, z2a, zja, jump_a, ue_a, ls, v, cv_w);
     svcj_step<NB>(c, z1b, z2b, zjb, jump_b, ue_b, ls, v, cv_w);
@@ -133,13 +147,11 @@ __global__ void __launch_bounds__(256)
   if (steps & 1) {
     const uint4 a = words(call);
     const uint4 b = words(call + 1);
-    float z1, z2, z_js, unused;
-    mcos::box_muller(mcos::bits_to_uniform(a.x), mcos::bits_to_uniform(a.y),
-                     z1, z2);
-    mcos::box_muller(mcos::bits_to_uniform(a.z), mcos::bits_to_uniform(a.w),
-                     z_js, unused);
-    svcj_step<NB>(c, z1, z2, z_js, mcos::bits_to_uniform(b.x) < c.lam_dt,
-                  mcos::bits_to_uniform(b.y), ls, v, cv_w);
+    float z1, z2, z_js = 0.0f, unused;
+    box_muller_sincos(unit(a.x), unit(a.y), z1, z2);
+    const bool jumped = unit(b.x) < c.lam_dt;
+    if (jumped) box_muller_sincos(unit(a.z), unit(a.w), z_js, unused);
+    svcj_step<NB>(c, z1, z2, z_js, jumped, unit(b.y), ls, v, cv_w);
   }
   const float g_drift_total = fmul(c.g_drift_dt, static_cast<float>(steps));
 #pragma unroll

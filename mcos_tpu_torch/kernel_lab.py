@@ -1,18 +1,19 @@
-"""Look inside four hand-written kernels on one CUDA card: K2
-(`csrc/gbm.cu`), K9 (`csrc/svj_td.cu`), K10 (`csrc/rbergomi_lift.cu`) and
-K11 (`csrc/rbergomi_stats.cu`): what the compiler made of them, how
-accurate their special functions are, and how fast one version runs
-against another.
+"""Look inside six hand-written kernels on one CUDA card: K2
+(`csrc/gbm.cu`), K6 (`csrc/svj_stats.cu`), K8 (`csrc/svcj.cu`), K9
+(`csrc/svj_td.cu`), K10 (`csrc/rbergomi_lift.cu`) and K11
+(`csrc/rbergomi_stats.cu`): what the compiler made of them, how accurate
+their special functions are, and how fast one version runs against
+another.
 
     python -m mcos_tpu_torch.kernel_lab [--csrc LABEL=DIR ...]
-        [--kernels k2,k9,k10,k11] [--sass] [--dump DIR] [--probes] [--time]
-        [--out FILE]
+        [--kernels k2,k6,k8,k9,k10,k11] [--sass] [--dump DIR] [--probes]
+        [--time] [--out FILE]
 
 Each `--csrc LABEL=DIR` names a directory holding a version of the chosen
 kernels' sources and `philox.cuh` (default: `new=` the package's own
 `csrc/`). Every version is compiled (all at once, one nvcc per source,
 with the package's NVCC_FLAGS plus `-Xptxas -v`) into its own shared
-library. `--kernels` picks the kernels (default all four).
+library. `--kernels` picks the kernels (default all six).
 
 - Always: per kernel, the registers, stack and spills that ptxas reports,
   and from the registers the blocks of 256 threads an SM holds and the
@@ -20,26 +21,34 @@ library. `--kernels` picks the kernels (default all four).
 - `--sass`: from `cuobjdump -sass`, the instructions of each loop (a
   backward branch and the code it jumps over) by class: FFMA, FADD, FMUL;
   IMAD, IMAD.WIDE, IADD3, LOP3, SHF; I2F, F2I; MUFU by function; loads;
-  branches and calls. How many quads (K2) or calls (K9, two steps each)
-  one pass of a loop covers is read from its MUFU and multiply counts; for
-  K10 and K11 the pair-steps a pass covers are its MUFU.EX2 count over the
-  exps a step takes (one a branch in K10, two in K11), and the counts are
-  also given per pair-step. `--dump DIR` writes each kernel's listing there
-  to read it.
+  branches and calls; and what each conditional forward branch inside it
+  jumps over. How many quads (K2) or calls (K9, two steps each) one pass
+  of a loop covers is read from its MUFU and multiply counts; for K10 and
+  K11 the pair-steps a pass covers are its MUFU.EX2 count over the exps a
+  step takes (one a branch in K10, two in K11), for K6 and K8 its Philox
+  calls (from the products by the two Philox multipliers:
+  `pair_steps_from_calls`), and the counts are also given per pair-step.
+  `--dump DIR` writes each kernel's listing there to read it.
 - `--probes` (K2, K9): over all 2^23 uniforms of the grid
   ((m + 1/2) 2^-23), the error of K2's Box-Muller radius and angle
   functions against float64 (`gbm.cu:box_muller_fast`), and whether
-  `sincosf` (K9-K11's Box-Muller) gives the bits of `sinf`, `cosf` and of
-  torch's `sin`/`cos` (the plain versions') on the angle 2 pi u.
+  `sincosf` (K6 and K8-K11's Box-Muller) gives the bits of `sinf`, `cosf`
+  and of torch's `sin`/`cos` (the plain versions') on the angle 2 pi u.
 - `--time`: the versions in turns (A B ... B A), CUDA events: K2 at
-  2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K9 at
-  200 000 pairs x 512 and x 4096 steps with the companion, its table on
-  the device ("kernel") and copied from the host before every launch, as
-  a wrapper without a device cache does ("upload"); K10 and K11 at the
-  route's 131 072 pairs x 512 and x 511 steps with 25 lift factors
-  (H = 0.07). Each version's outputs are first held against the plain
-  torch versions (K9-K11 bit for bit, also K10/K11 at 24 factors, at one
-  and in the guarded fallback).
+  2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K6 at the
+  exotic route's 200 000 pairs in chip_smoke.py's five variants, and the
+  Asian and the corridor + companion over 135 168, 160 000 and 264 000
+  pairs; K8 at 200 000 pairs x 252 and x 63 steps with the companion;
+  K9 at 200 000 pairs x 512 and x 4096 steps with the companion, its
+  table on the device ("kernel") and copied from the host before every
+  launch, as a wrapper without a device cache does ("upload"); K10 and
+  K11 at the route's 131 072 pairs x 512 and x 511 steps with 25 lift
+  factors (H = 0.07). Each version's outputs are first held against the
+  plain torch versions (K6 and K8-K11 bit for bit: K6 in the five
+  variants, the barrier below with a window at 200 003 pairs x 13 steps
+  and the corridor at v0 = 0; K8 at 252 and 63 steps, with and without
+  the companion, at lambda = 0, 1 and 8; K10/K11 also at 24 factors, at
+  one and in the guarded fallback).
 
 Prints a summary and writes everything to `--out` (default
 mcos_tpu_torch/_build/lab/kernel_lab.json). Needs a CUDA card and nvcc;
@@ -64,9 +73,11 @@ from mcos_tpu_torch.ops import cuda_kernels as ck
 
 _LAB_DIR = os.path.join(ck.BUILD_DIR, "lab")
 # The kernels the lab knows, by short name: their source.
-_KERNELS = {"k2": "gbm.cu", "k9": "svj_td.cu", "k10": "rbergomi_lift.cu",
+_KERNELS = {"k2": "gbm.cu", "k6": "svj_stats.cu", "k8": "svcj.cu",
+            "k9": "svj_td.cu", "k10": "rbergomi_lift.cu",
             "k11": "rbergomi_stats.cu"}
-_SASS_PATTERN = {"k2": "gbm_kernel", "k9": "svj_td_kernel",
+_SASS_PATTERN = {"k2": "gbm_kernel", "k6": "svj_stats_kernel",
+                 "k8": "svcj_kernel", "k9": "svj_td_kernel",
                  "k10": "rbergomi_lift_kernel",
                  "k11": "rbergomi_stats_kernel"}
 
@@ -206,6 +217,9 @@ def _load(path: str) -> ctypes.CDLL:
                                          vp, i32, vp],
         "mcos_rbergomi_lift_stats": [vp, vp, i64, i32, i32, u64, vp, vp, i32,
                                      vp],
+        "mcos_svj_path_stats": [vp, i64, i32, i32, i32, i32, i32, i32, u64,
+                                vp, vp],
+        "mcos_svcj_terminal": [vp, vp, vp, i64, i32, i32, u64, vp, vp],
         "mcos_probe": [i32, vp, i32],
     }
     for name, argtypes in signatures.items():
@@ -320,12 +334,20 @@ def _target(ins: str):
     return int(found[-1], 16) if found else None
 
 
+# K6's corridor makes its nine quotients an increment exactly by one shared
+# reciprocal, and again by nine library divides (one FCHK range check
+# each) only where those could over- or underflow.
+_FALLBACK_DIVIDES = 9
+
+
 def _cold(body) -> set:
     """Addresses inside a loop body that the kernels' arguments never
     reach: what a conditional forward branch jumps over when it guards an
     out-of-line slow path, namely a call (IEEE sqrt's special inputs: the
-    few instructions around CALL) or the trig functions' Payne-Hanek
-    reduction (the branch on the predicate of `|x| >= 105615`)."""
+    few instructions around CALL), the trig functions' Payne-Hanek
+    reduction (the branch on the predicate of `|x| >= 105615`), or K6's
+    corridor fallback (a span of nine library divides, FCHK each, with no
+    exp in it)."""
     end = body[-1][0]
     cold, huge = set(), None      # huge: the predicate |x| >= 105615 set
     for addr, op, ins in body:
@@ -340,17 +362,51 @@ def _cold(body) -> set:
         if not ins.startswith("@") or tgt is None or not addr < tgt <= end:
             continue
         skipped = [x for x in body if addr < x[0] < tgt]
-        short_call = (len(skipped) <= 5
-                      and any(o.startswith("CALL") for _, o, _ in skipped))
-        if short_call or (huge and toks[0] == f"@!{huge}"):
+        ops = [o for _, o, _ in skipped]
+        short_call = len(skipped) <= 5 and any(o.startswith("CALL")
+                                               for o in ops)
+        fallback = (sum(o.startswith("FCHK") for o in ops)
+                    >= _FALLBACK_DIVIDES
+                    and not any(o.startswith("MUFU.EX2") for o in ops))
+        if short_call or fallback or (huge and toks[0] == f"@!{huge}"):
             cold.update(x[0] for x in skipped)
     return cold
 
 
+# Philox4x32-10's multipliers 0xD2511F53 and 0xCD9E8D57 as cuobjdump
+# prints them: signed 32-bit immediates.
+_PHILOX_MULTIPLIERS = ("-0x2daee0ad", "-0x326172a9")
+
+
+def philox_products(body) -> int:
+    """The Philox products in a list of (address, opcode, text): each
+    IMAD.WIDE.U32 or IMAD.HI.U32 by one of the two multipliers is one
+    32 x 32 -> 64 bit product (a low word alone, IMAD, goes with an
+    IMAD.HI and is not counted)."""
+    return sum(1 for _, op, ins in body
+               if op.startswith(("IMAD.WIDE.U32", "IMAD.HI.U32"))
+               and any(m in ins for m in _PHILOX_MULTIPLIERS))
+
+
+def philox_calls(products: int) -> int:
+    """Philox4x32-10 calls from their per-thread products: rounds 2-10 make
+    18 a call. Round 1 multiplies the path word, the same on every pass,
+    and the call index, the same in every thread of a warp, so ptxas
+    hoists those products or moves them to the uniform datapath (UIMAD);
+    and a product whose multiplier sits in a register is not seen, so a
+    call shows 16-18. The nearest whole number of 18s (right up to four
+    calls a pass)."""
+    return round(products / 18)
+
+
 def loop_counts(ins_list) -> list:
     """Per backward branch: the loop's span, its instruction count by class
-    (all of it, and without the slow paths it jumps over: "hot") and the
-    branches from inside it to code beyond its end."""
+    (all of it, and without the slow paths it jumps over: "hot"), its
+    Philox products (hot), the hot instructions each conditional forward
+    branch inside it jumps over and those left where every such branch
+    skips (the cheapest outcome of each data-dependent choice, e.g. K8's
+    step pair with no jump), and the branches from inside it to code
+    beyond its end."""
     loops = []
     for addr, op, ins in ins_list:
         target = _target(ins) if op.startswith("BRA") else None
@@ -358,15 +414,25 @@ def loop_counts(ins_list) -> list:
             continue
         body = [x for x in ins_list if target <= x[0] <= addr]
         cold = _cold(body)
+        hot_body = [x for x in body if x[0] not in cold]
         counts = collections.Counter(_op_class(op2) for _, op2, _ in body)
-        hot = collections.Counter(_op_class(op2) for a2, op2, _ in body
-                                  if a2 not in cold)
+        hot = collections.Counter(_op_class(op2) for _, op2, _ in hot_body)
         exits = sum(1 for _, op2, ins2 in body
                     if op2.startswith(("BRA", "CALL"))
                     and (_target(ins2) or 0) > addr)
+        skips, skipped = [], set()
+        for a2, op2, ins2 in hot_body:
+            tgt = _target(ins2) if op2.startswith("BRA") else None
+            if ins2.startswith("@") and tgt is not None and a2 < tgt <= addr:
+                span = {x[0] for x in hot_body if a2 < x[0] < tgt}
+                skips.append({"at": a2, "skips": len(span)})
+                skipped |= span
         loops.append({"start": target, "end": addr, "instructions": len(body),
-                      "hot_instructions": len(body) - len(cold),
+                      "hot_instructions": len(hot_body),
+                      "hot_if_branches_skip": len(hot_body) - len(skipped),
+                      "philox_products": philox_products(hot_body),
                       "exits_to_slow_paths": exits,
+                      "forward_branches": skips,
                       "by_class": dict(sorted(counts.items())),
                       "hot_by_class": dict(sorted(hot.items()))})
     return sorted(loops, key=lambda d: -d["instructions"])
@@ -390,11 +456,25 @@ def exps_per_pair_step(name: str):
     return int(m.group(2)) * (1 if m.group(1) == "lift" else 2)
 
 
+def pair_steps_from_calls(name: str, calls: int):
+    """The pair-steps a loop pass of K6 or K8 covers, from the Philox calls
+    in it (their exps depend on the variant, so `exps_per_pair_step` does
+    not fit them): K6 makes one call a pair-step; K8 two a step pair, plus
+    a third only for a step pair in which a jump lands, so a pass of 2 or 3
+    calls covers 2 pair-steps. None for other kernels."""
+    if "svj_stats_kernel" in name:
+        return calls or None
+    if "svcj_kernel" in name:
+        return 2 * -(-calls // 3) or None
+    return None
+
+
 def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
                 dump_prefix: str = "") -> dict:
     """Per kernel matching `pattern`: instruction counts by class, whole and
-    per loop; for K10/K11 each loop's pair-steps (its MUFU.EX2 count over
-    the exps a pair-step takes) and hot count per pair-step; with
+    per loop; each loop's pair-steps and hot count per pair-step, for
+    K10/K11 from its MUFU.EX2 count over the exps a pair-step takes, for
+    K6/K8 from its Philox calls (`pair_steps_from_calls`); with
     `dump_prefix`, each kernel's listing is also written to
     `<dump_prefix><kernel>.sass`."""
     out = {}
@@ -410,9 +490,17 @@ def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
         exps = exps_per_pair_step(name)
         for lp in loops:
             ex2 = lp["hot_by_class"].get("MUFU.EX2", 0)
+            steps = pair_steps_from_calls(
+                name, philox_calls(lp["philox_products"]))
             if exps and ex2:
                 lp["pair_steps"] = ex2 / exps
-                lp["hot_per_pair_step"] = lp["hot_instructions"] * exps / ex2
+            elif steps:
+                lp["pair_steps"] = steps
+            if "pair_steps" in lp:
+                lp["hot_per_pair_step"] = (lp["hot_instructions"]
+                                           / lp["pair_steps"])
+                lp["hot_if_branches_skip_per_pair_step"] = (
+                    lp["hot_if_branches_skip"] / lp["pair_steps"])
         out[name] = {"instructions": len(ins),
                      "by_class": dict(sorted(total.items())), "loops": loops}
     return out
@@ -537,9 +625,48 @@ ROUGH_CHECKS = ((ROUGH_PAIRS, 512, 25, ROUGH_H),
                 (ROUGH_PAIRS, 511, 25, ROUGH_H), (10_007, 64, 24, ROUGH_H),
                 (10_007, 63, 1, 0.5), (10_007, 64, 2, ROUGH_H),
                 (10_007, 9, 7, ROUGH_H), (10_007, 64, 32, ROUGH_H))
+# K6 at the exotic route's 200 000 pairs (ExoticRequest's default) in
+# chip_smoke.py's five K6_VARIANTS: (name, pairs, steps, T, wrapper
+# keywords). The checks add the barrier below at a ragged pair count and
+# a short odd step count, and the corridor with v0 = 0, where the
+# companion's step variance sits on the 1e-20 floor.
+K6_PAIRS = 200_000
+_LOG_UP, _LOG_HI, _LOG_LO = (float(np.log(x)) for x in (1.10, 1.12, 0.88))
+K6_VARIANTS = (
+    ("asian", K6_PAIRS, 63, 0.25, dict(companion=True)),
+    ("up", K6_PAIRS, 63, 0.25, dict(companion=True, bridge=True,
+                                    bridge_up=True, bridge_log_b=_LOG_UP)),
+    ("corridor", K6_PAIRS, 63, 0.25,
+     dict(companion=True, bridge=True, corridor=True, bridge_log_b=_LOG_HI,
+          bridge_log_l=_LOG_LO)),
+    ("corridor_window", K6_PAIRS, 63, 0.25,
+     dict(companion=False, bridge=True, corridor=True, window=(13, 50),
+          bridge_log_b=_LOG_HI, bridge_log_l=_LOG_LO)),
+    ("corridor_252", K6_PAIRS, 252, 1.0,
+     dict(companion=True, bridge=True, corridor=True,
+          bridge_log_b=float(np.log(1.25)),
+          bridge_log_l=float(np.log(0.78)))),
+)
+K6_CHECKS = K6_VARIANTS + (
+    ("down_window", 200_003, 13, 0.25,
+     dict(companion=True, bridge=True, bridge_up=False,
+          bridge_log_b=float(np.log(0.95)), window=(2, 11))),
+    ("corridor_v0_zero", 10_007, 63, 0.25,
+     dict(companion=True, bridge=True, corridor=True, bridge_log_b=_LOG_HI,
+          bridge_log_l=_LOG_LO, v0=0.0)),
+)
+# The sweep over pair counts (Asian and corridor + companion, 63 steps):
+# 135 168 pairs are 528 blocks, one wave at 4 blocks an SM.
+K6_SWEEP = (135_168, 160_000, 264_000)
+# K8 at the families' 200 000 pairs: (steps, T, companion, lambda).
+K8_PAIRS = 200_000
+K8_CHECKS = tuple((steps, T, comp, lam) for steps, T in ((252, 1.0),
+                                                         (63, 0.25))
+                  for comp in (True, False) for lam in (0.0, 1.0, 8.0))
+K8_TIMED = ((252, 1.0), (63, 0.25))
 # Timed launch of each kernel: (pairs, one thread each, blocks of 256).
-TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k9": K9_PAIRS, "k10": ROUGH_PAIRS,
-               "k11": ROUGH_PAIRS}
+TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k6": K6_PAIRS, "k8": K8_PAIRS,
+               "k9": K9_PAIRS, "k10": ROUGH_PAIRS, "k11": ROUGH_PAIRS}
 
 
 def _rough_case(steps: int, m: int = 25, hurst: float = ROUGH_H):
@@ -591,9 +718,87 @@ def _rough_plain(kernel: str, pairs: int, steps: int, case, device,
         hurst, **kw).values()))
 
 
+def _k6_args(pairs: int, steps: int, T: float, kw: dict):
+    """(launch arguments between `out` and the seed, launch scalars,
+    output rows, plain-version call) of one K6 case; `kw` holds the
+    wrapper's keywords and may set v0."""
+    from mcos_tpu_torch.models.params import SVJParams
+
+    kw = dict(kw)
+    params = SVJParams(v0=kw.pop("v0")) if "v0" in kw else SVJParams()
+    bridge, corridor = kw.get("bridge", False), kw.get("corridor", False)
+    mode = ck._stats_mode(bridge, kw.get("bridge_up", True), corridor)
+    w0, w1 = ck._stats_window(kw.get("window"), bridge, steps)
+    consts = ck._stats_consts(params, 22500.0, T, steps,
+                              kw.get("bridge_log_b", 0.0),
+                              kw.get("bridge_log_l", 0.0))
+    companion = kw.get("companion", True)
+    rows = len(ck._stats_names(mode, companion))
+    args = (pairs, steps, 2, mode, int(companion), w0, w1)
+
+    def plain(seed):
+        return torch.stack(list(ck.svj_path_stats_plain(
+            params, 22500.0, T, seed, num_paths=pairs, num_steps=steps,
+            device=torch.device("cuda", 0), **kw).values()))
+    return args, consts, rows, plain
+
+
+def _k6_call(lib, out, args, consts, seed=43):
+    rc = lib.mcos_svj_path_stats(out.data_ptr(), *args, seed,
+                                 consts.ctypes.data,
+                                 torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K6 launch failed: {rc}")
+
+
+def _k8_params(lam: float):
+    from mcos_tpu_torch.models.params import SVCJParams
+
+    return SVCJParams(lambda_j=lam)
+
+
+def _k8_call(lib, out, pairs, steps, companion, consts, seed=43):
+    rc = lib.mcos_svcj_terminal(
+        out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr() if companion else None, pairs, steps, 2, seed,
+        consts.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K8 launch failed: {rc}")
+
+
+# Plain versions' outputs by case, made once for all versions of a run.
+_PLAIN = {}
+
+
+def _plain_once(key, make):
+    if key not in _PLAIN:
+        _PLAIN[key] = make()
+    return _PLAIN[key]
+
+
 def check_outputs(lib, device, kernels=tuple(_KERNELS)) -> dict:
     """A version's kernels against the plain torch versions."""
     res = {}
+    for name, pairs, steps, T, kw in K6_CHECKS if "k6" in kernels else ():
+        args, consts, rows, plain = _k6_args(pairs, steps, T, kw)
+        out = torch.empty((rows, 2, pairs), device=device)
+        _k6_call(lib, out, args, consts, seed=42)
+        ref = _plain_once(("k6", name), lambda: plain(42))
+        # bit for bit, -inf (a dead path's log-survival) equal to -inf
+        res[f"k6_{name}_{pairs}x{steps}_bit_equal"] = bool(
+            (out == ref).all())
+    for steps, T, comp, lam in K8_CHECKS if "k8" in kernels else ():
+        params = _k8_params(lam)
+        out = torch.empty((3, 2, K8_PAIRS), device=device)
+        _k8_call(lib, out, K8_PAIRS, steps, comp,
+                 ck._svcj_consts(params, 22500.0, T, steps), seed=42)
+        ref = _plain_once(("k8", steps, comp, lam), lambda: torch.stack(
+            [x for x in ck.svcj_terminal_plain(
+                params, 22500.0, T, 42, num_paths=K8_PAIRS, num_steps=steps,
+                companion=comp, device=device) if x is not None]))
+        res[f"k8_{K8_PAIRS}x{steps}_lam{lam:g}_"
+            f"{'g' if comp else 'no_g'}_bit_equal"] = bool(
+            (out[:len(ref)] == ref).all())
     for pairs, steps in ((1 << 21, 252), (50_001, 1), (50_001, 13)):
         if "k2" not in kernels:
             break
@@ -654,6 +859,28 @@ def time_versions(libs: dict, device, kernels=tuple(_KERNELS)) -> dict:
                                      upload), reps))
             res[f"k9_{K9_PAIRS}x{steps}_{'upload' if upload else 'kernel'}"
                 ] = dict(runs)
+    if "k6" in kernels:
+        cases = list(K6_VARIANTS) + [
+            (name, pairs, steps, T, kw)
+            for name, _, steps, T, kw in K6_VARIANTS[:3:2]
+            for pairs in K6_SWEEP]
+        for name, pairs, steps, T, kw in cases:
+            args, consts, rows, _ = _k6_args(pairs, steps, T, kw)
+            out = torch.empty((rows, 2, pairs), device=device)
+            runs = collections.defaultdict(list)
+            for label in order:
+                runs[label].append(_events_ms(
+                    lambda: _k6_call(libs[label], out, args, consts), 20))
+            res[f"k6_{name}_{pairs}x{steps}"] = dict(runs)
+    for steps, T in K8_TIMED if "k8" in kernels else ():
+        out = torch.empty((3, 2, K8_PAIRS), device=device)
+        consts = ck._svcj_consts(_k8_params(1.0), 22500.0, T, steps)
+        runs = collections.defaultdict(list)
+        for label in order:
+            runs[label].append(_events_ms(
+                lambda: _k8_call(libs[label], out, K8_PAIRS, steps, True,
+                                 consts), 20))
+        res[f"k8_{K8_PAIRS}x{steps}"] = dict(runs)
     for kernel in ("k10", "k11"):
         if kernel not in kernels:
             continue
@@ -733,7 +960,9 @@ def main() -> None:
                       flush=True)
                 for lp in rep["loops"]:
                     per = (f", {lp['pair_steps']:g} pair-steps a pass, "
-                           f"{lp['hot_per_pair_step']:.1f} hot a pair-step"
+                           f"{lp['hot_per_pair_step']:.1f} hot a pair-step "
+                           f"({lp['hot_if_branches_skip_per_pair_step']:.1f}"
+                           f" where every forward branch skips)"
                            if "pair_steps" in lp else "")
                     print(f"    loop {lp['start']:#x}-{lp['end']:#x}: "
                           f"{lp['instructions']} instructions "

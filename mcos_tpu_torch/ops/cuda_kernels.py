@@ -1016,13 +1016,27 @@ _NO_BRIDGE, _BRIDGE_UP, _BRIDGE_DOWN, _CORRIDOR = 0, 1, 2, 3
 
 def _stats_consts(params: SVJParams, spot, T, num_steps: int,
                   bridge_log_b=0.0, bridge_log_l=0.0) -> np.ndarray:
-    """The 18 float32 scalars of csrc/svj_stats.cu:StatsConsts: `_svj_consts`
+    """The 33 float32 scalars of csrc/svj_stats.cu:StatsConsts: `_svj_consts`
     (the arithmetic of `_pack_params`), the barrier logs log(B/S0) and
-    log(L/S0), and 1/steps."""
+    log(L/S0), 1/steps; then the launch constants the kernel would
+    otherwise compute in every thread, by its own IEEE float32 operations
+    (numpy's float32 products, differences and quotients round as
+    `__fmul_rn`, `__fsub_rn` and `__frcp_rn` do; `np.fmax` ignores a NaN as
+    `fmaxf` does): the corridor's width d = log_b − log_l, 2n·d and n·d for
+    n = −2..2, and the companion's step variance max(σ_cv²·dt, 1e−20),
+    twice it and the two reciprocals."""
     f = np.float32
-    extra = (f(bridge_log_b), f(bridge_log_l), f(1.0) / f(num_steps))
-    return np.concatenate([_svj_consts(params, spot, T, num_steps),
-                           np.asarray(extra, np.float32)])
+    base = _svj_consts(params, spot, T, num_steps)
+    dt, sig_cv = base[2], base[14]
+    log_b, log_l = f(bridge_log_b), f(bridge_log_l)
+    width = log_b - log_l
+    g_s = np.fmax((sig_cv * sig_cv) * dt, f(1e-20))
+    g_two_s = f(2.0) * g_s
+    extra = ((log_b, log_l, f(1.0) / f(num_steps), width)
+             + tuple(f(2 * n) * width for n in range(-2, 3))
+             + tuple(f(n) * width for n in range(-2, 3))
+             + (g_s, g_two_s, f(1.0) / g_s, f(1.0) / g_two_s))
+    return np.concatenate([base, np.asarray(extra, np.float32)])
 
 
 def _stats_mode(bridge: bool, bridge_up: bool, corridor: bool) -> int:
@@ -1073,7 +1087,7 @@ def svj_path_stats_plain(params: SVJParams, spot, T, seed: int, *,
                            bridge_log_l)
     (spot_f, v0, dt, sqrt_dt, kappa, theta, xi, rho, rho_perp, lam_dt, mu_j,
      sig_j, drift_dt, g_drift_dt, sig_cv, _log_b, _log_l, inv_n) = (
-        float(x) for x in consts)
+        float(x) for x in consts[:18])
     # 0-d float32 tensors where the survival increments take tensors.
     dt_t, log_b, log_l, sig_cv_t, spot_t = (
         torch.tensor(x, dtype=torch.float32, device=device)
@@ -1203,12 +1217,17 @@ def svj_path_stats(params: SVJParams, spot, T, seed: int, *, num_paths: int,
             int(companion), w0, w1, int(seed), consts.ctypes.data,
             _stream_handle(device))
     _check_rc(lib, rc, "svj_path_stats")
+    key = (mode, bool(companion), num_steps, w0, w1, n_branch)
     with _COUNT_LOCK:
         svj_path_stats.launches += 1
+        svj_path_stats.variants[key] = svj_path_stats.variants.get(key, 0) + 1
     return dict(zip(names, out))
 
 
 svj_path_stats.launches = 0
+# The launches by variant, (mode, companion, steps, w0, w1, n_branch): a
+# variant's time depends on these, so a run can price its launches.
+svj_path_stats.variants = {}
 
 
 # ─────────────────────────────────────────────────────────────────────────────
@@ -1850,6 +1869,7 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for fn in _WRAPPERS:
             fn.launches = 0
+        svj_path_stats.variants = {}
 
 
 def launch_counts() -> dict:

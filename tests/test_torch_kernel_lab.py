@@ -1,8 +1,8 @@
 """The parsers and the occupancy arithmetic of `mcos_tpu_torch/kernel_lab.py`
 on canned compiler output: what ptxas reports, how SASS opcodes are
-classed, which instructions of a loop are hot, how many pair-steps a K10 or
-K11 loop pass covers, and how many blocks an SM holds. Needs no card and
-no nvcc."""
+classed, which instructions of a loop are hot, how many pair-steps a K6,
+K8, K10 or K11 loop pass covers, and how many blocks an SM holds. Needs no
+card and no nvcc."""
 
 import pytest
 import torch
@@ -17,6 +17,11 @@ _K11 = ("_ZN50_GLOBAL__N__c93de0e1_17_rbergomi_stats_cu_28ef36cd21"
 _K10 = ("_ZN49_GLOBAL__N__77330fa8_16_rbergomi_lift_cu_5d284c0820"
         "rbergomi_lift_kernelILi1ELi24ELb1EEEvPfS1_PKfxiN4mcos10PhiloxKeysE"
         "NS_10LiftConstsE")
+_K6 = ("_ZN45_GLOBAL__N__d5b3d7e3_12_svj_stats_cu_f6a9ad8f16svj_stats_kernel"
+       "ILi2ELi3ELb1EEEvPfxiiiNSt11conditionalIL_ZNS_10kRoundKeysEEN4mcos10"
+       "PhiloxKeysE5uint2E4typeENS_11StatsConstsE")
+_K8 = ("_ZN39_GLOBAL__N__9ce7a76a_7_svcj_cu_0619f52e11svcj_kernelILi2EEEvPf"
+       "S1_S1_xi5uint2NS_10SvcjConstsE")
 
 # What `nvcc -Xptxas -v` prints for one file: an entry function with a
 # stack frame, an internal function whose frame must not be charged to it,
@@ -126,8 +131,136 @@ def test_sass_report_counts_per_pair_step(monkeypatch):
     assert k11["pair_steps"] == 0.5 and k11["hot_per_pair_step"] == 40
 
 
+def test_the_lab_knows_k6_and_k8():
+    assert kl._KERNELS["k6"] == "svj_stats.cu"
+    assert kl._KERNELS["k8"] == "svcj.cu"
+    assert kl.TIMED_PAIRS["k6"] == kl.TIMED_PAIRS["k8"] == 200_000
+    # each kernel's pattern finds its own instantiations and no other's
+    names = {"k6": _K6, "k8": _K8, "k10": _K10, "k11": _K11}
+    for short, name in names.items():
+        hits = [k for k, pat in kl._SASS_PATTERN.items() if pat in name]
+        assert hits == [short], (short, hits)
+    # chip_smoke.py's five K6 variants, and the checks' two more
+    assert [v[0] for v in kl.K6_VARIANTS] == [
+        "asian", "up", "corridor", "corridor_window", "corridor_252"]
+    assert {v[0] for v in kl.K6_CHECKS} - {v[0] for v in kl.K6_VARIANTS} == {
+        "down_window", "corridor_v0_zero"}
+    assert {lam for *_, lam in kl.K8_CHECKS} == {0.0, 1.0, 8.0}
+
+
+def _philox_call(at: int, products: int):
+    """A Philox call's products as ptxas writes them: IMAD.WIDE.U32 by the
+    two multipliers, one of them split into IMAD.HI and a low IMAD (which
+    is not a second product), with the xors between."""
+    out = []
+    for i in range(products):
+        mult = ("-0x2daee0ad", "-0x326172a9")[i % 2]
+        if i == 0:
+            out += [(at, "IMAD.HI.U32", f"IMAD.HI.U32 R9, R12, {mult}, RZ"),
+                    (at + 0x10, "IMAD", f"IMAD R8, R12, {mult}, RZ")]
+            at += 0x20
+        else:
+            out.append((at, "IMAD.WIDE.U32",
+                        f"IMAD.WIDE.U32 R2, R3, {mult}, RZ"))
+            at += 0x10
+        out.append((at, "LOP3.LUT", "LOP3.LUT R2, R3, UR4, R2, 0x96, !PT"))
+        at += 0x10
+    return out, at
+
+
+def _k_listing(calls, products=17, jump_call=False):
+    """A loop pass of `calls` Philox calls (plus a third behind a
+    conditional branch with `jump_call`, as K8 draws its jump sizes), an
+    unrelated wide multiply by a register, and the backward branch."""
+    body, at = [], 0x100
+    for _ in range(calls):
+        ins, at = _philox_call(at, products)
+        body += ins
+    body.append((at, "IMAD.WIDE.U32", "IMAD.WIDE.U32 R4, R5, R6, RZ"))
+    at += 0x10
+    if jump_call:
+        ins, end = _philox_call(at + 0x10, products)
+        body.append((at, "BRA", f"@!P3 BRA {hex(end)}"))
+        body += ins
+        at = end
+    body += [(at, "FADD", "FADD R1, R1, R2"),
+             (at + 0x10, "BRA", "@P0 BRA 0x100"),
+             (at + 0x20, "EXIT", "EXIT")]
+    return body
+
+
+@pytest.mark.parametrize("products, calls", [(17, 1), (18, 1), (34, 2),
+                                             (36, 2), (49, 3), (54, 3),
+                                             (68, 4), (72, 4)])
+def test_philox_calls_from_products(products, calls):
+    assert kl.philox_calls(products) == calls
+
+
+def test_philox_products_count_each_product_once():
+    ins, _ = _philox_call(0x100, 17)
+    assert kl.philox_products(ins) == 17
+    assert kl.philox_products(
+        [(0, "IMAD.WIDE.U32", "IMAD.WIDE.U32 R4, R5, R6, RZ"),
+         (0x10, "IMAD.WIDE", "IMAD.WIDE R8, R3, -0x2daee0ad, R8")]) == 0
+
+
+@pytest.mark.parametrize("name, calls, steps", [
+    (_K6, 1, 1), (_K6, 2, 2), (_K8, 2, 2), (_K8, 3, 2), (_K8, 4, 4),
+    (_K8, 6, 4), (_K10, 2, None), ("gbm_kernel", 2, None)])
+def test_pair_steps_from_calls(name, calls, steps):
+    assert kl.pair_steps_from_calls(name, calls) == steps
+
+
+def test_sass_report_reads_k6_and_k8_pair_steps(monkeypatch):
+    """A K6 pass of two calls covers two pair-steps. A K8 pass of two calls
+    and a third behind a branch (the jump draws) covers two as well; where
+    that branch skips, the pass is the two calls alone."""
+    k6 = _k_listing(2)
+    k8 = _k_listing(2, jump_call=True)
+    monkeypatch.setattr(kl, "sass_functions",
+                        lambda path: {_K6: k6, _K8: k8})
+    rep = kl.sass_report("unused.so", r"svj_stats_kernel|svcj_kernel")
+    (l6,) = rep[_K6]["loops"]
+    (l8,) = rep[_K8]["loops"]
+    assert (l6["philox_products"], l6["pair_steps"]) == (34, 2)
+    assert l6["hot_per_pair_step"] == l6["hot_instructions"] / 2
+    assert l6["hot_if_branches_skip"] == l6["hot_instructions"]
+    assert (l8["philox_products"], l8["pair_steps"]) == (51, 2)
+    jump = 17 * 2 + 1                  # the third call's products and xors
+    assert l8["forward_branches"][0]["skips"] == jump
+    assert l8["hot_if_branches_skip"] == l8["hot_instructions"] - jump
+    assert l8["hot_if_branches_skip_per_pair_step"] == (
+        l8["hot_if_branches_skip"] / 2)
+
+
+def test_cold_leaves_out_the_corridor_fallback_divides():
+    """Nine library divides (an FCHK each) behind one branch and no exp
+    are K6's corridor fallback: cold. The same span with an exp in it, or
+    with fewer divides, is live code (a window's increment, say)."""
+    def listing(divides, with_exp):
+        body = [(0x10, "FMUL", "FMUL R2, R2, R3"),
+                (0x20, "BRA", "@!P4 BRA 0x400")]
+        at = 0x30
+        for _ in range(divides):
+            body += [(at, "MUFU.RCP", "MUFU.RCP R5, R7"),
+                     (at + 0x10, "FCHK", "FCHK P0, R0, R7")]
+            at += 0x20
+        if with_exp:
+            body.append((at, "MUFU.EX2", "MUFU.EX2 R6, R6"))
+        body += [(0x400, "FADD", "FADD R1, R1, R2"),
+                 (0x410, "BRA", "@P2 BRA 0x10")]
+        return body
+    cold = kl._cold(listing(9, False))
+    assert len(cold) == 18 and 0x400 not in cold
+    assert kl._cold(listing(9, True)) == set()
+    assert kl._cold(listing(8, False)) == set()
+
+
 @pytest.mark.parametrize("registers, blocks, per_sm, waves", [
     (39, 782, 6, 782 / 792),    # K9 at 200 000 pairs: one wave
+    (56, 782, 4, 782 / 528),    # K6's Asian at 200 000 pairs: 1.48 waves
+    (80, 782, 3, 782 / 396),    # K6's corridor + companion: 1.97 waves
+    (40, 782, 6, 782 / 792),    # K8: one wave
     (75, 512, 3, 512 / 396),    # K11 at 75 registers: 1.29 waves
     (64, 512, 4, 512 / 528),    # K10: one wave
     (65, 512, 3, 512 / 396),    # a register more: units of 8 a thread
@@ -150,6 +283,8 @@ def test_occupancy_of_smaller_blocks():
 
 @pytest.mark.parametrize("name, short", [
     (_K11, "rbergomi_stats_kernelILi2ELi25ELb1EE"),
+    (_K6, "svj_stats_kernelILi2ELi3ELb1EE"),
+    (_K8, "svcj_kernelILi2EE"),
     (_K10, "rbergomi_lift_kernelILi1ELi24ELb1EE"),
     ("_ZN38_GLOBAL__N__eca620af_6_gbm_cu_21a6af4110gbm_kernelEPfxiiN4mcos"
      "10PhiloxKeysEfff", "gbm_kernel"),

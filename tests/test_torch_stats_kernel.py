@@ -215,9 +215,13 @@ def test_plain_window_and_arguments():
 
 def test_stats_consts_match_pack_params():
     """`_stats_consts` against `_pack_params` (the scalars the TPU kernel
-    reads), with the barrier logs."""
+    reads), with the barrier logs; then the launch constants after them
+    against the plain version's own float32 operations on those scalars
+    (the corridor's width and image products, the companion's step
+    variance, its double and their reciprocals), bit for bit."""
     got = ck._stats_consts(SVJParams(**_FIELDS), _SPOT, _T, 63, _LOG_B,
                            _LOG_L)
+    assert got.dtype == np.float32 and got.shape == (33,)
     ref = np.asarray(jpk._pack_params(JSVJParams(**_FIELDS), _SPOT, _T, 63,
                                       bridge_log_b=_LOG_B,
                                       bridge_log_l=_LOG_L))
@@ -228,6 +232,25 @@ def test_stats_consts_match_pack_params():
              jpk._P_BRIDGE_L]
     np.testing.assert_allclose(got[:17], ref[order], rtol=2e-6)
     assert got[17] == np.float32(1.0) / np.float32(63)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32)
+
+    width = f32(got[15]) - f32(got[16])
+    assert got[18] == width.item()
+    for j, n in enumerate(range(-2, 3)):
+        assert got[19 + j] == (2.0 * n * width).item()
+        assert got[24 + j] == (n * width).item()
+    for consts in (got, ck._stats_consts(SVJParams(**dict(_FIELDS, v0=-0.01)),
+                                         _SPOT, _T, 63, _LOG_B, _LOG_L)):
+        g_s = torch.clamp(f32(consts[14]) * f32(consts[14]) * f32(consts[2]),
+                          min=1e-20)
+        if torch.isnan(g_s):        # sigma_cv = sqrt(v0 < 0): fmaxf's floor
+            g_s = f32(1e-20)
+        assert consts[29] == g_s.item()
+        assert consts[30] == (2.0 * g_s).item()
+        assert consts[31] == (1.0 / g_s).item()
+        assert consts[32] == (1.0 / (2.0 * g_s)).item()
 
 
 def test_new_entry_points_default_to_cuda():
