@@ -15,22 +15,23 @@
    K3 `svj_terminal` and K4 `svj_terminal_qe` at 500 000 pairs × 63 steps
    on the same Philox words as their plain versions, and
    K5 `svj_terminal_qe_from_draws` at 500 000 paths × 63 steps on the real
-   Sobol QE net (explicit jump uniforms, then in-kernel jumps);
+   Sobol QE net (explicit jump uniforms, then in-kernel jumps), and at 4
+   and 8 steps where its QE transition takes both branches, v bit for bit;
    K6 `svj_path_stats` at 200 000 pairs × 63 steps in four variants (no
    bridge, single barrier above, corridor, each with the companion leg;
    corridor with a step window and no companion) and at 252 steps, every
    output bit for bit against its plain version on the same Philox words,
    -inf matching -inf on every path;
    K7 `hhw_terminal` at 200 000 pairs × 128 (and 127) steps, K8
-   `svcj_terminal` at 200 000 pairs × 252 (and 63) steps, bit for bit at
-   jump rates 0, 1 (the default) and 8 a year, K9
-   `svj_terminal_td` at 200 000 pairs × 512 (and 63) steps over three
-   segments of different θ, ξ, λ and at 4096 steps with Σλᵢ·dt = 60 (a
-   count table longer than 64 entries), each on the same Philox words as
-   its plain version, with and without the companion leg where it has one; K7 also
-   against the exact discrete martingale E[D·S_T] = S0·e^{-qT} and the
-   Vasicek bond. Each is timed with CUDA events beside its plain version
-   and its bound.
+   `svcj_terminal` at 200 000 pairs × 252 (and 63) steps at jump rates
+   0, 1 (the default) and 8 a year, K9 `svj_terminal_td` at 200 000
+   pairs × 512 (and 63) steps over three segments of different θ, ξ, λ
+   and at 4096 steps with Σλᵢ·dt = 60 (a count table longer than 64
+   entries), each bit for bit against its plain version on the same
+   Philox words, with and without the companion leg where it has one; K7
+   also against the exact discrete martingale E[D·S_T] = S0·e^{-qT} and
+   the Vasicek bond. Each is timed with CUDA events beside its plain
+   version and its bound.
 4. Main path, with every launch count set to 0 first: the port's HTTP
    server on 127.0.0.1 (GET /api/health; the default POST /api/price solo
    and as 4 concurrent requests that the coalescer batches; a degenerate
@@ -362,11 +363,13 @@ def check_k2(device, ck, bs_price):
             "plain_ms": plain_ms, **b}
 
 
-def compare_terminal(name, ker, ref):
+def compare_terminal(name, ker, ref, v_bit_for_bit=False):
     """Kernel against plain on the same inputs. rtol 1e-5 on S and G: the
     kernel's multiply-adds are contracted to FMAs and the plain version's
     are not, a few ulps of the log carry per step; v can sit at 0, so it
-    gets rtol 1e-4 beside atol 1e-6. Returns (max |S err|, v exact share)."""
+    gets rtol 1e-4 beside atol 1e-6, and with `v_bit_for_bit` (K5, whose
+    variance path repeats the plain version's IEEE operations) it must be
+    the same float on every path. Returns (max |S err|, v exact share)."""
     s_err, g_err = rel_err(ker[0], ref[0]), rel_err(ker[2], ref[2])
     v_ok = torch.allclose(ker[1], ref[1], rtol=1e-4, atol=1e-6)
     v_exact = float((ker[1] == ref[1]).float().mean())
@@ -374,6 +377,8 @@ def compare_terminal(name, ker, ref):
         f"{v_ok}, v bit-equal share {v_exact:.6f}")
     check(bool(torch.isfinite(ker[0]).all()), f"{name}: S finite")
     check(s_err < 1e-5 and g_err < 1e-5 and v_ok, f"{name} vs plain")
+    if v_bit_for_bit:
+        check(v_exact == 1.0, f"{name}: v bit for bit")
     return float((ker[0] - ref[0]).abs().max()), v_exact
 
 
@@ -401,26 +406,41 @@ def check_prng(device, ck, params, name):
 
 
 def check_k5(device, ck, sobol, params):
-    """K5 on the real Sobol QE net, explicit then in-kernel jump uniforms."""
+    """K5 on the real Sobol QE net, explicit then in-kernel jump uniforms,
+    at the route's 500 000 paths x 63 steps and where both QE branches run
+    (4 and 8 steps); v bit for bit, S and G at rtol 1e-5."""
+    # kernel_lab.K5_PSI: T = 1 from v0 = 0.005 with xi^2 / (2 kappa theta)
+    # = 2.25, where the route's defaults give 1.04 (psi never passes 1.5);
+    # tests/test_torch_acklam_converged.py shows both branches on its path.
+    from mcos_tpu_torch.kernel_lab import K5_PSI
+
     t0 = time.perf_counter()
-    z_x, u_v, _, z_js = sobol.sobol_qe_draws(NUM_PATHS, STEPS_DEFAULT,
-                                             seed=42, jump_uniforms=False,
-                                             device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(2)
-    uj = torch.rand(z_x.shape, generator=gen, device=device)
     kw = dict(seed=42, antithetic=True, companion=True, steps_major=True)
     errs, exact = [], []
-    for mode, u in (("explicit u_jump", uj), ("in-kernel jumps", None)):
-        ker = ck.svj_terminal_qe_from_draws(params, SPOT, T_DEFAULT, z_x,
-                                            u_v, u, z_js, **kw)
-        torch.cuda.synchronize()
-        ref = ck.svj_terminal_qe_from_draws_plain(params, SPOT, T_DEFAULT,
-                                                  z_x, u_v, u, z_js, **kw)
-        torch.cuda.synchronize()
-        err, v_exact = compare_terminal(f"K5 {mode}", ker, ref)
-        errs.append(err)
-        exact.append(v_exact)
+    cases = ((params, T_DEFAULT, STEPS_DEFAULT, ""),
+             (params.replace(**K5_PSI), 1.0, 4, ", psi cross"),
+             (params.replace(**K5_PSI), 1.0, 8, ", psi cross"))
+    for case_params, T, steps, label in cases:
+        z_x, u_v, _, z_js = sobol.sobol_qe_draws(
+            NUM_PATHS, steps, seed=42, jump_uniforms=False, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(2)
+        uj = torch.rand(z_x.shape, generator=gen, device=device)
+        if steps == STEPS_DEFAULT:
+            route = z_x, u_v, z_js
+        for mode, u in (("explicit u_jump", uj), ("in-kernel jumps", None)):
+            ker = ck.svj_terminal_qe_from_draws(case_params, SPOT, T, z_x,
+                                                u_v, u, z_js, **kw)
+            torch.cuda.synchronize()
+            ref = ck.svj_terminal_qe_from_draws_plain(
+                case_params, SPOT, T, z_x, u_v, u, z_js, **kw)
+            torch.cuda.synchronize()
+            err, v_exact = compare_terminal(
+                f"K5 {steps} steps{label}, {mode}", ker, ref,
+                v_bit_for_bit=True)
+            errs.append(err)
+            exact.append(v_exact)
+    z_x, u_v, z_js = route
     ms = cuda_ms(lambda: ck.svj_terminal_qe_from_draws(
         params, SPOT, T_DEFAULT, z_x, u_v, None, z_js, **kw))
     plain_ms = cuda_ms(lambda: ck.svj_terminal_qe_from_draws_plain(
@@ -551,8 +571,9 @@ def compare_family(name, ker, ref, labels, bit_for_bit=False):
     K7-K9 round every operation on their carries as the plain versions do
     (csrc/philox.cuh: fmul, fadd, fsub), so what is left is the last exp:
     rtol 2e-6 on every output (an ulp or two of float32); with
-    `bit_for_bit` (K8) every output must be the same float. Returns (max
-    abs error over the outputs, {label: bit-equal share})."""
+    `bit_for_bit` (K7-K9: torch's exp on the card gives expf's bits)
+    every output must be the same float. Returns (max abs error over the
+    outputs, {label: bit-equal share})."""
     worst, exact = 0.0, {}
     for label, a, b in zip(labels, ker, ref):
         check((a is None) == (b is None), f"{name}: {label} present in both")
@@ -599,7 +620,7 @@ def check_k7(device, ck, hhw):
         torch.cuda.synchronize()
         err, shares = compare_family(
             f"K7 {steps} steps, {2 if antithetic else 1} branch(es)", ker,
-            ref, ("S", "D"))
+            ref, ("S", "D"), bit_for_bit=True)
         errs.append(err)
         exact = exact or shares
         if steps == 128:
@@ -688,7 +709,7 @@ def check_k9(device, ck, tdsvj, params):
         torch.cuda.synchronize()
         err, shares = compare_family(
             f"K9 {steps} steps, companion {companion}", ker, ref,
-            ("S", "v", "G"))
+            ("S", "v", "G"), bit_for_bit=True)
         errs.append(err)
         exact = exact or shares
         if segments is TD_HEAVY["segments"]:
@@ -1930,6 +1951,8 @@ def main() -> None:
     fam = kernel_resources(ck._LIBRARY.path,
                            "hhw_kernel|svcj_kernel|svj_td_kernel")
     log(f"K7-K9 (registers, stack bytes) per instantiation: {fam}")
+    qe_res = kernel_resources(ck._LIBRARY.path, "svj_qe_draws_kernel")
+    log(f"K5 (registers, stack bytes) per instantiation: {qe_res}")
     rough_res = kernel_resources(ck._LIBRARY.path,
                                  "rbergomi_lift_kernel|rbergomi_stats_kernel")
     log(f"K10-K11 (registers, stack bytes) per instantiation: {rough_res}")
@@ -2007,6 +2030,7 @@ def main() -> None:
                    "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6,
                    "k7": k7, "k8": k8, "k9": k9, "k10": k10, "k11": k11,
                    "k2_resources": gbm_res,
+                   "k5_resources": qe_res,
                    "k6_resources": resources, "k7_k9_resources": fam,
                    "k10_k11_resources": rough_res, "main_path": mp,
                    "options_path": op, "exotics_path": xp,

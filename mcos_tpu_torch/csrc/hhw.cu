@@ -16,7 +16,13 @@
 // are written; each pair-step needs one Philox4x32-10 call, 1.5 Box-Muller
 // pairs and two branches of a 4-carry update, at least 94 operation
 // slots (chip_smoke.py's count). One thread per pair keeps the eight carries
-// in registers and spreads the draws over both branches.
+// in registers and spreads the draws over both branches. The draws take
+// the forms that give the same bits in fewer instructions (PERF.md §6;
+// each taken out alone costs, at 200 000 pairs x 128 steps): one sincosf
+// for each Box-Muller pair (mcos::box_muller_sincos: one range reduction
+// where sinf and cosf each made their own; 9 %), the uniforms by a
+// bitcast (mcos::bits_to_uniform_bitcast: no integer-to-float conversion;
+// 2 %), and the ten Philox round keys from the constant bank (0.5-1 %).
 //
 // Stream: counter (pair_lo, pair_hi, call, kHhwDomain), key = seed. Steps
 // 2i and 2i + 1 take calls 2i and 2i + 1: words a0..a3 and b0, b1 give the
@@ -40,6 +46,26 @@ namespace {
 using mcos::fadd;
 using mcos::fmul;
 using mcos::fsub;
+
+// The Philox key the loop takes: the ten round keys from the constant bank.
+// With uint2 (the seed, and the key schedule in every thread) K7 runs
+// 0.5-1 % slower (kernel_lab --levers).
+using HhwKey = mcos::PhiloxKeys;
+
+__device__ __forceinline__ uint4 hhw_words(uint32_t p_lo, uint32_t p_hi,
+                                           int call, const HhwKey& key) {
+  return mcos::philox4x32_10(
+      make_uint4(p_lo, p_hi, static_cast<uint32_t>(call), mcos::kHhwDomain),
+      key);
+}
+
+// Two normals from two words (mcos::box_muller on their uniforms, bit for
+// bit).
+__device__ __forceinline__ void normals(uint32_t w1, uint32_t w2, float& za,
+                                        float& zb) {
+  mcos::box_muller_sincos(mcos::bits_to_uniform_bitcast(w1),
+                          mcos::bits_to_uniform_bitcast(w2), za, zb);
+}
 
 // Per-launch scalars in the TPU kernel's order (_H_SPOT.._H_L33), computed
 // on the host in float64 and cast once (cuda_kernels.py:_hhw_consts).
@@ -82,7 +108,7 @@ __device__ __forceinline__ void hhw_step(const HhwConsts& c, float z1,
 template <int NB>
 __global__ void __launch_bounds__(256)
     hhw_kernel(float* __restrict__ s_out, float* __restrict__ d_out,
-               long long n, int steps, uint2 key, HhwConsts c) {
+               long long n, int steps, HhwKey key, HhwConsts c) {
   const long long p =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n) return;
@@ -98,33 +124,20 @@ __global__ void __launch_bounds__(256)
     int_r[k] = 0.0f;
   }
   for (int i = 0; i + 1 < steps; i += 2) {
-    const uint4 a = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(i), mcos::kHhwDomain),
-        key);
-    const uint4 b = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(i + 1),
-                   mcos::kHhwDomain),
-        key);
+    const uint4 a = hhw_words(p_lo, p_hi, i, key);
+    const uint4 b = hhw_words(p_lo, p_hi, i + 1, key);
     float z_a, z_b, z_c, z_d, z_e, z_f;
-    mcos::box_muller(mcos::bits_to_uniform(a.x), mcos::bits_to_uniform(a.y),
-                     z_a, z_b);
-    mcos::box_muller(mcos::bits_to_uniform(a.z), mcos::bits_to_uniform(a.w),
-                     z_c, z_d);
-    mcos::box_muller(mcos::bits_to_uniform(b.x), mcos::bits_to_uniform(b.y),
-                     z_e, z_f);
+    normals(a.x, a.y, z_a, z_b);
+    normals(a.z, a.w, z_c, z_d);
+    normals(b.x, b.y, z_e, z_f);
     hhw_step<NB>(c, z_a, z_b, z_c, ls, v, r, int_r);
     hhw_step<NB>(c, z_d, z_e, z_f, ls, v, r, int_r);
   }
   if (steps & 1) {
-    const uint4 a = mcos::philox4x32_10(
-        make_uint4(p_lo, p_hi, static_cast<uint32_t>(steps - 1),
-                   mcos::kHhwDomain),
-        key);
+    const uint4 a = hhw_words(p_lo, p_hi, steps - 1, key);
     float z1, z2, z3, unused;
-    mcos::box_muller(mcos::bits_to_uniform(a.x), mcos::bits_to_uniform(a.y),
-                     z1, z2);
-    mcos::box_muller(mcos::bits_to_uniform(a.z), mcos::bits_to_uniform(a.w),
-                     z3, unused);
+    normals(a.x, a.y, z1, z2);
+    normals(a.z, a.w, z3, unused);
     hhw_step<NB>(c, z1, z2, z3, ls, v, r, int_r);
   }
 #pragma unroll
@@ -145,8 +158,7 @@ extern "C" int mcos_hhw_terminal(float* s_out, float* d_out, long long n,
                                  const float* consts_host, void* stream) {
   HhwConsts c;
   std::memcpy(&c, consts_host, sizeof(c));
-  const uint2 key = make_uint2(static_cast<uint32_t>(seed),
-                               static_cast<uint32_t>(seed >> 32));
+  const HhwKey key = mcos::philox_key<HhwKey>(seed);
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -20,6 +20,9 @@
 //     the inlined sinf/cosf/logf);
 //   - acklam_ndtri rounds each Horner step once, in double, where the float
 //     product is exact; that is the plain version's float64 (a*x + c).
+//     K5 (svj_qe_draws.cu:acklam_converged) takes one float FMA a step
+//     instead, which gives the same inverse at every float32 in (0, 1)
+//     (kernel_lab's probe holds it against acklam_ndtri over all of them).
 // K6 (dead-or-alive selects on the log-spot carry) and K7-K11 (hundreds
 // of dependent steps) write their carries the same way. In K1-K5's Euler
 // updates nvcc contracts freely, and those kernels differ from the plain
@@ -28,6 +31,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 namespace mcos {
 
@@ -85,7 +89,8 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
 // The ten round keys of a seed (key + i (kPhilox10A, kPhilox10B) mod 2^32),
 // made once on the host and passed to a kernel by value, so they sit in the
 // constant bank and each round's xor reads its key from there instead of
-// re-running the key schedule in every thread. K2 and K9-K11 use them.
+// re-running the key schedule in every thread. K2, K5, K7, K9-K11 and
+// K6's corridor use them.
 struct PhiloxKeys {
   uint32_t k0[10], k1[10];
 };
@@ -101,6 +106,19 @@ inline PhiloxKeys philox_round_keys(unsigned long long seed) {
     k1 += kPhilox10B;
   }
   return keys;
+}
+
+// The key a kernel takes, made on the host from the seed: the round keys
+// (Key = PhiloxKeys) or the seed's two words (Key = uint2), for a kernel
+// that chooses by a type alias (K5, K7).
+template <typename Key>
+Key philox_key(unsigned long long seed) {
+  if constexpr (std::is_same<Key, PhiloxKeys>::value) {
+    return philox_round_keys(seed);
+  } else {
+    return make_uint2(static_cast<uint32_t>(seed),
+                      static_cast<uint32_t>(seed >> 32));
+  }
 }
 
 // philox4x32_10 with the round keys precomputed: the same words.
@@ -124,7 +142,7 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
 // conversion (I2F runs on a slower pipe than FADD): the top 23 bits become
 // the mantissa of a float in [1, 2), and subtracting float32(1 - 2^-24)
 // leaves (m + 1/2) 2^-23. The subtraction is exact (Sterbenz: the operands
-// are within a factor 2), so no rounding differs. K2 and K9-K11 use it.
+// are within a factor 2), so no rounding differs. K2 and K5-K11 use it.
 __device__ __forceinline__ float bits_to_uniform_bitcast(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3f800000u) -
          __uint_as_float(0x3f7fffffu);
@@ -150,7 +168,7 @@ __device__ __forceinline__ void box_muller(float u1, float u2, float& za,
 // box_muller with one shared range reduction for the sine and the cosine:
 // sincosf gives the bits of sinf and cosf (held over every uniform of the
 // grid by tests/test_torch_cuda.py), so the normals are box_muller's bit
-// for bit. K9, K10 and K11 use it.
+// for bit. K6-K11 use it.
 __device__ __forceinline__ void box_muller_sincos(float u1, float u2,
                                                   float& za, float& zb) {
   const float rad = sqrtf(fmul(-2.0f, logf(u1)));

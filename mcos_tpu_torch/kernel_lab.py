@@ -1,54 +1,67 @@
-"""Look inside six hand-written kernels on one CUDA card: K2
-(`csrc/gbm.cu`), K6 (`csrc/svj_stats.cu`), K8 (`csrc/svcj.cu`), K9
-(`csrc/svj_td.cu`), K10 (`csrc/rbergomi_lift.cu`) and K11
-(`csrc/rbergomi_stats.cu`): what the compiler made of them, how accurate
-their special functions are, and how fast one version runs against
-another.
+"""Look inside eight hand-written kernels on one CUDA card: K2
+(`csrc/gbm.cu`), K5 (`csrc/svj_qe_draws.cu`), K6 (`csrc/svj_stats.cu`),
+K7 (`csrc/hhw.cu`), K8 (`csrc/svcj.cu`), K9 (`csrc/svj_td.cu`), K10
+(`csrc/rbergomi_lift.cu`) and K11 (`csrc/rbergomi_stats.cu`): what the
+compiler made of them, how accurate their special functions are, and how
+fast one version runs against another.
 
     python -m mcos_tpu_torch.kernel_lab [--csrc LABEL=DIR ...]
-        [--kernels k2,k6,k8,k9,k10,k11] [--sass] [--dump DIR] [--probes]
-        [--time] [--out FILE]
+        [--kernels k2,k5,k6,k7,k8,k9,k10,k11] [--sass] [--dump DIR]
+        [--probes] [--time] [--levers] [--out FILE]
 
 Each `--csrc LABEL=DIR` names a directory holding a version of the chosen
 kernels' sources and `philox.cuh` (default: `new=` the package's own
 `csrc/`). Every version is compiled (all at once, one nvcc per source,
 with the package's NVCC_FLAGS plus `-Xptxas -v`) into its own shared
-library. `--kernels` picks the kernels (default all six).
+library. `--kernels` picks the kernels (default all eight). `--levers`
+adds, for K5 and K7, one version per lever of the "new" design with that
+lever taken out alone (`_LEVERS`), timed in turns with the rest.
 
 - Always: per kernel, the registers, stack and spills that ptxas reports,
   and from the registers the blocks of 256 threads an SM holds and the
   waves the kernel's timed launch takes on 132 SMs (`occupancy`).
 - `--sass`: from `cuobjdump -sass`, the instructions of each loop (a
   backward branch and the code it jumps over) by class: FFMA, FADD, FMUL;
-  IMAD, IMAD.WIDE, IADD3, LOP3, SHF; I2F, F2I; MUFU by function; loads;
-  branches and calls; and what each conditional forward branch inside it
-  jumps over. How many quads (K2) or calls (K9, two steps each) one pass
-  of a loop covers is read from its MUFU and multiply counts; for K10 and
-  K11 the pair-steps a pass covers are its MUFU.EX2 count over the exps a
-  step takes (one a branch in K10, two in K11), for K6 and K8 its Philox
-  calls (from the products by the two Philox multipliers:
-  `pair_steps_from_calls`), and the counts are also given per pair-step.
-  `--dump DIR` writes each kernel's listing there to read it.
-- `--probes` (K2, K9): over all 2^23 uniforms of the grid
+  DFMA, DADD, DMUL and F2F by direction (F2F.F64.F32 to double,
+  F2F.F32.F64 back); IMAD, IMAD.WIDE, IADD3, LOP3, SHF; I2F, F2I; MUFU by
+  function; loads; branches and calls; and what each conditional forward
+  branch inside it jumps over. How many quads (K2) or calls (K9, two steps
+  each) one pass of a loop covers is read from its MUFU and multiply
+  counts; for K10 and K11 the pair-steps a pass covers are its MUFU.EX2
+  count over the exps a step takes (one a branch in K10, two in K11), for
+  K6-K8 its Philox calls (from the products by the two Philox
+  multipliers: `pair_steps_from_calls`), for K5 its draw loads (three a
+  path-step, four with loaded jump uniforms: `k5_steps`), and the counts
+  are also given per pair-step (per path-step for K5). `--dump DIR` writes
+  each kernel's listing there to read it.
+- `--probes`: K2 and K9 over all 2^23 uniforms of the grid
   ((m + 1/2) 2^-23), the error of K2's Box-Muller radius and angle
   functions against float64 (`gbm.cu:box_muller_fast`), and whether
-  `sincosf` (K6 and K8-K11's Box-Muller) gives the bits of `sinf`, `cosf`
-  and of torch's `sin`/`cos` (the plain versions') on the angle 2 pi u.
+  `sincosf` (K6-K11's Box-Muller) gives the bits of `sinf`, `cosf` and of
+  torch's `sin`/`cos` (the plain versions') on the angle 2 pi u; K5 over
+  every float32 in (0, 1), whether Acklam's inverse with a float FMA a
+  Horner step, and K5's own converged form, give the bits of the double
+  step (`acklam_probe`).
 - `--time`: the versions in turns (A B ... B A), CUDA events: K2 at
-  2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K6 at the
-  exotic route's 200 000 pairs in chip_smoke.py's five variants, and the
-  Asian and the corridor + companion over 135 168, 160 000 and 264 000
-  pairs; K8 at 200 000 pairs x 252 and x 63 steps with the companion;
-  K9 at 200 000 pairs x 512 and x 4096 steps with the companion, its
-  table on the device ("kernel") and copied from the host before every
-  launch, as a wrapper without a device cache does ("upload"); K10 and
-  K11 at the route's 131 072 pairs x 512 and x 511 steps with 25 lift
-  factors (H = 0.07). Each version's outputs are first held against the
-  plain torch versions (K6 and K8-K11 bit for bit: K6 in the five
-  variants, the barrier below with a window at 200 003 pairs x 13 steps
-  and the corridor at v0 = 0; K8 at 252 and 63 steps, with and without
-  the companion, at lambda = 0, 1 and 8; K10/K11 also at 24 factors, at
-  one and in the guarded fallback).
+  2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K5 at the QE
+  route's 500 000 paths x 63 steps on the Sobol QE net (in-kernel and
+  loaded jump uniforms), its read floor and compute floor (`_K5_LAB_SRC`)
+  and 405 504 and 608 256 paths; K6 at the exotic route's 200 000 pairs
+  in chip_smoke.py's five variants, and the Asian and the corridor +
+  companion over 135 168, 160 000 and 264 000 pairs; K7 at 200 000 pairs
+  x 128 steps and at 160 000 and 264 000 pairs; K8 at 200 000 pairs x 252
+  and x 63 steps with the companion; K9 at 200 000 pairs x 512 and x 4096
+  steps with the companion, its table on the device ("kernel") and copied
+  from the host before every launch, as a wrapper without a device cache
+  does ("upload"); K10 and K11 at the route's 131 072 pairs x 512 and x
+  511 steps with 25 lift factors (H = 0.07). Each version's outputs are
+  first held against the plain torch versions (K5's v, and K6-K11, bit for
+  bit: K5 at the route's shape and where its QE transition takes both
+  branches, both jump modes; K6 in the five variants, the barrier below
+  with a window at 200 003 pairs x 13 steps and the corridor at v0 = 0;
+  K7 at 128, 127 and 1 steps with one and two branches; K8 at 252 and 63
+  steps, with and without the companion, at lambda = 0, 1 and 8; K10/K11
+  also at 24 factors, at one and in the guarded fallback).
 
 Prints a summary and writes everything to `--out` (default
 mcos_tpu_torch/_build/lab/kernel_lab.json). Needs a CUDA card and nvcc;
@@ -73,10 +86,11 @@ from mcos_tpu_torch.ops import cuda_kernels as ck
 
 _LAB_DIR = os.path.join(ck.BUILD_DIR, "lab")
 # The kernels the lab knows, by short name: their source.
-_KERNELS = {"k2": "gbm.cu", "k6": "svj_stats.cu", "k8": "svcj.cu",
-            "k9": "svj_td.cu", "k10": "rbergomi_lift.cu",
-            "k11": "rbergomi_stats.cu"}
-_SASS_PATTERN = {"k2": "gbm_kernel", "k6": "svj_stats_kernel",
+_KERNELS = {"k2": "gbm.cu", "k5": "svj_qe_draws.cu", "k6": "svj_stats.cu",
+            "k7": "hhw.cu", "k8": "svcj.cu", "k9": "svj_td.cu",
+            "k10": "rbergomi_lift.cu", "k11": "rbergomi_stats.cu"}
+_SASS_PATTERN = {"k2": "gbm_kernel", "k5": "svj_qe_draws_kernel",
+                 "k6": "svj_stats_kernel", "k7": "hhw_kernel",
                  "k8": "svcj_kernel", "k9": "svj_td_kernel",
                  "k10": "rbergomi_lift_kernel",
                  "k11": "rbergomi_stats_kernel"}
@@ -141,6 +155,285 @@ extern "C" int mcos_probe(int which, float* out, int n) {
 '''
 _GRID = 1 << 23
 
+# K5's lab library: its two floors and the exhaustive Acklam probe. The
+# file includes the version's svj_qe_draws.cu (and through it philox.cuh).
+#   - read floor: the kernel's three loads a step (z_x, u_v, z_js), summed
+#     into one carry: what reading the net alone costs.
+#   - compute floor: the kernel's step on draws made from the path and step
+#     index, no loads (u_v puts one lane of a warp in each 1/32 of (0, 1),
+#     as the Sobol net does; the jump uniforms from the Philox stream).
+#     A version whose svj_qe_draws.cu has a `launch_qe_draws` template runs
+#     its own kernel with `IndexDraws` in place of the loads; for one
+#     without (the two-region design) the floor is that design's loop
+#     body, copied.
+#   - probe: Acklam's inverse over every float32 in (0, 1) (bit patterns 1
+#     to 0x3f7fffff) against mcos::acklam_ndtri (the double Horner step,
+#     the plain version's arithmetic): form 0 a float-only step fmaf(acc,
+#     x, c); form 1 the version's K5 inverse, where it has one
+#     (`acklam_converged`). The u whose outputs differ are counted, and the
+#     first `cap` are kept with both outputs.
+_K5_LAB_SRC = r'''
+#include "svj_qe_draws.cu"
+
+namespace {
+
+__device__ __forceinline__ void index_draws(uint32_t p, int t, float& z_x,
+                                            float& u_v, float& z_j) {
+  uint32_t h = (p ^ (static_cast<uint32_t>(t) * 0x9E3779B9u)) * 0x85EBCA6Bu;
+  h ^= h >> 13;
+  const float frac = mcos::bits_to_uniform_bitcast(h * 0xC2B2AE35u);
+  u_v = fminf((static_cast<float>((p ^ static_cast<uint32_t>(t)) & 31u) +
+               frac) * 0.03125f, 0.99999994f);
+  z_x = frac - 0.5f;
+  z_j = 0.5f - frac;
+}
+
+struct IndexDraws {
+  __device__ __forceinline__ void operator()(size_t, uint32_t p, int t,
+                                             float& z_x, float& u_v,
+                                             float& z_j) const {
+    index_draws(p, t, z_x, u_v, z_j);
+  }
+};
+
+__global__ void __launch_bounds__(256)
+    k5_read_floor(const float* __restrict__ zx, const float* __restrict__ uv,
+                  const float* __restrict__ zjs, float* __restrict__ out,
+                  long long n, int steps) {
+  const long long p =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  float acc = 0.0f;
+  size_t off = static_cast<size_t>(p);
+  for (int t = 0; t < steps; ++t, off += static_cast<size_t>(n)) {
+    acc += __ldg(zx + off) + __ldg(uv + off) + __ldg(zjs + off);
+  }
+  out[p] = acc;
+}
+
+#ifndef K5_HAS_LAUNCH
+// The compute floor of a design without launch_qe_draws: its loop body
+// (the two-region svj_qe_draws.cu, in-kernel jumps, two branches), draws
+// from the index.
+__global__ void __launch_bounds__(256)
+    k5_compute_floor(float* __restrict__ s_out, float* __restrict__ v_out,
+                     float* __restrict__ g_out, long long n, int steps,
+                     uint2 key, mcos::QeConsts c) {
+  const long long p =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const uint32_t p_lo = static_cast<uint32_t>(p);
+  const uint32_t p_hi = static_cast<uint32_t>(static_cast<uint64_t>(p) >> 32);
+  float v = c.v0;
+  float ls[2] = {0.0f, 0.0f}, lg[2] = {0.0f, 0.0f};
+  uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+  for (int t = 0; t < steps; ++t) {
+    float z_x, u_v, z_j;
+    index_draws(p_lo, t, z_x, u_v, z_j);
+    if ((t & 3) == 0) {
+      bits = mcos::philox4x32_10(
+          make_uint4(p_lo, p_hi, static_cast<uint32_t>(t >> 2),
+                     mcos::kJumpDomain),
+          key);
+    }
+    const float u = mcos::bits_to_uniform(mcos::word_of(bits, t & 3));
+    const float v_next =
+        mcos::qe_variance_step(v, mcos::acklam_ndtri(u_v), u_v, c);
+    const float vol = sqrtf(fmaxf(c.k34 * (v + v_next), 0.0f));
+    const float base = c.drift_dt + c.k0 + c.k1 * v + c.k2 * v_next;
+    const bool jumped = u < c.lam_dt;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float sz_x = k == 0 ? z_x : -z_x;
+      const float sz_j = k == 0 ? z_j : -z_j;
+      const float jump = jumped ? c.mu_j + c.sig_j * sz_j : 0.0f;
+      ls[k] = ls[k] + base + vol * sz_x + jump;
+      lg[k] = lg[k] + c.g_drift_dt + c.sig_cv * sz_x * c.sqrt_dt;
+    }
+    v = v_next;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    s_out[k * n + p] = c.spot * expf(ls[k]);
+    v_out[k * n + p] = v;
+    g_out[k * n + p] = c.spot * expf(lg[k]);
+  }
+}
+#endif
+
+__device__ __forceinline__ float fmaf_step(float acc, float x, float c) {
+  return fmaf(acc, x, c);
+}
+
+// mcos::acklam_ndtri with every Horner step a float FMA (one rounding).
+__device__ __forceinline__ float acklam_fmaf(float u) {
+  const float qc = u - 0.5f;
+  if (fabsf(qc) <= 0.47575f) {
+    const float r = qc * qc;
+    float num = -3.969683028665376e+01f;
+    num = fmaf_step(num, r, 2.209460984245205e+02f);
+    num = fmaf_step(num, r, -2.759285104469687e+02f);
+    num = fmaf_step(num, r, 1.383577518672690e+02f);
+    num = fmaf_step(num, r, -3.066479806614716e+01f);
+    num = fmaf_step(num, r, 2.506628277459239e+00f);
+    float den = -5.447609879822406e+01f;
+    den = fmaf_step(den, r, 1.615858368580409e+02f);
+    den = fmaf_step(den, r, -1.556989798598866e+02f);
+    den = fmaf_step(den, r, 6.680131188771972e+01f);
+    den = fmaf_step(den, r, -1.328068155288572e+01f);
+    return __fmul_rn(num, qc) / fmaf_step(den, r, 1.0f);
+  }
+  const float pm = fminf(u, 1.0f - u);
+  const float qt = sqrtf(-2.0f * logf(pm));
+  float num = -7.784894002430293e-03f;
+  num = fmaf_step(num, qt, -3.223964580411365e-01f);
+  num = fmaf_step(num, qt, -2.400758277161838e+00f);
+  num = fmaf_step(num, qt, -2.549732539343734e+00f);
+  num = fmaf_step(num, qt, 4.374664141464968e+00f);
+  num = fmaf_step(num, qt, 2.938163982698783e+00f);
+  float den = 7.784695709041462e-03f;
+  den = fmaf_step(den, qt, 3.224671290700398e-01f);
+  den = fmaf_step(den, qt, 2.445134137142996e+00f);
+  den = fmaf_step(den, qt, 3.754408661907416e+00f);
+  const float x_tail = num / fmaf_step(den, qt, 1.0f);
+  return qc < 0.0f ? x_tail : -x_tail;
+}
+
+__global__ void acklam_probe(int which, unsigned* n_bad, unsigned* bad,
+                             int cap) {
+  const unsigned last = 0x3f7fffffu;   // the largest float32 below 1
+  for (unsigned m = 1u + blockIdx.x * blockDim.x + threadIdx.x; m <= last;
+       m += gridDim.x * blockDim.x) {
+    const float u = __uint_as_float(m);
+    const float ref = mcos::acklam_ndtri(u);
+#ifdef K5_HAS_ACKLAM
+    const float got = which == 0 ? acklam_fmaf(u) : acklam_converged(u);
+#else
+    const float got = acklam_fmaf(u);
+#endif
+    if (__float_as_uint(ref) != __float_as_uint(got)) {
+      const unsigned i = atomicAdd(n_bad, 1u);
+      if (i < static_cast<unsigned>(cap)) {
+        bad[3 * i] = m;
+        bad[3 * i + 1] = __float_as_uint(ref);
+        bad[3 * i + 2] = __float_as_uint(got);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// which 0: the read floor (out = s_out); 1: the compute floor.
+extern "C" int mcos_k5_floor(int which, const float* zx, const float* uv,
+                             const float* zjs, float* s_out, float* v_out,
+                             float* g_out, long long n, int steps,
+                             unsigned long long seed,
+                             const float* consts_host, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  if (which == 0) {
+    k5_read_floor<<<blocks, 256, 0, st>>>(zx, uv, zjs, s_out, n, steps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  mcos::QeConsts c;
+  std::memcpy(&c, consts_host, sizeof(c));
+#ifdef K5_HAS_LAUNCH
+  return launch_qe_draws<2>(IndexDraws{}, nullptr, s_out, v_out, g_out, n,
+                            steps, seed, c, st);
+#else
+  k5_compute_floor<<<blocks, 256, 0, st>>>(
+      s_out, v_out, g_out, n, steps,
+      make_uint2(static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(seed >> 32)), c);
+  return static_cast<int>(cudaGetLastError());
+#endif
+}
+
+// Form `which` (0 float-only steps, 1 the version's K5 inverse) against
+// mcos::acklam_ndtri over every float32 in (0, 1); synchronises.
+extern "C" int mcos_acklam_probe(int which, unsigned* n_bad, unsigned* bad,
+                                 int cap) {
+  acklam_probe<<<132 * 16, 256>>>(which, n_bad, bad, cap);
+  const cudaError_t err = cudaDeviceSynchronize();
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+'''
+
+
+def _k5_lab_source(src_dir: str) -> str:
+    """The K5 lab file for the version in `src_dir`: its own kernel drives
+    the compute floor where it has `launch_qe_draws`, and its own inverse
+    joins the probe where it has `acklam_converged`."""
+    with open(os.path.join(src_dir, "svj_qe_draws.cu")) as f:
+        text = f.read()
+    flags = [f"#define {flag}\n" for flag, name in (
+        ("K5_HAS_LAUNCH", "launch_qe_draws"),
+        ("K5_HAS_ACKLAM", "acklam_converged")) if name in text]
+    return "".join(flags) + _K5_LAB_SRC
+
+
+# Each lever of the K5 and K7 designs taken out alone (`--levers`): (name,
+# source, the design's text, what the variant puts in its place).
+_LEVERS = {
+    "k5": (
+        ("k5_double_horner", "svj_qe_draws.cu",
+         "  return fmaf(acc, x, central ? a : t);",
+         "  return static_cast<float>(fma(static_cast<double>(acc),\n"
+         "      static_cast<double>(x), central ? static_cast<double>(a)\n"
+         "      : static_cast<double>(t)));"),
+        ("k5_two_regions_double", "svj_qe_draws.cu",
+         "sqrtf(b2) + acklam_converged(u_v);",
+         "sqrtf(b2) + mcos::acklam_ndtri(u_v);"),
+        ("k5_eager_qe", "svj_qe_draws.cu",
+         "const float v_next = qe_step_lazy(v, u_v, c);",
+         "const float v_next =\n"
+         "        mcos::qe_variance_step(v, acklam_converged(u_v), u_v, c);"),
+        ("k5_i2f_uniform", "svj_qe_draws.cu",
+         "u = mcos::bits_to_uniform_bitcast(", "u = mcos::bits_to_uniform("),
+        ("k5_no_round_keys", "svj_qe_draws.cu",
+         "using QeKey = mcos::PhiloxKeys;", "using QeKey = uint2;"),
+        ("k5_min_7_blocks", "svj_qe_draws.cu",
+         "__global__ void __launch_bounds__(256)\n    svj_qe_draws_kernel",
+         "__global__ void __launch_bounds__(256, 7)\n    svj_qe_draws_kernel"),
+    ),
+    "k7": (
+        ("k7_separate_sin_cos", "hhw.cu", "mcos::box_muller_sincos(",
+         "mcos::box_muller("),
+        ("k7_i2f_uniform", "hhw.cu", "(mcos::bits_to_uniform_bitcast(w1),\n"
+         "                          mcos::bits_to_uniform_bitcast(w2)",
+         "(mcos::bits_to_uniform(w1),\n"
+         "                          mcos::bits_to_uniform(w2)"),
+        ("k7_no_round_keys", "hhw.cu", "using HhwKey = mcos::PhiloxKeys;",
+         "using HhwKey = uint2;"),
+    ),
+}
+
+
+def lever_versions(src_dir: str, kernels) -> dict:
+    """{lever name: directory}: a copy of `src_dir` per lever of `kernels`
+    with that one edit made, under the lab's build directory."""
+    out = {}
+    for kernel in kernels:
+        for name, source, design, other in _LEVERS.get(kernel, ()):
+            with open(os.path.join(src_dir, source)) as f:
+                text = f.read()
+            if text.count(design) != 1:
+                raise RuntimeError(f"lever {name}: {design!r} is not in "
+                                   f"{source} exactly once")
+            work = os.path.join(_LAB_DIR, "levers", name)
+            os.makedirs(work, exist_ok=True)
+            for f_name in os.listdir(src_dir):
+                if f_name.endswith((".cu", ".cuh")):
+                    with open(os.path.join(src_dir, f_name)) as f:
+                        body = f.read()
+                    if f_name == source:
+                        body = body.replace(design, other)
+                    with open(os.path.join(work, f_name), "w") as f:
+                        f.write(body)
+            out[name] = work
+    return out
+
 
 # ─────────────────────────────────────────────────────────────────────────────
 # Build
@@ -150,10 +443,11 @@ def _nvcc() -> str:
 
 
 def build(versions: dict, kernels=tuple(_KERNELS)) -> dict:
-    """{label: {"lib": path, "ptxas": {source: text}, "probe_lib": path}}:
-    each version's sources of `kernels` compiled with `-Xptxas -v` and
-    linked into one library, plus its probe library when K2 and K9 are
-    among them; all nvcc processes at once."""
+    """{label: {"lib": path, "ptxas": {source: text}, "probe_lib": path,
+    "k5_lib": path}}: each version's sources of `kernels` compiled with
+    `-Xptxas -v` and linked into one library, plus its probe library when
+    K2 and K9 are among them and its K5 lab library (`_K5_LAB_SRC`) when
+    K5 is; all nvcc processes at once."""
     os.makedirs(_LAB_DIR, exist_ok=True)
     nvcc, jobs, out = _nvcc(), [], {}
     sources = [_KERNELS[k] for k in kernels]
@@ -184,13 +478,23 @@ def build(versions: dict, kernels=tuple(_KERNELS)) -> dict:
                 [nvcc, *ck.NVCC_FLAGS, "-I", src_dir, "-shared", "-o",
                  os.path.join(work, "libprobe.so"), probe],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        if "k5" in kernels:  # K5's floors and Acklam probe
+            lab_src = os.path.join(work, "k5_lab.cu")
+            with open(lab_src, "w") as f:
+                f.write(_k5_lab_source(src_dir))
+            jobs.append((label, "k5_lab", subprocess.Popen(
+                [nvcc, *ck.NVCC_FLAGS, "-I", src_dir, "-shared", "-o",
+                 os.path.join(work, "libk5lab.so"), lab_src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         out[label] = {"dir": src_dir, "work": work, "objs": objs,
-                      "ptxas": {}, "has_probes": has_probes}
+                      "ptxas": {}, "has_probes": has_probes,
+                      "k5_lib": (os.path.join(work, "libk5lab.so")
+                                 if "k5" in kernels else None)}
     for label, name, proc in jobs:
         so, se = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {label}/{name}:\n{se}")
-        if name != "probes":
+        if name not in ("probes", "k5_lab"):
             out[label]["ptxas"][name] = so + se
     for label, info in out.items():
         lib = os.path.join(info["work"], "libk.so")
@@ -221,6 +525,12 @@ def _load(path: str) -> ctypes.CDLL:
                                 vp, vp],
         "mcos_svcj_terminal": [vp, vp, vp, i64, i32, i32, u64, vp, vp],
         "mcos_probe": [i32, vp, i32],
+        "mcos_svj_terminal_qe_from_draws": [vp, vp, vp, vp, vp, vp, vp, i64,
+                                            i32, i32, u64, vp, vp],
+        "mcos_hhw_terminal": [vp, vp, i64, i32, i32, u64, vp, vp],
+        "mcos_k5_floor": [i32, vp, vp, vp, vp, vp, vp, i64, i32, u64, vp,
+                          vp],
+        "mcos_acklam_probe": [i32, vp, vp, i32],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
@@ -280,7 +590,13 @@ def _op_class(op: str) -> str:
         return "IMAD.HI"
     if base == "MUFU":
         return op
-    if base in ("FFMA", "FADD", "FMUL", "IMAD", "IADD3", "LOP3", "SHF",
+    # A conversion to or from a 64-bit float by its direction (destination
+    # type first): both run on the SM's slow conversion pipe.
+    for f2f in ("F2F.F64.F32", "F2F.F32.F64"):
+        if op.startswith(f2f):
+            return f2f
+    if base in ("FFMA", "FADD", "FMUL", "DFMA", "DADD", "DMUL", "IMAD",
+                "IADD3", "LOP3", "SHF",
                 "I2F", "F2I", "F2F", "LDG", "LDC", "LDS", "STG", "BRA",
                 "CALL", "BSSY", "BSYNC", "RET", "EXIT", "ISETP", "FSETP",
                 "FSEL", "SEL", "FMNMX", "MOV", "LEA", "PRMT", "ULDC"):
@@ -427,9 +743,15 @@ def loop_counts(ins_list) -> list:
                 span = {x[0] for x in hot_body if a2 < x[0] < tgt}
                 skips.append({"at": a2, "skips": len(span)})
                 skipped |= span
+        # global loads every pass makes: neither predicated nor inside a
+        # span that a conditional branch jumps over
+        loads = sum(1 for a2, op2, ins2 in hot_body
+                    if op2.startswith("LDG") and not ins2.startswith("@")
+                    and a2 not in skipped)
         loops.append({"start": target, "end": addr, "instructions": len(body),
                       "hot_instructions": len(hot_body),
                       "hot_if_branches_skip": len(hot_body) - len(skipped),
+                      "unconditional_loads": loads,
                       "philox_products": philox_products(hot_body),
                       "exits_to_slow_paths": exits,
                       "forward_branches": skips,
@@ -439,11 +761,14 @@ def loop_counts(ins_list) -> list:
 
 
 def _short_name(name: str) -> str:
-    """A mangled kernel name cut to its base name and template arguments,
-    e.g. `rbergomi_lift_kernelILi2ELi25ELb1EE`: one file per
-    instantiation."""
-    m = re.search(r"([a-z_]+_kernel)((?:I(?:L[ib]\d+E)+E)?)", name)
-    return m.group(1) + m.group(2) if m else re.sub(r"\W", "_", name)[-60:]
+    """A mangled kernel name cut to its base name and integer and bool
+    template arguments, e.g. `rbergomi_lift_kernelILi2ELi25ELb1EE`: one
+    file per instantiation (a class argument after them, K5's draws, is
+    left out)."""
+    m = re.search(r"([a-z_]+_kernel)((?:I(?:L[ib]\d+E)+)?)", name)
+    if not m:
+        return re.sub(r"\W", "_", name)[-60:]
+    return m.group(1) + m.group(2) + ("E" if m.group(2) else "")
 
 
 def exps_per_pair_step(name: str):
@@ -457,16 +782,27 @@ def exps_per_pair_step(name: str):
 
 
 def pair_steps_from_calls(name: str, calls: int):
-    """The pair-steps a loop pass of K6 or K8 covers, from the Philox calls
-    in it (their exps depend on the variant, so `exps_per_pair_step` does
-    not fit them): K6 makes one call a pair-step; K8 two a step pair, plus
-    a third only for a step pair in which a jump lands, so a pass of 2 or 3
-    calls covers 2 pair-steps. None for other kernels."""
-    if "svj_stats_kernel" in name:
+    """The pair-steps a loop pass of K6, K7 or K8 covers, from the Philox
+    calls in it (their exps depend on the variant, so `exps_per_pair_step`
+    does not fit them): K6 and K7 make one call a pair-step (K7 two a step
+    pair); K8 two a step pair, plus a third only for a step pair in which a
+    jump lands, so a pass of 2 or 3 calls covers 2 pair-steps. None for
+    other kernels."""
+    if "svj_stats_kernel" in name or "hhw_kernel" in name:
         return calls or None
     if "svcj_kernel" in name:
         return 2 * -(-calls // 3) or None
     return None
+
+
+def k5_steps(loop: dict):
+    """The path-steps a loop pass of K5 covers, from the draw loads every
+    pass makes (`unconditional_loads`): three a step (z_x, u_v, z_js) in a
+    loop that draws the jump uniforms itself (it holds Philox products),
+    four where it loads them too. None for a loop with no such loads."""
+    per_step = 3 if loop["philox_products"] else 4
+    steps = loop["unconditional_loads"] / per_step
+    return steps or None
 
 
 def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
@@ -474,7 +810,8 @@ def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
     """Per kernel matching `pattern`: instruction counts by class, whole and
     per loop; each loop's pair-steps and hot count per pair-step, for
     K10/K11 from its MUFU.EX2 count over the exps a pair-step takes, for
-    K6/K8 from its Philox calls (`pair_steps_from_calls`); with
+    K6-K8 from its Philox calls (`pair_steps_from_calls`), for K5 (path-
+    steps) from its draw loads (`k5_steps`); with
     `dump_prefix`, each kernel's listing is also written to
     `<dump_prefix><kernel>.sass`."""
     out = {}
@@ -490,8 +827,9 @@ def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
         exps = exps_per_pair_step(name)
         for lp in loops:
             ex2 = lp["hot_by_class"].get("MUFU.EX2", 0)
-            steps = pair_steps_from_calls(
-                name, philox_calls(lp["philox_products"]))
+            steps = (k5_steps(lp) if "svj_qe_draws_kernel" in name else
+                     pair_steps_from_calls(
+                         name, philox_calls(lp["philox_products"])))
             if exps and ex2:
                 lp["pair_steps"] = ex2 / exps
             elif steps:
@@ -551,6 +889,44 @@ def probes(lib: ctypes.CDLL, device) -> dict:
         "k9_sincosf_equals_torch_sin": bool((sc[1] == torch.sin(sc[0])).all()),
         "k9_sincosf_equals_torch_cos": bool((sc[2] == torch.cos(sc[0])).all()),
     }
+
+
+def acklam_probe(lib: ctypes.CDLL, device, has_k5_form: bool,
+                 cap: int = 4096) -> dict:
+    """Acklam's inverse over every float32 in (0, 1) against
+    mcos::acklam_ndtri (the plain version's double Horner step): the
+    float-only step ("fmaf_step") and, where the version has one, its K5
+    inverse ("k5"). Per form: the u whose outputs differ, the worst of the
+    first `cap` of them, and the probe's time."""
+    res = {}
+    forms = ((0, "fmaf_step"), (1, "k5")) if has_k5_form else (
+        (0, "fmaf_step"),)
+    for which, form in forms:
+        n_bad = torch.zeros(1, dtype=torch.int32, device=device)
+        bad = torch.zeros(3 * cap, dtype=torch.int32, device=device)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        rc = lib.mcos_acklam_probe(which, n_bad.data_ptr(), bad.data_ptr(),
+                                   cap)
+        b.record()
+        if rc != 0:
+            raise RuntimeError(f"Acklam probe {form} failed: CUDA error {rc}")
+        torch.cuda.synchronize()
+        count = int(n_bad.cpu().numpy().view(np.uint32)[0])
+        kept = bad[:3 * min(count, cap)].cpu().numpy().view(np.uint32)
+        u, ref, got = (kept[i::3].view(np.float32) for i in range(3))
+        entry = {"mismatches": count, "values": 0x3F7FFFFF,
+                 "ms": a.elapsed_time(b)}
+        if count:
+            err = np.abs(ref.astype(np.float64) - got.astype(np.float64))
+            worst = int(err.argmax())
+            entry.update(worst_u=float(u[worst]), worst_ref=float(ref[worst]),
+                         worst_got=float(got[worst]),
+                         central_share=float(np.mean(
+                             np.abs(u - np.float32(0.5))
+                             <= np.float32(0.47575))))
+        res[form] = entry
+    return res
 
 
 # ─────────────────────────────────────────────────────────────────────────────
@@ -664,9 +1040,86 @@ K8_CHECKS = tuple((steps, T, comp, lam) for steps, T in ((252, 1.0),
                                                          (63, 0.25))
                   for comp in (True, False) for lam in (0.0, 1.0, 8.0))
 K8_TIMED = ((252, 1.0), (63, 0.25))
+# K5 on the Sobol QE net (chip_smoke.py's check_k5): (name, paths, steps,
+# T, SVJParams fields). "route" is the /api/price scheme="qe" default. The
+# default parameters never take the exponential branch (psi <= xi^2 /
+# (2 kappa theta) = 1.04 at any v and dt), so "psi_4" and "psi_8" raise xi
+# and lower kappa (psi 8.3 at v = 0, 1.3 at v = 0.2): both branches run,
+# and with v0 = 0.005 from the first step.
+K5_PATHS = 500_000
+K5_PSI = dict(kappa=2.0, xi=0.6, v0=0.005)
+K5_CHECKS = (("route", K5_PATHS, 63, 0.25, {}),
+             ("psi_4", K5_PATHS, 4, 1.0, K5_PSI),
+             ("psi_8", K5_PATHS, 8, 1.0, K5_PSI))
+# K7 at the families' 200 000 pairs and chip_smoke.py's parameters (T = 2):
+# (steps, branches) of the checks; the timed shape and the pair sweep.
+K7_PAIRS, K7_T = 200_000, 2.0
+K7_CHECKS = tuple((steps, nb) for nb in (2, 1) for steps in (128, 127, 1))
+K7_SWEEP = (160_000, 264_000)
+# K5's path-count sweep at 63 steps: 1584 and 2376 blocks of 256 are two
+# and three whole waves at 6 blocks an SM (the route's 500 000 take 1954,
+# 2.47 waves).
+K5_SWEEP = (405_504, 608_256)
 # Timed launch of each kernel: (pairs, one thread each, blocks of 256).
-TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k6": K6_PAIRS, "k8": K8_PAIRS,
-               "k9": K9_PAIRS, "k10": ROUGH_PAIRS, "k11": ROUGH_PAIRS}
+TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k5": K5_PATHS, "k6": K6_PAIRS,
+               "k7": K7_PAIRS, "k8": K8_PAIRS, "k9": K9_PAIRS,
+               "k10": ROUGH_PAIRS, "k11": ROUGH_PAIRS}
+
+
+def _k5_case(paths: int, steps: int, T: float, fields: dict, device):
+    """(params, (z_x, u_v, z_js), explicit jump uniforms, launch scalars)
+    of one K5 case: the Sobol QE net at seed 42, steps-major."""
+    from mcos_tpu_torch.models.params import SVJParams
+    from mcos_tpu_torch.ops import sobol
+
+    def make():
+        z_x, u_v, _, z_js = sobol.sobol_qe_draws(
+            paths, steps, seed=42, jump_uniforms=False, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(2)
+        uj = torch.rand(z_x.shape, generator=gen, device=device)
+        return (z_x, u_v, z_js), uj
+    net, uj = _plain_once(("k5_net", paths, steps), make)
+    params = SVJParams(**fields)
+    return params, net, uj, ck._qe_consts(params, 22500.0, T, steps)
+
+
+def _k5_call(lib, out, net, uj, consts, seed=43, fn="qe"):
+    """One launch of K5 (`fn` "qe"), or of its read floor ("read") or
+    compute floor ("compute") from the K5 lab library."""
+    z_x, u_v, z_js = net
+    steps, paths = z_x.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if fn == "qe":
+        rc = lib.mcos_svj_terminal_qe_from_draws(
+            z_x.data_ptr(), u_v.data_ptr(), z_js.data_ptr(),
+            None if uj is None else uj.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), paths, steps, 2, seed,
+            consts.ctypes.data, stream)
+    else:
+        rc = lib.mcos_k5_floor(
+            0 if fn == "read" else 1, z_x.data_ptr(), u_v.data_ptr(),
+            z_js.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), paths, steps, seed, consts.ctypes.data,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"K5 ({fn}) launch failed: {rc}")
+
+
+def _k7_params():
+    from mcos_tpu_torch.ops.hhw import HHWParams
+
+    return HHWParams(kappa=2.0, theta=0.05, xi=0.4, v0=0.04, a=0.1, b=0.05,
+                     sigma_r=0.012, r0=0.05, rho_sv=-0.6, rho_sr=0.3,
+                     rho_vr=0.1, q=0.01)
+
+
+def _k7_call(lib, out, pairs, steps, nb, consts, seed=43):
+    rc = lib.mcos_hhw_terminal(out[0].data_ptr(), out[1].data_ptr(), pairs,
+                               steps, nb, seed, consts.ctypes.data,
+                               torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K7 launch failed: {rc}")
 
 
 def _rough_case(steps: int, m: int = 25, hurst: float = ROUGH_H):
@@ -821,6 +1274,36 @@ def check_outputs(lib, device, kernels=tuple(_KERNELS)) -> dict:
         res[f"k9_{pairs}x{steps}_max_abs_err"] = max(
             float((a - b).abs().max()) for a, b in zip(out, ref))
         res[f"k9_{pairs}x{steps}_v_bit_equal"] = bool((out[1] == ref[1]).all())
+    for name, paths, steps, T, fields in K5_CHECKS if "k5" in kernels else ():
+        params, net, uj, consts = _k5_case(paths, steps, T, fields, device)
+        for mode, u in (("explicit", uj), ("own_jumps", None)):
+            out = torch.empty((3, 2, paths), device=device)
+            _k5_call(lib, out, net, u, consts, seed=42)
+            ref = _plain_once(("k5", name, mode), lambda: torch.stack(
+                ck.svj_terminal_qe_from_draws_plain(
+                    params, 22500.0, T, net[0], net[1], u, net[2], seed=42,
+                    companion=True, steps_major=True)))
+            key = f"k5_{name}_{paths}x{steps}_{mode}"
+            res[f"{key}_v_bit_equal"] = bool((out[1] == ref[1]).all())
+            res[f"{key}_v_bit_equal_share"] = float(
+                (out[1] == ref[1]).float().mean())
+            res[f"{key}_s_g_max_rel_err"] = max(
+                float(((out[i] - ref[i]).abs() / ref[i].abs()).max())
+                for i in (0, 2))
+    for steps, nb in K7_CHECKS if "k7" in kernels else ():
+        params = _k7_params()
+        out = torch.empty((2, nb, K7_PAIRS), device=device)
+        _k7_call(lib, out, K7_PAIRS, steps, nb,
+                 ck._hhw_consts(params, 22500.0, K7_T, steps), seed=42)
+        ref = _plain_once(("k7", steps, nb), lambda: torch.stack(
+            ck.hhw_terminal_plain(params, 22500.0, K7_T, 42,
+                                  num_paths=K7_PAIRS, num_steps=steps,
+                                  antithetic=nb == 2, device=device)))
+        key = f"k7_{K7_PAIRS}x{steps}_{nb}b"
+        res[f"{key}_bit_equal"] = bool((out == ref).all())
+        for i, label in enumerate(("s", "d")):
+            res[f"{key}_{label}_bit_equal_share"] = float(
+                (out[i] == ref[i]).float().mean())
     for kernel in ("k10", "k11"):
         if kernel not in kernels:
             continue
@@ -837,8 +1320,11 @@ def check_outputs(lib, device, kernels=tuple(_KERNELS)) -> dict:
     return res
 
 
-def time_versions(libs: dict, device, kernels=tuple(_KERNELS)) -> dict:
-    """Each shape timed over the versions in turns: A B ... B A."""
+def time_versions(libs: dict, device, kernels=tuple(_KERNELS),
+                  k5_libs=None) -> dict:
+    """Each shape timed over the versions in turns: A B ... B A; with
+    `k5_libs` ({label: K5 lab library}), K5's floors too."""
+    k5_libs = k5_libs or {}
     order = list(libs) + list(reversed(list(libs)))
     res = {}
     for pairs, steps, reps in K2_SHAPES if "k2" in kernels else ():
@@ -881,6 +1367,38 @@ def time_versions(libs: dict, device, kernels=tuple(_KERNELS)) -> dict:
                 lambda: _k8_call(libs[label], out, K8_PAIRS, steps, True,
                                  consts), 20))
         res[f"k8_{K8_PAIRS}x{steps}"] = dict(runs)
+    if "k5" in kernels:
+        params, net, uj, consts = _k5_case(*K5_CHECKS[0][1:], device)
+        out = torch.empty((3, 2, K5_PATHS), device=device)
+        fns = [("own_jumps", None, "qe"), ("explicit", uj, "qe")]
+        if all(k5_libs.get(label) for label in libs):
+            fns += [("read_floor", None, "read"),
+                    ("compute_floor", None, "compute")]
+        for mode, u, fn in fns:
+            runs = collections.defaultdict(list)
+            for label in order:
+                lib = libs[label] if fn == "qe" else k5_libs[label]
+                runs[label].append(_events_ms(
+                    lambda: _k5_call(lib, out, net, u, consts, fn=fn), 20))
+            res[f"k5_{K5_PATHS}x63_{mode}"] = dict(runs)
+        for paths in K5_SWEEP:
+            params, net, _, consts = _k5_case(paths, 63, 0.25, {}, device)
+            out = torch.empty((3, 2, paths), device=device)
+            runs = collections.defaultdict(list)
+            for label in order:
+                runs[label].append(_events_ms(
+                    lambda: _k5_call(libs[label], out, net, None, consts),
+                    20))
+            res[f"k5_{paths}x63_own_jumps"] = dict(runs)
+    for pairs in (K7_PAIRS, *K7_SWEEP) if "k7" in kernels else ():
+        consts = ck._hhw_consts(_k7_params(), 22500.0, K7_T, 128)
+        out = torch.empty((2, 2, pairs), device=device)
+        runs = collections.defaultdict(list)
+        for label in order:
+            runs[label].append(_events_ms(
+                lambda: _k7_call(libs[label], out, pairs, 128, 2, consts),
+                20))
+        res[f"k7_{pairs}x128"] = dict(runs)
     for kernel in ("k10", "k11"):
         if kernel not in kernels:
             continue
@@ -913,6 +1431,9 @@ def main() -> None:
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--levers", action="store_true",
+                    help="also time each K5/K7 lever of the version "
+                    "labelled 'new' taken out alone")
     ap.add_argument("--dump", default="",
                     help="directory for each kernel's SASS listing")
     ap.add_argument("--out", default=os.path.join(_LAB_DIR,
@@ -926,6 +1447,8 @@ def main() -> None:
         raise SystemExit("kernel_lab needs a CUDA device")
     versions = dict(v.split("=", 1) for v in args.csrc) or {
         "new": ck.CSRC_DIR}
+    if args.levers:
+        versions.update(lever_versions(versions["new"], kernels))
     device = torch.device("cuda", 0)
     report = {"card": card_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "versions": versions,
@@ -933,6 +1456,8 @@ def main() -> None:
     print(f"card: {report['card']}", flush=True)
     built = build(versions, kernels)
     libs = {label: _load(info["lib"]) for label, info in built.items()}
+    k5_libs = {label: _load(info["k5_lib"]) for label, info in built.items()
+               if info["k5_lib"]}
     pattern = "|".join(_SASS_PATTERN[k] for k in kernels)
     for label, info in built.items():
         entry = report.setdefault(label, {})
@@ -973,12 +1498,19 @@ def main() -> None:
             entry["probes"] = probes(_load(info["probe_lib"]), device)
             print(f"[{label}] probes: {json.dumps(entry['probes'])}",
                   flush=True)
+        if args.probes and label in k5_libs:
+            with open(os.path.join(info["dir"], "svj_qe_draws.cu")) as f:
+                has_form = "acklam_converged" in f.read()
+            entry["acklam_probe"] = acklam_probe(k5_libs[label], device,
+                                                 has_form)
+            print(f"[{label}] Acklam probe: "
+                  f"{json.dumps(entry['acklam_probe'])}", flush=True)
         if args.time:
             entry["checks"] = check_outputs(libs[label], device, kernels)
             print(f"[{label}] checks: {json.dumps(entry['checks'])}",
                   flush=True)
     if args.time:
-        report["times_ms"] = time_versions(libs, device, kernels)
+        report["times_ms"] = time_versions(libs, device, kernels, k5_libs)
         for shape, runs in report["times_ms"].items():
             print(f"{shape}: " + ", ".join(
                 f"{label} {np.mean(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"

@@ -208,6 +208,77 @@ def test_k5_kernel_matches_plain(cuda, antithetic, companion, explicit_u):
     _assert_terminal_close(ker, ref, companion)
 
 
+def _k5_case(case: str, device):
+    """(params, T, z_x, u_v, z_js) of a K5 case on a Sobol QE net of 65 537
+    paths: the route's defaults (63 steps); the psi cases of kernel_lab
+    (T = 1, 4 and 8 steps, where the QE transition takes both branches);
+    u_v moved into Acklam's tails (below 0.024 or above 0.976), and a
+    net whose even paths are in the tails and odd ones in the centre."""
+    from mcos_tpu_torch import kernel_lab
+
+    steps = {"psi_4": 4, "psi_8": 8}.get(case, 63)
+    z_x, u_v, _, z_js = sobol.sobol_qe_draws(65_537, steps, seed=42,
+                                             jump_uniforms=False,
+                                             device=device)
+    if case.startswith("psi"):
+        return SVJParams(**kernel_lab.K5_PSI), 1.0, z_x, u_v, z_js
+    tail = torch.clamp(
+        torch.where(u_v < 0.5, u_v * 0.048, 1.0 - (1.0 - u_v) * 0.048),
+        max=float(np.float32(1.0 - 2.0 ** -24)))
+    if case == "tail":
+        u_v = tail
+    elif case == "mixed":
+        even = torch.arange(u_v.shape[1], device=device) % 2 == 0
+        u_v = torch.where(even, tail, 0.03 + u_v * 0.94)
+    return SVJParams(), 0.25, z_x, u_v, z_js
+
+
+@pytest.mark.parametrize("case", ["route", "psi_4", "psi_8", "tail",
+                                  "mixed"])
+@pytest.mark.parametrize("explicit_u", [True, False])
+def test_k5_variance_bit_for_bit(cuda, case, explicit_u):
+    """K5 computes Acklam's two regions as one sequence of float FMAs and
+    each QE branch only under its own test; the variance path keeps the
+    plain version's bits (rtol 0) where the route runs, where both QE
+    branches run, and where u_v sits in Acklam's tails, all of a warp or
+    half of it; S and G keep the Euler tolerance (rtol 1e-5)."""
+    params, T, z_x, u_v, z_js = _k5_case(case, cuda)
+    qc = (u_v - 0.5).abs()
+    central = qc <= float(np.float32(0.47575))
+    if case == "tail":
+        assert not bool(central.any())
+    if case == "mixed":
+        assert bool(central[:, 1::2].all()) and not bool(
+            central[:, ::2].any())
+    u = None
+    if explicit_u:
+        g = torch.Generator(device=cuda)
+        g.manual_seed(2)
+        u = torch.rand(z_x.shape, generator=g, device=cuda)
+    kw = dict(seed=42, antithetic=True, companion=True, steps_major=True)
+    ker = ck.svj_terminal_qe_from_draws(params, 22500.0, T, z_x, u_v, u,
+                                        z_js, **kw)
+    ref = ck.svj_terminal_qe_from_draws_plain(params, 22500.0, T, z_x, u_v,
+                                              u, z_js, **kw)
+    torch.testing.assert_close(ker[1], ref[1], rtol=0, atol=0)
+    torch.testing.assert_close(ker[0], ref[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(ker[2], ref[2], rtol=1e-5, atol=0)
+
+
+def test_k5_acklam_on_every_float32(cuda):
+    """Over all 1 065 353 215 float32 in (0, 1): Acklam's inverse with a
+    float FMA for each Horner step, in two regions and as K5's one
+    converged sequence (svj_qe_draws.cu:acklam_converged), gives the bits
+    of mcos::acklam_ndtri's double steps, the plain version's arithmetic."""
+    from mcos_tpu_torch import kernel_lab
+
+    built = kernel_lab.build({"new": ck.CSRC_DIR}, ("k5",))["new"]
+    res = kernel_lab.acklam_probe(kernel_lab._load(built["k5_lib"]), cuda,
+                                  True)
+    assert res["fmaf_step"]["mismatches"] == 0
+    assert res["k5"]["mismatches"] == 0
+
+
 def test_sobol_qe_on_card_equals_cpu(cuda):
     a = sobol.sobol_qe_draws(5000, 9, seed=4, jump_uniforms=False,
                              device=cuda)
@@ -430,8 +501,8 @@ def _family_case(name, steps):
 def test_family_kernels_match_plain(cuda, name, antithetic, steps):
     """K7, K8 and K9 against their plain versions on the same Philox words.
     Their carries are written with uncontracted IEEE operations in the
-    plain versions' order, so the tolerance is tight: rtol 2e-6 (the exp at
-    the end may differ by an ulp between the two libraries), and on v,
+    plain versions' order, so the tolerance is tight: K7 bit for bit on S
+    and D (torch's exp gives expf's bits); K8 and K9 rtol 2e-6, and on v,
     which no exp touches, equality."""
     kernel, plain, args = _family_case(name, steps)
     kw = dict(num_paths=10_007, num_steps=steps, antithetic=antithetic,
@@ -444,10 +515,11 @@ def test_family_kernels_match_plain(cuda, name, antithetic, steps):
     assert kernel.launches == n0 + 1
     ref = plain(*args, **kw)
     assert kernel.launches == n0 + 1
+    rtol = 0 if name == "hhw_terminal" else 2e-6
     for a, b in zip(ker, ref):
         assert a.shape == (2 if antithetic else 1, 10_007)
         assert bool(torch.isfinite(a).all())
-        torch.testing.assert_close(a, b, rtol=2e-6, atol=0)
+        torch.testing.assert_close(a, b, rtol=rtol, atol=0)
     if name != "hhw_terminal":
         torch.testing.assert_close(ker[1], ref[1], rtol=0, atol=0)
         no_g = kernel(*args, **dict(kw, companion=False))
@@ -507,6 +579,27 @@ def test_k7_common_random_numbers_and_bad_correlation(cuda):
         ck.hhw_terminal(HHWParams(rho_sv=-0.999, rho_sr=0.999, rho_vr=0.999),
                         100.0, 1.0, 3, **kw)
     assert ck.hhw_terminal.launches == n0
+
+
+@pytest.mark.parametrize("pairs", [10_007, 200_003])
+@pytest.mark.parametrize("steps", [127, 128])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_k7_bit_equal_at_ragged_pair_counts(cuda, pairs, steps, antithetic):
+    """K7 at pair counts that fill no whole block or wave, at the route's
+    128 steps and an odd count (the last step on a call of its own), one
+    and two branches: S and D bit for bit, one launch a call."""
+    kernel, plain, args = _family_case("hhw_terminal", steps)
+    kw = dict(num_paths=pairs, num_steps=steps, antithetic=antithetic,
+              device=cuda)
+    n0 = kernel.launches
+    ker = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    ref = plain(*args, **kw)
+    for a, b in zip(ker, ref):
+        assert a.shape == (2 if antithetic else 1, pairs)
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("pairs", [10_007, 200_003])
@@ -753,6 +846,34 @@ def test_stats_and_svcj_route_instantiations_fit(cuda):
         assert r["spill_stores"] == r["spill_loads"] == 0, fn
         assert r["registers"] <= registers, (fn, r["registers"])
         occ = kernel_lab.occupancy(r["registers"], 256, 782)
+        assert occ["blocks_per_sm"] >= per_sm, fn
+        assert occ["waves"] <= waves + 1e-3, fn
+
+
+def test_qe_draws_and_hhw_route_instantiations_fit(cuda):
+    """K5's route instantiations (two branches; the jump uniforms drawn in
+    the kernel or loaded) and K7's (two branches) spill nothing and hold
+    the registers of their redesign, so the QE route's 500 000 paths (1954
+    blocks of 256) and the families' 200 000 pairs (782 blocks) take the
+    waves below on the card's 132 SMs. K5 needs no more blocks an SM: a
+    minimum of 7 cost it 2.6 %, and its time per path is the same at two
+    and at three whole waves as at the route's 2.47 (PERF.md)."""
+    from mcos_tpu_torch import kernel_lab
+
+    built = kernel_lab.build({"new": ck.CSRC_DIR}, ("k5", "k7"))["new"]
+    res = {}
+    for text in built["ptxas"].values():
+        res.update(kernel_lab.ptxas_resources(text))
+    # (instantiation, most registers, blocks of 256 an SM, blocks, waves)
+    want = [("svj_qe_draws_kernelILi2ELb1E", 40, 6, 1954, 2.467),
+            ("svj_qe_draws_kernelILi2ELb0E", 34, 6, 1954, 2.467),
+            ("hhw_kernelILi2E", 38, 6, 782, 0.987)]
+    for pattern, registers, per_sm, blocks, waves in want:
+        (fn,) = [fn for fn in res if pattern in fn]
+        r = res[fn]
+        assert r["spill_stores"] == r["spill_loads"] == 0, fn
+        assert r["registers"] <= registers, (fn, r["registers"])
+        occ = kernel_lab.occupancy(r["registers"], 256, blocks)
         assert occ["blocks_per_sm"] >= per_sm, fn
         assert occ["waves"] <= waves + 1e-3, fn
 

@@ -22,6 +22,14 @@ _K6 = ("_ZN45_GLOBAL__N__d5b3d7e3_12_svj_stats_cu_f6a9ad8f16svj_stats_kernel"
        "PhiloxKeysE5uint2E4typeENS_11StatsConstsE")
 _K8 = ("_ZN39_GLOBAL__N__9ce7a76a_7_svcj_cu_0619f52e11svcj_kernelILi2EEEvPf"
        "S1_S1_xi5uint2NS_10SvcjConstsE")
+_K5 = ("_ZN48_GLOBAL__N__a44d9fff_15_svj_qe_draws_cu_e7b387e219svj_qe_draws_"
+       "kernelILi2ELb1ENS_11LoadedDrawsEEEvT1_PKfPfS5_S5_xiN4mcos10PhiloxKeys"
+       "EN4mcos8QeConstsE")
+_K7 = ("_ZN38_GLOBAL__N__4ece8f2d_6_hhw_cu_8111799510hhw_kernelILi2EEEvPfS1_xi"
+       "N4mcos10PhiloxKeysENS_9HhwConstsE")
+# K4's kernel, whose name K5's pattern must not match
+_K4 = ("_ZN42_GLOBAL__N__0d6f3c1a_9_svj_qe_cu_5b6e2a1913svj_qe_kernelILi2EEEvPf"
+       "S1_S1_PKdixi5uint2N4mcos8QeConstsE")
 
 # What `nvcc -Xptxas -v` prints for one file: an entry function with a
 # stack frame, an internal function whose frame must not be charged to it,
@@ -59,6 +67,9 @@ def test_ptxas_resources_reads_registers_stack_and_spills():
     ("LDG.E.CONSTANT", "LDG"), ("ULDC.64", "ULDC"), ("UIADD3", "uniform"),
     ("BSSY", "BSSY"), ("CALL.REL.NOINC", "CALL"), ("FMNMX", "FMNMX"),
     ("LOP3.LUT", "LOP3"), ("HFMA2.MMA", "other"), ("DSETP.GT.AND", "other"),
+    ("DFMA", "DFMA"), ("DADD", "DADD"), ("DMUL", "DMUL"),
+    ("F2F.F64.F32", "F2F.F64.F32"), ("F2F.F32.F64", "F2F.F32.F64"),
+    ("F2F.F16.F32", "F2F"),
 ])
 def test_op_class(op, cls):
     assert kl._op_class(op) == cls
@@ -206,7 +217,8 @@ def test_philox_products_count_each_product_once():
 
 @pytest.mark.parametrize("name, calls, steps", [
     (_K6, 1, 1), (_K6, 2, 2), (_K8, 2, 2), (_K8, 3, 2), (_K8, 4, 4),
-    (_K8, 6, 4), (_K10, 2, None), ("gbm_kernel", 2, None)])
+    (_K8, 6, 4), (_K10, 2, None), ("gbm_kernel", 2, None), (_K7, 2, 2),
+    (_K7, 4, 4), (_K5, 1, None)])
 def test_pair_steps_from_calls(name, calls, steps):
     assert kl.pair_steps_from_calls(name, calls) == steps
 
@@ -263,6 +275,9 @@ def test_cold_leaves_out_the_corridor_fallback_divides():
     (40, 782, 6, 782 / 792),    # K8: one wave
     (75, 512, 3, 512 / 396),    # K11 at 75 registers: 1.29 waves
     (64, 512, 4, 512 / 528),    # K10: one wave
+    (44, 1954, 5, 1954 / 660),  # K5's two-region design at 500 000 paths
+    (40, 1954, 6, 1954 / 792),  # K5's redesign: 2.47 waves
+    (38, 782, 6, 782 / 792),    # K7 at 200 000 pairs: one wave
     (65, 512, 3, 512 / 396),    # a register more: units of 8 a thread
     (32, 512, 8, 512 / 1056),   # the 64-warp cap of an SM
 ])
@@ -286,6 +301,8 @@ def test_occupancy_of_smaller_blocks():
     (_K6, "svj_stats_kernelILi2ELi3ELb1EE"),
     (_K8, "svcj_kernelILi2EE"),
     (_K10, "rbergomi_lift_kernelILi1ELi24ELb1EE"),
+    (_K5, "svj_qe_draws_kernelILi2ELb1EE"),
+    (_K7, "hhw_kernelILi2EE"),
     ("_ZN38_GLOBAL__N__eca620af_6_gbm_cu_21a6af4110gbm_kernelEPfxiiN4mcos"
      "10PhiloxKeysEfff", "gbm_kernel"),
     ("_ZN41_GLOBAL__N__ed5980cf_9_svj_td_cu_322ca70213svj_td_kernelILi2EEEv"
@@ -294,3 +311,109 @@ def test_occupancy_of_smaller_blocks():
 ])
 def test_short_name_keeps_one_file_per_instantiation(name, short):
     assert kl._short_name(name) == short
+
+
+def test_the_lab_knows_k5_and_k7():
+    assert kl._KERNELS["k5"] == "svj_qe_draws.cu"
+    assert kl._KERNELS["k7"] == "hhw.cu"
+    assert kl.TIMED_PAIRS["k5"] == 500_000 and kl.TIMED_PAIRS["k7"] == 200_000
+    names = {"k5": _K5, "k7": _K7, "k6": _K6, "k8": _K8, "k10": _K10,
+             "k11": _K11}
+    for short, name in names.items():
+        hits = [k for k, pat in kl._SASS_PATTERN.items() if pat in name]
+        assert hits == [short], (short, hits)
+    assert not [k for k, pat in kl._SASS_PATTERN.items() if pat in _K4]
+    # chip_smoke.py's K5 shape and the two cases where psi crosses 1.5
+    assert [c[:3] for c in kl.K5_CHECKS] == [
+        ("route", 500_000, 63), ("psi_4", 500_000, 4), ("psi_8", 500_000, 8)]
+    assert set(kl.K7_CHECKS) == {(s, nb) for s in (128, 127, 1)
+                                 for nb in (1, 2)}
+
+
+def _k5_listing(steps: int, own_jumps: bool):
+    """A K5 loop pass of `steps` steps: three draw loads each; with
+    `own_jumps` one Philox call behind a conditional branch (drawn every
+    fourth step) and the jump uniform's load predicated off, else a fourth
+    load a step; padded to the report's 20-instruction floor."""
+    body = [(0x100 + 0x10 * i, "NOP", "NOP") for i in range(20)]
+    at = 0x100 + 0x10 * 20
+    for _ in range(steps):
+        for r in range(3 if own_jumps else 4):
+            body.append((at, "LDG.E.CONSTANT",
+                         f"LDG.E.CONSTANT R{r}, desc[UR6][R22.64]"))
+            at += 0x10
+    if own_jumps:
+        body.append((at, "LDG.E.CONSTANT",
+                     "@P0 LDG.E.CONSTANT R9, desc[UR6][R22.64]"))
+        ins, end = _philox_call(at + 0x20, 17)
+        body.append((at + 0x10, "BRA", f"@!P3 BRA {hex(end)}"))
+        body += ins
+        at = end
+    body += [(at, "FADD", "FADD R1, R1, R2"),
+             (at + 0x10, "BRA", "@P0 BRA 0x100"),
+             (at + 0x20, "EXIT", "EXIT")]
+    return body
+
+
+@pytest.mark.parametrize("steps, own_jumps", [(1, True), (4, True),
+                                              (1, False), (2, False)])
+def test_sass_report_reads_k5_steps_from_its_loads(monkeypatch, steps,
+                                                   own_jumps):
+    """K5's steps a pass are its unconditional draw loads over three (the
+    jump uniforms drawn in the kernel: the loop holds Philox products) or
+    four (loaded); a predicated load, or one a branch jumps over, is not
+    counted."""
+    body = _k5_listing(steps, own_jumps)
+    monkeypatch.setattr(kl, "sass_functions", lambda path: {_K5: body})
+    (loop,) = kl.sass_report("unused.so", "svj_qe_draws_kernel")[_K5][
+        "loops"]
+    assert loop["unconditional_loads"] == steps * (3 if own_jumps else 4)
+    assert loop["pair_steps"] == steps
+    assert loop["hot_per_pair_step"] == loop["hot_instructions"] / steps
+
+
+def test_sass_report_counts_k7_pair_steps_and_double_ops(monkeypatch):
+    """A K7 pass of two Philox calls covers two pair-steps; DFMA and the
+    two directions of F2F are classed on their own."""
+    body = _k_listing(2)
+    extra = [(0x104, "F2F.F64.F32", "F2F.F64.F32 R22, R22"),
+             (0x108, "DFMA", "DFMA R38, R22, -UR24, R24"),
+             (0x10c, "F2F.F32.F64", "F2F.F32.F64 R26, R38")]
+    body = [body[0]] + extra + body[1:]
+    monkeypatch.setattr(kl, "sass_functions", lambda path: {_K7: body})
+    (loop,) = kl.sass_report("unused.so", "hhw_kernel")[_K7]["loops"]
+    assert loop["pair_steps"] == 2
+    assert {k: loop["hot_by_class"][k] for k in (
+        "DFMA", "F2F.F64.F32", "F2F.F32.F64")} == {
+        "DFMA": 1, "F2F.F64.F32": 1, "F2F.F32.F64": 1}
+
+
+def test_lever_versions_make_one_edit_each(monkeypatch, tmp_path):
+    """Each lever of the K5 and K7 designs is found once in the package's
+    sources, and its variant differs from them in that file alone."""
+    import os
+
+    monkeypatch.setattr(kl, "_LAB_DIR", str(tmp_path))
+    versions = kl.lever_versions(kl.ck.CSRC_DIR, ("k5", "k7"))
+    assert set(versions) == {lv[0] for k in ("k5", "k7")
+                             for lv in kl._LEVERS[k]}
+    for name, work in versions.items():
+        (source,) = [lv[1] for k in ("k5", "k7") for lv in kl._LEVERS[k]
+                     if lv[0] == name]
+        changed = []
+        for f_name in os.listdir(kl.ck.CSRC_DIR):
+            with open(os.path.join(kl.ck.CSRC_DIR, f_name)) as a, open(
+                    os.path.join(work, f_name)) as b:
+                if a.read() != b.read():
+                    changed.append(f_name)
+        assert changed == [source], name
+
+
+def test_k5_lab_source_follows_the_version(tmp_path):
+    """The K5 lab file runs a version's own kernel in the compute floor
+    and its own Acklam form in the probe only where the version has them
+    (the two-region design has neither)."""
+    assert kl._k5_lab_source(kl.ck.CSRC_DIR).startswith(
+        "#define K5_HAS_LAUNCH\n#define K5_HAS_ACKLAM\n")
+    (tmp_path / "svj_qe_draws.cu").write_text("// qe_variance_step only\n")
+    assert kl._k5_lab_source(str(tmp_path)) == kl._K5_LAB_SRC
