@@ -13,7 +13,9 @@
    K2 `gbm_terminal` at 2^20 pairs × 252 steps (word-for-word against the
    plain version, antithetic mirror, moments, Black-Scholes within 3σ);
    K3 `svj_terminal` and K4 `svj_terminal_qe` at 500 000 pairs × 63 steps
-   on the same Philox words as their plain versions, and
+   on the same Philox words as their plain versions, S, v and G bit for
+   bit (K4 also at 4 and 8 steps where its QE transition takes both
+   branches), and
    K5 `svj_terminal_qe_from_draws` at 500 000 paths × 63 steps on the real
    Sobol QE net (explicit jump uniforms, then in-kernel jumps), and at 4
    and 8 steps where its QE transition takes both branches, v bit for bit;
@@ -383,17 +385,37 @@ def compare_terminal(name, ker, ref, v_bit_for_bit=False):
 
 
 def check_prng(device, ck, params, name):
-    """K3 or K4 at the path's width, word for word against its plain
-    version on the same Philox stream."""
+    """K3 or K4 at the path's width against its plain version on the same
+    Philox words, bit for bit on S, v and G: both kernels write every
+    operation on their carries as the plain versions do (csrc/philox.cuh:
+    fmul, fadd), so rtol 0; the rtol 1e-5 figures of `compare_terminal`
+    are logged beside. K4 also at kernel_lab.K5_PSI with 4 and 8 steps,
+    where its QE transition takes both branches (tests/
+    test_torch_acklam_converged.py shows both on its plain path)."""
+    from mcos_tpu_torch.kernel_lab import K5_PSI
+
     kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
+    t0 = time.perf_counter()
+    cases = [(params, T_DEFAULT, STEPS_DEFAULT, "")]
+    if name == "svj_terminal_qe":
+        cases += [(params.replace(**K5_PSI), 1.0, steps, ", psi cross")
+                  for steps in (4, 8)]
+    errs, exact = [], {}
+    for case_params, T, steps, label in cases:
+        kw = dict(num_paths=NUM_PATHS, num_steps=steps, antithetic=True,
+                  companion=True, device=device)
+        ker = kernel(case_params, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        ref = plain(case_params, SPOT, T, 42, **kw)
+        torch.cuda.synchronize()
+        tag = f"{name} {steps} steps{label}"
+        compare_terminal(tag, ker, ref)
+        err, shares = compare_family(tag, ker, ref, ("S", "v", "G"),
+                                     bit_for_bit=True)
+        errs.append(err)
+        exact = exact or shares
     kw = dict(num_paths=NUM_PATHS, num_steps=STEPS_DEFAULT, antithetic=True,
               companion=True, device=device)
-    t0 = time.perf_counter()
-    ker = kernel(params, SPOT, T_DEFAULT, 42, **kw)
-    torch.cuda.synchronize()
-    ref = plain(params, SPOT, T_DEFAULT, 42, **kw)
-    torch.cuda.synchronize()
-    err, v_exact = compare_terminal(name, ker, ref)
     ms = cuda_ms(lambda: kernel(params, SPOT, T_DEFAULT, 43, **kw))
     plain_ms = cuda_ms(lambda: plain(params, SPOT, T_DEFAULT, 43, **kw),
                        reps=3)
@@ -401,8 +423,8 @@ def check_prng(device, ck, params, name):
     log(f"{name} at {NUM_PATHS} pairs x {STEPS_DEFAULT} steps: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
         f"({b['bound_by']}); phase {time.perf_counter() - t0:.1f} s")
-    return {"max_abs_err": err, "v_bit_equal_share": v_exact, "ms": ms,
-            "plain_ms": plain_ms, **b}
+    return {"max_abs_err": max(errs), "bit_equal_share": exact,
+            "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def check_k5(device, ck, sobol, params):
@@ -571,9 +593,9 @@ def compare_family(name, ker, ref, labels, bit_for_bit=False):
     K7-K9 round every operation on their carries as the plain versions do
     (csrc/philox.cuh: fmul, fadd, fsub), so what is left is the last exp:
     rtol 2e-6 on every output (an ulp or two of float32); with
-    `bit_for_bit` (K7-K9: torch's exp on the card gives expf's bits)
-    every output must be the same float. Returns (max abs error over the
-    outputs, {label: bit-equal share})."""
+    `bit_for_bit` (K3, K4, K7-K9: torch's exp on the card gives expf's
+    bits) every output must be the same float. Returns (max abs error over
+    the outputs, {label: bit-equal share, counted in float64})."""
     worst, exact = 0.0, {}
     for label, a, b in zip(labels, ker, ref):
         check((a is None) == (b is None), f"{name}: {label} present in both")
@@ -584,9 +606,9 @@ def compare_family(name, ker, ref, labels, bit_for_bit=False):
         err = rel_err(a, b)
         check(err < 2e-6, f"{name}: {label} rel err {err:.3e} (rtol 2e-6)")
         worst = max(worst, float((a - b).abs().max()))
-        exact[label] = float((a == b).float().mean())
+        exact[label] = float((a == b).double().mean())
         if bit_for_bit:
-            check(exact[label] == 1.0, f"{name}: {label} bit for bit")
+            check(bool((a == b).all()), f"{name}: {label} bit for bit")
     log(f"{name}: max abs err {worst:.3e}, bit-equal shares "
         f"{ {k: round(v, 6) for k, v in exact.items()} }")
     return worst, exact

@@ -1,21 +1,23 @@
 // Device helpers shared by the port's kernels: the Philox4x32-10
 // counter-based generator, the bits-to-uniform map, Box-Muller, the
 // inverse-CDF jump count over a host table, Acklam's inverse normal CDF and
-// the Andersen QE variance transition.
+// the QE kernels' launch scalars.
 //
 // The Philox constants are those of PyTorch's ATen/core/PhiloxRNGEngine.h
 // (kPhilox10A/B, kPhiloxSA/SB); that header is not included, so the sources
 // build with nvcc alone. mcos_tpu_torch/ops/cuda_kernels.py holds the same
 // helpers on torch tensors (philox4x32_10, bits_to_uniform, box_muller,
-// count_from_table), with ops/simulate.py:qe_variance_step and
-// ops/sobol.py:ndtri_acklam; the CPU tests and the on-card checks compare
-// the two.
+// count_from_table), with ops/sobol.py:ndtri_acklam; the CPU tests and the
+// on-card checks compare the two.
 //
-// Rounding against the plain versions. The QE transition's branch selects
+// Rounding against the plain versions. A QE transition's branch selects
 // (psi <= 1.5, u <= p) are not continuous in v, so a one-ulp difference in
-// v could send a path down the other branch. The helpers on the variance
-// path therefore repeat the plain version's IEEE operations one for one:
-//   - qe_variance_step and box_muller multiply and add with
+// v could send a path down the other branch. Each QE kernel keeps its own
+// transition beside its plain version's (K4: svj_qe.cu:qe_step and
+// cuda_kernels.py:_qe_step_folded; K5: svj_qe_draws.cu:qe_step_lazy and
+// ops/simulate.py:qe_variance_step), and those and the helpers on the
+// variance path repeat the plain version's IEEE operations one for one:
+//   - the transitions and box_muller multiply and add with
 //     __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA (nor into
 //     the inlined sinf/cosf/logf);
 //   - acklam_ndtri rounds each Horner step once, in double, where the float
@@ -23,11 +25,12 @@
 //     K5 (svj_qe_draws.cu:acklam_converged) takes one float FMA a step
 //     instead, which gives the same inverse at every float32 in (0, 1)
 //     (kernel_lab's probe holds it against acklam_ndtri over all of them).
-// K6 (dead-or-alive selects on the log-spot carry) and K7-K11 (hundreds
-// of dependent steps) write their carries the same way. In K1-K5's Euler
-// updates nvcc contracts freely, and those kernels differ from the plain
-// versions by FMA rounding (K2 takes the hardware's approximate log2,
-// rsqrt and sincos, gbm.cu: its only consumer is a continuous sum).
+// K3, K4 and K6-K11 write every operation on their carries the same way
+// (K6: dead-or-alive selects on the log-spot carry; K7-K11: hundreds of
+// dependent steps; K3, K4: to be held bit for bit). In K1's and K5's
+// Euler updates nvcc contracts freely, and those kernels differ from the
+// plain versions by FMA rounding (K2 takes the hardware's approximate
+// log2, rsqrt and sincos, gbm.cu: its only consumer is a continuous sum).
 #pragma once
 
 #include <cstdint>
@@ -54,9 +57,9 @@ constexpr uint32_t kRoughDomain = 8u;  // K10
 constexpr uint32_t kRoughStatsDomain = 9u;  // K11
 
 // IEEE float32 multiply, add and subtract that nvcc never contracts into an
-// FMA. K7-K11 write every operation on their carries with these, in
-// their plain versions' order, so on the card kernel and plain version
-// agree bit for bit at any step count.
+// FMA. K3, K4 and K6-K11 write every operation on their carries with
+// these, in their plain versions' order, so on the card kernel and plain
+// version agree bit for bit at any step count.
 __device__ __forceinline__ float fmul(float a, float b) {
   return __fmul_rn(a, b);
 }
@@ -89,7 +92,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
 // The ten round keys of a seed (key + i (kPhilox10A, kPhilox10B) mod 2^32),
 // made once on the host and passed to a kernel by value, so they sit in the
 // constant bank and each round's xor reads its key from there instead of
-// re-running the key schedule in every thread. K2, K5, K7, K9-K11 and
+// re-running the key schedule in every thread. K2-K5, K7, K9-K11 and
 // K6's corridor use them.
 struct PhiloxKeys {
   uint32_t k0[10], k1[10];
@@ -110,7 +113,7 @@ inline PhiloxKeys philox_round_keys(unsigned long long seed) {
 
 // The key a kernel takes, made on the host from the seed: the round keys
 // (Key = PhiloxKeys) or the seed's two words (Key = uint2), for a kernel
-// that chooses by a type alias (K5, K7).
+// that chooses by a type alias (K3, K4, K5, K7).
 template <typename Key>
 Key philox_key(unsigned long long seed) {
   if constexpr (std::is_same<Key, PhiloxKeys>::value) {
@@ -142,7 +145,8 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
 // conversion (I2F runs on a slower pipe than FADD): the top 23 bits become
 // the mantissa of a float in [1, 2), and subtracting float32(1 - 2^-24)
 // leaves (m + 1/2) 2^-23. The subtraction is exact (Sterbenz: the operands
-// are within a factor 2), so no rounding differs. K2 and K5-K11 use it.
+// are within a factor 2), so no rounding differs. K2-K11 use it; K1 takes
+// bits_to_uniform.
 __device__ __forceinline__ float bits_to_uniform_bitcast(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3f800000u) -
          __uint_as_float(0x3f7fffffu);
@@ -168,7 +172,8 @@ __device__ __forceinline__ void box_muller(float u1, float u2, float& za,
 // box_muller with one shared range reduction for the sine and the cosine:
 // sincosf gives the bits of sinf and cosf (held over every uniform of the
 // grid by tests/test_torch_cuda.py), so the normals are box_muller's bit
-// for bit. K6-K11 use it.
+// for bit. K3, K4 and K6-K11 use it (box_muller is what kernel_lab's
+// levers put back in its place).
 __device__ __forceinline__ void box_muller_sincos(float u1, float u2,
                                                   float& za, float& zb) {
   const float rad = sqrtf(fmul(-2.0f, logf(u1)));
@@ -245,37 +250,5 @@ static_assert(sizeof(QeConsts) == 17 * sizeof(float), "packed");
 
 // float32(1 - 1e-7): the upper clip of the exponential branch's uniform.
 constexpr float kUMax = 0.99999988079071044921875f;
-
-// Andersen QE variance transition v -> v' (pallas_kernels.py:
-// _qe_variance_step): the quadratic branch a (sqrt(b^2) + z_v)^2 for
-// psi <= 1.5, else the exponential branch (mass p at 0, exponential tail)
-// from the uniform u_v. K5 passes z_v = ndtri(u_v) (Andersen's single
-// uniform); K4 an independent Box-Muller normal, which gives the same
-// transition law under a PRNG.
-__device__ __forceinline__ float qe_variance_step(float v, float z_v,
-                                                  float u_v,
-                                                  const QeConsts& c) {
-  const float m = __fadd_rn(c.theta, __fmul_rn(v - c.theta, c.e_kdt));
-  const float s2 = __fadd_rn(__fmul_rn(v, c.var1), c.var2);
-  const float psi = s2 / fmaxf(__fmul_rn(m, m), 1e-20f);
-  const float two_over_psi = 2.0f / fmaxf(psi, 1e-12f);
-  const float b2 = fmaxf(
-      __fadd_rn(two_over_psi - 1.0f,
-                __fmul_rn(sqrtf(fmaxf(two_over_psi, 1e-12f)),
-                          sqrtf(fmaxf(two_over_psi - 1.0f, 0.0f)))),
-      0.0f);
-  const float a = m / (1.0f + b2);
-  const float x = sqrtf(b2) + z_v;
-  const float v_quad = __fmul_rn(a, __fmul_rn(x, x));
-  const float p_mass = fminf(fmaxf((psi - 1.0f) / (psi + 1.0f), 0.0f), 0.999f);
-  const float beta = (1.0f - p_mass) / fmaxf(m, 1e-20f);
-  const float u_clip = fminf(fmaxf(u_v, 1e-7f), kUMax);
-  const float v_exp =
-      (u_v <= p_mass)
-          ? 0.0f
-          : logf((1.0f - p_mass) / fmaxf(1.0f - u_clip, 1e-12f)) /
-                fmaxf(beta, 1e-20f);
-  return psi <= 1.5f ? v_quad : v_exp;
-}
 
 }  // namespace mcos

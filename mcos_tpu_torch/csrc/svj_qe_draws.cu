@@ -29,8 +29,9 @@
 //     step (one rounding in double, one to float) at every float32 in
 //     (0, 1) (double steps: +49 %);
 //   - qe_step_lazy: each QE branch only under its own test, with the same
-//     operations in the same order as philox.cuh:qe_variance_step (K4's,
-//     which stays as it is) (both branches: +31 %);
+//     operations in the same order as the plain ops/simulate.py:
+//     qe_variance_step (both branches, kernel_lab's eager copy: +31 %;
+//     K4 has a transition of its own, svj_qe.cu:qe_step);
 //   - the jump uniform by a bitcast (mcos::bits_to_uniform_bitcast) and
 //     the Philox round keys (1 % each, or less).
 // The carry (v, log S and log G for both branches) lives in registers for
@@ -106,11 +107,12 @@ __device__ __forceinline__ float acklam_converged(float u) {
   return __fmul_rn(num, scale) / den;
 }
 
-// mcos::qe_variance_step(v, ndtri(u_v), u_v, c) with each branch computed
-// only under its own test: the quadratic branch (and Acklam's inverse that
-// feeds it) for psi <= 1.5, the exponential branch (its mass p, beta, log
-// and divides) otherwise. Each operation is the shared helper's, in its
-// order, so the taken branch gives the same bits.
+// Andersen QE v -> v' (ops/simulate.py:qe_variance_step with z_v =
+// ndtri(u_v)) with each branch computed only under its own test: the
+// quadratic branch (and Acklam's inverse that feeds it) for psi <= 1.5, the
+// exponential branch (its mass p, beta, log and divides) otherwise. Each
+// operation is the plain version's, in its order, so the taken branch
+// gives the same bits.
 __device__ __forceinline__ float qe_step_lazy(float v, float u_v,
                                               const mcos::QeConsts& c) {
   const float m = __fadd_rn(c.theta, __fmul_rn(v - c.theta, c.e_kdt));

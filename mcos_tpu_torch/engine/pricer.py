@@ -46,12 +46,14 @@ from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import cuda_kernels, simulate
 from mcos_tpu_torch.ops.bs import bs_price
 
-#: Not yet ported: ROADMAP.md queue 1 item that will port each option.
+#: Not yet ported: the ROADMAP.md queue 1 slice that will port each
+#: option, named by its letter and subject (item numbers change when the
+#: queue is re-anchored).
 NOT_PORTED = {
-    "mesh": "ROADMAP.md queue 1, item 7 (sharding over NCCL)",
+    "mesh": "ROADMAP.md queue 1, slice N (sharding over NCCL)",
     "TDSVJEngine.price_american":
-        "ROADMAP.md queue 1, item 5 (engine/american.py: lsm_price with a "
-        "td sheet recorder)",
+        "ROADMAP.md queue 1, slice H (American exercise: engine/american.py "
+        "lsm_price with a td sheet recorder)",
 }
 
 

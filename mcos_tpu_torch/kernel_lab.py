@@ -1,21 +1,22 @@
-"""Look inside eight hand-written kernels on one CUDA card: K2
-(`csrc/gbm.cu`), K5 (`csrc/svj_qe_draws.cu`), K6 (`csrc/svj_stats.cu`),
-K7 (`csrc/hhw.cu`), K8 (`csrc/svcj.cu`), K9 (`csrc/svj_td.cu`), K10
-(`csrc/rbergomi_lift.cu`) and K11 (`csrc/rbergomi_stats.cu`): what the
-compiler made of them, how accurate their special functions are, and how
-fast one version runs against another.
+"""Look inside ten hand-written kernels on one CUDA card: K2
+(`csrc/gbm.cu`), K3 (`csrc/svj.cu`), K4 (`csrc/svj_qe.cu`), K5
+(`csrc/svj_qe_draws.cu`), K6 (`csrc/svj_stats.cu`), K7 (`csrc/hhw.cu`),
+K8 (`csrc/svcj.cu`), K9 (`csrc/svj_td.cu`), K10 (`csrc/rbergomi_lift.cu`)
+and K11 (`csrc/rbergomi_stats.cu`): what the compiler made of them, how
+accurate their special functions are, and how fast one version runs
+against another.
 
     python -m mcos_tpu_torch.kernel_lab [--csrc LABEL=DIR ...]
-        [--kernels k2,k5,k6,k7,k8,k9,k10,k11] [--sass] [--dump DIR]
+        [--kernels k2,k3,k4,k5,k6,k7,k8,k9,k10,k11] [--sass] [--dump DIR]
         [--probes] [--time] [--levers] [--out FILE]
 
 Each `--csrc LABEL=DIR` names a directory holding a version of the chosen
 kernels' sources and `philox.cuh` (default: `new=` the package's own
 `csrc/`). Every version is compiled (all at once, one nvcc per source,
 with the package's NVCC_FLAGS plus `-Xptxas -v`) into its own shared
-library. `--kernels` picks the kernels (default all eight). `--levers`
-adds, for K5 and K7, one version per lever of the "new" design with that
-lever taken out alone (`_LEVERS`), timed in turns with the rest.
+library. `--kernels` picks the kernels (default all ten). `--levers`
+adds, for K3, K4, K5 and K7, one version per lever of the "new" design
+with that lever taken out alone (`_LEVERS`), timed in turns with the rest.
 
 - Always: per kernel, the registers, stack and spills that ptxas reports,
   and from the registers the blocks of 256 threads an SM holds and the
@@ -25,20 +26,20 @@ lever taken out alone (`_LEVERS`), timed in turns with the rest.
   DFMA, DADD, DMUL and F2F by direction (F2F.F64.F32 to double,
   F2F.F32.F64 back); IMAD, IMAD.WIDE, IADD3, LOP3, SHF; I2F, F2I; MUFU by
   function; loads; branches and calls; and what each conditional forward
-  branch inside it jumps over. How many quads (K2) or calls (K9, two steps
-  each) one pass of a loop covers is read from its MUFU and multiply
-  counts; for K10 and K11 the pair-steps a pass covers are its MUFU.EX2
-  count over the exps a step takes (one a branch in K10, two in K11), for
-  K6-K8 its Philox calls (from the products by the two Philox
-  multipliers: `pair_steps_from_calls`), for K5 its draw loads (three a
+  branch inside it jumps over. For K10 and K11 the pair-steps a pass
+  covers are its MUFU.EX2 count over the exps a step takes (one a branch
+  in K10, two in K11), for K3, K4 and K6-K9 its Philox calls (from the
+  products by the two Philox multipliers: `pair_steps_from_calls`; two
+  steps a call in K3 and K9, one in K4), for K5 its draw loads (three a
   path-step, four with loaded jump uniforms: `k5_steps`), and the counts
   are also given per pair-step (per path-step for K5). `--dump DIR` writes
   each kernel's listing there to read it.
 - `--probes`: K2 and K9 over all 2^23 uniforms of the grid
   ((m + 1/2) 2^-23), the error of K2's Box-Muller radius and angle
   functions against float64 (`gbm.cu:box_muller_fast`), and whether
-  `sincosf` (K6-K11's Box-Muller) gives the bits of `sinf`, `cosf` and of
-  torch's `sin`/`cos` (the plain versions') on the angle 2 pi u; K5 over
+  `sincosf` (K3, K4 and K6-K11's Box-Muller) gives the bits of `sinf`,
+  `cosf` and of torch's `sin`/`cos` (the plain versions') on the angle
+  2 pi u; K5 over
   every float32 in (0, 1), whether Acklam's inverse with a float FMA a
   Horner step, and K5's own converged form, give the bits of the double
   step (`acklam_probe`).
@@ -46,19 +47,24 @@ lever taken out alone (`_LEVERS`), timed in turns with the rest.
   2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K5 at the QE
   route's 500 000 paths x 63 steps on the Sobol QE net (in-kernel and
   loaded jump uniforms), its read floor and compute floor (`_K5_LAB_SRC`)
-  and 405 504 and 608 256 paths; K6 at the exotic route's 200 000 pairs
-  in chip_smoke.py's five variants, and the Asian and the corridor +
-  companion over 135 168, 160 000 and 264 000 pairs; K7 at 200 000 pairs
-  x 128 steps and at 160 000 and 264 000 pairs; K8 at 200 000 pairs x 252
+  and 405 504 and 608 256 paths; K3 and K4 at the PRNG route's 500 000
+  pairs x 63 steps with the companion, and at 405 504 and 608 256 pairs;
+  K6 at the exotic route's 200 000 pairs in chip_smoke.py's five
+  variants, and the Asian and the corridor + companion over 135 168,
+  160 000 and 264 000 pairs; K7 at 200 000 pairs x 128 steps and at
+  160 000 and 264 000 pairs; K8 at 200 000 pairs x 252
   and x 63 steps with the companion; K9 at 200 000 pairs x 512 and x 4096
   steps with the companion, its table on the device ("kernel") and copied
   from the host before every launch, as a wrapper without a device cache
   does ("upload"); K10 and K11 at the route's 131 072 pairs x 512 and x
   511 steps with 25 lift factors (H = 0.07). Each version's outputs are
-  first held against the plain torch versions (K5's v, and K6-K11, bit for
-  bit: K5 at the route's shape and where its QE transition takes both
-  branches, both jump modes; K6 in the five variants, the barrier below
-  with a window at 200 003 pairs x 13 steps and the corridor at v0 = 0;
+  first held against the plain torch versions (K3, K4, K5's v, and K6-K11,
+  bit for bit: K3 and K4 at the route's shape, at 200 003 pairs x 13 steps
+  and with one branch and no companion at 10 007 x 64, K4 also at K5's psi
+  cases (`K4_PSI_CHECKS`); K5 at the route's shape and where its QE
+  transition takes both branches, both jump modes; K6 in the five
+  variants, the barrier below with a window at 200 003 pairs x 13 steps
+  and the corridor at v0 = 0;
   K7 at 128, 127 and 1 steps with one and two branches; K8 at 252 and 63
   steps, with and without the companion, at lambda = 0, 1 and 8; K10/K11
   also at 24 factors, at one and in the guarded fallback).
@@ -86,10 +92,17 @@ from mcos_tpu_torch.ops import cuda_kernels as ck
 
 _LAB_DIR = os.path.join(ck.BUILD_DIR, "lab")
 # The kernels the lab knows, by short name: their source.
-_KERNELS = {"k2": "gbm.cu", "k5": "svj_qe_draws.cu", "k6": "svj_stats.cu",
-            "k7": "hhw.cu", "k8": "svcj.cu", "k9": "svj_td.cu",
-            "k10": "rbergomi_lift.cu", "k11": "rbergomi_stats.cu"}
-_SASS_PATTERN = {"k2": "gbm_kernel", "k5": "svj_qe_draws_kernel",
+_KERNELS = {"k2": "gbm.cu", "k3": "svj.cu", "k4": "svj_qe.cu",
+            "k5": "svj_qe_draws.cu", "k6": "svj_stats.cu", "k7": "hhw.cu",
+            "k8": "svcj.cu", "k9": "svj_td.cu", "k10": "rbergomi_lift.cu",
+            "k11": "rbergomi_stats.cu"}
+# Each kernel's name as it stands in a mangled symbol. K3's and K4's carry
+# the mangled length prefix and the template opener `I`, so that
+# `svj_kernel` finds neither `svj_qe_kernel`, `svj_td_kernel`,
+# `svj_qe_draws_kernel` nor `svj_stats_kernel`, and `svj_qe_kernel` not
+# `svj_qe_draws_kernel`.
+_SASS_PATTERN = {"k2": "gbm_kernel", "k3": "10svj_kernelI",
+                 "k4": "13svj_qe_kernelI", "k5": "svj_qe_draws_kernel",
                  "k6": "svj_stats_kernel", "k7": "hhw_kernel",
                  "k8": "svcj_kernel", "k9": "svj_td_kernel",
                  "k10": "rbergomi_lift_kernel",
@@ -155,6 +168,44 @@ extern "C" int mcos_probe(int which, float* out, int n) {
 '''
 _GRID = 1 << 23
 
+# The eager Andersen QE transition (pallas_kernels.py:_qe_variance_step):
+# both branches computed, then one selected, in the operations and order of
+# ops/simulate.py:qe_variance_step. No kernel runs it: the lab keeps it for
+# the K5 lever that puts it back (`k5_eager_qe`) and for the compute floor
+# of K5's two-region design. Guarded, as a lever's svj_qe_draws.cu and the
+# K5 lab file that includes it both carry it.
+_QE_EAGER_SRC = r'''
+#ifndef MCOS_LAB_QE_EAGER
+#define MCOS_LAB_QE_EAGER
+namespace lab {
+__device__ __forceinline__ float qe_eager(float v, float z_v, float u_v,
+                                          const mcos::QeConsts& c) {
+  const float m = __fadd_rn(c.theta, __fmul_rn(v - c.theta, c.e_kdt));
+  const float s2 = __fadd_rn(__fmul_rn(v, c.var1), c.var2);
+  const float psi = s2 / fmaxf(__fmul_rn(m, m), 1e-20f);
+  const float two_over_psi = 2.0f / fmaxf(psi, 1e-12f);
+  const float b2 = fmaxf(
+      __fadd_rn(two_over_psi - 1.0f,
+                __fmul_rn(sqrtf(fmaxf(two_over_psi, 1e-12f)),
+                          sqrtf(fmaxf(two_over_psi - 1.0f, 0.0f)))),
+      0.0f);
+  const float a = m / (1.0f + b2);
+  const float x = sqrtf(b2) + z_v;
+  const float v_quad = __fmul_rn(a, __fmul_rn(x, x));
+  const float p_mass = fminf(fmaxf((psi - 1.0f) / (psi + 1.0f), 0.0f), 0.999f);
+  const float beta = (1.0f - p_mass) / fmaxf(m, 1e-20f);
+  const float u_clip = fminf(fmaxf(u_v, 1e-7f), mcos::kUMax);
+  const float v_exp =
+      (u_v <= p_mass)
+          ? 0.0f
+          : logf((1.0f - p_mass) / fmaxf(1.0f - u_clip, 1e-12f)) /
+                fmaxf(beta, 1e-20f);
+  return psi <= 1.5f ? v_quad : v_exp;
+}
+}  // namespace lab
+#endif
+'''
+
 # K5's lab library: its two floors and the exhaustive Acklam probe. The
 # file includes the version's svj_qe_draws.cu (and through it philox.cuh).
 #   - read floor: the kernel's three loads a step (z_x, u_v, z_js), summed
@@ -172,8 +223,7 @@ _GRID = 1 << 23
 #     x, c); form 1 the version's K5 inverse, where it has one
 #     (`acklam_converged`). The u whose outputs differ are counted, and the
 #     first `cap` are kept with both outputs.
-_K5_LAB_SRC = r'''
-#include "svj_qe_draws.cu"
+_K5_LAB_SRC = '\n#include "svj_qe_draws.cu"\n' + _QE_EAGER_SRC + r'''
 
 namespace {
 
@@ -238,7 +288,7 @@ __global__ void __launch_bounds__(256)
     }
     const float u = mcos::bits_to_uniform(mcos::word_of(bits, t & 3));
     const float v_next =
-        mcos::qe_variance_step(v, mcos::acklam_ndtri(u_v), u_v, c);
+        lab::qe_eager(v, mcos::acklam_ndtri(u_v), u_v, c);
     const float vol = sqrtf(fmaxf(c.k34 * (v + v_next), 0.0f));
     const float base = c.drift_dt + c.k0 + c.k1 * v + c.k2 * v_next;
     const bool jumped = u < c.lam_dt;
@@ -373,9 +423,60 @@ def _k5_lab_source(src_dir: str) -> str:
     return "".join(flags) + _K5_LAB_SRC
 
 
-# Each lever of the K5 and K7 designs taken out alone (`--levers`): (name,
-# source, the design's text, what the variant puts in its place).
+# Contractible stand-ins for philox.cuh's fmul and fadd: nvcc fuses a
+# product that feeds a sum into one FMA (the carries' contracted form).
+_CONTRACTED = ("__device__ __forceinline__ float fadd(float a, float b) "
+               "{ return a + b; }\n"
+               "__device__ __forceinline__ float fmul(float a, float b) "
+               "{ return a * b; }\n")
+
+
+def _prng_levers(kernel: str, source: str, key_alias: str) -> tuple:
+    """The levers K3 and K4 share, each taken out alone: their carries'
+    uncontracted operations, sincosf, the bitcast uniform, round keys; and
+    a minimum of 8 blocks of 256 an SM put in (32 registers a thread, the
+    parent's occupancy)."""
+    return (
+        (f"{kernel}_contracted", source,
+         "using mcos::fadd;\nusing mcos::fmul;\n", _CONTRACTED),
+        (f"{kernel}_separate_sin_cos", source, "mcos::box_muller_sincos(",
+         "mcos::box_muller("),
+        (f"{kernel}_i2f_uniform", source,
+         "return mcos::bits_to_uniform_bitcast(w);",
+         "return mcos::bits_to_uniform(w);"),
+        (f"{kernel}_no_round_keys", source,
+         f"using {key_alias} = mcos::PhiloxKeys;",
+         f"using {key_alias} = uint2;"),
+        (f"{kernel}_min_8_blocks", source,
+         "__launch_bounds__(kThreads)\n", "__launch_bounds__(kThreads, 8)\n"),
+    )
+
+
+# Each lever of the K3, K4, K5 and K7 designs taken out alone (`--levers`):
+# (name, source, the design's text, what the variant puts in its place),
+# or for a lever of several edits in one file, a tuple of each.
 _LEVERS = {
+    "k3": _prng_levers("k3", "svj.cu", "SvjKey"),
+    "k4": _prng_levers("k4", "svj_qe.cu", "QeKey") + (
+        ("k4_eager_qe", "svj_qe.cu",
+         "  if (quadratic) return qe_quadratic(m, s2, m2, z_v);\n"
+         "  return qe_exponential(m, s2, m2, u_v);\n",
+         "  const float v_quad = qe_quadratic(m, s2, m2, z_v);\n"
+         "  const float v_exp = qe_exponential(m, s2, m2, u_v);\n"
+         "  return quadratic ? v_quad : v_exp;\n"),
+        # the quadratic branch on psi, 2 / psi and two square roots, as
+        # ops/simulate.py:qe_variance_step computes it
+        ("k4_unfolded_quadratic", "svj_qe.cu",
+         "  const float t =\n"
+         "      fminf(fmaxf(__fmul_rn(2.0f, m2) / fmaxf(s2, 1e-30f), 1.0f), "
+         "2e12f);\n"
+         "  const float b2 = __fadd_rn(t - 1.0f, sqrtf(__fmul_rn(t, t - "
+         "1.0f)));\n",
+         "  const float psi = s2 / fmaxf(m2, 1e-20f);\n"
+         "  const float t = 2.0f / fmaxf(psi, 1e-12f);\n"
+         "  const float b2 = fmaxf(__fadd_rn(t - 1.0f, __fmul_rn(\n"
+         "      sqrtf(fmaxf(t, 1e-12f)), sqrtf(fmaxf(t - 1.0f, 0.0f)))), "
+         "0.0f);\n"),),
     "k5": (
         ("k5_double_horner", "svj_qe_draws.cu",
          "  return fmaf(acc, x, central ? a : t);",
@@ -386,9 +487,11 @@ _LEVERS = {
          "sqrtf(b2) + acklam_converged(u_v);",
          "sqrtf(b2) + mcos::acklam_ndtri(u_v);"),
         ("k5_eager_qe", "svj_qe_draws.cu",
-         "const float v_next = qe_step_lazy(v, u_v, c);",
-         "const float v_next =\n"
-         "        mcos::qe_variance_step(v, acklam_converged(u_v), u_v, c);"),
+         ('#include "philox.cuh"\n',
+          "const float v_next = qe_step_lazy(v, u_v, c);"),
+         ('#include "philox.cuh"\n' + _QE_EAGER_SRC,
+          "const float v_next =\n"
+          "        lab::qe_eager(v, acklam_converged(u_v), u_v, c);")),
         ("k5_i2f_uniform", "svj_qe_draws.cu",
          "u = mcos::bits_to_uniform_bitcast(", "u = mcos::bits_to_uniform("),
         ("k5_no_round_keys", "svj_qe_draws.cu",
@@ -416,11 +519,14 @@ def lever_versions(src_dir: str, kernels) -> dict:
     out = {}
     for kernel in kernels:
         for name, source, design, other in _LEVERS.get(kernel, ()):
+            edits = (((design, other),) if isinstance(design, str)
+                     else tuple(zip(design, other)))
             with open(os.path.join(src_dir, source)) as f:
                 text = f.read()
-            if text.count(design) != 1:
-                raise RuntimeError(f"lever {name}: {design!r} is not in "
-                                   f"{source} exactly once")
+            for old, _ in edits:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"lever {name}: {old!r} is not in "
+                                       f"{source} exactly once")
             work = os.path.join(_LAB_DIR, "levers", name)
             os.makedirs(work, exist_ok=True)
             for f_name in os.listdir(src_dir):
@@ -428,7 +534,8 @@ def lever_versions(src_dir: str, kernels) -> dict:
                     with open(os.path.join(src_dir, f_name)) as f:
                         body = f.read()
                     if f_name == source:
-                        body = body.replace(design, other)
+                        for old, new in edits:
+                            body = body.replace(old, new)
                     with open(os.path.join(work, f_name), "w") as f:
                         f.write(body)
             out[name] = work
@@ -528,6 +635,10 @@ def _load(path: str) -> ctypes.CDLL:
         "mcos_svj_terminal_qe_from_draws": [vp, vp, vp, vp, vp, vp, vp, i64,
                                             i32, i32, u64, vp, vp],
         "mcos_hhw_terminal": [vp, vp, i64, i32, i32, u64, vp, vp],
+        "mcos_svj_terminal": [vp, vp, vp, vp, i32, i64, i32, i32, u64, vp,
+                              vp],
+        "mcos_svj_terminal_qe": [vp, vp, vp, vp, i32, i64, i32, i32, u64, vp,
+                                 vp],
         "mcos_k5_floor": [i32, vp, vp, vp, vp, vp, vp, i64, i32, u64, vp,
                           vp],
         "mcos_acklam_probe": [i32, vp, vp, i32],
@@ -782,14 +893,17 @@ def exps_per_pair_step(name: str):
 
 
 def pair_steps_from_calls(name: str, calls: int):
-    """The pair-steps a loop pass of K6, K7 or K8 covers, from the Philox
+    """The pair-steps a loop pass of K3, K4, K6-K9 covers, from the Philox
     calls in it (their exps depend on the variant, so `exps_per_pair_step`
-    does not fit them): K6 and K7 make one call a pair-step (K7 two a step
-    pair); K8 two a step pair, plus a third only for a step pair in which a
-    jump lands, so a pass of 2 or 3 calls covers 2 pair-steps. None for
+    does not fit them): K4, K6 and K7 make one call a pair-step (K7 two a
+    step pair); K3 and K9 one call a step pair (four words, two Box-Muller
+    pairs); K8 two a step pair, plus a third only for a step pair in which
+    a jump lands, so a pass of 2 or 3 calls covers 2 pair-steps. None for
     other kernels."""
-    if "svj_stats_kernel" in name or "hhw_kernel" in name:
+    if any(_SASS_PATTERN[k] in name for k in ("k4", "k6", "k7")):
         return calls or None
+    if any(_SASS_PATTERN[k] in name for k in ("k3", "k9")):
+        return 2 * calls or None
     if "svcj_kernel" in name:
         return 2 * -(-calls // 3) or None
     return None
@@ -810,8 +924,8 @@ def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
     """Per kernel matching `pattern`: instruction counts by class, whole and
     per loop; each loop's pair-steps and hot count per pair-step, for
     K10/K11 from its MUFU.EX2 count over the exps a pair-step takes, for
-    K6-K8 from its Philox calls (`pair_steps_from_calls`), for K5 (path-
-    steps) from its draw loads (`k5_steps`); with
+    K3, K4, K6-K9 from its Philox calls (`pair_steps_from_calls`), for
+    K5 (path-steps) from its draw loads (`k5_steps`); with
     `dump_prefix`, each kernel's listing is also written to
     `<dump_prefix><kernel>.sass`."""
     out = {}
@@ -1060,8 +1174,22 @@ K7_SWEEP = (160_000, 264_000)
 # and three whole waves at 6 blocks an SM (the route's 500 000 take 1954,
 # 2.47 waves).
 K5_SWEEP = (405_504, 608_256)
+# K3 and K4 at the PRNG route's 500 000 pairs x 63 steps (T = 0.25, the
+# default SVJ parameters), with two branches and the companion: (name,
+# pairs, steps, T, branches, companion, SVJParams fields) of the bit-for-bit
+# checks. Beside the route: a ragged pair count at an odd step count (K3's
+# last step on half a call), one branch without the companion at an even
+# count, and for K4 the psi cases of K5 (K5_PSI at 4 and 8 steps), where
+# its QE transition takes both branches and v reaches the mass at zero.
+PRNG_PAIRS = 500_000
+PRNG_CHECKS = (("route", PRNG_PAIRS, 63, 0.25, 2, True, {}),
+               ("ragged_odd", 200_003, 13, 0.25, 2, True, {}),
+               ("one_branch", 10_007, 64, 0.25, 1, False, {}))
+K4_PSI_CHECKS = (("psi_4", PRNG_PAIRS, 4, 1.0, 2, True, K5_PSI),
+                 ("psi_8", PRNG_PAIRS, 8, 1.0, 2, True, K5_PSI))
 # Timed launch of each kernel: (pairs, one thread each, blocks of 256).
-TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k5": K5_PATHS, "k6": K6_PAIRS,
+TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k3": PRNG_PAIRS, "k4": PRNG_PAIRS,
+               "k5": K5_PATHS, "k6": K6_PAIRS,
                "k7": K7_PAIRS, "k8": K8_PAIRS, "k9": K9_PAIRS,
                "k10": ROUGH_PAIRS, "k11": ROUGH_PAIRS}
 
@@ -1104,6 +1232,37 @@ def _k5_call(lib, out, net, uj, consts, seed=43, fn="qe"):
             stream)
     if rc != 0:
         raise RuntimeError(f"K5 ({fn}) launch failed: {rc}")
+
+
+# K3's and K4's C entry points and plain versions.
+_PRNG = {"k3": ("mcos_svj_terminal", "svj_terminal_plain"),
+         "k4": ("mcos_svj_terminal_qe", "svj_terminal_qe_plain")}
+
+
+def _prng_case(kernel: str, steps: int, T: float, fields: dict, device):
+    """(params, launch scalars, device count table) of a K3 or K4 case."""
+    from mcos_tpu_torch.models.params import SVJParams
+
+    params = SVJParams(**fields)
+    if kernel == "k3":
+        consts = ck._svj_prng_consts(params, 22500.0, T, steps)
+        lam_dt = consts[9]
+    else:
+        consts = ck._qe_consts(params, 22500.0, T, steps)
+        lam_dt = consts[ck._QE_FIELDS.index("lam_dt")]
+    return params, consts, ck._device_table(float(lam_dt), steps,
+                                            str(device))
+
+
+def _prng_call(lib, kernel: str, out, pairs, steps, nb, companion, consts,
+               cdf, seed=43):
+    rc = getattr(lib, _PRNG[kernel][0])(
+        out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr() if companion else None, cdf.data_ptr(),
+        int(cdf.numel()), pairs, steps, nb, seed, consts.ctypes.data,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel.upper()} launch failed: {rc}")
 
 
 def _k7_params():
@@ -1290,6 +1449,28 @@ def check_outputs(lib, device, kernels=tuple(_KERNELS)) -> dict:
             res[f"{key}_s_g_max_rel_err"] = max(
                 float(((out[i] - ref[i]).abs() / ref[i].abs()).max())
                 for i in (0, 2))
+    for kernel in ("k3", "k4"):
+        if kernel not in kernels:
+            continue
+        cases = PRNG_CHECKS + (K4_PSI_CHECKS if kernel == "k4" else ())
+        for name, pairs, steps, T, nb, comp, fields in cases:
+            params, consts, cdf = _prng_case(kernel, steps, T, fields, device)
+            out = torch.empty((3, nb, pairs), device=device)
+            _prng_call(lib, kernel, out, pairs, steps, nb, comp, consts, cdf,
+                       seed=42)
+            ref = _plain_once((kernel, name), lambda: [
+                x for x in getattr(ck, _PRNG[kernel][1])(
+                    params, 22500.0, T, 42, num_paths=pairs,
+                    num_steps=steps, antithetic=nb == 2, companion=comp,
+                    device=device) if x is not None])
+            key = f"{kernel}_{name}_{pairs}x{steps}_{nb}b"
+            res[f"{key}_bit_equal"] = all(
+                bool((out[i] == r).all()) for i, r in enumerate(ref))
+            for i, (label, r) in enumerate(zip("svg", ref)):
+                res[f"{key}_{label}_bit_equal_share"] = float(
+                    (out[i] == r).float().mean())
+            res[f"{key}_s_max_rel_err"] = float(
+                ((out[0] - ref[0]).abs() / ref[0].abs()).max())
     for steps, nb in K7_CHECKS if "k7" in kernels else ():
         params = _k7_params()
         out = torch.empty((2, nb, K7_PAIRS), device=device)
@@ -1390,6 +1571,18 @@ def time_versions(libs: dict, device, kernels=tuple(_KERNELS),
                     lambda: _k5_call(libs[label], out, net, None, consts),
                     20))
             res[f"k5_{paths}x63_own_jumps"] = dict(runs)
+    for kernel in ("k3", "k4"):
+        if kernel not in kernels:
+            continue
+        _, consts, cdf = _prng_case(kernel, 63, 0.25, {}, device)
+        for pairs in (PRNG_PAIRS, *K5_SWEEP):
+            out = torch.empty((3, 2, pairs), device=device)
+            runs = collections.defaultdict(list)
+            for label in order:
+                runs[label].append(_events_ms(
+                    lambda: _prng_call(libs[label], kernel, out, pairs, 63,
+                                       2, True, consts, cdf), 20))
+            res[f"{kernel}_{pairs}x63"] = dict(runs)
     for pairs in (K7_PAIRS, *K7_SWEEP) if "k7" in kernels else ():
         consts = ck._hhw_consts(_k7_params(), 22500.0, K7_T, 128)
         out = torch.empty((2, 2, pairs), device=device)
@@ -1432,7 +1625,7 @@ def main() -> None:
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--levers", action="store_true",
-                    help="also time each K5/K7 lever of the version "
+                    help="also time each K3/K4/K5/K7 lever of the version "
                     "labelled 'new' taken out alone")
     ap.add_argument("--dump", default="",
                     help="directory for each kernel's SASS listing")

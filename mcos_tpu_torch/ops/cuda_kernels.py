@@ -47,10 +47,11 @@ K7 5, K8 6, K9 7, K10 8, K11 9.
 
 The plain versions repeat each kernel's float32 operations in the same
 order. Where a result feeds a discontinuous select (the QE transition's
-branches; K6's dead-or-alive test on the log-spot carry), and in K7-K11
-(hundreds of dependent steps), the CUDA source keeps nvcc from contracting
-multiply-adds and the plain version here performs the same IEEE
-operations; elsewhere the two differ by FMA rounding. K2 also takes the
+branches; K6's dead-or-alive test on the log-spot carry), and in K3, K4
+and K6-K11, the CUDA source keeps nvcc from contracting multiply-adds and
+the plain version here performs the same IEEE operations, so the two
+agree bit for bit; elsewhere (K1, K5's log spot) they differ by FMA
+rounding. K2 also takes the
 hardware's approximate log2, rsqrt and sincos where its plain version
 calls torch's accurate functions (csrc/gbm.cu says how far apart they
 are).
@@ -843,6 +844,35 @@ svj_terminal.launches = 0
 # ─────────────────────────────────────────────────────────────────────────────
 # K4: SVJ QE terminal state from an in-kernel generator
 # ─────────────────────────────────────────────────────────────────────────────
+def _qe_step_folded(v: torch.Tensor, z_v: torch.Tensor, u_v: torch.Tensor,
+                    c: dict) -> torch.Tensor:
+    """K4's variance transition (csrc/svj_qe.cu:qe_step): Andersen QE in
+    the TPU kernel's division-folded algebra (pallas_kernels.py:
+    _svj_qe_kernel). The quadratic branch a·(√b² + z_v)² for
+    s² ≤ 1.5·m² on t = 2/ψ = 2m²/s², clipped to [1, 2e12], with
+    b² = t − 1 + √(t(t − 1)); the exponential branch with mass
+    p = (s² − m²)/(s² + m²) at 0 and tail
+    m·log((1 − p)/(1 − u))/(1 − p).
+    The law of `simulate.qe_variance_step` (K5's and the twins'), in one
+    IEEE float32 operation per operation of the kernel."""
+    m = c["theta"] + (v - c["theta"]) * c["e_kdt"]
+    s2 = v * c["var1"] + c["var2"]
+    m2 = m * m
+    t = torch.clamp((2.0 * m2) / torch.clamp(s2, min=1e-30), min=1.0,
+                    max=2e12)
+    b2 = (t - 1.0) + torch.sqrt(t * (t - 1.0))
+    x = torch.sqrt(b2) + z_v
+    v_quad = (m / (1.0 + b2)) * (x * x)
+    p_mass = torch.clamp((s2 - m2) / torch.clamp(s2 + m2, min=1e-30),
+                         min=0.0, max=0.999)
+    one_m_p = 1.0 - p_mass
+    # A Python float clamps a float32 tensor at its float32 rounding.
+    u_clip = torch.clamp(u_v, max=1.0 - 1e-7)
+    v_exp = torch.where(u_v <= p_mass, torch.zeros_like(v),
+                        (m * torch.log(one_m_p / (1.0 - u_clip))) / one_m_p)
+    return torch.where(s2 <= 1.5 * m2, v_quad, v_exp)
+
+
 def svj_terminal_qe_plain(params: SVJParams, spot, T, seed: int, *,
                           num_paths: int, num_steps: int,
                           antithetic: bool = True, companion: bool = False,
@@ -851,8 +881,9 @@ def svj_terminal_qe_plain(params: SVJParams, spot, T, seed: int, *,
                                      Optional[torch.Tensor]]:
     """Plain torch version of K4 on the kernel's Philox words: step t takes
     counter (pair_lo, pair_hi, t, 3) (words 0, 1 → Box-Muller (z_x, z_v),
-    word 2 the exponential branch's uniform); call `num_steps` the jump
-    count and size. v is shared by the pair: both rows are equal."""
+    word 2 the exponential branch's uniform) and the transition
+    `_qe_step_folded`; call `num_steps` the jump count and size. v is
+    shared by the pair: both rows are equal."""
     device = torch.device(device)
     consts = _qe_consts(params, spot, T, num_steps)
     c = _qe_dict(consts)
@@ -863,7 +894,7 @@ def svj_terminal_qe_plain(params: SVJParams, spot, T, seed: int, *,
     for t in range(num_steps):
         u = _pair_words(num_paths, t, _QE_DOMAIN, seed, device)
         z_x, z_v = box_muller(u[0], u[1])
-        v_next = qe_variance_step(v, z_v, u[2], c)
+        v_next = _qe_step_folded(v, z_v, u[2], c)
         _qe_log_spot(c, v, v_next, ls, lg, z_x)
         v = v_next
     u = _pair_words(num_paths, num_steps, _QE_DOMAIN, seed, device)

@@ -10,7 +10,8 @@ grid, so K(t) ~= sum_i c_i e^{-x_i t}. Host float64, copied unchanged;
 tests/test_torch_copies.py holds both functions equal to the JAX package's.
 
 The rest of rough Heston (the fractional-Riccati COS oracle and the lifted
-Monte Carlo) is not ported yet (ROADMAP.md queue 1, item 6).
+Monte Carlo) is not ported yet (ROADMAP.md queue 1, slice L: rough
+Heston).
 """
 
 from __future__ import annotations

@@ -189,11 +189,12 @@ def qe_variance_step(v: torch.Tensor, z_v: torch.Tensor, u_v: torch.Tensor,
                      c: dict) -> torch.Tensor:
     """Andersen QE variance transition v → v′: the quadratic branch
     a·(√b² + z_v)² for ψ ≤ 1.5, else the exponential branch (mass p at 0)
-    on the uniform u_v. The twins pass z_v = `ndtri_safe(u_v)`; the
-    kernels' plain versions Acklam's inverse (K5) or a Box-Muller normal
-    (K4). One IEEE float32 operation per operation of
-    csrc/philox.cuh:qe_variance_step, whose branch selects a ulp could
-    flip; `c` holds theta, e_kdt, var1 and var2."""
+    on the uniform u_v. The twins pass z_v = `ndtri_safe(u_v)`, K5's
+    plain version Acklam's inverse (K4's takes a transition of its own,
+    in the same law: cuda_kernels.py:_qe_step_folded). One IEEE float32
+    operation per operation of K5's csrc/svj_qe_draws.cu:qe_step_lazy,
+    whose branch selects a ulp could flip; `c` holds theta, e_kdt, var1
+    and var2."""
     m = c["theta"] + (v - c["theta"]) * c["e_kdt"]
     s2 = v * c["var1"] + c["var2"]
     psi = s2 / torch.clamp(m * m, min=1e-20)

@@ -7,7 +7,9 @@ before the one divide. Each Horner step is taken in the plain version's
 form (float64 a x + c, then float32) and in the kernel's (one float32 FMA,
 rounded once from the exact value). Every float32 of the two seams of the
 regions is covered, and 2^20 seeded uniforms. Then the K5 cases that take
-the QE transition's exponential branch: they do, on the plain path. Needs
+the QE transition's exponential branch: they do, on the plain path, and
+on K4's plain path too (down to its mass at zero), where the route's
+defaults never do. Needs
 no card."""
 
 import numpy as np
@@ -161,3 +163,53 @@ def test_route_defaults_never_take_the_exponential_branch():
     assert p.xi ** 2 / (2 * p.kappa * p.theta) < 1.5
     assert max(_psi_shares(p, 0.25, 63)) == 0.0
     assert max(_psi_shares(SVJParams(v0=0.005), 1.0, 8)) == 0.0
+
+
+def _k4_plain_branches(params: SVJParams, T: float, steps: int,
+                       pairs: int = 4096, seed: int = 42):
+    """Along K4's plain version's own path (its Philox words, its
+    Box-Muller z_v, its transition `_qe_step_folded`), per step: the share
+    of pairs whose QE transition takes the exponential branch (its test:
+    s^2 > 1.5 m^2, i.e. psi > 1.5) and the share that lands on its mass at
+    zero (v' = 0). Also the path's terminal v."""
+    c = ck._qe_dict(ck._qe_consts(params, 22500.0, T, steps))
+    v = torch.full((pairs,), c["v0"])
+    exp_share, zero_share = [], []
+    for t in range(steps):
+        u = ck._pair_words(pairs, t, ck._QE_DOMAIN, seed, "cpu")
+        _, z_v = ck.box_muller(u[0], u[1])
+        m = c["theta"] + (v - c["theta"]) * c["e_kdt"]
+        s2 = v * c["var1"] + c["var2"]
+        exponential = ~(s2 <= 1.5 * (m * m))
+        v = ck._qe_step_folded(v, z_v, u[2], c)
+        exp_share.append(float(exponential.double().mean()))
+        zero_share.append(float((exponential & (v == 0)).double().mean()))
+    return exp_share, zero_share, v
+
+
+@pytest.mark.parametrize("steps", [4, 8])
+def test_k4_plain_path_takes_both_qe_branches(steps):
+    """At kernel_lab.K5_PSI (T = 1, 4 and 8 steps, the cases chip_smoke.py
+    and tests/test_torch_cuda.py hold K4 at) the plain version's own path
+    takes the quadratic branch, the exponential branch and its mass at
+    zero, so the card's bit-for-bit v covers each lazy branch of the
+    kernel. The path traced here is the plain version's: same terminal v."""
+    params = SVJParams(**kernel_lab.K5_PSI)
+    exp_share, zero_share, v = _k4_plain_branches(params, 1.0, steps)
+    _, v_plain, _ = ck.svj_terminal_qe_plain(
+        params, 22500.0, 1.0, 42, num_paths=4096, num_steps=steps,
+        device="cpu")
+    assert torch.equal(v_plain[0], v) and torch.equal(v_plain[1], v)
+    assert 0.05 < float(np.mean(exp_share)) < 0.95, exp_share
+    assert max(zero_share) > 0.01, zero_share
+    assert bool((v == 0).any()) and bool((v > 0).any())
+
+
+def test_k4_route_defaults_never_take_the_exponential_branch():
+    """At SVJParams' defaults (the PRNG QE route, 63 steps over T = 0.25)
+    K4's plain path runs the quadratic branch only: the lazy kernel's
+    exponential branch is never taken there, and only the psi cases pin
+    it."""
+    exp_share, zero_share, v = _k4_plain_branches(SVJParams(), 0.25, 63)
+    assert max(exp_share) == 0.0 and max(zero_share) == 0.0
+    assert bool((v > 0).all())

@@ -176,7 +176,18 @@ def test_termsvj_american_answers_501():
     with pytest.raises(pserver.ApiError) as err:
         pserver.handle_termsvj(dict(_TD, mode="american"), device="cpu")
     assert err.value.status == 501
-    assert "queue 1, item 5" in err.value.detail
+    assert "slice H" in err.value.detail
+
+
+def test_termsvj_american_501_names_its_slice_not_an_item_number():
+    """The 501 body names the roadmap slice that ports American exercise
+    by its letter and subject, which survive a re-anchored queue, and no
+    item number, which does not."""
+    with pytest.raises(pserver.ApiError) as err:
+        pserver.handle_termsvj(dict(_TD, mode="american"), device="cpu")
+    assert err.value.status == 501
+    assert "slice H (American exercise" in err.value.detail
+    assert "item" not in err.value.detail
 
 
 def test_termsvj_calibrate_keys_match_jax():

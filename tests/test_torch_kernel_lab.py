@@ -30,6 +30,18 @@ _K7 = ("_ZN38_GLOBAL__N__4ece8f2d_6_hhw_cu_8111799510hhw_kernelILi2EEEvPfS1_xi"
 # K4's kernel, whose name K5's pattern must not match
 _K4 = ("_ZN42_GLOBAL__N__0d6f3c1a_9_svj_qe_cu_5b6e2a1913svj_qe_kernelILi2EEEvPf"
        "S1_S1_PKdixi5uint2N4mcos8QeConstsE")
+# K3 and K4 with round keys, K1, K2 and K9: with the names above, the
+# eleven kernels' instantiations
+_K3 = ("_ZN38_GLOBAL__N__4c9901ee_6_svj_cu_d24bd5f210svj_kernelILi2EEEvPfS1_"
+       "S1_PKdixiN4mcos10PhiloxKeysENS_13SvjPrngConstsE")
+_K4_KEYS = ("_ZN41_GLOBAL__N__1adea571_9_svj_qe_cu_385c63d113svj_qe_kernelILi1E"
+            "EEvPfS1_S1_PKdixiN4mcos10PhiloxKeysENS1_8QeConstsE")
+_K1 = ("_ZN44_GLOBAL__N__3e1f0b2a_12_svj_draws_cu_7c4d9a1e16svj_draws_kernel"
+       "EPKfS1_S1_S1_PfS2_S2_xii5uint2NS_9SvjConstsE")
+_K2 = ("_ZN38_GLOBAL__N__eca620af_6_gbm_cu_21a6af4110gbm_kernelEPfxiiN4mcos"
+       "10PhiloxKeysEfff")
+_K9 = ("_ZN41_GLOBAL__N__ed5980cf_9_svj_td_cu_322ca70213svj_td_kernelILi2EEEv"
+       "PfS1_S1_PKfPKdixiN4mcos10PhiloxKeysENS_8TdConstsE")
 
 # What `nvcc -Xptxas -v` prints for one file: an entry function with a
 # stack frame, an internal function whose frame must not be charged to it,
@@ -322,7 +334,7 @@ def test_the_lab_knows_k5_and_k7():
     for short, name in names.items():
         hits = [k for k, pat in kl._SASS_PATTERN.items() if pat in name]
         assert hits == [short], (short, hits)
-    assert not [k for k, pat in kl._SASS_PATTERN.items() if pat in _K4]
+    assert [k for k, pat in kl._SASS_PATTERN.items() if pat in _K4] == ["k4"]
     # chip_smoke.py's K5 shape and the two cases where psi crosses 1.5
     assert [c[:3] for c in kl.K5_CHECKS] == [
         ("route", 500_000, 63), ("psi_4", 500_000, 4), ("psi_8", 500_000, 8)]
@@ -409,6 +421,29 @@ def test_lever_versions_make_one_edit_each(monkeypatch, tmp_path):
         assert changed == [source], name
 
 
+def test_the_eager_qe_transition_lives_in_the_lab_alone(monkeypatch,
+                                                        tmp_path):
+    """No kernel runs the eager QE transition, so `philox.cuh` does not
+    hold it: the lab's own copy serves K5's `k5_eager_qe` lever (defined
+    after the include, then called in place of `qe_step_lazy`) and the
+    compute floor of K5's two-region design."""
+    import os
+
+    with open(os.path.join(kl.ck.CSRC_DIR, "philox.cuh")) as f:
+        assert "float qe_variance_step(" not in f.read()
+    assert kl._QE_EAGER_SRC in kl._K5_LAB_SRC
+    assert "lab::qe_eager(v, mcos::acklam_ndtri(u_v), u_v, c)" in \
+        kl._K5_LAB_SRC
+    monkeypatch.setattr(kl, "_LAB_DIR", str(tmp_path))
+    work = kl.lever_versions(kl.ck.CSRC_DIR, ("k5",))["k5_eager_qe"]
+    with open(os.path.join(work, "svj_qe_draws.cu")) as f:
+        text = f.read()
+    assert text.count(kl._QE_EAGER_SRC) == 1
+    assert text.index('#include "philox.cuh"') < text.index(
+        kl._QE_EAGER_SRC) < text.index("lab::qe_eager(v, acklam_converged(")
+    assert "= qe_step_lazy(v, u_v, c);" not in text
+
+
 def test_k5_lab_source_follows_the_version(tmp_path):
     """The K5 lab file runs a version's own kernel in the compute floor
     and its own Acklam form in the probe only where the version has them
@@ -417,3 +452,82 @@ def test_k5_lab_source_follows_the_version(tmp_path):
         "#define K5_HAS_LAUNCH\n#define K5_HAS_ACKLAM\n")
     (tmp_path / "svj_qe_draws.cu").write_text("// qe_variance_step only\n")
     assert kl._k5_lab_source(str(tmp_path)) == kl._K5_LAB_SRC
+
+
+def test_the_lab_knows_k3_and_k4():
+    assert kl._KERNELS["k3"] == "svj.cu"
+    assert kl._KERNELS["k4"] == "svj_qe.cu"
+    assert kl.TIMED_PAIRS["k3"] == kl.TIMED_PAIRS["k4"] == 500_000
+    # chip_smoke.py's route shape first; K4 also at K5's psi cases
+    assert kl.PRNG_CHECKS[0][:5] == ("route", 500_000, 63, 0.25, 2)
+    assert [c[2] % 2 for c in kl.PRNG_CHECKS[1:]] == [1, 0]
+    assert [c[:3] for c in kl.K4_PSI_CHECKS] == [
+        ("psi_4", 500_000, 4), ("psi_8", 500_000, 8)]
+    assert all(c[-1] == kl.K5_PSI for c in kl.K4_PSI_CHECKS)
+
+
+@pytest.mark.parametrize("name, short", [
+    (_K1, None), (_K2, "k2"), (_K3, "k3"), (_K4, "k4"), (_K4_KEYS, "k4"),
+    (_K5, "k5"), (_K6, "k6"), (_K7, "k7"), (_K8, "k8"), (_K9, "k9"),
+    (_K10, "k10"), (_K11, "k11")])
+def test_anchored_patterns_find_each_kernel_alone(name, short):
+    """Over the eleven kernels' instantiations, each of the lab's patterns
+    finds its own kernel and no other's, as a substring (ptxas names) and
+    as a regular expression (`sass_report`): `svj_kernel` is a part of no
+    other name once anchored, nor `svj_qe_kernel` of K5's. K1 is not in
+    the lab."""
+    import re
+
+    hits = [k for k, pat in kl._SASS_PATTERN.items() if pat in name]
+    assert hits == ([short] if short else [])
+    hits = [k for k, pat in kl._SASS_PATTERN.items() if re.search(pat, name)]
+    assert hits == ([short] if short else [])
+
+
+@pytest.mark.parametrize("name, calls, steps", [
+    (_K3, 1, 2), (_K3, 2, 4), (_K4, 1, 1), (_K4_KEYS, 2, 2), (_K9, 1, 2)])
+def test_k3_k4_pair_steps_from_calls(name, calls, steps):
+    """K3 (and K9) make one Philox call a step pair, K4 one a pair-step."""
+    assert kl.pair_steps_from_calls(name, calls) == steps
+
+
+def test_sass_report_reads_k3_and_k4_pair_steps(monkeypatch):
+    """A K3 pass of one Philox call covers two pair-steps, a K4 pass of
+    one call one pair-step."""
+    k3 = _k_listing(1)
+    k4 = _k_listing(1)
+    monkeypatch.setattr(kl, "sass_functions",
+                        lambda path: {_K3: k3, _K4_KEYS: k4})
+    rep = kl.sass_report("unused.so", "|".join(
+        kl._SASS_PATTERN[k] for k in ("k3", "k4")))
+    (l3,) = rep[_K3]["loops"]
+    (l4,) = rep[_K4_KEYS]["loops"]
+    assert l3["pair_steps"] == 2 and l4["pair_steps"] == 1
+    assert l3["hot_per_pair_step"] == l3["hot_instructions"] / 2
+    assert l4["hot_per_pair_step"] == l4["hot_instructions"]
+
+
+def test_k3_k4_lever_versions_make_one_edit_each(monkeypatch, tmp_path):
+    """Each lever of the K3 and K4 designs is found once in the package's
+    sources, and its variant differs from them in that file alone: the
+    contracted carries, separate sinf/cosf, the I2F uniform, no round keys,
+    a minimum of 8 blocks an SM, and for K4 the eager QE transition and the
+    quadratic branch on psi (the folding taken out)."""
+    import os
+
+    monkeypatch.setattr(kl, "_LAB_DIR", str(tmp_path))
+    versions = kl.lever_versions(kl.ck.CSRC_DIR, ("k3", "k4"))
+    assert set(versions) == {f"{k}_{lever}" for k in ("k3", "k4")
+                             for lever in ("contracted", "separate_sin_cos",
+                                           "i2f_uniform", "no_round_keys",
+                                           "min_8_blocks")} | {
+        "k4_eager_qe", "k4_unfolded_quadratic"}
+    for name, work in versions.items():
+        source = kl._KERNELS[name[:2]]
+        changed = []
+        for f_name in os.listdir(kl.ck.CSRC_DIR):
+            with open(os.path.join(kl.ck.CSRC_DIR, f_name)) as a, open(
+                    os.path.join(work, f_name)) as b:
+                if a.read() != b.read():
+                    changed.append(f_name)
+        assert changed == [source], name

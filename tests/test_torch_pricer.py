@@ -111,6 +111,15 @@ def test_engine_viz_programs_shapes_and_law():
     assert abs(terms.mean() - fwd) < 5 * terms.std() / np.sqrt(1024)
 
 
+def test_mesh_error_names_slice_n():
+    """The mesh= error names the roadmap slice that ports sharding, by its
+    letter and subject rather than by an item number."""
+    with pytest.raises(NotImplementedError) as err:
+        ppricer.MonteCarloEngine(SVJParams(), mesh="auto", device="cpu")
+    assert "slice N (sharding over NCCL)" in str(err.value)
+    assert "item" not in str(err.value)
+
+
 def test_unported_options_raise():
     """Only sharding and the td-SVJ American pricer (which waits on the
     American engine) are still unported; PRNG-driven pricing and the QE

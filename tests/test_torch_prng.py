@@ -16,6 +16,7 @@ import torch
 from mcos_tpu.models.params import SVJParams as JSVJParams
 from mcos_tpu.ops import simulate as jsim
 from mcos_tpu.ops.pallas_kernels import _binom_count_cdf
+from mcos_tpu_torch import kernel_lab
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import cuda_kernels as ck
 
@@ -28,25 +29,30 @@ _PLAIN = {"euler": ck.svj_terminal, "qe": ck.svj_terminal_qe}
 _TWIN = {"euler": jsim.simulate_terminal, "qe": jsim.simulate_terminal_qe}
 
 
-def _law(scheme, fields, num_steps=16, seed=17):
+def _law(scheme, fields, num_steps=16, seed=17, T=0.5):
     """(port plain version, JAX scan twin) terminal (S, v, G) as numpy."""
     before = dict(ck.launch_counts())
-    got = _PLAIN[scheme](SVJParams(**fields), 22500.0, 0.5, seed,
+    got = _PLAIN[scheme](SVJParams(**fields), 22500.0, T, seed,
                          num_paths=_N, num_steps=num_steps, companion=True,
                          device="cpu")
     assert ck.launch_counts() == before    # CPU tensors: no launch
-    ref = _TWIN[scheme](JSVJParams(**fields), 22500.0, 0.5,
+    ref = _TWIN[scheme](JSVJParams(**fields), 22500.0, T,
                         jax.random.key(seed), num_paths=_N,
                         num_steps=num_steps, companion=True)
     return ([x.numpy() for x in got], [np.asarray(x) for x in ref])
 
 
-@pytest.mark.parametrize("scheme", ["euler", "qe"])
-def test_prng_plain_law_matches_scan_twin(scheme):
+@pytest.mark.parametrize("scheme, fields, steps, T", [
+    pytest.param("euler", _FIELDS, 16, 0.5, id="euler"),
+    pytest.param("qe", _FIELDS, 16, 0.5, id="qe"),
+    # kernel_lab.K5_PSI over a year: psi crosses 1.5, so K4's transition
+    # takes its exponential branch and the mass at zero as well
+    pytest.param("qe", kernel_lab.K5_PSI, 8, 1.0, id="qe-psi")])
+def test_prng_plain_law_matches_scan_twin(scheme, fields, steps, T):
     """The reference's kernel-vs-twin pins (test_pallas.py:67-85,
     :242-262): mean S and G within 6 se, mean v within 0.005, v ≥ 0; and
     for QE the dispersion of S within 2 %."""
-    (s, v, g), (s_ref, v_ref, g_ref) = _law(scheme, _FIELDS)
+    (s, v, g), (s_ref, v_ref, g_ref) = _law(scheme, fields, steps, T=T)
     assert s.shape == v.shape == g.shape == (2, _N)
     se = s_ref.std() / np.sqrt(s_ref.size)
     assert abs(s.mean() - s_ref.mean()) < 6 * se
@@ -57,6 +63,8 @@ def test_prng_plain_law_matches_scan_twin(scheme):
     if scheme == "qe":
         assert s.std() == pytest.approx(s_ref.std(), rel=0.02)
         np.testing.assert_array_equal(v[0], v[1])   # one variance path
+        if fields is kernel_lab.K5_PSI:
+            assert (v == 0).any() and (v_ref == 0).any()   # mass at zero
 
 
 @pytest.mark.parametrize("scheme", ["euler", "qe"])

@@ -142,11 +142,10 @@ def test_k5_wrapper_rejects_bad_inputs():
         ck.svj_terminal_qe_from_draws(p, 1.0, 1.0, zm, zm, None, zm)
 
 
-def test_qe_variance_step_matches_the_reference_algebra():
-    """The transition helper both QE kernels share, against
-    `_qe_variance_step` on a (v, u) grid that crosses ψ = 1.5 and the
-    exponential branch's mass at 0 (inputs as the reference takes them:
-    z_v = Acklam(u))."""
+def _qe_step_against_the_reference_algebra(step):
+    """`step` (a plain QE transition) against `_qe_variance_step` on a
+    (v, u) grid that crosses ψ = 1.5 and the exponential branch's mass at
+    0 (inputs as the reference takes them: z_v = Acklam(u))."""
     from mcos_tpu.ops.pallas_kernels import _qe_variance_step
 
     # ξ = 1.2 over quarter-year steps, so ψ crosses 1.5 inside the grid.
@@ -159,16 +158,32 @@ def test_qe_variance_step_matches_the_reference_algebra():
     # steps into FMAs, which `ndtri_acklam` reproduces. Run eagerly, the
     # reference rounds each step twice and moves z_v by up to 5e-5, which
     # the quadratic branch's (√b² + z_v)² magnifies where the two cancel.
-    step = jax.jit(_qe_variance_step)
-    ref = np.asarray(step(jnp.asarray(v), jnp.asarray(u), c["theta"],
-                          c["e_kdt"], c["var1"], c["var2"]))
+    jstep = jax.jit(_qe_variance_step)
+    ref = np.asarray(jstep(jnp.asarray(v), jnp.asarray(u), c["theta"],
+                           c["e_kdt"], c["var1"], c["var2"]))
     vt, ut = torch.from_numpy(v), torch.from_numpy(u)
-    got = ck.qe_variance_step(vt, psobol.ndtri_acklam(ut), ut, c).numpy()
+    got = step(vt, psobol.ndtri_acklam(ut), ut, c).numpy()
     # rtol 1e-4 + atol 1e-6, the v window used throughout: XLA also
     # contracts the transition's own multiply-adds, a few ulps that the
     # cancellation above can magnify.
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
-    assert (got == 0).any() and (got > 0).any()   # both branches reached
+    m = c["theta"] + (v - c["theta"]) * c["e_kdt"]
+    quadratic = v * c["var1"] + c["var2"] <= 1.5 * m * m
+    assert quadratic.any() and not quadratic.all()   # both branches
+    assert (got[quadratic] > 0).all()
+    assert (got[~quadratic] == 0).any()              # the mass at 0
+    assert (got[~quadratic] > 0).any()               # the tail
+
+
+def test_qe_variance_step_matches_the_reference_algebra():
+    """K5's and the scan twins' transition, `qe_variance_step`."""
+    _qe_step_against_the_reference_algebra(ck.qe_variance_step)
+
+
+def test_qe_step_folded_matches_the_reference_algebra():
+    """K4's transition, `_qe_step_folded` (the division-folded algebra):
+    the same law, held to the same grid and window."""
+    _qe_step_against_the_reference_algebra(ck._qe_step_folded)
 
 
 @pytest.mark.parametrize("seed", [0, 42])

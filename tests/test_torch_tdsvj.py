@@ -396,7 +396,7 @@ def test_engine_no_control_variate_and_refusals():
     assert row["price"] == row["raw_mc_price"]
     assert "cv_beta" not in eng.price_forward_start(_SPOT, 0.2, _T)
     assert "cv_beta" not in eng.price_cliquet(_T, n_periods=2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, slice H"):
         eng.price_american(_SPOT, 100.0, _T)
     with pytest.raises(NotImplementedError, match="mesh"):
         pterm.TDSVJEngine(pp, *_SEG, mesh="auto", device="cpu")
