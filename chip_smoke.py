@@ -92,8 +92,30 @@
    pairs × 512 and 511 steps (H = 0.07, 25 factors), at H = 0.5 (one
    factor) and at 24 factors, and timed beside them and their bounds, with
    the route instantiation's registers, blocks an SM and waves.
-9. Prints the kernels' JSON line, the card line and, last, the result line
-   {"ok": true, "device": {...}}.
+9. The Greeks and smile path (slice F), with the counts set to 0 again: a
+   new server on 127.0.0.1 answers POST /api/greeks at the schema's width
+   (200 000 paths, T = 0.25 → 63 steps): a degenerate GBM request whose
+   delta, vega, gamma, theta and rho must lie within 5 standard errors of
+   `bs_all_greeks` (the standard errors of the raw pathwise estimators at
+   this width, from 8 seeds priced in process, whose mean must lie within
+   5 standard errors of its own), the default SVJ request with its AD
+   delta and vega against their CRN finite differences, the Greeks
+   engine's device programs on the card against the CPU's on shared draws
+   (8192 paths, every output of `_all_greeks_device` and the 12-point
+   `_ad_delta_vega_batch`, rtol 1e-4 beside 1e-5 × the output's largest
+   value), with_cross,
+   with_second_order (also at T = 1, 252 steps, with the request's peak
+   device memory), with_min_variance, a strike chain (its ATM row equal to
+   the single contract's), cash and proportional dividends and two
+   requests that must answer 400; POST /api/smile `mc` (one K1 launch a
+   request, every strike against COS within 4 se + 1 %) and `cos` with the
+   density (its mass 1); `price_term_structure` in process (one K3 launch
+   a maturity, every price against COS within 4 se + 1 %); 5 warm requests
+   each of /api/greeks and /api/smile in both methods. Then the counts
+   show K1 and K3 launched exactly that often and no other kernel.
+10. Prints the kernels' JSON line (each kernel's launches on its own path
+   and, under "launches_by_path", on every path), the card line and, last,
+   the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Long output goes to chiprun_out/chip_smoke.json.
@@ -1939,6 +1961,319 @@ def rough_path(device, ck, rough, rough_engine, ExoticEngine, gbm_params,
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice F: /api/greeks and /api/smile
+# ─────────────────────────────────────────────────────────────────────────────
+GREEKS_PATHS = 200_000    # GreeksRequest default
+SMILE_PATHS = 50_000      # SmileRequest default
+TERM_MATS = (0.1, 0.25, 0.5)
+GREEK_KEYS = (("delta", "pathwise", "delta"),
+              ("vega", "vega_per_vol_point", "vega"),
+              ("gamma", "gamma", "gamma"),
+              ("theta", "theta_daily", "theta"),
+              ("rho", "rho", "rho"))
+
+
+def all_finite(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(all_finite(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(all_finite(v) for v in obj)
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return bool(np.isfinite(obj))
+    return True
+
+
+def gbm_raw_greeks(device, greeks, gbm, steps, seeds=8):
+    """The degenerate GBM model's raw pathwise Greeks (control variate
+    off) at the request's width, one row per seed: delta, ∂P/∂σ, gamma (a
+    CRN central difference of the AD delta), theta = −∂P/∂T and rho."""
+    kw = dict(num_paths=GREEKS_PATHS, num_steps=steps, is_call=True,
+              control_variate=False)
+    rows, b = [], 0.01
+    for seed in range(seeds):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(9000 + seed)
+        draws = (torch.randn((steps, 3, GREEKS_PATHS), generator=gen,
+                             device=device),
+                 torch.rand((steps, GREEKS_PATHS), generator=gen,
+                            device=device))
+        _, d_s, d_T, d_p = greeks.price_and_greeks(gbm, SPOT, STRIKE,
+                                                   T_DEFAULT, draws, **kw)
+        d_up, d_dn = (greeks.price_and_greeks(gbm, SPOT * f, STRIKE,
+                                              T_DEFAULT, draws, **kw)[1]
+                      for f in (1 + b, 1 - b))
+        rows.append([float(d_s), float(d_p.v0) * 2 * GBM_SIGMA,
+                     float(d_up - d_dn) / (2 * SPOT * b), -float(d_T),
+                     float(d_p.r)])
+    return np.asarray(rows)
+
+
+def greeks_card_vs_cpu(device, greeks, SVJParams, paths=8192):
+    """The Greeks engine's device programs on the card against the CPU's on
+    the same draws (the default model, T = 0.25): every output of
+    `_all_greeks_device` and the (∂P/∂S, ∂P/∂v₀) arrays of
+    `_ad_delta_vega_batch` at the second-order block's 12 (spot, v₀, T)
+    points, rtol 1e-4 beside an atol of 1e-5 × the output's largest
+    |value|. Every key of the blocks is float64 host arithmetic on these
+    outputs, the same code on both devices. Its central differences cancel
+    digits: at this point veta's over T ± 1/252 keeps fewer of float32's
+    than rtol 1e-4 asks (card and CPU differed by 7.9 times that
+    tolerance there), so the keys themselves are held on the card where
+    they keep them (`tests/test_torch_cuda.py`). Returns the worst
+    |card − CPU| over its tolerance and the output it was found at."""
+    gen = torch.Generator().manual_seed(4)
+    draws = (torch.randn((STEPS_DEFAULT, 3, paths), generator=gen),
+             torch.rand((STEPS_DEFAULT, paths), generator=gen))
+    p = SVJParams()
+    kw = dict(num_paths=paths, num_steps=STEPS_DEFAULT, is_call=True)
+    v0, ht = p.v0, 1 / 252
+    v_up, v_dn = v0 * 1.02**2, v0 * 0.98**2
+    s_up, s_dn = SPOT * 1.01, SPOT * 0.99
+    pts = [(s_up, v0, T_DEFAULT), (s_dn, v0, T_DEFAULT),
+           (SPOT, v0, T_DEFAULT + ht), (SPOT, v0, T_DEFAULT - ht),
+           (s_up, v_up, T_DEFAULT), (s_dn, v_up, T_DEFAULT),
+           (s_up, v_dn, T_DEFAULT), (s_dn, v_dn, T_DEFAULT),
+           (s_up, v0, T_DEFAULT + ht), (s_dn, v0, T_DEFAULT + ht),
+           (s_up, v0, T_DEFAULT - ht), (s_dn, v0, T_DEFAULT - ht)]
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        d = tuple(x.to(dev) for x in draws)
+        res = greeks._all_greeks_device(p, SPOT, STRIKE, T_DEFAULT, d,
+                                        with_lr=True, **kw)
+        res["batch_d_spot"], res["batch_d_v0"] = greeks._ad_delta_vega_batch(
+            p, *([x[i] for x in pts] for i in (0, 1)), STRIKE,
+            [x[2] for x in pts], d, **kw)
+        out[dev.type] = {k: v.detach().cpu().double().numpy()
+                         for k, v in res.items()}
+    worst, where = 0.0, None
+    for k, ref in out["cpu"].items():
+        tol = 1e-4 * np.abs(ref) + 1e-5 * np.abs(ref).max()
+        share = float(np.max(np.abs(out["cuda"][k] - ref) / tol))
+        if share >= worst:
+            worst, where = share, k
+    return worst, where
+
+
+def greeks_path(device, ck, server, greeks, bs_all_greeks, cos_price,
+                SVJParams, TermStructureSVJ, price_term_structure):
+    """POST /api/greeks and /api/smile over HTTP on a fresh server, and
+    `price_term_structure` in process, with the launch counts set to 0
+    just before: K1 once per `mc` smile (and per in-process Sobol batch),
+    K3 once per maturity, no other kernel (the Greeks ride the twins)."""
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    common = {"spot": SPOT, "strike": STRIKE, "T": T_DEFAULT}
+    expect = {"svj_terminal_from_draws": 0, "svj_terminal": 0}
+    out = {"requests": {}}
+    steps = STEPS_DEFAULT
+
+    def ask(what, body, path="/api/greeks", k1=0):
+        n0 = ck.launch_counts()["svj_terminal_from_draws"]
+        status, res, ms = post(base, body, path=path)
+        check(status == 200, f"{what}: status {status}")
+        check(all_finite(res), f"{what}: every number finite")
+        n = ck.launch_counts()["svj_terminal_from_draws"] - n0
+        check(n == k1, f"{what}: K1 launched {n} times, expected {k1}")
+        expect["svj_terminal_from_draws"] += k1
+        out["requests"][what] = {
+            "latency_ms": ms, "elapsed_ms": res.get("elapsed_ms"),
+            **({k: v for k, v in res.items() if k != "density"}
+               if path == "/api/greeks" or "smile" in res else {})}
+        return res, ms
+
+    def refused(what, body, needle, path="/api/greeks"):
+        try:
+            post(base, body, path=path)
+            check(False, f"{what} must answer 400")
+        except urllib.error.HTTPError as e:
+            detail = json.loads(e.read())["detail"]
+            check(e.code == 400 and needle in str(detail),
+                  f"{what}: {e.code} {detail!r}")
+            log(f"{path} {what}: 400 {detail!r}")
+
+    def warm(what, body, path, k1=0):
+        lat = [ask(f"warm {what}", body, path, k1)[1] for _ in range(5)]
+        out[f"warm_{what}_ms"] = statistics.median(lat)
+        log(f"warm {path} {what}: median {statistics.median(lat):.2f} ms "
+            f"over 5 ({[round(x, 2) for x in lat]})")
+
+    try:
+        # ── GBM-degenerate default request against Black-Scholes ─────────
+        gbm = dict(common, params=GBM_FIELDS)
+        res, ms = ask("GBM default", gbm)
+        check(res["delta"].keys() >= {"pathwise", "finite_diff"}
+              and res.keys() >= {"vega", "gamma", "theta", "rho", "jumps",
+                                 "model"}, "all_greeks blocks")
+        gbm_p = SVJParams(**GBM_FIELDS, r=R, q=Q)
+        t0 = time.perf_counter()
+        raw = gbm_raw_greeks(device, greeks, gbm_p, steps)
+        ref = bs_all_greeks(SPOT, STRIKE, T_DEFAULT, R, Q, GBM_SIGMA, True)
+        bs = np.array([float(ref[k]) for _, _, k in GREEK_KEYS])
+        se = raw.std(0, ddof=1)
+        got = np.array([res[b][k] for b, k, _ in GREEK_KEYS])
+        mean_se = se / np.sqrt(raw.shape[0])
+        out["gbm"] = {"bs": bs.tolist(), "response": got.tolist(),
+                      "raw_mean": raw.mean(0).tolist(), "raw_se": se.tolist(),
+                      "seeds_s": time.perf_counter() - t0}
+        log(f"GBM /api/greeks (first request {ms:.0f} ms): "
+            + ", ".join(f"{k} {g:.6g} vs BS {b:.6g} (5 se {5 * e:.3g})"
+                        for (_, _, k), g, b, e in zip(GREEK_KEYS, got, bs,
+                                                      se)))
+        check(bool((np.abs(got - bs) < 5 * se).all()),
+              "GBM /api/greeks within 5 se of bs_all_greeks")
+        check(bool((np.abs(raw.mean(0) - bs) < 5 * mean_se).all()),
+              f"raw GBM Greeks over {raw.shape[0]} seeds within 5 se of BS "
+              f"({raw.mean(0)} vs {bs}, se {mean_se})")
+
+        # ── the SVJ default: AD against the CRN cross-checks ─────────────
+        svj, _ = ask("SVJ default", common)
+        log(f"SVJ /api/greeks: delta {svj['delta']['pathwise']:.5f} (FD "
+            f"{svj['delta']['finite_diff']:.5f}, {svj['delta']['diff_pct']:.2f}"
+            f" %), dP/dv0 {svj['vega']['ad_vega_v0']:.2f} (FD "
+            f"{svj['vega']['fd_vega_v0']:.2f}, {svj['vega']['diff_pct']:.2f} "
+            f"%), lambda FD {svj['jumps']['lambda_j']:.2f}, LR "
+            f"{svj['jumps']['lambda_j_lr']:.2f} ± "
+            f"{svj['jumps']['lambda_j_lr_se']:.2f}")
+        check(svj["delta"]["diff_pct"] < 3.0, "SVJ AD delta vs its FD")
+        check(svj["vega"]["diff_pct"] < 10.0, "SVJ AD vega vs its FD")
+        t0 = time.perf_counter()
+        worst, where = greeks_card_vs_cpu(device, greeks, SVJParams)
+        out["card_vs_cpu_worst_share_of_tol"] = worst
+        log(f"Greeks programs card vs CPU on shared draws (8192 paths x "
+            f"{STEPS_DEFAULT} steps, every output of _all_greeks_device and "
+            f"the 12-point _ad_delta_vega_batch): worst |card - CPU| / tol "
+            f"= {worst:.4f} at {where} ({time.perf_counter() - t0:.1f} s)")
+        check(worst < 1.0, "the card's Greeks programs equal the CPU's")
+
+        # ── every block and mode ─────────────────────────────────────────
+        cross, _ = ask("with_cross", dict(common, with_cross=True))
+        check(cross["cross"].keys() == {"vanna", "vanna_cross_check",
+                                        "volga", "vanna_v0"}, "cross keys")
+        for T, tag in ((T_DEFAULT, ""), (1.0, "_T1")):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            so, ms = ask(f"with_second_order T={T}", dict(
+                common, T=T, with_second_order=True))
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            out[f"second_order{tag}_peak_gib"] = peak
+            out[f"second_order{tag}_ms"] = ms
+            log(f"/api/greeks with_second_order at T = {T} "
+                f"({int(252 * T)} steps, {GREEKS_PATHS} paths): {ms:.0f} ms,"
+                f" peak device memory {peak:.3f} GiB (all allocations of "
+                f"the process, the server's caches included)")
+            check(abs(so["second_order"]["gamma_check"]
+                      - so["gamma"]["gamma"])
+                  <= 1e-3 * abs(so["gamma"]["gamma"]),
+                  "second-order gamma_check equals the gamma block")
+        mv, _ = ask("with_min_variance", dict(common, with_min_variance=True))
+        m = mv["min_variance"]
+        check(abs(m["mv_delta"] - m["delta"] - m["adjustment"])
+              <= 1e-9 * abs(m["delta"]), "mv_delta = delta + adjustment")
+        chain, _ = ask("chain", dict(common, strike=0.0, strikes=[
+            SPOT * 0.95, SPOT, SPOT * 1.05]))
+        check(len(chain["chain"]) == 3, "chain rows")
+        for blk, key in (("delta", "pathwise"), ("vega", "ad_vega_v0"),
+                         ("gamma", "gamma")):
+            a, b = chain["chain"][1][blk][key], svj[blk][key]
+            check(abs(a - b) <= 1e-5 * abs(b),
+                  f"chain ATM {blk} equals the single contract's")
+        cash, _ = ask("cash dividends", dict(
+            common, with_cross=True,
+            dividends=[{"t": 0.1, "amount": 150.0}]))
+        check(cash["dividends"]["model"] == "escrowed", "escrowed model")
+        prop, _ = ask("proportional dividends", dict(
+            common, dividend_kind="proportional",
+            dividends=[{"t": 0.1, "amount": 0.01}]))
+        check(prop["dividends"]["model"] == "proportional-exact",
+              "proportional model")
+        check(prop["delta"]["pathwise"] < svj["delta"]["pathwise"],
+              "a dividend lowers the call's delta")
+        refused("chain with_cross", dict(common, strikes=[SPOT],
+                                         with_cross=True), "chain mode")
+        refused("strike <= 0", dict(common, strike=0.0), "strike > 0")
+
+        # ── /api/smile: mc on K1, cos with the density ───────────────────
+        smile_body = {"spot": SPOT, "T": T_DEFAULT}
+        mc, ms = ask("smile mc", smile_body, "/api/smile", k1=1)
+        strikes = [row["strike"] for row in mc["smile"]]
+        eng = server.MonteCarloEngine(SVJParams(), num_paths=SMILE_PATHS,
+                                      device=device)
+        rows = eng.price_batch(SPOT, strikes, T_DEFAULT)
+        expect["svj_terminal_from_draws"] += 1
+        exact = cos_price(SVJParams(), SPOT, strikes, T_DEFAULT, True)
+        worst = 0.0
+        for row, r, c in zip(mc["smile"], rows, exact):
+            check(row["price"] == r["price"], "smile mc = price_batch")
+            tol = 4 * r["std_error"] + 0.01 * c
+            worst = max(worst, abs(row["price"] - c) / tol)
+        out["smile_mc_vs_cos_worst_share_of_tol"] = worst
+        log(f"/api/smile mc ({len(strikes)} strikes, {SMILE_PATHS} paths, "
+            f"one K1 launch): worst |mc - COS| / (4 se + 1 %) = {worst:.3f}")
+        check(worst < 1.0, "smile mc against COS")
+        cos, _ = ask("smile cos", dict(smile_body, method="cos",
+                                       with_density=True), "/api/smile")
+        dens = cos["density"]
+        s_grid, pdf = np.asarray(dens["s"]), np.asarray(dens["pdf"])
+        mass = float(np.sum(np.diff(s_grid) * (pdf[1:] + pdf[:-1]) / 2))
+        out["density_mass"] = mass
+        log(f"/api/smile cos + density: {len(dens['s'])} points, mass "
+            f"{mass:.5f}, forward {dens['forward']:.2f}")
+        check(0.98 < mass < 1.001, "COS density integrates to 1")
+        check(all(0.0 < row["iv"] < 5.0 for row in cos["smile"]),
+              "COS smile: every strike has an implied vol")
+
+        # ── price_term_structure: one K3 launch per maturity ─────────────
+        ts = TermStructureSVJ(theta_curve={0.1: 0.04, 0.5: 0.06},
+                              xi_curve={0.1: 0.6, 0.5: 0.4},
+                              lambda_curve={0.1: 2.0, 0.5: 1.0})
+        k3 = ck.launch_counts()["svj_terminal"]
+        t0 = time.perf_counter()
+        grid = price_term_structure(ts, SPOT, [SPOT * 0.9, SPOT, SPOT * 1.1],
+                                    TERM_MATS, device=device)
+        out["term_structure_ms"] = (time.perf_counter() - t0) * 1e3
+        n3 = ck.launch_counts()["svj_terminal"] - k3
+        check(n3 == len(TERM_MATS), f"K3 launched {n3} times for "
+              f"{len(TERM_MATS)} maturities")
+        expect["svj_terminal"] += len(TERM_MATS)
+        worst = 0.0
+        for sl in grid:
+            p_t = ts.get_params_at_maturity(sl["maturity"])
+            exact = cos_price(p_t, SPOT, [r["strike"] for r in sl["chain"]],
+                              sl["maturity"], True)
+            for r, c in zip(sl["chain"], exact):
+                worst = max(worst, abs(r["price"] - c)
+                            / (4 * r["std_error"] + 0.01 * c))
+        out["term_structure_worst_share_of_tol"] = worst
+        log(f"price_term_structure ({len(TERM_MATS)} maturities x 3 strikes,"
+            f" {n3} K3 launches, {out['term_structure_ms']:.1f} ms): worst "
+            f"|MC - COS| / (4 se + 1 %) = {worst:.3f}")
+        check(worst < 1.0, "price_term_structure against COS")
+
+        warm("greeks", common, "/api/greeks")
+        warm("smile mc", smile_body, "/api/smile", k1=1)
+        warm("smile cos", dict(smile_body, method="cos"), "/api/smile")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    counts = ck.launch_counts()
+    log(f"launch counts over the greeks/smile path: {counts} (expected "
+        f"{expect})")
+    for name, n in counts.items():
+        check(n == expect.get(name, 0), f"{name} launched {n} times, "
+              f"expected {expect.get(name, 0)}")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"greeks/smile path: {out['wall_s']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -1949,12 +2284,15 @@ def main() -> None:
     from mcos_tpu_torch import bench
     from mcos_tpu_torch.api import server
     from mcos_tpu_torch.engine.exotics import ExoticEngine
-    from mcos_tpu_torch.models.params import SVCJParams, SVJParams, gbm_params
+    from mcos_tpu_torch.engine import greeks
+    from mcos_tpu_torch.engine.pricer import price_term_structure
+    from mcos_tpu_torch.models.params import (SVCJParams, SVJParams,
+                                              TermStructureSVJ, gbm_params)
     from mcos_tpu_torch.ops import cuda_kernels as ck
     from mcos_tpu_torch.ops import exotics as ox
     from mcos_tpu_torch.engine import rough as rough_engine
     from mcos_tpu_torch.ops import hhw, rough, sobol, svcj, tdsvj
-    from mcos_tpu_torch.ops.bs import bs_price
+    from mcos_tpu_torch.ops.bs import bs_all_greeks, bs_price
     from mcos_tpu_torch.ops.cos_pricer import cos_price
 
     device = torch.device("cuda", 0)
@@ -2010,6 +2348,14 @@ def main() -> None:
     fp = families_path(device, ck, hhw, svcj, tdsvj, server)
     rp = rough_path(device, ck, rough, rough_engine, ExoticEngine,
                     gbm_params, server)
+    gp = greeks_path(device, ck, server, greeks, bs_all_greeks, cos_price,
+                     SVJParams, TermStructureSVJ, price_term_structure)
+    log(f"warm /api/greeks (200 000 paths, 63 steps, every all_greeks "
+        f"block): median {gp['warm_greeks_ms']:.2f} ms; /api/smile mc "
+        f"{gp['warm_smile mc_ms']:.2f} ms, cos {gp['warm_smile cos_ms']:.2f}"
+        f" ms; with_second_order peak device memory "
+        f"{gp['second_order_peak_gib']:.3f} GiB at T = 0.25, "
+        f"{gp['second_order_T1_peak_gib']:.3f} GiB at T = 1; on {card}")
 
     # (name, source, TPU kernel body, its check, the path that launched it)
     table = (
@@ -2030,6 +2376,8 @@ def main() -> None:
         ("rbergomi_lift_integrals", "rbergomi_lift.cu", 2015, k10, rp),
         ("rbergomi_lift_stats", "rbergomi_stats.cu", 2162, k11, rp),
     )
+    paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
+             "rough": rp, "greeks": gp}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -2037,6 +2385,7 @@ def main() -> None:
          "source": f"mcos_tpu_torch/csrc/{src}",
          "replaces": f"mcos_tpu/ops/pallas_kernels.py:{line}",
          "launches": path["launches"][name],
+         "launches_by_path": {p: paths[p]["launches"][name] for p in paths},
          "max_abs_err": res["max_abs_err"], "ms": res["ms"],
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": None}
@@ -2056,7 +2405,8 @@ def main() -> None:
                    "k6_resources": resources, "k7_k9_resources": fam,
                    "k10_k11_resources": rough_res, "main_path": mp,
                    "options_path": op, "exotics_path": xp,
-                   "families_path": fp, "rough_path": rp}, f, indent=1)
+                   "families_path": fp, "rough_path": rp,
+                   "greeks_path": gp}, f, indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came

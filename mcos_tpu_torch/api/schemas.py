@@ -1,6 +1,7 @@
 """Request schemas of the port's HTTP API: the part of
-`mcos_tpu/api/schemas.py` that `PriceRequest`, `ExoticRequest`,
-`HHWRequest`, `SVCJRequest`, `TermSVJRequest` and `RoughRequest` need,
+`mcos_tpu/api/schemas.py` that `PriceRequest`, `GreeksRequest`,
+`SmileRequest`, `ExoticRequest`, `HHWRequest`, `SVCJRequest`,
+`TermSVJRequest` and `RoughRequest` need,
 copied unchanged apart from the imports. tests/test_torch_copies.py holds the two equal.
 """
 
@@ -135,6 +136,52 @@ class PriceRequest(BaseModel):
     use_importance: bool = False
     dividends: Optional[list[DividendItem]] = Field(None, max_length=64)
     dividend_kind: str = Field("cash", pattern="^(cash|proportional)$")
+    rate_curve: Optional[list[RateKnot]] = Field(None, max_length=64)
+
+
+class GreeksRequest(BaseModel):
+    spot: float
+    strike: float = 0.0          # single-contract mode (ignored with strikes)
+    T: float
+    is_call: bool = True
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    # Second-order cross Greeks (vanna/volga via CRN-FD of AD first
+    # derivatives, engine/greeks.py:cross_greeks) — one extra device call.
+    with_cross: bool = False
+    # Remaining second/third-order Greeks (charm/speed/zomma/color/veta via
+    # a 12-point (spot, v0, T) AD batch, engine/greeks.py:
+    # second_order_greeks) — one extra device call. Single-contract,
+    # no-dividends mode only.
+    with_second_order: bool = False
+    # Minimum-variance hedge ratio Delta + rho*xi*(dP/dv0)/S (Hull-White
+    # 2017) off the same AD backward pass — zero extra device work.
+    # Single-contract mode only.
+    with_min_variance: bool = False
+    # Chain mode: all Greeks for every strike with pipelined dispatch (one
+    # host sync for the whole chain — engine/greeks.py:all_greeks_chain).
+    strikes: list[float] = Field(default_factory=list,
+                                 max_length=MAX_GRID_POINTS)
+    # Discrete dividends: Greeks of the effective process, chain-ruled back
+    # to raw spot (engine/greeks.py:all_greeks_dividends). Single-contract
+    # mode only.
+    dividends: Optional[list[DividendItem]] = Field(None, max_length=64)
+    dividend_kind: str = Field("cash", pattern="^(cash|proportional)$")
+
+
+class SmileRequest(BaseModel):
+    spot: float
+    T: float
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(50_000, **_PATHS)
+    num_strikes: int = Field(21, ge=3, le=MAX_GRID_POINTS)
+    # "mc" (reference behavior) or "cos" — exact semi-analytic smile in ms.
+    method: str = "mc"
+    # Attach the model-exact risk-neutral terminal density of S_T
+    # (ops/cos_pricer.py:cos_density — Breeden–Litzenberger, no MC noise).
+    with_density: bool = False
+    # Rate curve: pricing AND the IV inversion both use the flat-equivalent
+    # rate R(T)/T, so quoted IVs stay internally consistent.
     rate_curve: Optional[list[RateKnot]] = Field(None, max_length=64)
 
 

@@ -6,6 +6,11 @@ serving slice).
                              1024 terminal samples, elapsed_ms; every request
                              option but sharding: Sobol or PRNG driver, Euler
                              or QE, importance sampling, RQMC
+    POST /api/greeks       — all Greeks off one autograd pass; cross,
+                             second-order and minimum-variance blocks,
+                             strike chains, discrete dividends
+    POST /api/smile        — a strike smile by MC (one shared path set)
+                             or COS, IV-inverted, optional COS density
     POST /api/convergence  — prefix-mean convergence series
     POST /api/exotic       — Asian, single and double barriers, one-touch and
                              no-touch digitals, lookback, digital, variance
@@ -46,6 +51,7 @@ from mcos_tpu_torch.engine.exotics import (
     ExoticEngine,
     variance_swap_fair_strike,
 )
+from mcos_tpu_torch.engine.greeks import GreeksEngine
 from mcos_tpu_torch.engine.guards import PricingGuard
 from mcos_tpu_torch.engine.hhw import HHWEngine
 from mcos_tpu_torch.engine.pricer import MonteCarloEngine, to_host
@@ -53,6 +59,7 @@ from mcos_tpu_torch.engine.rough import RoughBergomiEngine, calibrate_rbergomi
 from mcos_tpu_torch.engine.surface import implied_vol
 from mcos_tpu_torch.engine.svcj import SVCJEngine
 from mcos_tpu_torch.engine.termsvj import TDSVJEngine, bootstrap_calibrate_td
+from mcos_tpu_torch.ops.cos_pricer import cos_density, cos_price
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
 from mcos_tpu_torch.ops.rough import RoughBergomiParams
 from mcos_tpu_torch.utils import fastjson
@@ -153,6 +160,120 @@ def handle_price(body: dict, device="cuda") -> dict:
                                                        decimals=2)
     result["terminal_samples"] = fastjson.float_array_json(terms, decimals=2)
     return _finish_price(result, guard, pre, req, start)
+
+
+def handle_greeks(body: dict, device="cuda") -> dict:
+    """`/api/greeks` on `device`, the JAX handler's contract: all Greeks off
+    one autograd pass, optional cross, second-order and minimum-variance
+    blocks, a strike chain with one host sync, discrete dividends by the
+    effective-spot chain rule."""
+    req = schemas.GreeksRequest(**body)
+    start = time.time()
+    engine = GreeksEngine(req.params.to_params(), num_paths=req.num_paths,
+                          device=device)
+    try:
+        divs = schemas.build_dividend_schedule(req.dividends,
+                                               req.dividend_kind)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    if req.strikes:
+        if req.with_cross or req.with_second_order:
+            raise ApiError(400, "with_cross/with_second_order are not "
+                                "supported in chain mode (strikes list) — "
+                                "request those blocks per contract with a "
+                                "single strike")
+        if divs is not None:
+            raise ApiError(400, "dividends are supported in single-contract "
+                                "mode only (omit the strikes list)")
+        greeks = {"chain": engine.all_greeks_chain(
+            req.spot, req.strikes, req.T, req.is_call)}
+    else:
+        if req.strike <= 0:
+            raise ApiError(400, "need strike > 0 (or a strikes list)")
+        if divs is not None:
+            try:
+                greeks = engine.all_greeks_dividends(
+                    req.spot, req.strike, req.T, req.is_call, divs)
+            except ValueError as e:
+                raise ApiError(400, str(e))
+        else:
+            greeks = engine.all_greeks(req.spot, req.strike, req.T,
+                                       req.is_call)
+        if req.with_cross:
+            if divs is not None:
+                # vanna = ∂²P/∂S∂σ picks up ∂S_eff/∂S; volga is spot-free.
+                from mcos_tpu_torch.ops.dividends import effective_spot
+
+                eff, f = effective_spot(req.spot, divs,
+                                        float(engine.params.r), req.T)
+                cross = engine.cross_greeks(eff, req.strike, req.T,
+                                            req.is_call)
+                for key in ("vanna", "vanna_cross_check", "vanna_v0"):
+                    cross[key] *= f
+                greeks["cross"] = cross
+            else:
+                greeks["cross"] = engine.cross_greeks(req.spot, req.strike,
+                                                      req.T, req.is_call)
+        if req.with_second_order:
+            if divs is not None:
+                # charm/color/veta mix ∂/∂T with the T-dependent dividend
+                # adjustment: the first-order chain rule does not close.
+                raise ApiError(400, "with_second_order is not supported "
+                                    "with discrete dividends")
+            greeks["second_order"] = engine.second_order_greeks(
+                req.spot, req.strike, req.T, req.is_call)
+        if req.with_min_variance:
+            if divs is not None:
+                raise ApiError(400, "with_min_variance is not supported "
+                                    "with discrete dividends")
+            greeks["min_variance"] = engine.min_variance_delta(
+                req.spot, req.strike, req.T, req.is_call)
+    greeks["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return greeks
+
+
+def handle_smile(body: dict, device="cuda") -> dict:
+    """`/api/smile` on `device`: strikes over 0.7-1.3·S priced off one
+    shared path set (`method="mc"`: the default Sobol engine, one K1 launch
+    on a CUDA device) or by COS (`"cos"`, on the host), IVs inverted per
+    strike, optionally the COS risk-neutral density."""
+    req = schemas.SmileRequest(**body)
+    svj = req.params.to_params()
+    try:
+        curve = schemas.build_rate_curve(req.rate_curve)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    if curve is not None:
+        svj = svj.replace(r=curve.r_eff(req.T))
+    strikes = np.linspace(req.spot * 0.7, req.spot * 1.3, req.num_strikes)
+    if req.method == "cos":
+        prices = np.asarray(cos_price(svj, req.spot, strikes, req.T, True))
+        rows = [{"strike": float(k), "price": float(p)}
+                for k, p in zip(strikes, prices)]
+    elif req.method == "mc":
+        engine = MonteCarloEngine(svj, num_paths=req.num_paths,
+                                  device=device)
+        rows = engine.price_batch(req.spot, strikes, req.T, is_call=True)
+    else:
+        raise ApiError(400, f"unknown smile method {req.method!r}")
+    smile = []
+    for row in rows:
+        iv = implied_vol(row["price"], req.spot, row["strike"], req.T,
+                         float(svj.r), float(svj.q), True)
+        smile.append({
+            "strike": row["strike"],
+            "price": row["price"],
+            "iv": iv if iv is not None else 0.0,
+        })
+    out = {"smile": smile, "method": req.method}
+    if req.with_density:
+        s_grid, pdf = cos_density(svj, req.spot, req.T)
+        out["density"] = {
+            "s": [round(float(x), 2) for x in s_grid],
+            "pdf": [float(x) for x in pdf],
+            "forward": float(req.spot * np.exp((svj.r - svj.q) * req.T)),
+        }
+    return out
 
 
 def handle_convergence(body: dict, device="cuda") -> dict:
@@ -572,6 +693,8 @@ def handle_rough(body: dict, device="cuda") -> dict:
 
 
 _POST_ROUTES = {"/api/price": handle_price,
+                "/api/greeks": handle_greeks,
+                "/api/smile": handle_smile,
                 "/api/convergence": handle_convergence,
                 "/api/exotic": handle_exotic,
                 "/api/hhw": handle_hhw,
@@ -647,9 +770,10 @@ class _Handler(BaseHTTPRequestHandler):
 def warm(device) -> None:
     """Build the CUDA kernels (on a CUDA device) and the default-shape Sobol
     net before serving. On a CUDA device, also run one tiny rough Bergomi
-    `greeks` on the lift: its first `torch.utils.checkpoint` pass imports
-    torch's compiler modules, seconds that would otherwise land on the
-    first such request."""
+    `greeks` on the lift and one tiny `GreeksEngine.all_greeks`: the first
+    `torch.utils.checkpoint` pass imports torch's compiler modules, and the
+    first autograd pass on a device starts its engine threads, seconds that
+    would otherwise land on the first such request."""
     device = torch.device(device)
     if device.type == "cuda":
         from mcos_tpu_torch.ops import cuda_kernels
@@ -658,6 +782,8 @@ def warm(device) -> None:
         RoughBergomiEngine(RoughBergomiParams(), num_paths=256, num_steps=8,
                            sampler="lift", device=device).greeks(
             1.0, 1.0, 0.25)
+        GreeksEngine(schemas.SVJParamsRequest().to_params(), num_paths=1024,
+                     num_steps=64, device=device).all_greeks(1.0, 1.0, 0.25)
     req = schemas.PriceRequest(spot=22500.0, strike=22500.0, T=0.25)
     eng = MonteCarloEngine(req.params.to_params(), num_paths=req.num_paths,
                            device=device)

@@ -19,6 +19,8 @@ errors, and the terminal-state diagnostics the post-price guards read.
   runs them as XLA scans: no kernel sits under them.
 - `MonteCarloEngine` is the stateful wrapper the HTTP layer builds per
   request, with the process-wide Sobol-draw LRU (keyed on the device too).
+- `price_term_structure` prices a strikes × maturities grid under a
+  `TermStructureSVJ`, one PRNG engine (K3) per maturity.
 
 Every engine takes an explicit `device`. Sharding (`mesh=`) is not ported
 and raises `NotImplementedError` naming its ROADMAP.md item.
@@ -89,8 +91,9 @@ def _finalize_price(
     }
     if control_variate:
         device = pay.device
-        sigma_bs = torch.sqrt(torch.tensor(params.v0, dtype=torch.float32,
-                                           device=device))
+        # as_tensor keeps a tensor v0's graph (the Greeks' ∂/∂v0).
+        sigma_bs = torch.sqrt(torch.as_tensor(params.v0, dtype=torch.float32,
+                                              device=device))
         bs_ref = bs_price(spot, strikes, T, params.r, params.q, sigma_bs,
                           is_call, device=device)
         if cv_mode == "companion":
@@ -140,8 +143,8 @@ def _price_terminal(
     device = s_final.device
     strikes = torch.atleast_1d(torch.as_tensor(strikes, dtype=torch.float32,
                                                device=device))
-    discount = torch.exp(-params.r * torch.tensor(T, dtype=torch.float32,
-                                                  device=device))
+    discount = torch.exp(-params.r * torch.as_tensor(T, dtype=torch.float32,
+                                                     device=device))
     pay = _payoff_table(s_final, strikes, is_call)
     out = _finalize_price(params, spot, strikes, T, discount, pay, s_final,
                           g_final, is_call, control_variate, cv_mode, cv_beta)
@@ -747,6 +750,18 @@ class MonteCarloEngine:
             self._seeded(self.seed + 999), num_paths=int(num_samples),
             num_steps=steps, device=self.device)
 
+    def get_sample_paths(self, spot: float, T: float,
+                         num_samples: int = 50) -> np.ndarray:
+        """A few full paths for visualization, on the host
+        (`sample_paths_device`: the PRNG twin, at least 50 steps)."""
+        return self.sample_paths_device(spot, T, num_samples).cpu().numpy()
+
+    def terminal_samples(self, spot: float, T: float,
+                         num_samples: int = 1024) -> np.ndarray:
+        """A small sample of terminal spots for a histogram, on the host."""
+        return self.terminal_samples_device(spot, T,
+                                            num_samples).cpu().numpy()
+
     def terminal_samples_device(self, spot: float, T: float,
                                 num_samples: int = 1024) -> torch.Tensor:
         """A small sample of terminal spots for the histogram, unsynced."""
@@ -755,3 +770,26 @@ class MonteCarloEngine:
             self._seeded(self.seed + 1234), num_paths=int(num_samples),
             num_steps=self._steps(T), antithetic=False, device=self.device)
         return s_final[0]
+
+
+def price_term_structure(ts, spot: float, strikes, maturities,
+                         is_call: bool = True, num_paths: int = 100_000,
+                         num_steps: int = 252, seed: int = 42, *,
+                         device="cuda") -> list:
+    """Price a strikes × maturities grid under a `TermStructureSVJ`: the
+    maturity-interpolated `SVJParams` per expiry, each slice batch-priced
+    off one shared path set of the PRNG driver (`use_sobol=False`), so one
+    K3 `svj_terminal` launch per maturity on a CUDA device. Returns one
+    dict per maturity with the strike rows."""
+    out = []
+    for T in maturities:
+        params_t = ts.get_params_at_maturity(float(T))
+        eng = MonteCarloEngine(params_t, num_paths=num_paths,
+                               num_steps=num_steps, seed=seed,
+                               use_sobol=False, device=device)
+        out.append({
+            "maturity": float(T),
+            "params": params_t.as_dict(),
+            "chain": eng.price_batch(spot, strikes, float(T), is_call),
+        })
+    return out

@@ -3,7 +3,10 @@
 `SVJParams` and `SVCJParams` are frozen dataclasses of plain floats. The JAX
 package's versions are pytrees whose leaves may be traced arrays; here the
 engine turns the floats into float32 constants where it launches work, so
-the classes themselves stay free of torch and of device state.
+the classes themselves stay free of torch and of device state. The one
+exception is autograd: the Greeks engine (`engine/greeks.py`) puts float32
+tensor leaves into the fields it differentiates, and the SVJ twins
+(`ops/simulate.py`) take the tensor path for those fields only.
 `TermStructureSVJ` is the host-side container of maturity curves.
 
 Carrying a model across packages: `to_numpy()` gives a `{field: float64}`
@@ -193,6 +196,12 @@ def gbm_params(sigma: float, r: float = RISK_FREE_RATE,
     var = sigma * sigma
     return SVJParams(kappa=0.0, theta=var, xi=0.0, rho=0.0, v0=var,
                      lambda_j=0.0, mu_j=0.0, sigma_j=0.0, r=r, q=q)
+
+
+def forward_price(spot, r, q, T):
+    """Forward price F = S₀·e^{(r−q)T} for float r, q and T; a tensor spot
+    gives a tensor, differentiable in it."""
+    return spot * float(np.exp((r - q) * T))
 
 
 _TS_SCALARS = ("kappa", "rho", "mu_j", "sigma_j", "v0", "r", "q")

@@ -13,14 +13,23 @@ all their randoms up front; their stream differs from the JAX package's
 threefry keys, so they are pinned to it by law only. The draws-driven
 `simulate_terminal_from_draws` and `simulate_terminal_qe_from_draws` are
 deterministic and pinned to f32 noise.
+
+`simulate_terminal_with_score` and `simulate_terminal_members` feed the
+Greeks engine: they take a generator or the draws themselves, are
+differentiable in every parameter given as a tensor (floats keep the
+float32-rounded constants every other twin uses), and run under
+`torch.utils.checkpoint` in chunks of REMAT_CHUNK steps when autograd
+records them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mcos_tpu_torch.models.params import SVJParams
 
@@ -49,7 +58,10 @@ def _svj_step_core(params: SVJParams, dt, sqrt_dt, log_s, v, z1, z2, u_jump,
     drift_comp = (p.r - p.q) - p.lambda_j * k
 
     dw1 = z1 * sqrt_dt
-    rho_perp = float(np.sqrt(np.float32(1.0 - p.rho * p.rho)))
+    if isinstance(p.rho, torch.Tensor):    # an autograd leaf: ∂/∂ρ flows
+        rho_perp = torch.sqrt(1.0 - p.rho * p.rho)
+    else:
+        rho_perp = float(np.sqrt(np.float32(1.0 - p.rho * p.rho)))
     dw2 = p.rho * dw1 + rho_perp * z2 * sqrt_dt
 
     jump = torch.where(u_jump < p.lambda_j * dt, p.mu_j + p.sigma_j * z_js,
@@ -61,10 +73,124 @@ def _svj_step_core(params: SVJParams, dt, sqrt_dt, log_s, v, z1, z2, u_jump,
     return log_s, v
 
 
+def _v0_like(v0, like: torch.Tensor) -> torch.Tensor:
+    """The variance carry's start: v0 over `like`'s shape. A tensor v0 (an
+    autograd leaf, maybe with a leading member axis) broadcasts and keeps
+    its graph; a float fills at its float32 rounding."""
+    if isinstance(v0, torch.Tensor):
+        return torch.zeros_like(like) + v0
+    return torch.full_like(like, float(np.float32(v0)))
+
+
 def _companion(params: SVJParams, dt, device):
     """(σ_cv, per-step drift) of the GBM companion leg, σ_cv = √v0."""
     sigma_cv = torch.sqrt(_f32(params.v0, device))
     return sigma_cv, (params.r - params.q - 0.5 * sigma_cv**2) * dt
+
+
+#: Steps per `torch.utils.checkpoint` chunk of a differentiated step loop.
+REMAT_CHUNK = 16
+
+
+def _euler_draws(draws, generator, num_paths, num_steps, device):
+    """(z, u): the supplied (steps, 3, paths) normals and (steps, paths)
+    jump uniforms, else drawn from `generator` up front, normals first."""
+    if draws is None:
+        z = torch.randn((num_steps, 3, num_paths), generator=generator,
+                        device=device, dtype=torch.float32)
+        u = torch.rand((num_steps, num_paths), generator=generator,
+                       device=device, dtype=torch.float32)
+        return z, u
+    z, u = draws
+    steps, paths = u.shape
+    if tuple(z.shape) != (steps, 3, paths):
+        raise ValueError("draws must be (steps, 3, paths) normals and "
+                         "(steps, paths) uniforms")
+    if num_steps not in (None, steps) or num_paths not in (None, paths):
+        raise ValueError(f"draws are {steps} steps x {paths} paths, not "
+                         f"{num_steps} x {num_paths}")
+    return z, u
+
+
+def _member_leaf(x, ndim: int):
+    """A leaf with a leading (M,) member axis → (M, 1, ...) over `ndim`
+    dimensions; scalars and 0-d tensors as they are."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape(-1, *([1] * (ndim - 1)))
+    return x
+
+
+def _differentiated(params: SVJParams, dt) -> bool:
+    """Whether autograd records the step loop: grad mode is on and `dt` or
+    a leaf of `params` requires grad."""
+    leaves = (getattr(params, f.name) for f in dataclasses.fields(params))
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad
+        for x in (dt, *leaves))
+
+
+def _svj_scan(params: SVJParams, dt, sqrt_dt, z, u, sign, companion: bool,
+              prob=None):
+    """The Euler step loop over draws (z, u): (log S/S0, v, log G, score).
+    Each normal row is multiplied by `sign` (None: one branch, no
+    multiply); a leaf of `params`, `dt` or `sqrt_dt` with leading member
+    axes widens the carries to them. With `prob` (λ·dt clipped to
+    (0, 1)), also the ∂/∂λ score of the per-step jump indicators,
+    Σ (1{U < prob} − prob)/(prob(1 − prob))·dt, taken under no_grad: an
+    estimator ingredient, not part of a price. When autograd records the
+    loop, each chunk of REMAT_CHUNK steps runs under
+    `torch.utils.checkpoint` (non-reentrant): autograd keeps only the chunk
+    boundaries' carries and recomputes the inside on the backward pass,
+    the same operations on the same inputs."""
+    device = z.device
+    num_steps = z.shape[0]
+    sigma_cv, g_drift = _companion(params, dt, device)
+
+    def run(log_s, v, log_g, score, start, stop):
+        for t in range(start, stop):
+            z1, z2, zjs = z[t] if sign is None else (z[t, 0] * sign,
+                                                     z[t, 1] * sign,
+                                                     z[t, 2] * sign)
+            log_s, v = _svj_step_core(params, dt, sqrt_dt, log_s, v, z1, z2,
+                                      u[t], zjs)
+            if companion:
+                log_g = log_g + g_drift + sigma_cv * z1 * sqrt_dt
+            if prob is not None:
+                with torch.no_grad():
+                    jumped = (u[t] < prob).to(torch.float32)
+                    score = score + (jumped - prob) / (prob * (1.0 - prob)) \
+                        * dt
+        return log_s, v, log_g, score
+
+    shape = z[0, 0].shape if sign is None else (z[0, 0] * sign).shape
+    log_s = torch.zeros(shape, dtype=torch.float32, device=device)
+    carry = (log_s, _v0_like(params.v0, log_s), torch.zeros_like(log_s),
+             torch.zeros((), dtype=torch.float32, device=device))
+    if not _differentiated(params, dt):
+        return run(*carry, 0, num_steps)
+    for start in range(0, num_steps, REMAT_CHUNK):
+        carry = checkpoint(run, *carry, start,
+                           min(start + REMAT_CHUNK, num_steps),
+                           use_reentrant=False)
+    return carry
+
+
+def _terminal(params: SVJParams, spot, T, z, u, antithetic: bool,
+              companion: bool, with_score: bool):
+    """(S, v, G or None, score or 0) of the Euler twin on draws (z, u)."""
+    device = z.device
+    n_branch = 2 if antithetic else 1
+    spot = _f32(spot, device)
+    dt = _f32(T, device) / z.shape[0]
+    sqrt_dt = torch.sqrt(dt)
+    sign = torch.tensor([1.0, -1.0][:n_branch], dtype=torch.float32,
+                        device=device)[:, None]
+    prob = (torch.clamp(params.lambda_j * dt, 1e-7, 1.0 - 1e-7)
+            if with_score else None)
+    log_s, v, log_g, score = _svj_scan(params, dt, sqrt_dt, z, u, sign,
+                                       companion, prob)
+    return (spot * torch.exp(log_s), v,
+            spot * torch.exp(log_g) if companion else None, score)
 
 
 def simulate_terminal(
@@ -77,31 +203,77 @@ def simulate_terminal(
     Returns (n_branch, num_paths) tensors: row 0 base, row 1 antithetic;
     G (the σ=√v0 GBM companion on the same dW₁) only when `companion`.
     """
-    device = torch.device(device)
-    n_branch = 2 if antithetic else 1
-    spot = _f32(spot, device)
-    dt = _f32(T, device) / num_steps
+    z, u = _euler_draws(None, generator, num_paths, num_steps,
+                        torch.device(device))
+    return _terminal(params, spot, T, z, u, antithetic, companion,
+                     False)[:3]
+
+
+def simulate_terminal_with_score(
+    params: SVJParams, spot, T, generator: Optional[torch.Generator] = None,
+    num_paths: Optional[int] = None, num_steps: Optional[int] = None,
+    antithetic: bool = True, companion: bool = True, *,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """`simulate_terminal` plus the jump-count likelihood-ratio score.
+
+    The same dynamics on the same draws: `draws` = (z, u), (steps, 3,
+    paths) normals and (steps, paths) jump uniforms, else drawn from
+    `generator` as `simulate_terminal` draws them. Differentiable in
+    spot, T and every tensor leaf of `params`. Extra output, under
+    no_grad: score = Σ_t (1{U_t < λdt} − λdt)/(λdt(1 − λdt))·dt, shape
+    (paths,), one row because both antithetic branches share the jump
+    uniforms (engine/greeks.py:lambda_lr_estimate).
+
+    Returns (S, v, G or None, score); S, v, G (n_branch, paths).
+    """
+    device = draws[0].device if draws is not None else torch.device(device)
+    z, u = _euler_draws(draws, generator, num_paths, num_steps, device)
+    return _terminal(params, spot, T, z, u, antithetic, companion, True)
+
+
+def simulate_terminal_members(
+    params_batch: SVJParams, spot, T,
+    generator: Optional[torch.Generator] = None,
+    num_paths: Optional[int] = None, num_steps: Optional[int] = None, *,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A batch of M members on one set of draws (common random numbers,
+    antithetic pairs included), in one step loop with an explicit leading
+    member axis: each leaf of `params_batch` is a float (shared) or an
+    (M,) tensor, and so may `spot` and `T` be. Draws as in
+    `simulate_terminal_with_score`, every member on the same ones.
+    Differentiable in every tensor leaf: the members are independent, so
+    the gradient of the sum of member prices with respect to an (M,) leaf
+    is each member's own derivative.
+
+    Returns (S, G, score): (M, 2, paths), (M, 2, paths), (M, paths); the
+    companion leg always on, the λ-score per member (λ_m·dt differs, the
+    uniforms are shared). Leaves that are all shared give M = 1 unless
+    spot or T carries the member axis.
+    """
+    device = draws[0].device if draws is not None else torch.device(device)
+    z, u = _euler_draws(draws, generator, num_paths, num_steps, device)
+    p = params_batch.replace(**{
+        f.name: _member_leaf(getattr(params_batch, f.name), 3)
+        for f in dataclasses.fields(params_batch)})
+    spot = _member_leaf(_f32(spot, device), 3)
+    dt = _member_leaf(_f32(T, device), 3) / z.shape[0]
     sqrt_dt = torch.sqrt(dt)
-    z = torch.randn((num_steps, 3, num_paths), generator=generator,
-                    device=device, dtype=torch.float32)
-    u = torch.rand((num_steps, num_paths), generator=generator,
-                   device=device, dtype=torch.float32)
-    sign = torch.tensor([1.0, -1.0][:n_branch], dtype=torch.float32,
-                        device=device)[:, None]
-    log_s = torch.zeros((n_branch, num_paths), dtype=torch.float32,
-                        device=device)
-    log_g = torch.zeros_like(log_s)
-    v = torch.full_like(log_s, float(np.float32(params.v0)))
-    sigma_cv, g_drift = _companion(params, dt, device)
-    for t in range(num_steps):
-        z1 = z[t, 0] * sign
-        log_s, v = _svj_step_core(params, dt, sqrt_dt, log_s, v, z1,
-                                  z[t, 1] * sign, u[t][None, :],
-                                  z[t, 2] * sign)
-        if companion:
-            log_g = log_g + g_drift + sigma_cv * z1 * sqrt_dt
-    return (spot * torch.exp(log_s), v,
-            spot * torch.exp(log_g) if companion else None)
+    sign = torch.tensor([1.0, -1.0], dtype=torch.float32,
+                        device=device)[None, :, None]
+    prob = torch.clamp(p.lambda_j * dt, 1e-7, 1.0 - 1e-7)
+    log_s, _, log_g, score = _svj_scan(p, dt, sqrt_dt, z, u, sign, True,
+                                       prob)
+    s_final = spot * torch.exp(log_s)
+    g_final = spot * torch.exp(log_g)
+    m = max(s_final.shape[0] if s_final.dim() == 3 else 1,
+            g_final.shape[0] if g_final.dim() == 3 else 1)
+    s_final = s_final.expand(m, 2, -1)
+    g_final = g_final.expand(m, 2, -1)
+    return s_final, g_final, score.reshape(-1, u.shape[1]).expand(m, -1)
 
 
 def simulate_terminal_from_draws(
@@ -123,7 +295,7 @@ def simulate_terminal_from_draws(
     sqrt_dt = torch.sqrt(dt)
     log_s = torch.zeros(num_paths, dtype=torch.float32, device=device)
     log_g = torch.zeros_like(log_s)
-    v = torch.full_like(log_s, float(np.float32(params.v0)))
+    v = _v0_like(params.v0, log_s)
     sigma_cv, g_drift = _companion(params, dt, device)
     for t in range(num_steps):
         log_s, v = _svj_step_core(params, dt, sqrt_dt, log_s, v, z1[t], z2[t],
@@ -151,7 +323,7 @@ def simulate_paths_recorded(
     u = torch.rand((num_steps, num_paths), generator=generator,
                    device=device, dtype=torch.float32)
     log_s = torch.zeros(num_paths, dtype=torch.float32, device=device)
-    v = torch.full_like(log_s, float(np.float32(params.v0)))
+    v = _v0_like(params.v0, log_s)
     rows = []
     for t in range(num_steps):
         log_s, v = _svj_step_core(params, dt, sqrt_dt, log_s, v, z[t, 0],
@@ -236,7 +408,7 @@ def _qe_paths(params: SVJParams, spot, T, draws, n_branch: int,
     log_s = torch.zeros((n_branch, num_paths), dtype=torch.float32,
                         device=device)
     log_g = torch.zeros_like(log_s)
-    v = torch.full_like(log_s, float(np.float32(p.v0)))
+    v = _v0_like(p.v0, log_s)
     for t in range(num_steps):
         zx_b = z_x[t][None, :] * sign
         zjs_b = z_js[t][None, :] * sign
@@ -326,7 +498,7 @@ def simulate_terminal_tilted(
                         device=device)
     log_g = torch.zeros_like(log_s)
     log_w = torch.zeros_like(log_s)
-    v = torch.full_like(log_s, float(np.float32(params.v0)))
+    v = _v0_like(params.v0, log_s)
     sigma_cv, g_drift = _companion(params, dt, device)
     half_sq = float(np.float32(0.5) * np.float32(shift) * np.float32(shift))
     for t in range(num_steps):

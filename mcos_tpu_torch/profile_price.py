@@ -1,9 +1,10 @@
 """Where a warm `/api/price` (or `/api/exotic`, `/api/hhw`, `/api/svcj`,
-`/api/termsvj`, `/api/rough`) spends its time on one CUDA device.
+`/api/termsvj`, `/api/rough`, `/api/greeks`, `/api/smile`) spends its time
+on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj|rough] [--options JSON]
-        [--out FILE]
+        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile]
+        [--options JSON] [--reps N] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
 the solo path) on the default body (500k paths, T = 0.25 → 63 steps), with
@@ -36,8 +37,17 @@ handler on its schema defaults (`hhw`: 200k pairs × 128 steps, T = 1;
 steps, T = 0.25, three segments; `rough`: 131 072 pairs × 128 steps,
 T = 0.25, the exact sampler), mode "price" unless `--options` says
 otherwise (for example '{"mode": "greeks"}', or '{"num_steps": 512,
-"mode": "asian"}' for kernel K11); the handler is timed whole (`wall_ms`,
-`profile`) with one warm call's peak device memory, without `parts_ms`.
+"mode": "asian"}' for kernel K11); the handler is timed whole
+(`wall_ms` over 4 × `--reps` calls, `profile` over `--reps`, default 5)
+with one warm call's peak device memory, without `parts_ms`. A call of
+many launches (a Greeks strike chain) wants fewer: the profiler's summary
+takes time for every launch it recorded.
+`--route greeks` and `--route smile` do the same for `handle_greeks`
+(200k paths, T = 0.25 → 63 steps, every block of `all_greeks`; for
+example '{"with_second_order": true, "T": 1.0}', or a strike chain,
+'{"strike": 0, "strikes": [...]}') and `handle_smile`
+(method "mc": 50k paths on the Sobol net, kernel K1; '{"method": "cos",
+"with_density": true}' for the host COS smile).
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -53,7 +63,7 @@ import torch
 
 BODY = {"spot": 22500.0, "strike": 22500.0, "T": 0.25}
 EXOTIC_BODY = dict(BODY, kind="asian")
-FAMILY_BODIES = {
+ROUTE_BODIES = {
     "hhw": {"spot": 22500.0, "strike": 22500.0, "T": 1.0},
     "svcj": {"spot": 22500.0, "T": 0.25},
     "termsvj": {"spot": 22500.0, "T": 0.25, "segments": [
@@ -61,6 +71,8 @@ FAMILY_BODIES = {
         {"t_end": 0.16, "theta": 0.06, "xi": 0.7, "lambda_j": 2.0},
         {"t_end": 0.25, "theta": 0.09, "xi": 0.9, "lambda_j": 4.0}]},
     "rough": {"spot": 22500.0, "T": 0.25},
+    "greeks": {"spot": 22500.0, "strike": 22500.0, "T": 0.25},
+    "smile": {"spot": 22500.0, "T": 0.25},
 }
 
 
@@ -146,14 +158,14 @@ def profile_exotic(options: dict) -> dict:
     return out
 
 
-def profile_family(route: str, options: dict) -> dict:
-    """`/api/hhw`, `/api/svcj`, `/api/termsvj` or `/api/rough`: the whole
-    handler, and one call's peak device memory."""
+def profile_route(route: str, options: dict, reps: int = 5) -> dict:
+    """`/api/hhw`, `/api/svcj`, `/api/termsvj`, `/api/rough`, `/api/greeks`
+    or `/api/smile`: the whole handler (median of 4 × `reps` calls, then
+    `reps` under the profiler), and one call's peak device memory."""
     from mcos_tpu_torch.api import server
 
-    reps = 5
     device = torch.device("cuda", 0)
-    body = dict(FAMILY_BODIES[route], **options)
+    body = dict(ROUTE_BODIES[route], **options)
     handler = getattr(server, f"handle_{route}")
     server.warm(device)
     call = lambda: handler(dict(body), device=device)  # noqa
@@ -200,17 +212,20 @@ def _profiled(call, reps: int) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--route", default="price",
-                        choices=("price", "exotic", *FAMILY_BODIES))
+                        choices=("price", "exotic", *ROUTE_BODIES))
     parser.add_argument("--options", default="{}",
                         help="JSON object of request fields to merge into "
                              "the default body")
+    parser.add_argument("--reps", type=int, default=5,
+                        help="profiled calls of a route handler (its wall "
+                             "time takes 4x as many)")
     parser.add_argument("--out", default=None, help="also write JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_price needs a CUDA device")
     options = json.loads(args.options)
-    if args.route in FAMILY_BODIES:
-        res = profile_family(args.route, options)
+    if args.route in ROUTE_BODIES:
+        res = profile_route(args.route, options, args.reps)
     else:
         res = (profile if args.route == "price" else profile_exotic)(options)
     text = json.dumps(res, indent=1)

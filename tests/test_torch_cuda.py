@@ -997,3 +997,64 @@ def test_prng_route_instantiations_fit(cuda):
         occ = kernel_lab.occupancy(r["registers"], 256, 1954)
         assert occ["blocks_per_sm"] == 8, fn
         assert occ["waves"] <= 1.851, fn
+
+
+def _kernel_deltas(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def test_smile_mc_launches_k1_once_and_term_structure_k3_per_maturity(cuda):
+    """`/api/smile` `mc` launches K1 once a request and nothing else; the
+    card's prices are the CPU's plain version's on the same Sobol net (the
+    jump uniforms are Philox words in both) to float32 sums.
+    `price_term_structure` launches K3 once a maturity."""
+    from mcos_tpu_torch.api import server
+    from mcos_tpu_torch.engine.pricer import price_term_structure
+    from mcos_tpu_torch.models.params import TermStructureSVJ
+
+    body = {"spot": 100.0, "T": 0.25, "num_paths": 8192, "num_strikes": 7}
+    before = ck.launch_counts()
+    res = server.handle_smile(dict(body), device=cuda)
+    assert _kernel_deltas(before, ck.launch_counts()) == {
+        "svj_terminal_from_draws": 1}
+    ref = server.handle_smile(dict(body), device="cpu")
+    for a, b in zip(res["smile"], ref["smile"]):
+        np.testing.assert_allclose(a["price"], b["price"], rtol=1e-4,
+                                   atol=1e-4)
+    ts = TermStructureSVJ(theta_curve={0.25: 0.04, 1.0: 0.06})
+    before = ck.launch_counts()
+    out = price_term_structure(ts, 100.0, [95.0, 100.0, 105.0],
+                               [0.1, 0.25, 0.5], num_paths=8192,
+                               device=cuda)
+    assert _kernel_deltas(before, ck.launch_counts()) == {"svj_terminal": 3}
+    assert all(np.isfinite(r["price"]) for m in out for r in m["chain"])
+
+
+def test_greeks_engine_on_card_matches_cpu(cuda):
+    """The Greeks programs run on the card through the twins (no kernel):
+    on the same draws every block of `all_greeks`, `cross_greeks` and
+    `second_order_greeks` agrees with the CPU's to float32 sums: rtol 1e-4
+    beside an atol of 1e-5 × the largest |value| of the key's block (the
+    `diff_pct` keys, 100 × a relative difference, at 1e-3 points), so a
+    key near 0 (speed, color_daily) is held to its block's scale."""
+    from mcos_tpu_torch.engine.greeks import GreeksEngine
+
+    g = torch.Generator().manual_seed(4)
+    draws = (torch.randn((25, 3, 8192), generator=g),
+             torch.rand((25, 8192), generator=g))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        eng = GreeksEngine(_P, num_paths=8192, device=device)
+        eng._draws = lambda steps, d=device: tuple(x.to(d) for x in draws)
+        before = ck.launch_counts()
+        res = eng.all_greeks(100.0, 100.0, 0.1)
+        res["cross"] = eng.cross_greeks(100.0, 100.0, 0.1)
+        res["second"] = eng.second_order_greeks(100.0, 100.0, 0.1)
+        assert ck.launch_counts() == before
+        out[device.type] = res
+    for block, vals in out["cpu"].items():
+        scale = max(abs(v) for k, v in vals.items() if k != "diff_pct")
+        for k, v in vals.items():
+            atol = 1e-3 if k == "diff_pct" else 1e-5 * scale
+            np.testing.assert_allclose(out["cuda"][block][k], v, rtol=1e-4,
+                                       atol=atol, err_msg=f"{block}.{k}")

@@ -128,7 +128,16 @@ def test_http_routes(solo, monkeypatch):
     try:
         assert call("/api/health")[0] == 200
         assert call("/api/metrics")[0] == 404
-        assert call("/api/greeks", _BODY)[0] == 404
+        # A route still to port answers 404; the ported Greeks and smile
+        # routes answer 200.
+        assert call("/api/stress", _BODY)[0] == 404
+        status, res = call("/api/greeks", dict(_BODY, num_paths=2048))
+        assert status == 200 and np.isfinite(res["delta"]["pathwise"])
+        assert res.keys() >= {"delta", "vega", "gamma", "theta", "rho",
+                              "jumps", "model"}
+        status, res = call("/api/smile", {"spot": 22500.0, "T": 0.25,
+                                          "method": "cos"})
+        assert status == 200 and len(res["smile"]) == 21
         assert call("/api/price", dict(_BODY, num_paths=10))[0] == 422
         status, res = call("/api/price", dict(_BODY, num_paths=1024, T=0.05))
         assert status == 200 and res["post_checks"]["pass"]
