@@ -113,7 +113,32 @@
    a maturity, every price against COS within 4 se + 1 %); 5 warm requests
    each of /api/greeks and /api/smile in both methods. Then the counts
    show K1 and K3 launched exactly that often and no other kernel.
-10. Prints the kernels' JSON line (each kernel's launches on its own path
+10. The risk desk path (slice G), with the counts set to 0 again: a new
+   server on 127.0.0.1 answers POST /api/stress at the schema's width
+   (100 000 pairs, T = 0.25 → 63 steps): the report, every spot row, both
+   gap rows and both vol rows against COS within 4 se + 1 % (the se from
+   the same K3 results priced in process), under degenerate GBM every row
+   equal to Black-Scholes (control variate on) and its raw estimate within
+   3 se; mode="matrix" at the default and at custom axes (its (0, 0) cell
+   the report's base, its zero-vol row the report's spot rows); two 400s.
+   POST /api/hedge at 500 scenarios in every world × hedge the reference
+   allows (every figure finite); degenerate GBM at r = q = 0 with zero
+   costs and 20 000 scenarios (mean P&L within 3 std/√n + 3 se of the
+   premium); ww_band at zero cost equal to bs_delta; mv_delta below
+   bs_delta's P&L std in the svj world with ρ < 0; the svj world's left
+   tail fatter than the gbm world's; two 400s. POST /api/var at 500 000
+   paths: Euler components against the normal oracle, their sums equal to
+   VaR and CVaR, a one-asset VaR against the lognormal quantile, the
+   t-copula (VaR at ν = 3 above the Gaussian, at ν = 300 within 2 % of it,
+   its marginals GBM's within 3 se on a CUDA generator), 2 000 000 paths ×
+   16 assets with its peak device memory, two 400s (a dimension mismatch, a
+   correlation matrix that is not positive definite). POST /api/regime on
+   the canned inputs against the detector in process; 5 warm requests each
+   of the report, the gbm and svj hedges, both VaR copulas and the regime.
+   Then the counts show K3 launched exactly once per report spot axis and
+   vol member, matrix vol row, gbm/svj hedge and in-process price, and no
+   other kernel.
+11. Prints the kernels' JSON line (each kernel's launches on its own path
    and, under "launches_by_path", on every path), the card line and, last,
    the result line {"ok": true, "device": {...}}.
 
@@ -2274,6 +2299,435 @@ def greeks_path(device, ck, server, greeks, bs_all_greeks, cos_price,
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice G: the risk desk (/api/stress, /api/regime, /api/hedge, /api/var)
+# ─────────────────────────────────────────────────────────────────────────────
+STRESS_PATHS = 100_000    # StressRequest default
+HEDGE_SCEN = 500          # HedgeRequest default
+VAR_PATHS = 500_000       # VarRequest default
+# The normal oracle of tests/test_risk_regime_guards.py: at T = 0.05 the
+# book's returns are nearly jointly normal, where componentᵢ/risk =
+# wᵢ(Σw)ᵢ / wᵀΣw for VaR and CVaR alike.
+ORACLE_BOOK = {"spots": [100.0, 100.0, 100.0], "sigmas": [0.2, 0.35, 0.15],
+               "weights": [0.4, 0.35, 0.25],
+               "corr": [[1.0, 0.5, 0.1], [0.5, 1.0, 0.3], [0.1, 0.3, 1.0]],
+               "T": 0.05}
+# tests/test_mv_delta.py's world (ρ = −0.8, no jumps) and
+# tests/test_risk_regime_guards.py's jump world (λ = 3 a year).
+MV_FIELDS = {"kappa": 2.0, "theta": 0.04, "xi": 0.6, "rho": -0.8,
+             "v0": 0.04, "lambda_j": 0.0, "mu_j": 0.0, "sigma_j": 0.0}
+JUMP_FIELDS = {"kappa": 3.0, "theta": 0.04, "xi": 0.4, "rho": -0.6,
+               "v0": 0.04, "lambda_j": 3.0, "mu_j": -0.06, "sigma_j": 0.08}
+
+
+def equicorr(n: int, rho: float) -> list:
+    return [[1.0 if i == j else rho for j in range(n)] for i in range(n)]
+
+
+def risk_path(device, ck, server, risk, regime, cos_price, bs_price,
+              SVJParams):
+    """POST /api/stress, /api/regime, /api/hedge and /api/var over HTTP on a
+    fresh server, with the launch counts set to 0 just before: K3 once for
+    a report's spot axis and once a shocked vol member, once a matrix vol
+    row, once a gbm/svj hedge's premium (and once for each in-process price
+    that reads a request's standard error and each in-process pin of K3
+    against its plain version), no other kernel."""
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    common = {"spot": SPOT, "strike": STRIKE, "T": T_DEFAULT}
+    k3 = {"requests": 0, "in_process": 0}
+    out = {"requests": {}}
+
+    def k3_now():
+        return ck.launch_counts()["svj_terminal"]
+
+    def ask(what, body, path, n3=0):
+        before = k3_now()
+        status, res, ms = post(base, body, path=path)
+        check(status == 200, f"{what}: status {status}")
+        # A hedge's Hill tail index is NaN by the reference's contract when
+        # the P&L has 20 losses or fewer (risk.py:89); every other number
+        # must be finite.
+        rm = res.get("risk_metrics", {})
+        check(all_finite(dict(res, risk_metrics={
+            k: v for k, v in rm.items() if k != "tail_index"})),
+            f"{what}: every number finite")
+        n = k3_now() - before
+        check(n == n3, f"{what}: K3 launched {n} times, expected {n3}")
+        k3["requests"] += n3
+        out["requests"][what] = {"latency_ms": ms,
+                                 "elapsed_ms": res.get("elapsed_ms")}
+        return res, ms
+
+    def in_process(n3, fn, *a, **kw):
+        before = k3_now()
+        res = fn(*a, **kw)
+        n = k3_now() - before
+        check(n == n3, f"in-process {fn.__name__}: K3 launched {n} times, "
+              f"expected {n3}")
+        k3["in_process"] += n3
+        return res
+
+    def pin_k3(what, params, num_paths, steps, seed):
+        """K3 at a launch's own shape and seed on this path against its
+        plain version: S, v and G bit for bit, as check_prng holds it."""
+        kw = dict(num_paths=num_paths, num_steps=steps, antithetic=True,
+                  companion=True, device=device)
+        ker = in_process(1, ck.svj_terminal, params, SPOT, T_DEFAULT, seed,
+                         **kw)
+        torch.cuda.synchronize()
+        ref = ck.svj_terminal_plain(params, SPOT, T_DEFAULT, seed, **kw)
+        torch.cuda.synchronize()
+        err, _ = compare_family(f"K3 {what} ({num_paths} pairs x {steps} "
+                                f"steps)", ker, ref, ("S", "v", "G"),
+                                bit_for_bit=True)
+        out.setdefault("k3_pins", {})[what] = err
+
+    def refused(what, body, path, needle):
+        try:
+            post(base, body, path=path)
+            check(False, f"{what} must answer 400")
+        except urllib.error.HTTPError as e:
+            detail = json.loads(e.read())["detail"]
+            check(e.code == 400 and needle in str(detail),
+                  f"{what}: {e.code} {detail!r}")
+            log(f"{path} {what}: 400 {detail!r}")
+
+    def warm(what, body, path, n3=0):
+        lat = [ask(f"warm {what}", body, path, n3)[1] for _ in range(5)]
+        out[f"warm_{what}_ms"] = statistics.median(lat)
+        log(f"warm {path} {what}: median {statistics.median(lat):.2f} ms "
+            f"over 5 ({[round(x, 2) for x in lat]})")
+
+    try:
+        # ── /api/stress report: SVJ against COS ──────────────────────────
+        # The report's base member is its spot axis's unshocked price.
+        n_report = 1 + len(risk.VOL_SHOCKS)
+        stress = dict(common)
+        rep, ms = ask("stress report", stress, "/api/stress", n_report)
+        p = SVJParams()
+        eng = risk.StressTestEngine(p, num_paths=STRESS_PATHS, device=device)
+        steps = eng._steps(T_DEFAULT)
+        members, v0s = eng._vol_members()
+        pin_k3("stress base member", members[0], STRESS_PATHS, steps,
+               eng.seed)
+        pin_k3("stress vol member +5", members[-1], STRESS_PATHS, steps,
+               eng.seed)
+        gap = risk.JUMP_SCENARIO_SIZE
+        shocks = np.concatenate([[0.0], risk.SPOT_SHOCKS, [-gap, gap]])
+        rel, res = in_process(1, eng._shock_prices_device, SPOT, STRIKE,
+                              T_DEFAULT, True, shocks)
+        host = {k: res[k].cpu().double().numpy() for k in ("price",
+                                                           "std_error")}
+        price, se = host["price"] * rel, host["std_error"] * rel
+        got = ([rep["jump_scenario"]["base_price"]]
+               + [r["price"] for r in rep["spot_shocks"]]
+               + [rep["jump_scenario"]["gap_down_price"],
+                  rep["jump_scenario"]["gap_up_price"]])
+        check(np.allclose(got, price, rtol=1e-6, atol=0),
+              "the report's spot axis is the in-process K3 result")
+        exact = np.array([cos_price(p, SPOT * r, [STRIKE], T_DEFAULT,
+                                    True)[0] for r in rel])
+        share = np.abs(price - exact) / (4 * se + 0.01 * exact)
+        vol_share = []
+        for m, row in zip(members[1:], rep["vol_shocks"]):
+            r = in_process(1, eng._engine(m)._price_result, SPOT, [STRIKE],
+                           T_DEFAULT, True)
+            c = cos_price(m, SPOT, [STRIKE], T_DEFAULT, True)[0]
+            check(abs(row["price"] - float(r["price"][0]))
+                  <= 1e-6 * row["price"], "vol row is the in-process K3 "
+                  "member")
+            vol_share.append(abs(row["price"] - c)
+                             / (4 * float(r["std_error"][0]) + 0.01 * c))
+        out["stress_vs_cos_worst_share_of_tol"] = float(max(share.max(),
+                                                           *vol_share))
+        log(f"/api/stress report ({STRESS_PATHS} pairs x {STEPS_DEFAULT} "
+            f"steps, {n_report} K3 launches, first request {ms:.1f} "
+            f"ms): worst |MC - COS| / (4 se + 1 %) over 6 spot rows, 2 gap "
+            f"rows and 2 vol rows = {out['stress_vs_cos_worst_share_of_tol']:.3f}")
+        check(out["stress_vs_cos_worst_share_of_tol"] < 1.0,
+              "stress report against COS")
+
+        # ── degenerate GBM: every row against Black-Scholes ──────────────
+        gbm_p = SVJParams(**GBM_FIELDS, r=R, q=Q)
+        grep, _ = ask("stress report GBM", dict(stress, params=GBM_FIELDS),
+                      "/api/stress", n_report)
+        raw = in_process(1, server.MonteCarloEngine(
+            gbm_p, num_paths=STRESS_PATHS, use_sobol=False,
+            use_control_variate=False, device=device)._price_result,
+            SPOT, (STRIKE / rel).astype(np.float32), T_DEFAULT, True)
+        raw_p = raw["price"].cpu().double().numpy() * rel
+        raw_se = raw["std_error"].cpu().double().numpy() * rel
+        bs = np.array([float(bs_price(SPOT * r, STRIKE, T_DEFAULT, R, Q,
+                                      GBM_SIGMA)) for r in rel])
+        got = np.array([grep["jump_scenario"]["base_price"]]
+                       + [r["price"] for r in grep["spot_shocks"]]
+                       + [grep["jump_scenario"]["gap_down_price"],
+                          grep["jump_scenario"]["gap_up_price"]])
+        worst_raw = float(np.max(np.abs(raw_p - bs) / (3 * raw_se)))
+        worst_cv = float(np.max(np.abs(got - bs)))
+        vol_bs = []
+        for row in grep["vol_shocks"]:
+            sig = math.sqrt(row["v0"])
+            m = gbm_p.replace(v0=row["v0"], theta=row["v0"])
+            r = in_process(1, server.MonteCarloEngine(
+                m, num_paths=STRESS_PATHS, use_sobol=False,
+                use_control_variate=False, device=device)._price_result,
+                SPOT, [STRIKE], T_DEFAULT, True)
+            b = float(bs_price(SPOT, STRIKE, T_DEFAULT, R, Q, sig))
+            vol_bs.append(abs(row["price"] - b))
+            worst_raw = max(worst_raw, abs(float(r["price"][0]) - b)
+                            / (3 * float(r["std_error"][0])))
+        worst_cv = max(worst_cv, *vol_bs)
+        out["stress_gbm"] = {"raw_worst_share_of_3se": worst_raw,
+                             "cv_worst_abs": worst_cv}
+        log(f"/api/stress report, degenerate GBM: the response (control "
+            f"variate on, every row) within {worst_cv:.2e} of "
+            f"Black-Scholes (limit 1e-5 x spot: float32 sums); the raw "
+            f"estimates of the same paths within {worst_raw:.3f} of 3 se")
+        check(worst_cv < 1e-5 * SPOT, "GBM stress rows equal Black-Scholes")
+        check(worst_raw < 1.0, "GBM stress raw rows within 3 se of BS")
+
+        # ── the scenario matrix at the default and at custom axes ────────
+        for what, axes in (("default axes", {}),
+                           ("custom axes", {"spot_shocks": [-0.3, -0.1, 0.15,
+                                                            0.6],
+                                            "vol_shocks": [-0.1, 0.05, 0.25,
+                                                           0.8]})):
+            rows = len(set(axes.get("vol_shocks", risk.VOL_SHOCKS)) | {0.0})
+            mat, ms = ask(f"stress matrix {what}", dict(
+                stress, mode="matrix", **axes), "/api/stress", rows)
+            i0 = mat["vol_shocks_pts"].index(0.0)
+            j0 = mat["spot_shocks_pct"].index(0.0)
+            base_price = rep["jump_scenario"]["base_price"]
+            check(abs(mat["prices"][i0][j0] - base_price)
+                  <= 1e-6 * base_price,
+                  f"matrix {what}: (0, 0) cell equals the report's base")
+            if not axes:
+                zero = dict(zip(mat["spot_shocks_pct"], mat["prices"][i0]))
+                for r in rep["spot_shocks"]:
+                    check(abs(zero[r["shock_pct"]] - r["price"])
+                          <= 1e-6 * r["price"], "matrix zero-vol row equals "
+                          "the report's spot rows")
+            log(f"/api/stress matrix {what}: {len(mat['prices'])} x "
+                f"{len(mat['prices'][0])} cells, {rows} K3 launches, "
+                f"{ms:.1f} ms")
+        refused("spot_shocks outside (-0.95, 4.0)", dict(
+            stress, mode="matrix", spot_shocks=[0.1, 4.0]), "/api/stress",
+            "spot_shocks")
+        refused("vol_shocks beyond 1.0", dict(
+            stress, mode="matrix", vol_shocks=[-1.5]), "/api/stress",
+            "vol_shocks")
+
+        # ── /api/hedge: every world x hedge the reference allows ─────────
+        hedges = {}
+        for dyn in ("gbm", "svj", "rough"):
+            for hedge in (("bs_delta", "mv_delta", "ww_band")
+                          if dyn != "rough" else ("bs_delta",)):
+                res, ms = ask(f"hedge {dyn} {hedge}", dict(
+                    common, dynamics=dyn, hedge=hedge), "/api/hedge",
+                    0 if dyn == "rough" else 1)
+                hedges[(dyn, hedge)] = res
+                log(f"/api/hedge {dyn} {hedge} ({HEDGE_SCEN} scenarios, "
+                    f"{STEPS_DEFAULT} days): mean P&L "
+                    f"{res['mean_pnl']:.3f}, std {res['std_pnl']:.3f}, "
+                    f"premium {res['premium']:.3f}, {ms:.1f} ms")
+        refused("mv_delta in the rough world", dict(
+            common, dynamics="rough", hedge="mv_delta"), "/api/hedge",
+            "gbm/svj")
+        refused("an unknown hedge", dict(common, hedge="gamma_neutral"),
+                "/api/hedge", "unknown hedge")
+        # Degenerate GBM at r = q = 0 (the backtest's cash earns no
+        # interest, so at r > 0 its mean P&L carries (r - q)·T·Δ·S), zero
+        # costs: S is a martingale and its log-Euler steps are exact, so
+        # the mean P&L is the premium's error, centred on 0.
+        gbm0 = dict(GBM_FIELDS, r=0.0, q=0.0)
+        n_big = 20_000
+        res, ms = ask("hedge GBM zero cost 20 000", dict(
+            common, params=gbm0, num_scenarios=n_big, txn_cost_bps=0.0,
+            slippage_bps=0.0), "/api/hedge", 1)
+        prem_eng = server.MonteCarloEngine(
+            SVJParams(**gbm0), num_paths=50_000, use_sobol=False,
+            device=device)
+        prem = in_process(1, prem_eng.price, SPOT, STRIKE, T_DEFAULT)
+        # The premium's launch at the default SVJ parameters (the gbm/svj
+        # hedges above): 50 000 pairs on the backtest's seed.
+        hedge_eng = risk.HedgingBacktest(p, device=device)
+        pin_k3("hedge premium", p, 50_000, prem_eng._steps(T_DEFAULT),
+               hedge_eng.seed)
+        tol = 3 * res["std_pnl"] / math.sqrt(n_big) + 3 * prem["std_error"]
+        out["hedge_gbm_mean_pnl"] = {"mean": res["mean_pnl"], "tol": tol,
+                                     "premium": res["premium"],
+                                     "premium_se": prem["std_error"]}
+        log(f"/api/hedge degenerate GBM, zero cost, {n_big} scenarios: mean "
+            f"P&L {res['mean_pnl']:.4f} (limit {tol:.4f}: 3 std/sqrt(n) + "
+            f"3 se of the premium), std {res['std_pnl']:.3f}, {ms:.1f} ms")
+        check(abs(res["mean_pnl"]) <= tol, "GBM hedge mean P&L near 0")
+        free = dict(common, txn_cost_bps=0.0, slippage_bps=0.0)
+        for dyn in ("gbm", "svj"):
+            a, _ = ask(f"hedge {dyn} bs_delta zero cost", dict(
+                free, dynamics=dyn), "/api/hedge", 1)
+            b, _ = ask(f"hedge {dyn} ww_band zero cost", dict(
+                free, dynamics=dyn, hedge="ww_band"), "/api/hedge", 1)
+            check(a["mean_pnl"] == b["mean_pnl"]
+                  and a["std_pnl"] == b["std_pnl"],
+                  f"{dyn}: ww_band at zero cost equals bs_delta")
+        mv = {h: ask(f"hedge svj rho<0 {h}", dict(
+            common, T=0.1, params=MV_FIELDS, dynamics="svj", hedge=h,
+            num_scenarios=3000), "/api/hedge", 1)[0]
+            for h in ("bs_delta", "mv_delta")}
+        out["hedge_mv_std"] = {h: mv[h]["std_pnl"] for h in mv}
+        log(f"/api/hedge svj world, rho = -0.8, 3000 scenarios: P&L std "
+            f"bs_delta {mv['bs_delta']['std_pnl']:.3f}, mv_delta "
+            f"{mv['mv_delta']['std_pnl']:.3f}")
+        check(mv["mv_delta"]["std_pnl"] < 0.97 * mv["bs_delta"]["std_pnl"],
+              "mv_delta cuts the P&L std in the svj world with rho < 0")
+        tails = {d: ask(f"hedge jumps {d}", dict(
+            common, T=0.1, params=JUMP_FIELDS, dynamics=d,
+            num_scenarios=3000), "/api/hedge", 1)[0]
+            for d in ("gbm", "svj")}
+        out["hedge_tails"] = {d: {"std": tails[d]["std_pnl"],
+                                  "p1": tails[d]["pnl_percentiles"]["1%"]}
+                              for d in tails}
+        log(f"/api/hedge jump world, 3000 scenarios: std gbm "
+            f"{tails['gbm']['std_pnl']:.3f} / svj {tails['svj']['std_pnl']:.3f}"
+            f", 1 % gbm {tails['gbm']['pnl_percentiles']['1%']:.3f} / svj "
+            f"{tails['svj']['pnl_percentiles']['1%']:.3f}")
+        check(tails["svj"]["std_pnl"] > tails["gbm"]["std_pnl"]
+              and tails["svj"]["pnl_percentiles"]["1%"]
+              < tails["gbm"]["pnl_percentiles"]["1%"],
+              "the svj world's left tail is fatter than the gbm world's")
+
+        # ── /api/var: Euler contributions, closed forms, the t-copula ────
+        book = dict(ORACLE_BOOK)
+        var, ms = ask("var gaussian", book, "/api/var")
+        s, w = np.array(book["sigmas"]), np.array(book["weights"])
+        cov = np.outer(s, s) * np.array(book["corr"]) * book["T"]
+        pct = w * (cov @ w) / (w @ cov @ w) * 100
+        d_cvar = np.abs(np.array(var["component_cvar_pct"]) - pct).max()
+        d_var = np.abs(np.array(var["component_var_pct"]) - pct).max()
+        out["var_oracle_pts"] = {"cvar": float(d_cvar), "var": float(d_var)}
+        log(f"/api/var gaussian ({VAR_PATHS} paths, 3 assets, T = 0.05, "
+            f"{ms:.1f} ms): VaR {var['var']:.5f}, CVaR {var['cvar']:.5f}; "
+            f"components against the normal oracle within {d_cvar:.3f} "
+            f"(CVaR) and {d_var:.3f} (VaR) percentage points")
+        check(d_cvar <= 2.5 and d_var <= 4.0, "Euler components against "
+              "the normal oracle")
+        check(abs(sum(var["component_cvar"]) - var["cvar"])
+              <= 1e-5 * var["cvar"], "sum of component CVaR = CVaR")
+        check(abs(sum(var["component_var"]) - var["var"])
+              <= 1e-5 * var["var"], "sum of component VaR = VaR")
+        one, _ = ask("var one asset", {
+            "spots": [100.0], "sigmas": [0.2], "weights": [1.0],
+            "corr": [[1.0]], "T": 0.25, "with_contributions": False},
+            "/api/var")
+        z01 = statistics.NormalDist().inv_cdf(0.01)
+        exact = -math.expm1((R - Q - 0.02) * 0.25 + 0.2 * 0.5 * z01)
+        out["var_one_asset"] = {"mc": one["var"], "exact": exact}
+        log(f"/api/var one asset, sigma 0.2, T = 0.25: VaR {one['var']:.5f} "
+            f"against the lognormal quantile {exact:.5f}")
+        check(abs(one["var"] - exact) <= 0.02 * exact,
+              "one-asset VaR against the lognormal quantile")
+        gauss, _ = ask("var gaussian, no contributions", dict(
+            book, with_contributions=False), "/api/var")
+        t3, ms3 = ask("var student_t nu=3", dict(book, copula="student_t",
+                                                  nu=3.0), "/api/var")
+        t300, _ = ask("var student_t nu=300", dict(
+            book, copula="student_t", nu=300.0), "/api/var")
+        log(f"/api/var t-copula: VaR nu=3 {t3['var']:.5f} ({ms3:.1f} ms), "
+            f"nu=300 {t300['var']:.5f}, Gaussian {gauss['var']:.5f}")
+        check(t3["var"] > gauss["var"], "t-copula nu=3 VaR above Gaussian")
+        check(abs(t300["var"] - gauss["var"]) <= 0.02 * gauss["var"],
+              "t-copula nu=300 VaR within 2 % of Gaussian")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        s_t = risk.multi_asset_t_copula_terminal(
+            book["spots"], book["sigmas"], book["corr"], R, Q, book["T"],
+            gen, num_paths=VAR_PATHS, nu=4.0, device=device)
+        lr = torch.log(s_t / torch.tensor(book["spots"], device=device))
+        lr = lr.double().cpu().numpy()
+        worst = 0.0
+        for i, sig in enumerate(book["sigmas"]):
+            sd = sig * math.sqrt(book["T"])
+            mu = (R - Q - 0.5 * sig * sig) * book["T"]
+            worst = max(worst,
+                        abs(lr[:, i].mean() - mu) / (sd / math.sqrt(VAR_PATHS)),
+                        abs(lr[:, i].std() - sd)
+                        / (sd / math.sqrt(2 * VAR_PATHS)))
+        out["t_copula_marginals_worst_se"] = worst
+        log(f"t-copula marginals (nu = 4, {VAR_PATHS} paths, CUDA "
+            f"generator): log-return mean and std within {worst:.2f} se of "
+            f"GBM's")
+        check(worst < 3.0, "t-copula marginals are GBM's")
+        big = {"spots": [100.0 + 5 * i for i in range(16)],
+               "sigmas": [0.15 + 0.01 * i for i in range(16)],
+               "weights": [1.0 / 16] * 16, "corr": equicorr(16, 0.3),
+               "T": 0.05, "num_paths": 2_000_000}
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device) / 2**30
+        res, ms = ask("var 2M x 16", big, "/api/var")
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        out["var_2m_x16"] = {"ms": ms, "peak_gib": peak, "held_gib": held,
+                             "var": res["var"]}
+        log(f"/api/var 2 000 000 paths x 16 assets (Gaussian, contributions, "
+            f"32 steps): {ms:.1f} ms, peak device memory {peak:.3f} GiB "
+            f"(all allocations of the process; {held:.3f} GiB of it held "
+            f"before the request, {peak - held:.3f} GiB the request's own)")
+        refused("dimension mismatch", dict(book, weights=[0.5, 0.5]),
+                "/api/var", "dimensions")
+        refused("corr not positive definite", dict(
+            book, corr=[[1.0, 1.5, 0.0], [1.5, 1.0, 0.0], [0.0, 0.0, 1.0]]),
+            "/api/var", "positive definite")
+
+        # ── /api/regime: the reference's labels, and the detector ────────
+        # tests/test_risk_regime_guards.py pins calm, event and crisis on
+        # these three inputs.
+        for inputs, label in (((0.12, 25, 0.02), "calm"),
+                              ((0.22, 60, 0.06), "event"),
+                              ((0.35, 85, 0.12), "crisis")):
+            body = dict(zip(("realized_vol", "iv_percentile",
+                             "skew_slope"), inputs))
+            res, _ = ask(f"regime {inputs}", body, "/api/regime")
+            ref = regime.RegimeDetector().classify(*inputs)
+            check(res["regime"] == label,
+                  f"regime {inputs}: {res['regime']}, expected {label}")
+            check(res["regime"] == ref["regime"]
+                  and res["score"] == ref["score"],
+                  f"regime {inputs}: {res['regime']} vs {ref['regime']}")
+        log("/api/regime: the canned inputs give calm, event and crisis, as "
+            "the reference pins them and as the detector in process does")
+
+        warm("stress report", stress, "/api/stress", n_report)
+        warm("hedge gbm", common, "/api/hedge", 1)
+        warm("hedge svj", dict(common, dynamics="svj"), "/api/hedge", 1)
+        warm("var gaussian", book, "/api/var")
+        warm("var student_t", dict(book, copula="student_t"), "/api/var")
+        warm("regime", {"realized_vol": 0.22, "iv_percentile": 60,
+                        "skew_slope": 0.06}, "/api/regime")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    counts = ck.launch_counts()
+    expect = k3["requests"] + k3["in_process"]
+    log(f"launch counts over the risk desk path: {counts} (K3 expected "
+        f"{k3['requests']} for the requests + {k3['in_process']} in process)")
+    for name, n in counts.items():
+        want = expect if name == "svj_terminal" else 0
+        check(n == want, f"{name} launched {n} times, expected {want}")
+    out["launches"] = counts
+    out["k3_launches"] = k3
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"risk desk path: {out['wall_s']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2290,6 +2744,7 @@ def main() -> None:
                                               TermStructureSVJ, gbm_params)
     from mcos_tpu_torch.ops import cuda_kernels as ck
     from mcos_tpu_torch.ops import exotics as ox
+    from mcos_tpu_torch.engine import regime, risk
     from mcos_tpu_torch.engine import rough as rough_engine
     from mcos_tpu_torch.ops import hhw, rough, sobol, svcj, tdsvj
     from mcos_tpu_torch.ops.bs import bs_all_greeks, bs_price
@@ -2356,6 +2811,17 @@ def main() -> None:
         f" ms; with_second_order peak device memory "
         f"{gp['second_order_peak_gib']:.3f} GiB at T = 0.25, "
         f"{gp['second_order_T1_peak_gib']:.3f} GiB at T = 1; on {card}")
+    gr = risk_path(device, ck, server, risk, regime, cos_price, bs_price,
+                   SVJParams)
+    log(f"warm risk desk over HTTP: /api/stress report "
+        f"{gr['warm_stress report_ms']:.2f} ms, /api/hedge gbm "
+        f"{gr['warm_hedge gbm_ms']:.2f}, svj {gr['warm_hedge svj_ms']:.2f}, "
+        f"/api/var gaussian {gr['warm_var gaussian_ms']:.2f}, student_t "
+        f"{gr['warm_var student_t_ms']:.2f}, /api/regime "
+        f"{gr['warm_regime_ms']:.2f} ms; /api/var 2M x 16 "
+        f"{gr['var_2m_x16']['ms']:.1f} ms, its own peak "
+        f"{gr['var_2m_x16']['peak_gib'] - gr['var_2m_x16']['held_gib']:.3f}"
+        f" GiB; on {card}")
 
     # (name, source, TPU kernel body, its check, the path that launched it)
     table = (
@@ -2377,7 +2843,7 @@ def main() -> None:
         ("rbergomi_lift_stats", "rbergomi_stats.cu", 2162, k11, rp),
     )
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
-             "rough": rp, "greeks": gp}
+             "rough": rp, "greeks": gp, "risk": gr}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -2406,7 +2872,7 @@ def main() -> None:
                    "k10_k11_resources": rough_res, "main_path": mp,
                    "options_path": op, "exotics_path": xp,
                    "families_path": fp, "rough_path": rp,
-                   "greeks_path": gp}, f, indent=1)
+                   "greeks_path": gp, "risk_path": gr}, f, indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came

@@ -1,7 +1,8 @@
 """Request schemas of the port's HTTP API: the part of
 `mcos_tpu/api/schemas.py` that `PriceRequest`, `GreeksRequest`,
 `SmileRequest`, `ExoticRequest`, `HHWRequest`, `SVCJRequest`,
-`TermSVJRequest` and `RoughRequest` need,
+`TermSVJRequest`, `RoughRequest`, `StressRequest`, `RegimeRequest`,
+`HedgeRequest` and `VarRequest` need,
 copied unchanged apart from the imports. tests/test_torch_copies.py holds the two equal.
 """
 
@@ -328,3 +329,68 @@ class RoughRequest(BaseModel):
     cal_strikes: Optional[list] = None
     market_prices: Optional[list] = None
     hurst_grid: Optional[list] = None
+
+
+class StressRequest(BaseModel):
+    spot: float
+    strike: float
+    T: float
+    is_call: bool = True
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(100_000, **_PATHS)
+    # mode="report": the reference's ladder report (spot/vol/jump).
+    # mode="matrix": the full spot×vol scenario P&L cube in one CRN device
+    # program (engine/risk.py:scenario_matrix); optional custom shock axes.
+    mode: str = Field("report", pattern="^(report|matrix)$")
+    spot_shocks: Optional[list[float]] = Field(None, max_length=25)
+    vol_shocks: Optional[list[float]] = Field(None, max_length=25)
+
+
+class RegimeRequest(BaseModel):
+    realized_vol: float
+    iv_percentile: float
+    skew_slope: float
+
+
+class HedgeRequest(BaseModel):
+    spot: float
+    strike: float
+    T: float
+    is_call: bool = True
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_scenarios: int = Field(500, ge=10, le=100_000)
+    txn_cost_bps: float = 5.0
+    slippage_bps: float = 2.0
+    # "gbm" (reference world) | "svj" (full jump-diffusion) | "rough"
+    # (rough-Bergomi world from a pre-simulated exact-covariance sheet)
+    dynamics: str = "gbm"
+    # "bs_delta" (desk BS delta at sigma=sqrt(v0)) | "mv_delta"
+    # (minimum-variance ratio Delta + rho*xi*P_v/S; gbm/svj worlds only)
+    # | "ww_band" (Whalley-Wilmott no-transaction band around the BS
+    # delta, trading to the nearest edge — asymptotically optimal under
+    # proportional costs; gbm/svj worlds only)
+    hedge: str = "bs_delta"
+    # ww_band risk aversion (gamma in the band formula, units 1/currency:
+    # absolute risk aversion, sensible values ~1/spot-scale); higher =
+    # tighter band = closer tracking at more cost.
+    risk_aversion: float = Field(1e-3, gt=0, le=1e4)
+
+
+class VarRequest(BaseModel):
+    """POST /api/var — correlated-GBM portfolio VaR/CVaR with per-asset
+    Euler risk contributions (engine/risk.py:portfolio_risk_contributions;
+    the reference reports portfolio scalars only, risk.py:117-155)."""
+    spots: list[float] = Field(max_length=64)
+    sigmas: list[float] = Field(max_length=64)
+    weights: list[float] = Field(max_length=64)
+    corr: list[list[float]]
+    T: float
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    num_paths: int = Field(500_000, **_PATHS)
+    confidence: float = Field(0.99, gt=0.5, lt=1.0)
+    with_contributions: bool = True
+    # dependence structure: "gaussian" (default; mesh-shardable) or
+    # "student_t" (tail-dependent joint crashes, lognormal marginals kept)
+    copula: str = "gaussian"
+    nu: float = Field(5.0, ge=1.0, le=300.0)

@@ -22,6 +22,14 @@ serving slice).
                              calibrate (american answers 501)
     POST /api/rough        — rough Bergomi: price, greeks, smile, skew,
                              asian, barrier, lookback, calibrate
+    POST /api/stress       — the spot/vol/gap stress report, or the spot ×
+                             vol scenario matrix
+    POST /api/regime       — calm / event / crisis classification
+    POST /api/hedge        — the delta-hedging backtest of a short option in
+                             the gbm, svj or rough world (bs_delta, mv_delta,
+                             ww_band)
+    POST /api/var          — portfolio VaR/CVaR under a Gaussian (with Euler
+                             contributions) or Student-t copula
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
@@ -54,7 +62,17 @@ from mcos_tpu_torch.engine.exotics import (
 from mcos_tpu_torch.engine.greeks import GreeksEngine
 from mcos_tpu_torch.engine.guards import PricingGuard
 from mcos_tpu_torch.engine.hhw import HHWEngine
-from mcos_tpu_torch.engine.pricer import MonteCarloEngine, to_host
+from mcos_tpu_torch.engine.pricer import (MonteCarloEngine, seeded_generator,
+                                          to_host)
+from mcos_tpu_torch.engine.regime import RegimeDetector
+from mcos_tpu_torch.engine.risk import (
+    HedgingBacktest,
+    StressTestEngine,
+    _hedge_paths,
+    compute_risk_metrics,
+    portfolio_risk_contributions,
+    portfolio_var,
+)
 from mcos_tpu_torch.engine.rough import RoughBergomiEngine, calibrate_rbergomi
 from mcos_tpu_torch.engine.surface import implied_vol
 from mcos_tpu_torch.engine.svcj import SVCJEngine
@@ -692,6 +710,87 @@ def handle_rough(body: dict, device="cuda") -> dict:
     return out
 
 
+def handle_stress(body: dict, device="cuda") -> dict:
+    """`/api/stress` on `device`, the JAX handler's contract: the report
+    (spot ladder and gap scenario on one K3 launch, one more a shocked vol
+    member) or `mode="matrix"` (one K3 launch a vol row), every price on the
+    engine's seed."""
+    req = schemas.StressRequest(**body)
+    start = time.time()
+    engine = StressTestEngine(req.params.to_params(), num_paths=req.num_paths,
+                              device=device)
+    if req.mode == "matrix":
+        if req.spot_shocks is not None and any(
+                s <= -0.95 or s >= 4.0 for s in req.spot_shocks):
+            raise ApiError(400, "spot_shocks must lie in (-0.95, 4.0)")
+        if req.vol_shocks is not None and any(
+                abs(s) > 1.0 for s in req.vol_shocks):
+            raise ApiError(400, "vol_shocks must lie in [-1.0, 1.0]"
+                                " (decimal vol points)")
+        report = engine.scenario_matrix(
+            req.spot, req.strike, req.T, req.is_call,
+            spot_shocks=req.spot_shocks, vol_shocks=req.vol_shocks)
+    else:
+        report = engine.full_stress_report(req.spot, req.strike, req.T,
+                                           req.is_call)
+    report["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return report
+
+
+def handle_regime(body: dict, device="cuda") -> dict:
+    """`/api/regime`: the three-input classifier, on the host."""
+    req = schemas.RegimeRequest(**body)
+    return RegimeDetector().classify(req.realized_vol, req.iv_percentile,
+                                     req.skew_slope)
+
+
+def handle_hedge(body: dict, device="cuda") -> dict:
+    """`/api/hedge` on `device`, the JAX handler's contract: the premium on
+    one K3 launch (gbm and svj worlds; the rough world on the exact
+    sampler), the day loop as torch ops; a ValueError of the backtest
+    answers 400."""
+    req = schemas.HedgeRequest(**body)
+    start = time.time()
+    bt = HedgingBacktest(req.params.to_params(), device=device)
+    try:
+        result = bt.run_backtest(
+            req.spot, req.strike, req.T, req.is_call,
+            txn_cost_bps=req.txn_cost_bps, slippage_bps=req.slippage_bps,
+            num_scenarios=req.num_scenarios, dynamics=req.dynamics,
+            hedge=req.hedge, risk_aversion=req.risk_aversion)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    result["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return result
+
+
+def handle_var(body: dict, device="cuda") -> dict:
+    """`/api/var` on `device`: portfolio VaR/CVaR and Euler per-asset
+    contributions, the JAX handler's contract, with one settled difference:
+    a `corr` that is not a symmetric positive definite matrix answers 400
+    (the JAX handler answers 200 with every figure NaN)."""
+    req = schemas.VarRequest(**body)
+    n = len(req.spots)
+    if len(req.sigmas) != n or len(req.weights) != n or len(req.corr) != n:
+        raise ApiError(400, "spots/sigmas/weights/corr dimensions must agree")
+    start = time.time()
+    try:
+        if req.with_contributions and req.copula == "gaussian":
+            out = portfolio_risk_contributions(
+                req.spots, req.sigmas, req.corr, req.weights, req.T, r=req.r,
+                q=req.q, num_paths=req.num_paths, confidence=req.confidence,
+                device=device)
+        else:
+            out = portfolio_var(
+                req.spots, req.sigmas, req.corr, req.weights, req.T, r=req.r,
+                q=req.q, num_paths=req.num_paths, confidence=req.confidence,
+                copula=req.copula, nu=req.nu, device=device)
+    except ValueError as e:  # corr: not a symmetric positive definite matrix
+        raise ApiError(400, str(e))
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
                 "/api/greeks": handle_greeks,
                 "/api/smile": handle_smile,
@@ -700,7 +799,11 @@ _POST_ROUTES = {"/api/price": handle_price,
                 "/api/hhw": handle_hhw,
                 "/api/svcj": handle_svcj,
                 "/api/termsvj": handle_termsvj,
-                "/api/rough": handle_rough}
+                "/api/rough": handle_rough,
+                "/api/stress": handle_stress,
+                "/api/regime": handle_regime,
+                "/api/hedge": handle_hedge,
+                "/api/var": handle_var}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,
@@ -773,7 +876,10 @@ def warm(device) -> None:
     `greeks` on the lift and one tiny `GreeksEngine.all_greeks`: the first
     `torch.utils.checkpoint` pass imports torch's compiler modules, and the
     first autograd pass on a device starts its engine threads, seconds that
-    would otherwise land on the first such request."""
+    would otherwise land on the first such request. And one tiny
+    hedge day loop and VaR request, so that the first risk-desk request
+    does not load the device code of its torch ops (sort, top-k, the gamma
+    sampler, the day loop's elementwise ops)."""
     device = torch.device(device)
     if device.type == "cuda":
         from mcos_tpu_torch.ops import cuda_kernels
@@ -784,6 +890,20 @@ def warm(device) -> None:
             1.0, 1.0, 0.25)
         GreeksEngine(schemas.SVJParamsRequest().to_params(), num_paths=1024,
                      num_steps=64, device=device).all_greeks(1.0, 1.0, 0.25)
+        # The risk desk's warm-ups launch no kernel (the hedge's day loop
+        # without its premium): a caller that counts launches after
+        # `serve` counts requests only.
+        hedge = _hedge_paths(
+            schemas.SVJParamsRequest().to_params(), 100.0, 100.0, 0.05, 1.0,
+            seeded_generator(0, device), num_days=2, num_scenarios=64,
+            is_call=True, txn_cost_bps=5.0, slippage_bps=2.0,
+            dynamics="svj", hedge="ww_band", device=device)[0]
+        compute_risk_metrics(hedge)
+        book = {"spots": [100.0, 50.0], "sigmas": [0.2, 0.3],
+                "weights": [0.5, 0.5], "corr": [[1.0, 0.3], [0.3, 1.0]],
+                "T": 0.05, "num_paths": 1024}
+        handle_var(book, device=device)
+        handle_var(dict(book, copula="student_t"), device=device)
     req = schemas.PriceRequest(spot=22500.0, strike=22500.0, T=0.25)
     eng = MonteCarloEngine(req.params.to_params(), num_paths=req.num_paths,
                            device=device)

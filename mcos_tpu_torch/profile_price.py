@@ -1,9 +1,9 @@
 """Where a warm `/api/price` (or `/api/exotic`, `/api/hhw`, `/api/svcj`,
-`/api/termsvj`, `/api/rough`, `/api/greeks`, `/api/smile`) spends its time
-on one CUDA device.
+`/api/termsvj`, `/api/rough`, `/api/greeks`, `/api/smile`, `/api/stress`,
+`/api/hedge`, `/api/var`) spends its time on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile]
+        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var]
         [--options JSON] [--reps N] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
@@ -48,6 +48,16 @@ example '{"with_second_order": true, "T": 1.0}', or a strike chain,
 '{"strike": 0, "strikes": [...]}') and `handle_smile`
 (method "mc": 50k paths on the Sobol net, kernel K1; '{"method": "cos",
 "with_density": true}' for the host COS smile).
+`--route stress`, `hedge` and `var` do the same for the risk desk at the
+schema defaults: `handle_stress` (100k pairs, T = 0.25 → 63 steps, the
+report: one K3 launch for the spot axis and one a shocked vol member;
+'{"mode":
+"matrix"}' for the scenario cube), `handle_hedge` (500 scenarios, T = 0.25
+→ 63 days, the gbm world and the BS delta; the premium one K3 launch at
+50k pairs; for example '{"dynamics": "svj", "hedge": "mv_delta"}') and
+`handle_var` (500k paths, a three-asset book at T = 0.05, the Gaussian
+copula with Euler contributions, 32 steps; '{"copula": "student_t"}' for
+the t-copula and its float64 betainc).
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -73,6 +83,12 @@ ROUTE_BODIES = {
     "rough": {"spot": 22500.0, "T": 0.25},
     "greeks": {"spot": 22500.0, "strike": 22500.0, "T": 0.25},
     "smile": {"spot": 22500.0, "T": 0.25},
+    "stress": {"spot": 22500.0, "strike": 22500.0, "T": 0.25},
+    "hedge": {"spot": 22500.0, "strike": 22500.0, "T": 0.25},
+    "var": {"spots": [100.0, 100.0, 100.0], "sigmas": [0.2, 0.35, 0.15],
+            "weights": [0.4, 0.35, 0.25],
+            "corr": [[1.0, 0.5, 0.1], [0.5, 1.0, 0.3], [0.1, 0.3, 1.0]],
+            "T": 0.05},
 }
 
 
@@ -159,8 +175,9 @@ def profile_exotic(options: dict) -> dict:
 
 
 def profile_route(route: str, options: dict, reps: int = 5) -> dict:
-    """`/api/hhw`, `/api/svcj`, `/api/termsvj`, `/api/rough`, `/api/greeks`
-    or `/api/smile`: the whole handler (median of 4 × `reps` calls, then
+    """`/api/hhw`, `/api/svcj`, `/api/termsvj`, `/api/rough`, `/api/greeks`,
+    `/api/smile`, `/api/stress`, `/api/hedge` or `/api/var`: the whole
+    handler (median of 4 × `reps` calls, then
     `reps` under the profiler), and one call's peak device memory."""
     from mcos_tpu_torch.api import server
 

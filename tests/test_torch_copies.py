@@ -9,6 +9,7 @@ import pytest
 
 import mcos_tpu.api.schemas as jschemas
 import mcos_tpu.config as jconfig
+import mcos_tpu.engine.regime as jregime
 import mcos_tpu.ops.cos_pricer as jcos
 import mcos_tpu.ops.curves as jcurves
 import mcos_tpu.ops.dividends as jdivs
@@ -16,6 +17,7 @@ import mcos_tpu.ops.exotics as jexotics
 import mcos_tpu.utils.fastjson as jfastjson
 import mcos_tpu_torch.api.schemas as pschemas
 import mcos_tpu_torch.config as pconfig
+import mcos_tpu_torch.engine.regime as pregime
 import mcos_tpu_torch.ops.cos_pricer as pcos
 import mcos_tpu_torch.ops.curves as pcurves
 import mcos_tpu_torch.ops.dividends as pdivs
@@ -33,7 +35,7 @@ def _public(mod):
 
 @pytest.mark.parametrize("jmod,pmod", [
     (jconfig, pconfig), (jcurves, pcurves), (jdivs, pdivs),
-    (jcos, pcos), (jfastjson, pfastjson),
+    (jcos, pcos), (jfastjson, pfastjson), (jregime, pregime),
 ])
 def test_same_public_names(jmod, pmod):
     assert _public(pmod) == _public(jmod)
@@ -403,3 +405,28 @@ def test_rough_host_copies_equal(name, args):
     for a, b in zip(got, ref):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12,
                                    atol=0)
+
+
+def test_risk_desk_request_schemas_equal():
+    for name in ("StressRequest", "RegimeRequest", "HedgeRequest",
+                 "VarRequest"):
+        a = getattr(jschemas, name).model_json_schema()
+        b = getattr(pschemas, name).model_json_schema()
+        assert a == b, name
+    bodies = {
+        "StressRequest": {"spot": 100.0, "strike": 95.0, "T": 0.5,
+                          "mode": "matrix", "spot_shocks": [-0.1, 0.2],
+                          "params": {"xi": 0.7}},
+        "RegimeRequest": {"realized_vol": 0.2, "iv_percentile": 50,
+                          "skew_slope": -0.01},
+        "HedgeRequest": {"spot": 100.0, "strike": 95.0, "T": 0.5,
+                         "dynamics": "svj", "hedge": "ww_band",
+                         "risk_aversion": 0.5},
+        "VarRequest": {"spots": [1.0, 2.0], "sigmas": [0.2, 0.3],
+                       "weights": [0.5, 0.5],
+                       "corr": [[1.0, 0.1], [0.1, 1.0]], "T": 0.1,
+                       "copula": "student_t", "nu": 7.0},
+    }
+    for name, body in bodies.items():
+        assert (getattr(jschemas, name)(**body).model_dump()
+                == getattr(pschemas, name)(**body).model_dump()), name

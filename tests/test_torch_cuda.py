@@ -1058,3 +1058,181 @@ def test_greeks_engine_on_card_matches_cpu(cuda):
             atol = 1e-3 if k == "diff_pct" else 1e-5 * scale
             np.testing.assert_allclose(out["cuda"][block][k], v, rtol=1e-4,
                                        atol=atol, err_msg=f"{block}.{k}")
+
+
+# ── slice G: the risk desk ──────────────────────────────────────────────────
+def test_stress_k3_per_member_matches_plain(cuda):
+    """The cuda stress engine on the card: one K3 launch for the spot axis,
+    one a shocked vol member (report: the base member is the spot axis's
+    unshocked price) and one a vol row (matrix), each member's
+    terminals bit for bit with K3's plain version on the same seed (the
+    Philox words do not depend on the member), so every price equals the
+    CPU engine's to float32 sums."""
+    from mcos_tpu_torch.engine.risk import StressTestEngine
+
+    out, k3 = {}, []
+    for device in (cuda, torch.device("cpu")):
+        eng = StressTestEngine(_P, num_paths=20_000, seed=7, device=device)
+        before = ck.launch_counts()
+        rep = eng.full_stress_report(100.0, 101.0, 0.1)
+        mat = eng.scenario_matrix(100.0, 101.0, 0.1,
+                                  vol_shocks=[-0.1, 0.05, 0.2])
+        after = ck.launch_counts()
+        k3.append(after["svj_terminal"] - before["svj_terminal"])
+        assert {k: after[k] - before[k] for k in after
+                if k != "svj_terminal"} == {k: 0 for k in after
+                                             if k != "svj_terminal"}
+        out[device.type] = (rep, mat)
+    assert k3 == [1 + 2 + 4, 0]
+    for m in eng._vol_members()[0]:
+        kw = dict(num_paths=20_000, num_steps=25, companion=True)
+        a = ck.svj_terminal(m, 100.0, 0.1, 7, device=cuda, **kw)
+        b = ck.svj_terminal_plain(m, 100.0, 0.1, 7, device=cuda, **kw)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(_leaves(got), _leaves(ref), rtol=1e-5,
+                                   atol=1e-4)
+
+
+def _leaves(obj):
+    if isinstance(obj, dict):
+        return [x for k in sorted(obj) for x in _leaves(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _leaves(v)]
+    return [float(obj)]
+
+
+def test_stress_twins_on_card_match_cpu(cuda):
+    """backend="torch" (the member twin and the spot-axis twin) on the card
+    against the CPU on shared draws: every number within float32 sums."""
+    from mcos_tpu_torch.engine.risk import StressTestEngine
+
+    g = torch.Generator().manual_seed(2)
+    draws = (torch.randn((25, 3, 8192), generator=g),
+             torch.rand((25, 8192), generator=g))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        eng = StressTestEngine(_P, num_paths=8192, backend="torch",
+                               device=device)
+        eng._draws = lambda steps, d=device: tuple(x.to(d) for x in draws)
+        before = ck.launch_counts()
+        out[device.type] = (eng.full_stress_report(100.0, 101.0, 0.1),
+                            eng.scenario_matrix(100.0, 101.0, 0.1))
+        assert ck.launch_counts() == before
+    np.testing.assert_allclose(_leaves(out["cuda"]), _leaves(out["cpu"]),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dynamics", ["gbm", "svj"])
+@pytest.mark.parametrize("hedge", ["bs_delta", "mv_delta", "ww_band"])
+def test_hedge_day_loop_on_card_matches_cpu(cuda, dynamics, hedge):
+    from mcos_tpu_torch.engine.risk import _hedge_paths
+
+    g = torch.Generator().manual_seed(3)
+    z = (torch.randn((20, 3, 4096), generator=g) if dynamics == "svj"
+         else torch.randn((20, 4096), generator=g))
+    u = torch.rand((20, 4096), generator=g) if dynamics == "svj" else None
+    kw = dict(num_days=20, num_scenarios=4096, is_call=True,
+              txn_cost_bps=5.0, slippage_bps=2.0, dynamics=dynamics,
+              hedge=hedge, risk_aversion=1e-2)
+    res = {}
+    for device in (cuda, torch.device("cpu")):
+        draws = (z.to(device), None if u is None else u.to(device))
+        res[device.type] = [x.cpu() for x in _hedge_paths(
+            _P, 100.0, 100.0, 20 / 252, 2.7, draws=draws, **kw)]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+
+
+def test_hedge_backtest_on_card(cuda):
+    """Every world of `run_backtest` on the card: finite figures, one K3
+    launch for the gbm/svj premium and none for the rough world; the
+    gamma sampler and the t-copula run with a CUDA generator."""
+    from mcos_tpu_torch.engine.risk import (HedgingBacktest,
+                                            multi_asset_t_copula_terminal)
+
+    bt = HedgingBacktest(_P, device=cuda)
+    for dyn, n3 in (("gbm", 1), ("svj", 1), ("rough", 0)):
+        before = ck.launch_counts()["svj_terminal"]
+        out = bt.run_backtest(100.0, 100.0, 0.1, num_scenarios=500,
+                              dynamics=dyn)
+        assert ck.launch_counts()["svj_terminal"] - before == n3
+        assert np.isfinite(out["mean_pnl"]) and out["std_pnl"] > 0
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    s = multi_asset_t_copula_terminal([100.0, 50.0], [0.2, 0.3],
+                                      [[1.0, 0.4], [0.4, 1.0]], 0.05, 0.0,
+                                      0.25, gen, num_paths=200_000, nu=4.0,
+                                      device=cuda)
+    lr = torch.log(s / torch.tensor([100.0, 50.0], device=cuda)).double()
+    for i, sig in enumerate((0.2, 0.3)):
+        sd = sig * 0.5
+        assert abs(float(lr[:, i].mean()) - (0.05 - 0.5 * sig**2) * 0.25) \
+            < 4 * sd / np.sqrt(2e5)
+        assert abs(float(lr[:, i].std()) - sd) < 4 * sd / np.sqrt(4e5)
+
+
+def test_portfolio_programs_on_card_match_cpu(cuda):
+    """The correlated-GBM loop, the Euler contributions and the float64 t
+    CDF on the card against the CPU on shared draws."""
+    from mcos_tpu_torch.engine import risk
+
+    g = torch.Generator().manual_seed(5)
+    spots, sigmas = [100.0, 80.0, 120.0], [0.2, 0.35, 0.15]
+    corr = [[1.0, 0.5, 0.1], [0.5, 1.0, 0.3], [0.1, 0.3, 1.0]]
+    z = torch.randn((8, 50_000, 3), generator=g)
+    zt = torch.randn((50_000, 3), generator=g)
+    gt = 2.0 * torch._standard_gamma(torch.full((50_000, 1), 1.5),
+                                     generator=g)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        s = risk.multi_asset_gbm_terminal(spots, sigmas, corr, 0.05, 0.01,
+                                          0.05, num_paths=50_000,
+                                          num_steps=8, draws=z.to(device))
+        c = risk.portfolio_risk_contributions(
+            spots, sigmas, corr, [0.4, 0.35, 0.25], 0.05, num_paths=50_000,
+            num_steps=8, draws=z.to(device))
+        t = risk.multi_asset_t_copula_terminal(
+            spots, sigmas, corr, 0.05, 0.01, 0.05, num_paths=50_000,
+            nu=3.0, draws=(zt.to(device), gt.to(device)))
+        out[device.type] = (s.cpu(), c, t.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for k in ("var", "cvar"):
+        assert out["cuda"][1][k] == pytest.approx(out["cpu"][1][k], rel=1e-5)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-5,
+                               atol=0)
+    x = torch.linspace(-40.0, 40.0, 100_001, dtype=torch.float64)
+    for nu in (1.0, 5.0, 300.0):
+        torch.testing.assert_close(risk.student_t_cdf(x.to(cuda), nu).cpu(),
+                                   risk.student_t_cdf(x, nu), rtol=0,
+                                   atol=1e-13)
+
+
+def test_risk_desk_handlers_on_card(cuda):
+    """Each risk-desk route's handler on the card at a small width: finite
+    figures, the launch counts of the slice (K3 for stress and gbm/svj
+    hedges, nothing else), a 400 for a corr that is not positive
+    definite."""
+    from mcos_tpu_torch.api import server
+
+    body = {"spot": 100.0, "strike": 100.0, "T": 0.1}
+    ck.reset_launch_counts()
+    rep = server.handle_stress(dict(body, num_paths=20_000), device=cuda)
+    server.handle_hedge(dict(body, dynamics="svj", hedge="mv_delta"),
+                        device=cuda)
+    book = {"spots": [100.0, 50.0], "sigmas": [0.2, 0.3],
+            "weights": [0.5, 0.5], "corr": [[1.0, 0.3], [0.3, 1.0]],
+            "T": 0.1, "num_paths": 100_000}
+    var = server.handle_var(book, device=cuda)
+    tvar = server.handle_var(dict(book, copula="student_t", nu=3.0),
+                             device=cuda)
+    assert ck.launch_counts() == dict(
+        {k: 0 for k in ck.launch_counts()}, svj_terminal=3 + 1)
+    assert all(np.isfinite(_leaves(rep)))
+    assert var["cvar"] >= var["var"] > 0 and tvar["var"] > var["var"]
+    with pytest.raises(server.ApiError) as e:
+        server.handle_var(dict(book, corr=[[1.0, 1.5], [1.5, 1.0]]),
+                          device=cuda)
+    assert e.value.status == 400

@@ -128,9 +128,12 @@ def test_http_routes(solo, monkeypatch):
     try:
         assert call("/api/health")[0] == 200
         assert call("/api/metrics")[0] == 404
-        # A route still to port answers 404; the ported Greeks and smile
-        # routes answer 200.
-        assert call("/api/stress", _BODY)[0] == 404
+        # A route still to port answers 404; the ported Greeks, smile and
+        # stress routes answer 200.
+        assert call("/api/american", _BODY)[0] == 404
+        status, res = call("/api/stress", dict(_BODY, num_paths=1024,
+                                               T=0.05))
+        assert status == 200 and len(res["spot_shocks"]) == 6
         status, res = call("/api/greeks", dict(_BODY, num_paths=2048))
         assert status == 200 and np.isfinite(res["delta"]["pathwise"])
         assert res.keys() >= {"delta", "vega", "gamma", "theta", "rho",
