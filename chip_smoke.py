@@ -69,7 +69,7 @@
    `svcj_cos_price`; smile; greeks) and POST /api/termsvj (price against
    its own cos_price, also at Σλᵢ·dt = 60; compare; smile; varswap;
    forward_start; cliquet; greeks; calibrate, on the host, recovering the
-   segments behind two exact chains; american → 501; no segments → 400), and
+   segments behind two exact chains; american; no segments → 400), and
    5 warm price requests per route for latency. Then the counts show K7,
    K8 and K9 launched as often as the priced requests say, and K1-K6 not
    at all.
@@ -138,7 +138,30 @@
    Then the counts show K3 launched exactly once per report spot axis and
    vol member, matrix vol row, gbm/svj hedge and in-process price, and no
    other kernel.
-11. Prints the kernels' JSON line (each kernel's launches on its own path
+11. The American exercise and PDE path (slice H), with the counts set to 0
+   again: a new server on 127.0.0.1 answers POST /api/american at the
+   schema's width (200 000 paths, T = 1 → 64 steps) on a degenerate put
+   (xi = 0, lambda_j = 0: Black-Scholes at sigma = 0.25) against the CRR
+   tree at 1000 steps (within 3 se + the LSM's 1 % low-bias allowance),
+   with_bounds (lower ≤ CRR ≤ upper, each within 3 se), exercise_every ≥
+   steps against Black-Scholes, with_greeks (delta and gamma against a
+   CRN bump of the same policy-fixed estimator), with_cos_oracle (against
+   the tree) and with_boundary (below the strike), a cash-dividend call
+   (above its European on the same paths), a rate curve and a
+   proportional dividend; POST /api/pde: the Heston ADI (Craig-Sneyd and
+   Douglas) and the PIDE against COS (abs 0.015), the American surface,
+   the Black-Scholes grid against Black-Scholes and its American put
+   against the tree (at the schema's grid and the engine's), two barrier
+   knock-outs under GBM against Reiner-Rubinstein; six requests that must
+   answer 400; POST /api/termsvj mode="american" (its no-early-date
+   Bermudan in process against cos_price_td); 5 warm requests each of the
+   plain, with_bounds and with_greeks American and the heston and bs PDE,
+   each once more in process under the profiler (device time, launches,
+   busy share, peak memory); the schema's largest PIDE grid (801 × 401)
+   with its peak memory; and the LSM, dual, ADI and CN programs on the
+   card against the CPU on shared draws and grids. Then the counts show
+   no kernel launched.
+12. Prints the kernels' JSON line (each kernel's launches on its own path
    and, under "launches_by_path", on every path), the card line and, last,
    the result line {"ok": true, "device": {...}}.
 
@@ -1685,8 +1708,12 @@ def families_path(device, ck, hhw, svcj, tdsvj, server):
               f"termsvj cliquet {res}")
         g = ask("termsvj", "termsvj greeks", dict(td, mode="greeks"))
         check(0.3 < g["delta"] < 0.9 and g["vega"] > 0, f"termsvj greeks {g}")
-        refused("termsvj", "termsvj american", dict(td, mode="american"),
-                501, "not ported")
+        # mode="american" (slice H): the LSM on the td sheet, no kernel;
+        # the American/PDE path pins its Bermudan limit against COS.
+        res = ask("termsvj", "termsvj american", dict(td, mode="american"))
+        check(np.isfinite(res["price"]) and res["std_error"] > 0
+              and res["segments"]["lams"] == [1.0, 2.0, 4.0],
+              f"termsvj american {res}")
         refused("termsvj", "termsvj without segments",
                 {"spot": SPOT, "T": 0.25}, 400, "segment")
         # calibrate: the host-only bootstrap (scipy differential evolution
@@ -2728,6 +2755,510 @@ def risk_path(device, ck, server, risk, regime, cos_price, bs_price,
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# American exercise and the PDE solvers (slice H)
+# ─────────────────────────────────────────────────────────────────────────────
+AM_PATHS = 200_000        # AmericanRequest default
+AM_SIGMA = 0.25
+# Degenerate SVJ: no vol of vol, no jumps, v = v0 throughout, so the
+# model is Black-Scholes at sigma = 0.25 and the CRR tree is its oracle.
+AM_GBM = {"kappa": 0.0, "theta": AM_SIGMA**2, "xi": 0.0, "rho": 0.0,
+          "v0": AM_SIGMA**2, "lambda_j": 0.0, "mu_j": 0.0, "sigma_j": 0.0,
+          "r": 0.06, "q": 0.0}
+AM_BODY = {"spot": 100.0, "strike": 100.0, "T": 1.0, "is_call": False,
+           "params": AM_GBM}
+PDE_BODY = {"spot": 100.0, "strike": 100.0, "T": 0.5}
+
+
+def profiled_call(device, call) -> dict:
+    """One warm in-process call under torch.profiler (its device time,
+    kernel launches and busy share) and, in a second call, its peak device
+    memory above what the process held before it."""
+    from mcos_tpu_torch.profile_price import _profiled
+
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    call()
+    torch.cuda.synchronize(device)
+    peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+    return dict(_profiled(call, 1), peak_gib=peak)
+
+
+def american_card_vs_cpu(device, american, pde, SVJParams, paths=20_000,
+                         steps=32):
+    """The LSM programs and the grids on the card against the CPU's, on
+    the same draws and grids: a fixed policy's price, its Greeks and the
+    dual (rtol 1e-4); the in-sample LSM within half a standard error, its
+    exercise flips counted; the ADI (plain and PIDE) and the CN grids to
+    1e-4 of their largest value."""
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+
+    out = {}
+    p = SVJParams()
+    gen = seeded_generator(11, "cpu")
+    z = torch.randn((steps, 3, paths), generator=gen)
+    u = torch.rand((steps, paths), generator=gen)
+    cpu, card = (z, u), (z.to(device), u.to(device))
+    kw = dict(is_call=False)
+    t0 = time.perf_counter()
+    res = {}
+    for name, draws in (("cpu", cpu), ("card", card)):
+        lsm = american.lsm_price(p, 100.0, 100.0, 1.0, draws=draws, **kw)
+        coefs = american.lsm_train(p, 100.0, 100.0, 1.0, draws=draws,
+                                   **kw)["policy"]
+        res[name] = {"lsm": {k: float(v) for k, v in lsm.items()},
+                     "coefs": coefs.cpu()}
+    torch.cuda.synchronize(device)
+    coefs = res["cpu"]["coefs"]
+    got = {}
+    for name, draws, c in (("cpu", cpu, coefs), ("card", card,
+                                                  coefs.to(device))):
+        lb = american.lsm_lower_bound(p, 100.0, 100.0, 1.0, None, c,
+                                      draws=draws, **kw)
+        vals = american._lower_bound_values(p, 100.0, 100.0, 1.0, None, c,
+                                            draws=draws, **kw)
+        price, grads = american.american_greeks_ad(p, 100.0, 100.0, 1.0,
+                                                   None, c, draws=draws, **kw)
+        got[name] = {"lower_bound": float(lb["price"]),
+                     "greeks": [float(price)] + [float(g) for g in grads],
+                     "values": vals.cpu()}
+    # A stopping decision that differs moves a path's value by a payoff;
+    # the card's and the CPU's exp differ by rounding on every path.
+    flips = int(((got["cpu"]["values"] - got["card"]["values"]).abs()
+                 > 1e-3 * float(got["cpu"]["values"].abs().max())).sum())
+    check(abs(got["card"]["lower_bound"] / got["cpu"]["lower_bound"] - 1)
+          < 1e-4, f"LSM fixed-policy price card vs CPU {got}")
+    check(np.allclose(got["card"]["greeks"], got["cpu"]["greeks"],
+                      rtol=1e-4, atol=1e-6),
+          f"American AD Greeks card vs CPU {got['card']['greeks']} vs "
+          f"{got['cpu']['greeks']}")
+    lsm_c, lsm_g = res["cpu"]["lsm"], res["card"]["lsm"]
+    check(abs(lsm_g["price"] - lsm_c["price"]) < 0.5 * lsm_c["std_error"],
+          f"in-sample LSM card vs CPU {lsm_g} vs {lsm_c}")
+    log(f"LSM on the card vs the CPU ({paths} paths x {steps} steps, the "
+        f"same draws): in-sample {lsm_g['price']:.5f} vs "
+        f"{lsm_c['price']:.5f} (se {lsm_c['std_error']:.5f}); the CPU's "
+        f"policy on both: {got['card']['lower_bound']:.6f} vs "
+        f"{got['cpu']['lower_bound']:.6f}, {flips} of {paths} stopping "
+        f"decisions differ; Greeks {np.round(got['card']['greeks'], 6)}")
+    check(flips <= 0.001 * paths, f"fixed-policy flips card vs CPU: {flips}")
+    out["lsm"] = {"card": lsm_g, "cpu": lsm_c, "fixed_policy_flips": flips,
+                  "greeks_card": got["card"]["greeks"],
+                  "greeks_cpu": got["cpu"]["greeks"]}
+
+    # The dual on shared outer and inner draws.
+    value = american.lsm_train(p, 100.0, 100.0, 1.0, draws=cpu,
+                               **kw)["value"]
+    half, n_outer = 32, 1024
+    zi = torch.randn((steps, 3, half, n_outer), generator=gen)
+    ui = torch.rand((steps, half, n_outer), generator=gen)
+    zo = torch.randn((steps, 3, n_outer), generator=gen)
+    uo = torch.rand((steps, n_outer), generator=gen)
+    duals = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        d = ((zo.to(dev), uo.to(dev)), (zi.to(dev), ui.to(dev)))
+        r = american.dual_upper_bound(p, 100.0, 100.0, 1.0, None,
+                                      value.to(dev), n_outer=n_outer,
+                                      n_inner=2 * half, num_steps=steps,
+                                      draws=d, **kw)
+        duals[name] = float(r["price"])
+    check(abs(duals["card"] / duals["cpu"] - 1) < 1e-4,
+          f"dual card vs CPU {duals}")
+    out["dual"] = duals
+
+    # The grids.
+    grids = {}
+    for lam in (0.0, 1.0):
+        pp = SVJParams(lambda_j=lam)
+        engs = {n: pde.HestonPDEEngine(pp, n_x=101, n_v=51, n_t=64,
+                                       device=d)
+                for n, d in (("cpu", "cpu"), ("card", device))}
+        x, v, n_x, n_t = engs["cpu"]._grids(100.0, 100.0, 0.5)
+        u_ = {n: e._solve(x, v, n_x, n_t, 100.0, 0.5, False, True,
+                          jump=e._jump_tables(x))[0].cpu()
+              for n, e in engs.items()}
+        err = float((u_["card"] - u_["cpu"]).abs().max()
+                    / u_["cpu"].abs().max())
+        grids[f"adi lambda_j={lam}"] = err
+    x = np.linspace(np.log(40.0), np.log(250.0), 201).astype(np.float32)
+    sig2 = np.full((128, 201), AM_SIGMA**2, np.float32)
+    div = np.zeros(128, np.float32)
+    div[40] = np.log1p(-0.03)
+    vv = {n: pde._cn_solve(sig2, 100.0, 1.0, 0.06, 0.0, x, div, n_x=201,
+                           n_t=128, is_call=False, american=True,
+                           device=d)[0].cpu()
+          for n, d in (("cpu", "cpu"), ("card", device))}
+    grids["cn american"] = float((vv["card"] - vv["cpu"]).abs().max()
+                                 / vv["cpu"].abs().max())
+    log(f"grids on the card vs the CPU (max |diff| / max |V|): {grids}")
+    for name, err in grids.items():
+        check(err < 1e-4, f"{name} card vs CPU: {err}")
+    out["grids"] = grids
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def american_path(device, ck, server, american, pde, termsvj, bs_price,
+                  barrier_bs, SVJParams):
+    """POST /api/american, /api/pde and /api/termsvj mode="american" over
+    HTTP on a fresh server at the schema defaults, with the launch counts
+    set to 0 just before: no kernel of the repo may launch (the slice is
+    torch ops throughout)."""
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {"requests": {}}
+    r, q, sig = AM_GBM["r"], AM_GBM["q"], AM_SIGMA
+
+    def ask(what, body, path):
+        status, res, ms = post(base, body, path=path)
+        check(status == 200, f"{what}: status {status}")
+        check(all_finite({k: v for k, v in res.items()
+                          if k not in ("exercise_boundary", "cos_oracle")}),
+              f"{what}: every number finite")
+        out["requests"][what] = {"latency_ms": ms,
+                                 "elapsed_ms": res.get("elapsed_ms")}
+        return res
+
+    def refused(what, body, path, needle):
+        try:
+            post(base, body, path=path)
+            check(False, f"{what} must answer 400")
+        except urllib.error.HTTPError as e:
+            detail = json.loads(e.read())["detail"]
+            check(e.code == 400 and needle in str(detail),
+                  f"{what}: {e.code} {detail!r}")
+            log(f"{path} {what}: 400 {detail!r}")
+
+    def warm(what, body, path):
+        lat = []
+        for _ in range(5):
+            lat.append(post(base, body, path=path)[2])
+        out[f"warm_{what}_ms"] = statistics.median(lat)
+        log(f"warm {path} {what}: median {statistics.median(lat):.2f} ms "
+            f"over 5 ({[round(x, 2) for x in lat]})")
+
+    def lap(what):
+        log(f"  [{what}: {time.perf_counter() - t_start:.1f} s into the "
+            f"path]")
+
+    try:
+        # ── /api/american: the degenerate put against the CRR tree ───────
+        crr = american.binomial_american_bs(100.0, 100.0, 1.0, r, q, sig,
+                                            steps=1000, is_call=False)
+        res = ask("american put", AM_BODY, "/api/american")
+        se = res["std_error"]
+        log(f"/api/american degenerate put ({res['num_paths_used']} paths, "
+            f"{res['num_steps']} steps): {res['price']:.4f} ± {se:.4f} vs "
+            f"CRR(1000) {crr:.4f} (tol 3 se + 1 %: the LSM's low bias)")
+        check(res["num_paths_used"] == AM_PATHS and res["num_steps"] == 64,
+              f"american request size {res}")
+        check(abs(res["price"] - crr) < 3 * se + 0.01 * crr
+              and res["price"] < crr + 3 * se, "american put vs CRR")
+        out["american_put"] = {"price": res["price"], "se": se, "crr": crr}
+
+        res = ask("american with_bounds", dict(AM_BODY, with_bounds=True),
+                  "/api/american")
+        b = res["bounds"]
+        log(f"/api/american with_bounds: [{b['lower_bound']:.4f} ± "
+            f"{b['lower_se']:.4f}, {b['upper_bound']:.4f} ± "
+            f"{b['upper_se']:.4f}], gap {b['duality_gap']:.4f}, CRR "
+            f"{crr:.4f} ({b['n_outer']} x {b['n_inner']} dual)")
+        check(b["lower_bound"] - 3 * b["lower_se"] <= crr
+              <= b["upper_bound"] + 3 * b["upper_se"], "bounds bracket CRR")
+        out["bounds"] = b
+
+        res = ask("american European", dict(AM_BODY, exercise_every=999),
+                  "/api/american")
+        bs = float(bs_price(100.0, 100.0, 1.0, r, q, sig, False))
+        log(f"/api/american exercise_every=999 → {res['exercise_every']}: "
+            f"{res['price']:.4f} ± {res['std_error']:.4f} vs BS {bs:.4f}")
+        check(res["exercise_every"] == 64
+              and abs(res["price"] - bs) < 3 * res["std_error"],
+              "European limit vs BS")
+
+        res = ask("american with_greeks", dict(AM_BODY, with_greeks=True),
+                  "/api/american")
+        g = res["greeks"]
+        # The CRN bump of the same estimator: the policy trained on the
+        # engine's seed, evaluated at spot ± h on the evaluation draws.
+        eng = american.AmericanEngine(SVJParams(**AM_GBM),
+                                      num_paths=AM_PATHS, device=device)
+        steps = 64
+        coefs = american.lsm_train(eng.params, 100.0, 100.0, 1.0,
+                                   draws=eng._draws(0, steps),
+                                   is_call=False)["policy"]
+        ev = eng._draws(1, steps)
+        spots = (98.0, 100.0, 102.0, 95.0, 105.0)
+        pv = dict(zip(spots, (float(american.lsm_lower_bound(
+            eng.params, s, 100.0, 1.0, None, coefs, draws=ev,
+            is_call=False)["price"]) for s in spots)))
+        tree = {s: american.binomial_american_bs(s, 100.0, 1.0, r, q, sig,
+                                                 steps=2000, is_call=False)
+                for s in spots}
+
+        def fd(prices, h):
+            return ((prices[100.0 + h] - prices[100.0 - h]) / (2 * h),
+                    (prices[100.0 + h] - 2 * prices[100.0]
+                     + prices[100.0 - h]) / h**2)
+
+        fd_delta, _ = fd(pv, 2.0)
+        _, fd_gamma = fd(pv, 5.0)
+        crr_delta, crr_gamma = fd(tree, 2.0)
+        _, crr_gamma5 = fd(tree, 5.0)
+        log(f"/api/american with_greeks: AD delta {g['delta']:.5f}, gamma "
+            f"{g['gamma']:.5f}; CRN bump delta (h = 2) {fd_delta:.5f}, "
+            f"gamma (h = 5) {fd_gamma:.5f}; CRR delta {crr_delta:.5f}, "
+            f"gamma {crr_gamma:.5f} (h = 5: {crr_gamma5:.5f}); vega/vol pt "
+            f"{g['vega_per_vol_point']:.4f}, theta {g['theta_annual']:.3f},"
+            f" rho {g['rho']:.4f}")
+        check(abs(g["price"] - pv[100.0]) < 1e-4 * pv[100.0],
+              "greeks price is the policy-fixed price")
+        check(abs(g["delta"] - fd_delta) < 0.01 + 0.05 * abs(fd_delta)
+              and abs(g["delta"] - crr_delta) < 0.02,
+              "American AD delta vs its CRN bump and the tree")
+        check(abs(g["gamma"] - crr_gamma) < 0.15 * crr_gamma
+              and abs(fd_gamma - crr_gamma5) < 0.3 * crr_gamma5,
+              "American gamma vs the tree; the CRN bump's vs the tree's")
+        out["greeks"] = dict(g, fd_delta=fd_delta, fd_gamma=fd_gamma,
+                             crr_delta=crr_delta, crr_gamma=crr_gamma,
+                             crr_gamma_h5=crr_gamma5)
+
+        res = ask("american oracle and boundary",
+                  dict(AM_BODY, with_cos_oracle=True, with_boundary=True),
+                  "/api/american")
+        cos = res["cos_oracle"]["price"]
+        bd = np.asarray(res["exercise_boundary"]["s_star"], float)
+        log(f"/api/american with_cos_oracle {cos:.4f} (CRR {crr:.4f}); "
+            f"with_boundary: {np.isfinite(bd).sum()} of {bd.size} dates "
+            f"finite, S* from {np.nanmin(bd):.2f} to {np.nanmax(bd):.2f}")
+        check(np.isfinite(cos) and abs(cos / crr - 1) < 2e-3,
+              "COS oracle vs CRR (exact at xi = 0)")
+        check(np.isfinite(bd).sum() > 0.9 * bd.size
+              and np.nanmax(bd) < 100.0, "put boundary below the strike")
+
+        div_call = dict(AM_BODY, is_call=True,
+                        dividends=[{"t": 0.5, "amount": 5.0}])
+        amer = ask("american dividend call", div_call, "/api/american")
+        euro = ask("american dividend call, European",
+                   dict(div_call, exercise_every=999), "/api/american")
+        log(f"/api/american call, cash dividend 5 at t = 0.5: American "
+            f"{amer['price']:.4f} ± {amer['std_error']:.4f}, European "
+            f"(same paths) {euro['price']:.4f}")
+        check(amer["price"] > euro["price"] + 3 * amer["std_error"],
+              "the dividend call exercises early")
+        ask("american rate curve",
+            dict(AM_BODY, rate_curve=[{"t": 0.5, "r": 0.04},
+                                      {"t": 1.0, "r": 0.08}]),
+            "/api/american")
+        ask("american proportional dividend",
+            dict(AM_BODY, dividends=[{"t": 0.3, "amount": 0.02}],
+                 dividend_kind="proportional", with_boundary=True),
+            "/api/american")
+
+        lap("american")
+        # ── /api/pde ─────────────────────────────────────────────────────
+        res = ask("pde heston", dict(PDE_BODY, with_oracle=True), "/api/pde")
+        log(f"/api/pde heston ({res['n_x']} x {res['n_v']} x {res['n_t']}, "
+            f"{res['method']}): {res['price']:.5f} vs COS "
+            f"{res['cos_oracle']['price']:.5f} (abs tol 0.015)")
+        check(res["cos_oracle"]["abs_error"] < 0.015, "ADI vs COS")
+        out["pde_heston_abs_error"] = res["cos_oracle"]["abs_error"]
+        res = ask("pde heston douglas", dict(PDE_BODY, with_oracle=True,
+                                             scheme="douglas"), "/api/pde")
+        check(res["cos_oracle"]["abs_error"] < 0.015, "Douglas vs COS")
+        jump = dict(PDE_BODY, with_oracle=True,
+                    params={"lambda_j": 1.0, "sigma_j": 0.1})
+        res = ask("pde pide", jump, "/api/pde")
+        log(f"/api/pde PIDE lambda_j = 1 ({res['method']}): "
+            f"{res['price']:.5f} vs COS {res['cos_oracle']['price']:.5f}")
+        check(res["cos_oracle"]["abs_error"] < 0.015, "PIDE vs COS")
+        res = ask("pde heston american", dict(PDE_BODY, is_call=False,
+                                              american=True,
+                                              with_boundary=True),
+                  "/api/pde")
+        surf = np.asarray(res["exercise_boundary"]["s_star"], float)
+        check(surf.shape == (128, 101) and np.nanmax(surf) < 100.0,
+              "ADI exercise surface below the strike")
+
+        p0 = server.schemas.SVJParamsRequest(lambda_j=0.0).to_params()
+        bs_errs = {}
+        for grid in ({}, {"n_x": 401, "n_t": 256}):
+            tol_e, tol_a = (5e-4, 2e-3) if not grid else (2e-4, 5e-4)
+            for is_call in (True, False):
+                res = ask(f"pde bs {grid or 'default'} {is_call}",
+                          dict(PDE_BODY, model="bs", is_call=is_call,
+                               **grid), "/api/pde")
+                ref = float(bs_price(100.0, 100.0, 0.5, p0.r, p0.q, 0.2,
+                                     is_call))
+                bs_errs[f"european {grid or 'default'} {is_call}"] = \
+                    res["price"] / ref - 1
+                check(abs(res["price"] / ref - 1) < tol_e,
+                      f"CN European vs BS {grid}")
+            res = ask(f"pde bs american {grid or 'default'}",
+                      dict(PDE_BODY, model="bs", is_call=False,
+                           american=True, with_boundary=True, **grid),
+                      "/api/pde")
+            ref = american.binomial_american_bs(100.0, 100.0, 0.5, p0.r,
+                                                p0.q, 0.2, steps=5000,
+                                                is_call=False)
+            bs_errs[f"american {grid or 'default'}"] = res["price"] / ref - 1
+            check(abs(res["price"] / ref - 1) < tol_a,
+                  f"CN American put vs CRR {grid}")
+        log(f"/api/pde bs relative errors (European vs BS: tol 5e-4 at the "
+            f"schema's 201 x 128, 2e-4 at the engine's 401 x 256; American "
+            f"put vs CRR(5000): 2e-3, 5e-4): {bs_errs}")
+        out["pde_bs_rel_errors"] = bs_errs
+
+        gbm = dict(AM_GBM, r=p0.r, q=p0.q, v0=0.04, theta=0.04)
+        for bar, d, is_call in ((120.0, "up", True),
+                                (85.0, "down", False)):
+            res = ask(f"pde barrier {d}", dict(PDE_BODY, params=gbm,
+                                               barrier=bar, direction=d,
+                                               is_call=is_call), "/api/pde")
+            ref = barrier_bs(100.0, 100.0, 0.5, p0.r, p0.q, 0.2, bar,
+                             is_call, "out", d)
+            log(f"/api/pde {d}-and-out under GBM: {res['price']:.5f} vs "
+                f"Reiner-Rubinstein {ref:.5f}")
+            check(abs(res["price"] - ref) < 0.01, f"barrier {d} vs RR")
+
+        lap("pde")
+        # ── 400s ─────────────────────────────────────────────────────────
+        cash = [{"t": 0.5, "amount": 1.0}]
+        refused("with_bounds and dividends",
+                dict(AM_BODY, with_bounds=True, dividends=cash),
+                "/api/american", "with_bounds")
+        refused("with_cos_oracle and a curve",
+                dict(AM_BODY, with_cos_oracle=True,
+                     rate_curve=[{"t": 1.0, "r": 0.05}]),
+                "/api/american", "with_cos_oracle")
+        refused("with_boundary and cash dividends",
+                dict(AM_BODY, with_boundary=True, dividends=cash),
+                "/api/american", "proportional")
+        refused("sigma_j = 0 PIDE",
+                dict(PDE_BODY, params={"lambda_j": 1.0, "sigma_j": 0.0}),
+                "/api/pde", "sigma_j")
+        refused("barrier on the wrong side", dict(PDE_BODY, barrier=95.0),
+                "/api/pde", "up-and-out")
+        refused("rebate on a knock-in",
+                dict(PDE_BODY, barrier=120.0, knock="in", rebate=1.0),
+                "/api/pde", "knock-out only")
+
+        # ── /api/termsvj mode="american" ─────────────────────────────────
+        td = {"spot": SPOT, "strike": SPOT, "T": 0.25, "is_call": False,
+              "segments": TD_SEGMENTS, "mode": "american"}
+        res = ask("termsvj american", td, "/api/termsvj")
+        seg = [s for s in TD_SEGMENTS]
+        eng = termsvj.TDSVJEngine(
+            server.schemas.SVJParamsRequest().to_params(),
+            [s["t_end"] for s in seg], [s["theta"] for s in seg],
+            [s["xi"] for s in seg], [s["lambda_j"] for s in seg],
+            num_paths=FAMILY_PAIRS, num_steps=512, device=device)
+        euro = eng.price_american(SPOT, SPOT, 0.25, False,
+                                  exercise_every=512)
+        exact = float(eng.cos_chain(SPOT, [SPOT], 0.25, False)[0])
+        log(f"/api/termsvj american put: {res['price']:.3f} ± "
+            f"{res['std_error']:.3f}; exercise_every = 512 in process "
+            f"{euro['price']:.3f} ± {euro['std_error']:.3f} vs "
+            f"cos_price_td {exact:.3f} (tol 3 se + 1 %)")
+        check(abs(euro["price"] - exact) < 3 * euro["std_error"]
+              + 0.01 * exact, "td Bermudan with no early date vs COS")
+        check(res["price"] > euro["price"] - 3 * res["std_error"],
+              "td American put >= its European")
+        out["termsvj_american"] = {"price": res["price"],
+                                   "european": euro["price"],
+                                   "cos_price_td": exact}
+
+        lap("400s, termsvj")
+        # ── warm latencies ───────────────────────────────────────────────
+        warm("american", AM_BODY, "/api/american")
+        warm("american with_bounds", dict(AM_BODY, with_bounds=True),
+             "/api/american")
+        warm("american with_greeks", dict(AM_BODY, with_greeks=True),
+             "/api/american")
+        warm("pde heston", PDE_BODY, "/api/pde")
+        warm("pde bs", dict(PDE_BODY, model="bs"), "/api/pde")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    lap("warm latencies")
+    # Each warm request once more in process under the profiler: device
+    # time, launches, busy share, peak memory.
+    prof = {}
+    for what, fn, body in (
+            ("american", server.handle_american, AM_BODY),
+            ("american with_bounds", server.handle_american,
+             dict(AM_BODY, with_bounds=True)),
+            ("american with_greeks", server.handle_american,
+             dict(AM_BODY, with_greeks=True)),
+            ("pde heston", server.handle_pde, PDE_BODY),
+            ("pde heston 401 x 201", server.handle_pde,
+             dict(PDE_BODY, n_x=401, n_v=201)),
+            ("pde bs", server.handle_pde, dict(PDE_BODY, model="bs"))):
+        prof[what] = profiled_call(
+            device, lambda: fn(dict(body), device=device))
+        pr = prof[what]
+        log(f"profiled {what}: wall {pr['profiled_wall_ms']:.1f} ms, device "
+            f"{pr['device_ms_per_call']} ms, {pr['kernel_launches_per_call']}"
+            f" launches, busy share {pr['busy_share']}, peak "
+            f"{pr['peak_gib']:.3f} GiB")
+    out["profiles"] = prof
+    # Four times the nodes: a loop over nodes or lines would add tens of
+    # thousands of launches; cuBLAS may pick another GEMM (a split-K
+    # reduction) for the larger products, at most two launches a stage.
+    small, large = (prof[k]["kernel_launches_per_call"]
+                    for k in ("pde heston", "pde heston 401 x 201"))
+    log(f"/api/pde heston launches at 201 x 101: {small}, at 401 x 201: "
+        f"{large} ({(large - small) / 128:.2f} more a step of 4 implicit "
+        f"stages)")
+    check(isinstance(small, str) or large - small <= 2 * 4 * 128 + 64,
+          "the ADI's launches do not grow with n_x and n_v")
+
+    lap("profiles")
+    # The schema's largest PIDE grid: its inverses' memory.
+    big = pde.HestonPDEEngine(SVJParams(lambda_j=1.0, sigma_j=0.1), n_x=801,
+                              n_v=401, n_t=32, device=device)
+    x, v, n_x, n_t = big._grids(100.0, 100.0, 0.5)
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    u_big, _ = big._solve(x, v, n_x, n_t, 100.0, 0.5, True, False,
+                          jump=big._jump_tables(x))
+    torch.cuda.synchronize(device)
+    big_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+    factors = 2 * 401 * 801 * 801 * 4 / 2**30
+    check(bool(torch.isfinite(u_big).all()), "801 x 401 PIDE grid finite")
+    log(f"largest PIDE grid (801 x 401, {n_t} steps): {big_s:.2f} s, peak "
+        f"device memory {peak:.3f} GiB above the process's, of which the "
+        f"x-direction inverses are {factors:.3f} GiB")
+    out["largest_pide"] = {"s": big_s, "peak_gib": peak,
+                           "factor_gib": factors, "n_t": n_t}
+    del u_big
+
+    lap("largest grid")
+    out["card_vs_cpu"] = american_card_vs_cpu(device, american, pde,
+                                              SVJParams)
+    lap("card against the CPU")
+    counts = ck.launch_counts()
+    log(f"launch counts over the American/PDE path: {counts} (expected "
+        f"none)")
+    for name, n in counts.items():
+        check(n == 0, f"{name} launched {n} times on the American/PDE "
+              f"path, expected 0")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"American/PDE path: {out['wall_s']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2744,7 +3275,8 @@ def main() -> None:
                                               TermStructureSVJ, gbm_params)
     from mcos_tpu_torch.ops import cuda_kernels as ck
     from mcos_tpu_torch.ops import exotics as ox
-    from mcos_tpu_torch.engine import regime, risk
+    from mcos_tpu_torch.ops.exotics import barrier_bs
+    from mcos_tpu_torch.engine import american, pde, regime, risk, termsvj
     from mcos_tpu_torch.engine import rough as rough_engine
     from mcos_tpu_torch.ops import hhw, rough, sobol, svcj, tdsvj
     from mcos_tpu_torch.ops.bs import bs_all_greeks, bs_price
@@ -2822,6 +3354,14 @@ def main() -> None:
         f"{gr['var_2m_x16']['ms']:.1f} ms, its own peak "
         f"{gr['var_2m_x16']['peak_gib'] - gr['var_2m_x16']['held_gib']:.3f}"
         f" GiB; on {card}")
+    ap = american_path(device, ck, server, american, pde, termsvj, bs_price,
+                       barrier_bs, SVJParams)
+    log(f"warm slice H over HTTP: /api/american "
+        f"{ap['warm_american_ms']:.2f} ms, with_bounds "
+        f"{ap['warm_american with_bounds_ms']:.2f}, with_greeks "
+        f"{ap['warm_american with_greeks_ms']:.2f}; /api/pde heston "
+        f"{ap['warm_pde heston_ms']:.2f}, bs {ap['warm_pde bs_ms']:.2f} ms; "
+        f"on {card}")
 
     # (name, source, TPU kernel body, its check, the path that launched it)
     table = (
@@ -2843,7 +3383,7 @@ def main() -> None:
         ("rbergomi_lift_stats", "rbergomi_stats.cu", 2162, k11, rp),
     )
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
-             "rough": rp, "greeks": gp, "risk": gr}
+             "rough": rp, "greeks": gp, "risk": gr, "american": ap}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -2872,7 +3412,8 @@ def main() -> None:
                    "k10_k11_resources": rough_res, "main_path": mp,
                    "options_path": op, "exotics_path": xp,
                    "families_path": fp, "rough_path": rp,
-                   "greeks_path": gp, "risk_path": gr}, f, indent=1)
+                   "greeks_path": gp, "risk_path": gr,
+                   "american_path": ap}, f, indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came

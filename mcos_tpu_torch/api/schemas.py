@@ -2,7 +2,7 @@
 `mcos_tpu/api/schemas.py` that `PriceRequest`, `GreeksRequest`,
 `SmileRequest`, `ExoticRequest`, `HHWRequest`, `SVCJRequest`,
 `TermSVJRequest`, `RoughRequest`, `StressRequest`, `RegimeRequest`,
-`HedgeRequest` and `VarRequest` need,
+`HedgeRequest`, `VarRequest`, `AmericanRequest` and `PDERequest` need,
 copied unchanged apart from the imports. tests/test_torch_copies.py holds the two equal.
 """
 
@@ -394,3 +394,82 @@ class VarRequest(BaseModel):
     # "student_t" (tail-dependent joint crashes, lognormal marginals kept)
     copula: str = "gaussian"
     nu: float = Field(5.0, ge=1.0, le=300.0)
+
+
+class AmericanRequest(BaseModel):
+    """POST /api/american — Longstaff-Schwartz American pricing (beyond the
+    reference's European-only engine)."""
+    spot: float
+    strike: float
+    T: float
+    is_call: bool = True
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    # Bracket the price: out-of-sample LSM lower bound + Andersen-Broadie/
+    # Haugh-Kogan dual upper bound with the duality gap (engine/american.py).
+    with_bounds: bool = False
+    # Policy-fixed pathwise AD Greeks (delta/gamma/vega/theta/rho) of the
+    # out-of-sample LSM estimator (engine/american.py:AmericanEngine.greeks).
+    with_greeks: bool = False
+    # Early-exercise boundary S*(t) from the Crank-Nicolson grid under the
+    # BS proxy sigma = sqrt(v0) (engine/pde.py:exercise_boundary) — the SVJ
+    # boundary is a surface in (S, v); the proxy is the desk convention.
+    with_boundary: bool = False
+    # Exact COS American (Fourier-cosine backward induction + Richardson,
+    # ops/cos_bermudan.py) under the Merton projection sigma=sqrt(v0) +
+    # the SVJ jump leg — exact when xi=0 and theta=v0; prices American
+    # options UNDER JUMPS semi-analytically, pinning the LSM estimate.
+    with_cos_oracle: bool = False
+    # Bermudan schedule: exercise allowed every m-th simulation date only
+    # (1 = American; >= num_steps = European).
+    exercise_every: int = Field(1, ge=1, le=8192)
+    n_outer: int = Field(2048, ge=256, le=65536)
+    n_inner: int = Field(128, ge=16, le=2048)
+    # Discrete dividends — the case where American calls actually exercise
+    # early. kind="cash" uses the exact compounded-cash path model,
+    # kind="proportional" exact factors (engine/american.py).
+    dividends: Optional[list[DividendItem]] = Field(None, max_length=64)
+    dividend_kind: str = Field("cash", pattern="^(cash|proportional)$")
+    # Rate curve: exact in the LSM via per-date drift offsets + per-step
+    # discount factors (engine/american.py lsm_price docstring).
+    rate_curve: Optional[list[RateKnot]] = Field(None, max_length=64)
+
+
+class PDERequest(BaseModel):
+    """POST /api/pde — deterministic finite-difference pricing
+    (engine/pde.py): the 2-D ADI Heston solve (model="heston", the
+    framework's third independent route to the flagship model; with
+    params.lambda_j > 0 it solves the full Bates/SVJ PIDE — the jump
+    integral as one MXU matmul per step) or the 1-D Crank-Nicolson BS
+    grid (model="bs", with the American exercise boundary)."""
+    spot: float = Field(gt=0)
+    strike: float = Field(gt=0)
+    T: float = Field(gt=0, le=30.0)
+    is_call: bool = True
+    american: bool = False
+    model: str = "heston"                   # "heston" | "bs"
+    params: SVJParamsRequest = SVJParamsRequest(lambda_j=0.0)
+    sigma: Optional[float] = Field(None, gt=0, le=5.0,
+                                   description="bs-model vol "
+                                               "(default sqrt(v0))")
+    scheme: str = "cs"                      # heston: "cs" | "douglas"
+    n_x: int = Field(201, ge=51, le=801)
+    n_v: int = Field(101, ge=21, le=401)
+    n_t: int = Field(128, ge=16, le=1024)
+    with_boundary: bool = False             # bs+american: S*(t) curve
+    with_oracle: bool = False               # heston european: exact COS row
+    # Barrier mode (heston model only): absorbing-edge continuous KO/KI.
+    barrier: Optional[float] = Field(None, gt=0)
+    barrier_lo: Optional[float] = Field(None, gt=0)
+    knock: str = "out"                      # "out" | "in"
+    direction: str = "up"                   # "up" | "down"
+    rebate: float = Field(0.0, ge=0)
+    rebate_at_hit: bool = False
+
+    @model_validator(mode="after")
+    def _modes(self):
+        if self.model not in ("heston", "bs"):
+            raise ValueError("model must be 'heston' or 'bs'")
+        if self.scheme not in ("cs", "douglas"):
+            raise ValueError("scheme must be 'cs' or 'douglas'")
+        return self

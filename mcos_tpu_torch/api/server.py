@@ -19,7 +19,7 @@ serving slice).
     POST /api/svcj         — SVCJ: price, greeks, smile, compare
     POST /api/termsvj      — time-dependent SVJ: price, compare, smile,
                              forward_start, cliquet, greeks, varswap,
-                             calibrate (american answers 501)
+                             calibrate, american
     POST /api/rough        — rough Bergomi: price, greeks, smile, skew,
                              asian, barrier, lookback, calibrate
     POST /api/stress       — the spot/vol/gap stress report, or the spot ×
@@ -30,6 +30,12 @@ serving slice).
                              ww_band)
     POST /api/var          — portfolio VaR/CVaR under a Gaussian (with Euler
                              contributions) or Student-t copula
+    POST /api/american     — Longstaff-Schwartz American/Bermudan price, with
+                             the dual bounds, the AD Greeks, the COS oracle
+                             and the Crank-Nicolson exercise boundary
+    POST /api/pde          — the Heston ADI (PIDE with jumps) solve: plain,
+                             barrier, American with its boundary surface;
+                             or the Black-Scholes Crank-Nicolson grid
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
@@ -55,6 +61,7 @@ import torch
 from pydantic import ValidationError
 
 from mcos_tpu_torch.api import coalesce, schemas
+from mcos_tpu_torch.engine.american import AmericanEngine, american_cos_oracle
 from mcos_tpu_torch.engine.exotics import (
     ExoticEngine,
     variance_swap_fair_strike,
@@ -62,6 +69,7 @@ from mcos_tpu_torch.engine.exotics import (
 from mcos_tpu_torch.engine.greeks import GreeksEngine
 from mcos_tpu_torch.engine.guards import PricingGuard
 from mcos_tpu_torch.engine.hhw import HHWEngine
+from mcos_tpu_torch.engine.pde import HestonPDEEngine, PDEEngine
 from mcos_tpu_torch.engine.pricer import (MonteCarloEngine, seeded_generator,
                                           to_host)
 from mcos_tpu_torch.engine.regime import RegimeDetector
@@ -547,8 +555,8 @@ def handle_termsvj(body: dict, device="cuda") -> dict:
     λ(t)) SVJ process across all expiries, the JAX handler's contract.
     Modes price and compare (kernel K9 once, beside the exact
     chained-Riccati COS), smile and calibrate (host only), forward_start,
-    cliquet, greeks and varswap (the torch twins). mode="american" answers
-    501: it waits on the port of engine/american.py."""
+    cliquet, greeks, varswap and american (the torch twins; american is
+    the Longstaff-Schwartz of engine/american.py on the td sheet)."""
     req = schemas.TermSVJRequest(**body)
     start = time.time()
     shared = req.params.to_params()
@@ -632,10 +640,7 @@ def handle_termsvj(body: dict, device="cuda") -> dict:
     elif req.mode == "greeks":
         out = eng.greeks(req.spot, strike, req.T, req.is_call)
     elif req.mode == "american":
-        try:
-            out = eng.price_american(req.spot, strike, req.T, req.is_call)
-        except NotImplementedError as e:
-            raise ApiError(501, str(e))
+        out = eng.price_american(req.spot, strike, req.T, req.is_call)
         out["segments"] = eng.segments_dict()
     elif req.mode == "varswap":
         out = eng.variance_swap(req.T)
@@ -791,6 +796,119 @@ def handle_var(body: dict, device="cuda") -> dict:
     return out
 
 
+def handle_american(body: dict, device="cuda") -> dict:
+    """`/api/american` on `device`: Longstaff-Schwartz American pricing,
+    the JAX handler's contract (every option, every 400)."""
+    req = schemas.AmericanRequest(**body)
+    start = time.time()
+    try:
+        divs = schemas.build_dividend_schedule(req.dividends,
+                                               req.dividend_kind)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    try:
+        curve = schemas.build_rate_curve(req.rate_curve)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    eng = AmericanEngine(req.params.to_params(), num_paths=req.num_paths,
+                         dividends=divs, rate_curve=curve, device=device)
+    out = eng.price(req.spot, req.strike, req.T, req.is_call,
+                    exercise_every=req.exercise_every)
+    if req.with_bounds:
+        if divs is not None or curve is not None:
+            raise ApiError(400, "with_bounds does not support discrete "
+                                "dividends or rate curves yet — use the "
+                                "LSM price/greeks")
+        out["bounds"] = eng.price_bounds(
+            req.spot, req.strike, req.T, req.is_call,
+            n_outer=req.n_outer, n_inner=req.n_inner)
+    if req.with_greeks:
+        out["greeks"] = eng.greeks(req.spot, req.strike, req.T, req.is_call)
+    if req.with_cos_oracle:
+        if divs is not None or curve is not None:
+            raise ApiError(400, "with_cos_oracle does not support discrete "
+                                "dividends or rate curves — the COS "
+                                "induction needs iid log-increments")
+        out["cos_oracle"] = american_cos_oracle(
+            req.params.to_params(), req.spot, req.strike, req.T,
+            req.is_call)
+    if req.with_boundary:
+        p = req.params.to_params()
+        pde = PDEEngine(sigma=float(p.v0) ** 0.5, r=float(p.r),
+                        q=float(p.q), n_t=128, device=device)
+        prop = None
+        if divs is not None:
+            if divs.kind != "proportional":
+                raise ApiError(400, "with_boundary supports proportional "
+                                    "dividends only (the CN grid's jump "
+                                    "condition is multiplicative)")
+            prop = list(zip(divs.times, divs.amounts))
+        bd = pde.exercise_boundary(req.spot, req.strike, req.T,
+                                   req.is_call, dividends=prop)
+        bd["note"] = ("Crank-Nicolson boundary under the BS proxy "
+                      "sigma=sqrt(v0); the full SVJ boundary is a "
+                      "surface in (S, v)")
+        out["exercise_boundary"] = bd
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_pde(body: dict, device="cuda") -> dict:
+    """`/api/pde` on `device`: deterministic finite-difference pricing,
+    the JAX handler's contract: the 2-D ADI Heston solve (Craig-Sneyd or
+    Douglas; the PIDE when lambda_j > 0) or the 1-D Crank-Nicolson BS
+    grid. A no-Monte-Carlo cross-check route."""
+    req = schemas.PDERequest(**body)
+    start = time.time()
+    p = req.params.to_params()
+    if req.model == "heston":
+        eng = HestonPDEEngine(p, n_x=req.n_x, n_v=req.n_v, n_t=req.n_t,
+                              scheme=req.scheme, device=device)
+        if req.barrier is not None:
+            try:
+                out = eng.price_barrier(
+                    req.spot, req.strike, req.T, req.barrier, req.is_call,
+                    knock=req.knock, direction=req.direction,
+                    barrier_lo=req.barrier_lo, rebate=req.rebate,
+                    rebate_at_hit=req.rebate_at_hit,
+                    american=req.american)
+            except ValueError as e:
+                raise ApiError(400, str(e))
+            out["model"] = req.model
+            out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+            return out
+        try:
+            out = eng.price(req.spot, req.strike, req.T, req.is_call,
+                            american=req.american)
+            if req.with_boundary and req.american:
+                out["exercise_boundary"] = eng.exercise_boundary(
+                    req.spot, req.strike, req.T, req.is_call)
+        except ValueError as e:
+            # e.g. sigma_j == 0 with lambda_j > 0: the Merton cell-mass
+            # quadrature has no density to integrate.
+            raise ApiError(400, str(e))
+        if req.with_oracle and not req.american:
+            # cos_price is the exact BATES CF — the oracle covers the
+            # PIDE route (lambda_j > 0) as well as pure Heston.
+            exact = float(cos_price(p, req.spot, [req.strike], req.T,
+                                    req.is_call)[0])
+            out["cos_oracle"] = {"price": exact,
+                                 "abs_error": abs(out["price"] - exact)}
+    else:
+        sigma = req.sigma if req.sigma is not None else float(p.v0) ** 0.5
+        eng = PDEEngine(sigma=sigma, r=float(p.r), q=float(p.q),
+                        n_x=req.n_x, n_t=req.n_t, device=device)
+        out = eng.price(req.spot, req.strike, req.T, req.is_call,
+                        american=req.american)
+        if req.with_boundary and req.american:
+            out["exercise_boundary"] = eng.exercise_boundary(
+                req.spot, req.strike, req.T, req.is_call)
+    out["model"] = req.model
+    out["american"] = req.american
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
                 "/api/greeks": handle_greeks,
                 "/api/smile": handle_smile,
@@ -803,7 +921,9 @@ _POST_ROUTES = {"/api/price": handle_price,
                 "/api/stress": handle_stress,
                 "/api/regime": handle_regime,
                 "/api/hedge": handle_hedge,
-                "/api/var": handle_var}
+                "/api/var": handle_var,
+                "/api/american": handle_american,
+                "/api/pde": handle_pde}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,
@@ -879,7 +999,8 @@ def warm(device) -> None:
     would otherwise land on the first such request. And one tiny
     hedge day loop and VaR request, so that the first risk-desk request
     does not load the device code of its torch ops (sort, top-k, the gamma
-    sampler, the day loop's elementwise ops)."""
+    sampler, the day loop's elementwise ops); and a tiny American price
+    and PDE grid for the linear-algebra libraries they load."""
     device = torch.device(device)
     if device.type == "cuda":
         from mcos_tpu_torch.ops import cuda_kernels
@@ -904,6 +1025,18 @@ def warm(device) -> None:
                 "T": 0.05, "num_paths": 1024}
         handle_var(book, device=device)
         handle_var(dict(book, copula="student_t"), device=device)
+        # Slice H: the first batched inverse and small linear solves load the
+        # device code of cuSOLVER and cuBLAS; a tiny American price (with
+        # its autograd Greeks) and tiny grids, no kernel of the repo.
+        am = AmericanEngine(schemas.SVJParamsRequest().to_params(),
+                            num_paths=1024, device=device)
+        am.price(1.0, 1.0, 0.1, False)
+        am.greeks(1.0, 1.0, 0.1, False)
+        HestonPDEEngine(schemas.SVJParamsRequest(lambda_j=0.0).to_params(),
+                        n_x=51, n_v=21, n_t=16, device=device).price(
+            1.0, 1.0, 0.1, american=True)
+        PDEEngine(sigma=0.2, n_x=51, n_t=16, device=device).price(
+            1.0, 1.0, 0.1, american=True, dividends=[(0.05, 0.01)])
     req = schemas.PriceRequest(spot=22500.0, strike=22500.0, T=0.25)
     eng = MonteCarloEngine(req.params.to_params(), num_paths=req.num_paths,
                            device=device)

@@ -53,9 +53,6 @@ from mcos_tpu_torch.ops.bs import bs_price
 #: queue is re-anchored).
 NOT_PORTED = {
     "mesh": "ROADMAP.md queue 1, slice N (sharding over NCCL)",
-    "TDSVJEngine.price_american":
-        "ROADMAP.md queue 1, slice H (American exercise: engine/american.py "
-        "lsm_price with a td sheet recorder)",
 }
 
 

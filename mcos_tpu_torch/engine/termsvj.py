@@ -12,14 +12,12 @@ well-defined price.
   `price_batch` runs kernel K9 (`cuda_kernels.svj_terminal_td`: the kernel
   on a CUDA device, its plain version on the CPU); Greeks, forward starts,
   cliquets and the variance swap's Monte Carlo leg ride the differentiable
-  torch twins; `cos_chain` is the exact chained-Riccati COS oracle.
+  torch twins; `cos_chain` is the exact chained-Riccati COS oracle;
+  `price_american` is the Longstaff-Schwartz of `engine/american.py` on
+  the td sheet (torch ops, no kernel).
 - `bootstrap_calibrate_td`: the sequential bootstrap: fit segment s's
   (θ_s, ξ_s, λ_s) to expiry T_s's chain with segments 1..s−1 frozen, on
   the td COS objective (no MC in the loop, host only).
-
-`price_american` needs the Longstaff-Schwartz machinery of
-`engine/american.py`, which is not ported yet: it raises
-`NotImplementedError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -309,9 +307,22 @@ class TDSVJEngine:
 
     def price_american(self, spot: float, strike: float, T: float,
                        is_call: bool = False, exercise_every: int = 1) -> Dict:
-        """Longstaff-Schwartz American/Bermudan under td dynamics: waits on
-        the port of `engine/american.py`."""
-        raise not_ported("TDSVJEngine.price_american")
+        """Longstaff-Schwartz American/Bermudan under td dynamics: early
+        exercise decisions against a KNOWN vol term structure (e.g. a put
+        across a scheduled calm→stressed transition). The LSM of
+        engine/american.py on the td sheet recorder, driven by the engine's
+        seed; exercise_every = num_steps degenerates to the European td
+        price (held against the td COS oracle)."""
+        from mcos_tpu_torch.engine.american import lsm_price
+
+        th_t, xi_t, lam_t = self._step_arrays(float(T))
+        out = lsm_price(
+            self.params, spot, strike, T,
+            seeded_generator(self.seed, self.device),
+            num_paths=self.num_paths, num_steps=self.num_steps,
+            is_call=is_call, exercise_every=exercise_every,
+            td_table=np.stack([th_t, xi_t, lam_t]), device=self.device)
+        return {k: float(v) for k, v in to_host(out).items()}
 
     def price_forward_start(self, spot: float, t1: float, T: float,
                             k: float = 1.0, is_call: bool = True) -> Dict:

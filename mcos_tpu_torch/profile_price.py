@@ -3,7 +3,7 @@
 `/api/hedge`, `/api/var`) spends its time on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var]
+        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde]
         [--options JSON] [--reps N] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
@@ -58,6 +58,14 @@ report: one K3 launch for the spot axis and one a shocked vol member;
 `handle_var` (500k paths, a three-asset book at T = 0.05, the Gaussian
 copula with Euler contributions, 32 steps; '{"copula": "student_t"}' for
 the t-copula and its float64 betainc).
+`--route american` and `pde` do the same for slice H at the schema
+defaults: `handle_american` (a put, 200k paths, T = 1 → 64 steps, the
+in-sample LSM; '{"with_bounds": true}' adds the training and evaluation
+sheets and the 2048 × 128 dual, '{"with_greeks": true}' the autograd pass)
+and `handle_pde` (the Heston ADI at 201 × 101 × 128, Craig-Sneyd;
+'{"model": "bs"}' for the 1-D Crank-Nicolson grid, '{"american": true,
+"with_boundary": true}' for the projected solve and its boundary surface).
+No kernel of the repo runs on either: they are torch ops throughout.
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -89,6 +97,8 @@ ROUTE_BODIES = {
             "weights": [0.4, 0.35, 0.25],
             "corr": [[1.0, 0.5, 0.1], [0.5, 1.0, 0.3], [0.1, 0.3, 1.0]],
             "T": 0.05},
+    "american": {"spot": 100.0, "strike": 100.0, "T": 1.0, "is_call": False},
+    "pde": {"spot": 100.0, "strike": 100.0, "T": 1.0},
 }
 
 
@@ -176,7 +186,8 @@ def profile_exotic(options: dict) -> dict:
 
 def profile_route(route: str, options: dict, reps: int = 5) -> dict:
     """`/api/hhw`, `/api/svcj`, `/api/termsvj`, `/api/rough`, `/api/greeks`,
-    `/api/smile`, `/api/stress`, `/api/hedge` or `/api/var`: the whole
+    `/api/smile`, `/api/stress`, `/api/hedge`, `/api/var`, `/api/american`
+    or `/api/pde`: the whole
     handler (median of 4 × `reps` calls, then
     `reps` under the profiler), and one call's peak device memory."""
     from mcos_tpu_torch.api import server

@@ -6,22 +6,31 @@ import json
 
 import numpy as np
 import pytest
+from pydantic import ValidationError
 
 import mcos_tpu.api.schemas as jschemas
 import mcos_tpu.config as jconfig
+import mcos_tpu.engine.american as jamerican
+import mcos_tpu.engine.pde as jpde
 import mcos_tpu.engine.regime as jregime
+import mcos_tpu.ops.cos_bermudan as jcos_bermudan
 import mcos_tpu.ops.cos_pricer as jcos
 import mcos_tpu.ops.curves as jcurves
 import mcos_tpu.ops.dividends as jdivs
 import mcos_tpu.ops.exotics as jexotics
+import mcos_tpu.ops.levy as jlevy
 import mcos_tpu.utils.fastjson as jfastjson
 import mcos_tpu_torch.api.schemas as pschemas
 import mcos_tpu_torch.config as pconfig
+import mcos_tpu_torch.engine.american as pamerican
+import mcos_tpu_torch.engine.pde as ppde
 import mcos_tpu_torch.engine.regime as pregime
+import mcos_tpu_torch.ops.cos_bermudan as pcos_bermudan
 import mcos_tpu_torch.ops.cos_pricer as pcos
 import mcos_tpu_torch.ops.curves as pcurves
 import mcos_tpu_torch.ops.dividends as pdivs
 import mcos_tpu_torch.ops.exotics as pexotics
+import mcos_tpu_torch.ops.levy as plevy
 import mcos_tpu_torch.utils.fastjson as pfastjson
 from mcos_tpu.models.params import SVJParams as JSVJParams
 from mcos_tpu_torch.models.params import SVJParams
@@ -33,12 +42,19 @@ def _public(mod):
             in (mod.__name__, None)}
 
 
+#: The array frameworks each package imports at module level: public by
+#: `_public`'s reading, and the one difference the port must have.
+_FRAMEWORKS = {"jax", "jnp", "torch"}
+
+
 @pytest.mark.parametrize("jmod,pmod", [
     (jconfig, pconfig), (jcurves, pcurves), (jdivs, pdivs),
     (jcos, pcos), (jfastjson, pfastjson), (jregime, pregime),
+    (jamerican, pamerican), (jpde, ppde), (jcos_bermudan, pcos_bermudan),
+    (jlevy, plevy),
 ])
 def test_same_public_names(jmod, pmod):
-    assert _public(pmod) == _public(jmod)
+    assert _public(pmod) - _FRAMEWORKS == _public(jmod) - _FRAMEWORKS
 
 
 def test_config_values_equal():
@@ -430,3 +446,32 @@ def test_risk_desk_request_schemas_equal():
     for name, body in bodies.items():
         assert (getattr(jschemas, name)(**body).model_dump()
                 == getattr(pschemas, name)(**body).model_dump()), name
+
+
+def test_american_and_pde_request_schemas_equal():
+    for name in ("AmericanRequest", "PDERequest"):
+        a = getattr(jschemas, name).model_json_schema()
+        b = getattr(pschemas, name).model_json_schema()
+        assert a == b, name
+    bodies = {
+        "AmericanRequest": {"spot": 100.0, "strike": 95.0, "T": 0.5,
+                            "is_call": False, "with_bounds": True,
+                            "exercise_every": 4, "n_inner": 33,
+                            "dividends": [{"t": 0.2, "amount": 0.02}],
+                            "dividend_kind": "proportional",
+                            "rate_curve": [{"t": 1.0, "r": 0.05}],
+                            "params": {"xi": 0.0}},
+        "PDERequest": {"spot": 100.0, "strike": 95.0, "T": 0.5,
+                       "model": "bs", "sigma": 0.3, "american": True,
+                       "barrier": 130.0, "barrier_lo": 70.0, "rebate": 1.0,
+                       "scheme": "douglas", "n_x": 801, "n_v": 401},
+    }
+    for name, body in bodies.items():
+        assert (getattr(jschemas, name)(**body).model_dump()
+                == getattr(pschemas, name)(**body).model_dump()), name
+    for bad in ({"model": "sabr"}, {"scheme": "adi"}, {"n_x": 802}):
+        body = dict(bodies["PDERequest"], **bad)
+        with pytest.raises(ValidationError):
+            jschemas.PDERequest(**body)
+        with pytest.raises(ValidationError):
+            pschemas.PDERequest(**body)

@@ -1236,3 +1236,180 @@ def test_risk_desk_handlers_on_card(cuda):
         server.handle_var(dict(book, corr=[[1.0, 1.5], [1.5, 1.0]]),
                           device=cuda)
     assert e.value.status == 400
+
+
+# ── slice H: American exercise and the PDE solvers ──────────────────────────
+def _sheet_draws(device, steps=32, n=20_000, seed=3):
+    """CPU-generated (z, u) and the same on `device`."""
+    g = torch.Generator().manual_seed(seed)
+    z, u = torch.randn((steps, 3, n), generator=g), torch.rand((steps, n),
+                                                               generator=g)
+    return (z, u), (z.to(device), u.to(device))
+
+
+def test_lsm_programs_on_card_match_cpu(cuda):
+    """The recorded sheet (plain and td) to rtol 1e-5; the in-sample LSM
+    within half a standard error (its float32 regressions may flip a few
+    exercise decisions); the CPU's policy on both sides to rtol 1e-4, and
+    its Greeks and the two-spot delta batch to rtol 1e-4."""
+    from mcos_tpu_torch.engine import american
+
+    cpu, card = _sheet_draws(cuda)
+    td = np.stack([np.linspace(0.03, 0.09, 32), np.linspace(0.4, 0.9, 32),
+                   np.linspace(0.5, 4.0, 32)])
+    for table in (None, td):
+        a = american._record_log_paths(_P, 100.0, 0.5, draws=cpu,
+                                       td_table=table)
+        b = american._record_log_paths(_P, 100.0, 0.5, draws=card,
+                                       td_table=table)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-6)
+    kw = dict(is_call=False)
+    ref = american.lsm_price(_P, 100.0, 100.0, 0.5, draws=cpu, **kw)
+    got = american.lsm_price(_P, 100.0, 100.0, 0.5, draws=card, **kw)
+    assert abs(float(got["price"]) - float(ref["price"])) \
+        < 0.5 * float(ref["std_error"])
+    coefs = american.lsm_train(_P, 100.0, 100.0, 0.5, draws=cpu,
+                               **kw)["policy"]
+    lo_ref = american.lsm_lower_bound(_P, 100.0, 100.0, 0.5, None, coefs,
+                                      draws=cpu, **kw)
+    lo = american.lsm_lower_bound(_P, 100.0, 100.0, 0.5, None,
+                                  coefs.to(cuda), draws=card, **kw)
+    assert float(lo["price"]) == pytest.approx(float(lo_ref["price"]),
+                                               rel=1e-4)
+    p_ref, g_ref = american.american_greeks_ad(_P, 100.0, 100.0, 0.5, None,
+                                               coefs, draws=cpu, **kw)
+    p, g = american.american_greeks_ad(_P, 100.0, 100.0, 0.5, None,
+                                       coefs.to(cuda), draws=card, **kw)
+    torch.testing.assert_close(torch.stack([p, *g]).cpu(),
+                               torch.stack([p_ref, *g_ref]), rtol=1e-4,
+                               atol=1e-6)
+    d_ref = american._american_delta_batch(_P, [101.0, 99.0], 100.0, 0.5,
+                                           None, coefs, draws=cpu, **kw)
+    d = american._american_delta_batch(_P, [101.0, 99.0], 100.0, 0.5, None,
+                                       coefs.to(cuda), draws=card, **kw)
+    torch.testing.assert_close(d.cpu(), d_ref, rtol=1e-4, atol=1e-6)
+
+
+def test_dual_on_card_matches_cpu(cuda):
+    from mcos_tpu_torch.engine import american
+
+    cpu, _ = _sheet_draws("cpu", steps=16, n=20_000)
+    value = american.lsm_train(_P, 100.0, 100.0, 0.5, draws=cpu,
+                               is_call=False)["value"]
+    g = torch.Generator().manual_seed(9)
+    draws = ((torch.randn((16, 3, 1024), generator=g),
+              torch.rand((16, 1024), generator=g)),
+             (torch.randn((16, 3, 32, 1024), generator=g),
+              torch.rand((16, 32, 1024), generator=g)))
+    on = tuple(tuple(t.to(cuda) for t in pair) for pair in draws)
+    kw = dict(n_outer=1024, n_inner=65, num_steps=16, is_call=False)
+    ref = american.dual_upper_bound(_P, 100.0, 100.0, 0.5, None, value,
+                                    draws=draws, **kw)
+    got = american.dual_upper_bound(_P, 100.0, 100.0, 0.5, None,
+                                    value.to(cuda), draws=on, **kw)
+    for k in ref:
+        assert float(got[k]) == pytest.approx(float(ref[k]), rel=1e-4)
+
+
+@pytest.mark.parametrize("scheme", ["cs", "douglas"])
+@pytest.mark.parametrize("lam", [0.0, 2.0])
+@pytest.mark.parametrize("american", [False, True])
+def test_adi_on_card_matches_cpu(cuda, scheme, lam, american):
+    """The default 201 x 101 x 128 grid, the inverses from cuSOLVER against
+    the CPU's LAPACK: 1e-4 of the grid's largest value; the exercise edge
+    on the same node but where continuation ties intrinsic to rounding
+    (at most 0.1 % of the (step, v) entries, each one node away)."""
+    from mcos_tpu_torch.engine import pde
+
+    p = SVJParams(lambda_j=lam)
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = pde.HestonPDEEngine(p, scheme=scheme, device=dev)
+        x, v, n_x, n_t = eng._grids(100.0, 105.0, 0.5)
+        u, s = eng._solve(x, v, n_x, n_t, 105.0, 0.5, False, american,
+                          jump=eng._jump_tables(x))
+        out[str(dev)] = (u.cpu(), s.cpu())
+    (u_c, s_c), (u_g, s_g) = out["cpu"], out[str(cuda)]
+    assert float((u_g - u_c).abs().max()) < 1e-4 * float(u_c.abs().max())
+    if american:
+        assert torch.equal(torch.isfinite(s_g), torch.isfinite(s_c))
+        fin = torch.isfinite(s_c)
+        step = float(x[1] - x[0])
+        shift = torch.log(s_g[fin].double() / s_c[fin].double()).abs()
+        moved = shift > 1e-6
+        assert int(moved.sum()) <= 1e-3 * s_c.numel()
+        assert torch.allclose(shift[moved], torch.full_like(
+            shift[moved], step), rtol=1e-3)
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_cn_on_card_matches_cpu(cuda, american):
+    from mcos_tpu_torch.engine import pde
+
+    x = np.linspace(np.log(40.0), np.log(250.0), 401).astype(np.float32)
+    sig2 = np.repeat(np.linspace(0.03, 0.08, 256, dtype=np.float32)[:, None],
+                     401, 1)
+    div = np.zeros(256, np.float32)
+    div[[60, 170]] = np.log1p(-0.02)
+    out = [pde._cn_solve(sig2, 100.0, 1.0, 0.05, 0.01, x, div, n_x=401,
+                         n_t=256, is_call=False, american=american,
+                         device=d) for d in ("cpu", cuda)]
+    v_c, v_g = out[0][0], out[1][0].cpu()
+    assert float((v_g - v_c).abs().max()) < 1e-4 * float(v_c.abs().max())
+
+
+def test_levy_samplers_on_card_by_law(cuda):
+    """VG on the card's gamma sampler and NIG on its IG transform: within
+    4 standard errors of the COS prices."""
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+    from mcos_tpu_torch.ops import levy
+
+    for p, cos in ((levy.VGParams(), levy.vg_cos_price),
+                   (levy.NIGParams(), levy.nig_cos_price)):
+        price, se = levy.levy_price_mc(
+            p, 100.0, [90.0, 100.0, 110.0], 0.5,
+            seeded_generator(1, cuda), num_paths=1 << 20, device=cuda)
+        exact = cos(p, 100.0, [90.0, 100.0, 110.0], 0.5)
+        assert np.all(np.abs(price.cpu().numpy() - exact)
+                      <= 4 * se.cpu().numpy())
+
+
+def test_slice_h_handlers_on_card(cuda):
+    """/api/american with every block, /api/pde in both models and
+    /api/termsvj american on the card at small widths: finite figures, the
+    400s, and no kernel of the repo launched."""
+    from mcos_tpu_torch.api import server
+
+    ck.reset_launch_counts()
+    am = {"spot": 100.0, "strike": 100.0, "T": 0.25, "is_call": False,
+          "num_paths": 20_000}
+    res = server.handle_american(dict(am, with_bounds=True, with_greeks=True,
+                                      with_cos_oracle=True,
+                                      with_boundary=True, n_outer=512),
+                                 device=cuda)
+    assert np.isfinite([res["price"], res["bounds"]["upper_bound"],
+                        res["greeks"]["delta"],
+                        res["cos_oracle"]["price"]]).all()
+    res = server.handle_american(dict(am, is_call=True, dividends=[
+        {"t": 0.1, "amount": 2.0}], rate_curve=[{"t": 1.0, "r": 0.05}]),
+        device=cuda)
+    assert np.isfinite(res["price"])
+    pde_body = {"spot": 100.0, "strike": 100.0, "T": 0.5, "n_x": 101,
+                "n_v": 41, "n_t": 32}
+    for extra in ({"with_oracle": True}, {"american": True, "is_call": False,
+                                          "with_boundary": True},
+                  {"barrier": 120.0, "rebate": 1.0},
+                  {"model": "bs", "american": True, "with_boundary": True}):
+        res = server.handle_pde(dict(pde_body, **extra), device=cuda)
+        assert np.isfinite(res["price"])
+    td = {"spot": 100.0, "T": 0.2, "num_paths": 20_000, "num_steps": 32,
+          "mode": "american",
+          "segments": [{"t_end": 0.1, "theta": 0.04},
+                       {"t_end": 0.2, "theta": 0.09, "lambda_j": 3.0}]}
+    assert np.isfinite(server.handle_termsvj(td, device=cuda)["price"])
+    with pytest.raises(server.ApiError) as e:
+        server.handle_pde(dict(pde_body, params={"lambda_j": 1.0,
+                                                 "sigma_j": 0.0}),
+                          device=cuda)
+    assert e.value.status == 400
+    assert all(n == 0 for n in ck.launch_counts().values())

@@ -1,9 +1,10 @@
 """`POST /api/hhw`, `/api/svcj` and `/api/termsvj` of the port against the
 JAX package's handlers: the same response keys for every mode, the same
 400s, deterministic fields equal, Monte Carlo fields within 4 combined
-standard errors (the streams differ between the two packages); plus what
-the port answers differently on purpose: a 400 for an HHW correlation
-matrix that is not positive definite and a 501 for `termsvj`/`american`."""
+standard errors (the streams differ between the two packages), and
+`termsvj`/`american` equal to the reference's on the JAX key's draws; plus
+what the port answers differently on purpose: a 400 for an HHW
+correlation matrix that is not positive definite."""
 
 import json
 import threading
@@ -53,10 +54,12 @@ _CASES = {
                                         global_cap=0.15)),
     "termsvj_greeks": ("termsvj", dict(_TD, mode="greeks")),
     "termsvj_varswap": ("termsvj", dict(_TD, mode="varswap")),
+    "termsvj_american": ("termsvj", dict(_TD, mode="american")),
 }
 # Fields that one seed's Monte Carlo estimate fills, with the field that
 # holds its standard error (None: no error is returned, compared loosely).
 _MC = {"price": "std_error", "mc_price": "std_error",
+       "mc_continuation": "std_error",
        "raw_mc_price": None, "zero_coupon_mc": None,
        "price_deterministic_rates": "std_error",
        "stochastic_rates_premium": "std_error",
@@ -172,22 +175,61 @@ def test_hazard_hhw_correlation_not_positive_definite_answers_400():
             assert name in err.value.detail
 
 
-def test_termsvj_american_answers_501():
-    with pytest.raises(pserver.ApiError) as err:
-        pserver.handle_termsvj(dict(_TD, mode="american"), device="cpu")
-    assert err.value.status == 501
-    assert "slice H" in err.value.detail
+def _replayed(key, n, steps):
+    """The JAX LSM recorder's per-step draws for `key`: fold_in(key, t) →
+    split → normal (3, n), uniform (n,)."""
+    import jax
+    import jax.numpy as jnp
+
+    def one(t):
+        k_norm, k_unif = jax.random.split(jax.random.fold_in(key, t))
+        return (jax.random.normal(k_norm, (3, n), jnp.float32),
+                jax.random.uniform(k_unif, (n,), jnp.float32))
+
+    z, u = jax.vmap(one)(jnp.arange(steps))
+    return torch.from_numpy(np.array(z)), torch.from_numpy(np.array(u))
+
+
+def test_termsvj_american_answers_501(monkeypatch):
+    """Ported (once a 501): `mode="american"` answers 200, and on the JAX
+    key's draws (the engine's seed, 42) the Longstaff-Schwartz price under
+    td dynamics equals the reference's: within half a standard error (the
+    float32 regressions of the two packages flip a few exercise decisions
+    that sit on their continuation to rounding), the same segments."""
+    import jax
+
+    import mcos_tpu_torch.engine.american as pam
+
+    draws = _replayed(jax.random.PRNGKey(42), _TD["num_paths"],
+                      _TD["num_steps"])
+    monkeypatch.setattr(pam, "_euler_draws", lambda *a, **k: draws)
+    got = pserver.handle_termsvj(dict(_TD, mode="american"), device="cpu")
+    ref = jserver.handle_termsvj(dict(_TD, mode="american"))
+    assert got.keys() == ref.keys()
+    assert got["segments"] == ref["segments"]
+    assert got["intrinsic"] == ref["intrinsic"] == 0.0
+    assert abs(got["price"] - ref["price"]) < 0.5 * ref["std_error"]
+    assert got["std_error"] == pytest.approx(ref["std_error"], rel=0.05)
 
 
 def test_termsvj_american_501_names_its_slice_not_an_item_number():
-    """The 501 body names the roadmap slice that ports American exercise
-    by its letter and subject, which survive a re-anchored queue, and no
-    item number, which does not."""
-    with pytest.raises(pserver.ApiError) as err:
-        pserver.handle_termsvj(dict(_TD, mode="american"), device="cpu")
-    assert err.value.status == 501
-    assert "slice H (American exercise" in err.value.detail
-    assert "item" not in err.value.detail
+    """Ported (once a 501 naming its slice): a Bermudan with no early date
+    (exercise_every = num_steps) is the European td price, within 3
+    standard errors of the chained-Riccati COS oracle."""
+    from mcos_tpu_torch.engine.termsvj import TDSVJEngine
+    from mcos_tpu_torch.models.params import SVJParams
+
+    seg = _SEGMENTS
+    eng = TDSVJEngine(SVJParams(), [s["t_end"] for s in seg],
+                      [s["theta"] for s in seg], [s["xi"] for s in seg],
+                      [s["lambda_j"] for s in seg], num_paths=20_000,
+                      num_steps=64, device="cpu")
+    for is_call in (False, True):
+        got = eng.price_american(100.0, 100.0, 0.3, is_call,
+                                 exercise_every=64)
+        exact = float(eng.cos_chain(100.0, [100.0], 0.3, is_call)[0])
+        assert abs(got["price"] - exact) < 3 * got["std_error"]
+        assert got["price"] == got["mc_continuation"]
 
 
 def test_termsvj_calibrate_keys_match_jax():
@@ -209,8 +251,8 @@ def test_termsvj_calibrate_keys_match_jax():
 
 
 def test_routes_over_http_on_cpu():
-    """The three routes are registered: 200, 400, 501 and 422 over the
-    stdlib transport."""
+    """The three routes are registered: 200, 400 and 422 over the stdlib
+    transport; `termsvj`/`american` answers 200."""
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), pserver._Handler)
     httpd.device = torch.device("cpu")
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -236,7 +278,9 @@ def test_routes_over_http_on_cpu():
         assert status == 200 and np.isfinite(res["cos_price"])
         assert post("/api/hhw", dict(_HHW, rho_sv=-0.999, rho_sr=0.999,
                                      rho_vr=0.999))[0] == 400
-        assert post("/api/termsvj", dict(_TD, mode="american"))[0] == 501
+        status, res = post("/api/termsvj", dict(_TD, mode="american"))
+        assert status == 200 and np.isfinite(res["price"])
+        assert res["segments"]["seg_ends"] == [0.1, 0.2, 0.3]
         assert post("/api/svcj", {"spot": -1.0, "T": 0.25})[0] == 422
     finally:
         httpd.shutdown()

@@ -121,11 +121,11 @@ def test_mesh_error_names_slice_n():
 
 
 def test_unported_options_raise():
-    """Only sharding and the td-SVJ American pricer (which waits on the
-    American engine) are still unported; PRNG-driven pricing and the QE
-    draws path, which raised before they were ported, now price."""
+    """Only sharding is still unported (the td-SVJ American pricer came
+    with the American engine); PRNG-driven pricing and the QE draws path,
+    which raised before they were ported, now price."""
     p = SVJParams()
-    assert set(ppricer.NOT_PORTED) == {"mesh", "TDSVJEngine.price_american"}
+    assert set(ppricer.NOT_PORTED) == {"mesh"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ppricer.MonteCarloEngine(p, mesh="auto", device="cpu")
     res = ppricer.MonteCarloEngine(p, num_paths=256, use_sobol=False,

@@ -128,9 +128,16 @@ def test_http_routes(solo, monkeypatch):
     try:
         assert call("/api/health")[0] == 200
         assert call("/api/metrics")[0] == 404
-        # A route still to port answers 404; the ported Greeks, smile and
-        # stress routes answer 200.
-        assert call("/api/american", _BODY)[0] == 404
+        # A route still to port answers 404; the ported American, PDE,
+        # Greeks, smile and stress routes answer 200.
+        assert call("/api/roughheston", _BODY)[0] == 404
+        status, res = call("/api/american", dict(_BODY, num_paths=2000,
+                                                 T=0.1))
+        assert status == 200 and np.isfinite(res["price"])
+        status, res = call("/api/pde", {"spot": 100.0, "strike": 100.0,
+                                        "T": 0.25, "n_x": 51, "n_v": 21,
+                                        "n_t": 16})
+        assert status == 200 and np.isfinite(res["price"])
         status, res = call("/api/stress", dict(_BODY, num_paths=1024,
                                                T=0.05))
         assert status == 200 and len(res["spot_shocks"]) == 6

@@ -396,8 +396,12 @@ def test_engine_no_control_variate_and_refusals():
     assert row["price"] == row["raw_mc_price"]
     assert "cv_beta" not in eng.price_forward_start(_SPOT, 0.2, _T)
     assert "cv_beta" not in eng.price_cliquet(_T, n_periods=2)
-    with pytest.raises(NotImplementedError, match="queue 1, slice H"):
-        eng.price_american(_SPOT, 100.0, _T)
+    # The American pricer, once a refusal, now prices: a put is worth at
+    # least its no-early-date Bermudan on the same paths.
+    amer = eng.price_american(_SPOT, 100.0, _T)
+    euro = eng.price_american(_SPOT, 100.0, _T, exercise_every=16)
+    assert np.isfinite(amer["price"]) and amer["std_error"] > 0
+    assert amer["price"] >= euro["price"] - 3 * euro["std_error"]
     with pytest.raises(NotImplementedError, match="mesh"):
         pterm.TDSVJEngine(pp, *_SEG, mesh="auto", device="cpu")
     with pytest.raises(ValueError):
