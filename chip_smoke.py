@@ -161,7 +161,27 @@
    with its peak memory; and the LSM, dual, ADI and CN programs on the
    card against the CPU on shared draws and grids. Then the counts show
    no kernel launched.
-12. Prints the kernels' JSON line (each kernel's launches on its own path
+12. The calibration and surfaces path (slice I). First K1 at
+   `/api/calibrate`'s shape: the DE objective of a 24-member population
+   through K1 against the same objective through the Euler twin on the
+   same draws (100 000 paths × 50 steps), stage 1, stage 2 at λ = 0 and
+   λ > 0, rtol 1e-4 (float32 rounding), one member's chain prices to 2e-5,
+   and K1 timed there. Then, with the counts set to 0 again, a new server
+   on 127.0.0.1 answers a default POST /api/calibrate on an 11-strike chain
+   (0.8-1.2 × F, T = 0.5) priced by COS at known SVJ parameters, whose fit
+   must reprice the chain by COS within a bound derived from the estimator's
+   standard errors and bias (`calibration_path`), and an exercise="american"
+   request; POST /api/surface on a Black-Scholes chain of a known smile
+   (IVs round-trip to 1e-5, SABR and SSVI fits, the arbitrage report);
+   POST /api/quotegreeks equal to the CPU's to 1e-9; POST /api/localvol (a
+   flat surface within 3 se of Black-Scholes; in process, an SSVI-derived
+   surface reprices its IVs within 40 bp); POST /api/slv (flat at ξ > 0
+   against Black-Scholes, ξ = 0 against /api/localvol, barrier and
+   forward_start); 3 warm requests per route, each route but
+   /api/calibrate once in process under the profiler; then the counts show K1 launched exactly 24 members
+   × 127 generations a calibration and nothing else; and the SLV and
+   local-vol loops on the card against the CPU on the same normals.
+13. Prints the kernels' JSON line (each kernel's launches on its own path
    and, under "launches_by_path", on every path), the card line and, last,
    the result line {"ok": true, "device": {...}}.
 
@@ -3259,6 +3279,438 @@ def american_path(device, ck, server, american, pde, termsvj, bs_price,
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice I: calibration and surfaces
+# ─────────────────────────────────────────────────────────────────────────────
+# Each route's schema defaults, sent explicitly (a CPU rehearsal of the phase
+# shrinks them).
+SLICE_I_SIZES = {"calibrate_paths": 100_000,   # CalibrateRequest default
+                 "calibrate_steps": 50, "calibrate_members": 24,
+                 "localvol_paths": 200_000,    # LocalVolRequest default
+                 "localvol_steps": 100,
+                 "slv_paths": 200_000,         # SLVRequest default
+                 "slv_steps": 128,
+                 "roundtrip_paths": 300_000, "roundtrip_steps": 200,
+                 "card_vs_cpu_paths": 100_000, "card_vs_cpu_steps": 64}
+SLV_FLAT_SIGMA = 0.25
+
+
+def k1_calibration_pin(device, ck, cal, cos_price, SVJParams):
+    """K1 at `/api/calibrate`'s shape: the DE objective of a 24-member
+    population through K1 against the same objective through the Euler
+    twin, on the same draws (100 000 paths × 50 steps), both stages, at
+    λ = 0 and λ > 0; then one member's launch timed beside its plain
+    version and its bound. Float32 rounding is the bound: the chain prices
+    to rtol 2e-5 (K1's S to 1e-5 a path, averaged over 200 000 paths) and
+    the objectives to rtol 1e-4 (a squared residual amplifies the prices'
+    relative error by 2·price/residual). Run before the path's counts are
+    set to 0: these launches compare, they are not the path's."""
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+    from mcos_tpu_torch.profile_price import CHAIN_PARAMS, slice_i_body
+
+    n, steps = SLICE_I_SIZES["calibrate_paths"], SLICE_I_SIZES[
+        "calibrate_steps"]
+    members = SLICE_I_SIZES["calibrate_members"]
+    body = slice_i_body("calibrate")
+    strikes = np.asarray(body["strikes"])
+    r, q = CHAIN_PARAMS["r"], CHAIN_PARAMS["q"]
+    draws = cal._calibration_draws(n, steps, seeded_generator(42, device))
+    data = {"spot": body["spot"], "T": body["T"], "r": r, "q": q,
+            "draws": draws,
+            "strikes": torch.as_tensor(strikes, dtype=torch.float32,
+                                       device=device),
+            "market_prices": torch.as_tensor(
+                np.asarray(body["market_prices"], np.float32),
+                device=device),
+            "weights": cal.compute_vega_weights(
+                body["spot"], strikes, body["T"], r, q, 0.15,
+                device=device),
+            "heston_x": [CHAIN_PARAMS[k] for k in
+                         ("kappa", "theta", "xi", "rho", "v0")]}
+    rng = np.random.default_rng(16)
+    out = {}
+    for name, fn, bounds, lam in (
+            ("stage 1 (lambda 0)", cal.heston_objective, cal.HESTON_BOUNDS,
+             None),
+            ("stage 2, lambda 0", cal.svj_objective, cal.JUMP_BOUNDS, 0.0),
+            ("stage 2, lambda > 0", cal.svj_objective, cal.JUMP_BOUNDS,
+             None)):
+        lo, hi = bounds[:, 0], bounds[:, 1]
+        pop = (lo + (hi - lo) * rng.random((members, len(lo)))).astype(
+            np.float32)
+        if lam is not None:
+            pop[:, 0] = lam
+        x = torch.as_tensor(pop, device=device)
+        with torch.no_grad():
+            ker = fn(x, data, backend="cuda")
+            twin = fn(x, data, backend="torch")
+        err = float(((ker - twin).abs() / twin.abs()).max())
+        log(f"K1 calibration objective, {name}, {members} members x {n} "
+            f"paths x {steps} steps: max rel err vs the twin {err:.3e} "
+            f"(rtol 1e-4)")
+        check(bool(torch.isfinite(ker).all()), f"K1 objective {name} finite")
+        check(err < 1e-4, f"K1 objective {name} vs the twin: {err}")
+        out[name] = err
+    # One member's chain prices, K1 against the twin, and its timing.
+    p = SVJParams(**CHAIN_PARAMS)
+    prices = {b: cal._chain_prices(p, body["spot"], data["strikes"],
+                                   body["T"], draws, is_call=True,
+                                   backend=b) for b in ("cuda", "torch")}
+    price_err = rel_err(prices["cuda"], prices["torch"])
+    log(f"K1 chain prices at the true parameters vs the twin: max rel err "
+        f"{price_err:.3e} (rtol 2e-5)")
+    check(price_err < 2e-5, f"K1 chain prices vs the twin: {price_err}")
+    z1, z2, u, zjs = draws
+    kw = dict(antithetic=True, companion=True, steps_major=True)
+    ms = cuda_ms(lambda: ck.svj_terminal_from_draws(
+        p, body["spot"], body["T"], z1, z2, u, zjs, **kw), reps=20)
+    plain_ms = cuda_ms(lambda: ck.svj_terminal_from_draws_plain(
+        p, body["spot"], body["T"], z1, z2, u, zjs, **kw), reps=3)
+    b = bound("svj_terminal_from_draws", steps * n, 4 * steps * n * 4,
+              3 * 2 * n * 4)
+    log(f"K1 at the calibration shape ({n} paths x {steps} steps, explicit "
+        f"jump uniforms): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"objective_rel_err": out, "price_rel_err": price_err,
+            "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def slv_card_vs_cpu(device, localvol, slv, SVJParams, surf):
+    """The SLV step loop on the card against the CPU on the same normals:
+    the ATM call and put within 1 se (the card's bin sums are atomics in
+    no fixed order, so the clouds part by rounding), and the local-vol
+    loop's spots to rtol 2e-4 (the card's and the CPU's exp and sqrt
+    differ by an ulp, which the local-vol feedback carries over the steps:
+    3 of 200 000 paths part by 8e-5 at 64 steps)."""
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+
+    n, steps = (SLICE_I_SIZES["card_vs_cpu_paths"],
+                SLICE_I_SIZES["card_vs_cpu_steps"])
+    rows, t_mid = surf.step_tables(0.5, steps)
+    y0, dy = float(surf.y_grid[0]), float(surf.y_grid[1] - surf.y_grid[0])
+    z = torch.randn((steps, 2, n), generator=seeded_generator(5, "cpu"))
+    heston = SVJParams(kappa=2.0, theta=0.04, xi=0.6, rho=-0.7, v0=0.04,
+                       lambda_j=0.0, r=surf.r, q=surf.q)
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        s = slv.slv_terminal(heston, rows, t_mid, y0, dy, 100.0, 0.5,
+                             normals=z.to(dev)).cpu()
+        lv = localvol.simulate_terminal_localvol(
+            rows, t_mid, y0, dy, 100.0, surf.r, surf.q, 0.5,
+            normals=z[:, 0].to(dev)).cpu()
+        row = {"lv": lv}
+        for leg, pay in (("call", torch.clamp(s - 100.0, min=0.0)),
+                         ("put", torch.clamp(100.0 - s, min=0.0))):
+            pay = pay.mean(dim=0)
+            row[leg] = (float(pay.mean()),
+                        float(pay.std(correction=0) / pay.numel() ** 0.5))
+        out[name] = row
+    lv_err = rel_err(out["card"].pop("lv"), out["cpu"].pop("lv"))
+    for leg in ("call", "put"):
+        (a, se), (b, _) = out["card"][leg], out["cpu"][leg]
+        log(f"SLV {leg} on the card vs the CPU ({n} paths x {steps} steps, "
+            f"the same normals): {a:.5f} vs {b:.5f}, se {se:.5f}")
+        check(abs(a - b) < se, f"SLV {leg} card vs CPU within 1 se")
+    log(f"local-vol spots on the card vs the CPU: max rel err {lv_err:.3e}")
+    check(lv_err < 2e-4, "local-vol card vs CPU")
+    return dict(out, lv_rel_err=lv_err)
+
+
+def calibration_path(device, ck, server, cal, localvol, slv, ssvi,
+                     cos_price, bs_price, SVJParams):
+    """Slice I over HTTP on a fresh server, with the launch counts set to 0
+    just before: `/api/calibrate` (its DE members on K1, one launch a
+    member a generation), `/api/surface`, `/api/quotegreeks`,
+    `/api/localvol`, `/api/slv`; then K1 launched exactly members ×
+    (generations + 1) a stage a calibrate, and no other kernel."""
+    from mcos_tpu_torch.engine.american import binomial_american_bs
+    from mcos_tpu_torch.engine.pricer import (mc_price_from_draws,
+                                              seeded_generator)
+    from mcos_tpu_torch.profile_price import (CHAIN_PARAMS, SMILE_MATS,
+                                              slice_i_body, smile_iv)
+
+    sz = SLICE_I_SIZES
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {"requests": {}}
+    n_calibrates = 0
+
+    def ask(what, body, path):
+        nonlocal n_calibrates
+        status, res, ms = post(base, body, path=path)
+        n_calibrates += path == "/api/calibrate"
+        check(status == 200, f"{what}: status {status}")
+        # The error bars' condition number is inf where a parameter is
+        # pinned (lambda_j = 0 leaves the jump columns zero), as in the JAX
+        # package.
+        check(all_finite({k: v for k, v in res.items()
+                          if k != "uncertainty"}),
+              f"{what}: every number finite")
+        out["requests"][what] = {"latency_ms": ms,
+                                 "elapsed_ms": res.get("elapsed_ms")}
+        return res
+
+    def warm(what, body, path):
+        nonlocal n_calibrates
+        lat = [post(base, body, path=path)[2] for _ in range(3)]
+        n_calibrates += 3 * (path == "/api/calibrate")
+        out[f"warm_{what}_ms"] = statistics.median(lat)
+        log(f"warm {path} {what}: median {statistics.median(lat):.2f} ms "
+            f"over 3 ({[round(x, 2) for x in lat]})")
+
+    def lap(what):
+        log(f"  [{what}: {time.perf_counter() - t_start:.1f} s into the "
+            f"path]")
+
+    cal_body = dict(slice_i_body("calibrate"),
+                    num_paths=sz["calibrate_paths"])
+    surf_body = dict(slice_i_body("surface"), fit_ssvi=True)
+    qg_body = slice_i_body("quotegreeks")
+    lv_body = dict(slice_i_body("localvol"), num_paths=sz["localvol_paths"],
+                   num_steps=sz["localvol_steps"])
+    slv_body = dict(slice_i_body("slv"), num_paths=sz["slv_paths"],
+                    num_steps=sz["slv_steps"])
+    try:
+        # ── /api/calibrate ───────────────────────────────────────────────
+        t0 = time.perf_counter()
+        res = ask("calibrate", cal_body, "/api/calibrate")
+        cal_s = time.perf_counter() - t0
+        strikes = np.asarray(cal_body["strikes"])
+        market = np.asarray(cal_body["market_prices"])
+        fit = SVJParams(**res["params"])
+        truth = SVJParams(**CHAIN_PARAMS)
+        # The bound, by the triangle inequality in the stage-2 weighted
+        # norm ||x||_w = sqrt(sum w x^2) (every strike is in stage 2's
+        # 0.8-1.2 range): ||COS(fit) - mkt|| <= ||MC(fit) - mkt|| +
+        # ||COS(fit) - MC(fit)||. The first is at most sqrt(stage-2 error)
+        # (the fit's own weighted SSE plus its Tikhonov term); the second is
+        # the estimator's error at the fit: 3 of its standard errors at
+        # 100 000 paths plus its 50-step Euler bias, which is taken at the
+        # true parameters on the same draws (MC(true) - COS(true)) and
+        # doubled for the move from the true to the fitted parameters.
+        w = cal.compute_vega_weights(cal_body["spot"], strikes,
+                                     cal_body["T"], truth.r, truth.q,
+                                     0.15).numpy().astype(np.float64)
+        draws = cal._calibration_draws(sz["calibrate_paths"],
+                                      sz["calibrate_steps"],
+                                      seeded_generator(42, device))
+        est = {}
+        for name, p in (("fit", fit), ("true", truth)):
+            # The Euler twin on the calibration's draws: the same
+            # estimator, and no K1 launch outside the requests.
+            r_ = mc_price_from_draws(
+                p, cal_body["spot"], strikes, cal_body["T"], *draws,
+                backend="torch", steps_major=True)
+            est[name] = {k: r_[k].cpu().numpy().astype(np.float64)
+                         for k in ("price", "std_error")}
+        cos_fit = np.asarray(cos_price(fit, cal_body["spot"], strikes,
+                                       cal_body["T"]), np.float64)
+        cos_true = np.asarray(cos_price(truth, cal_body["spot"], strikes,
+                                        cal_body["T"]), np.float64)
+
+        def wnorm(x):
+            return float(np.sqrt(np.sum(w * x * x)))
+
+        got = wnorm(cos_fit - market)
+        bound_ = (np.sqrt(res["stage2_result"]["error"])
+                  + 3 * wnorm(est["fit"]["std_error"])
+                  + 2 * wnorm(est["true"]["price"] - cos_true))
+        log(f"/api/calibrate default ({sz['calibrate_paths']} paths x "
+            f"{sz['calibrate_steps']} steps, {sz['calibrate_members']} "
+            f"members): {cal_s:.2f} s; stage errors "
+            f"{res['stage1_result']['error']:.3e} / "
+            f"{res['stage2_result']['error']:.3e}; params {res['params']}; "
+            f"COS reprices the chain within {got:.4f} (weighted RMS; max "
+            f"|diff| {np.abs(cos_fit - market).max():.4f}) against the bound "
+            f"{bound_:.4f} = sqrt(stage-2 error) + 3 se + 2 x the 50-step "
+            f"bias at the truth ({wnorm(est['true']['price'] - cos_true):.4f})")
+        check(got <= bound_, "calibrated parameters reprice the chain by COS")
+        out["calibrate"] = {"s": cal_s, "params": res["params"],
+                            "stage1_error": res["stage1_result"]["error"],
+                            "stage2_error": res["stage2_result"]["error"],
+                            "cos_wrms": got, "bound": bound_,
+                            "uncertainty_present":
+                                res["uncertainty"] is not None}
+
+        am_strikes = strikes[::2]
+        am_prices = [binomial_american_bs(cal_body["spot"], K, 0.5,
+                                          truth.r, truth.q, 0.22,
+                                          steps=256, is_call=False)
+                     for K in am_strikes]
+        res = ask("calibrate american", dict(
+            cal_body, strikes=am_strikes.tolist(), market_prices=am_prices,
+            is_call=False, exercise="american"), "/api/calibrate")
+        log(f"/api/calibrate exercise=american: 200, "
+            f"{len(res['deamericanized']['strikes_kept'])} quotes kept, "
+            f"IVs {np.round(res['deamericanized']['ivs'], 4).tolist()}")
+        check(np.allclose(res["deamericanized"]["ivs"], 0.22, atol=1e-4),
+              "de-Americanized IVs recover the tree's vol")
+        lap("calibrate")
+
+        # ── /api/surface ─────────────────────────────────────────────────
+        res = ask("surface", surf_body, "/api/surface")
+        iv_err = float(np.abs(np.asarray(res["iv_call"], np.float64)
+                              - smile_iv()).max())
+        put_err = float(np.abs(np.asarray(res["iv_put"], np.float64)
+                               - smile_iv()).max())
+        sabr = {T: f["error"] for T, f in res["sabr_fits"].items()}
+        ssvi_fit = res["ssvi_fit"]
+        log(f"/api/surface: IV round trip max err call {iv_err:.2e}, put "
+            f"{put_err:.2e} (tol 1e-5); SABR errors {sabr} (tol 1e-6); SSVI "
+            f"rmse(w) {ssvi_fit['rmse_total_variance']:.2e} (tol 1e-3), "
+            f"butterfly free {ssvi_fit['arbitrage']['butterfly_free']}; "
+            f"arbitrage report {res['arbitrage_report']}")
+        check(iv_err < 1e-5 and put_err < 1e-5, "surface IVs round-trip")
+        check(len(sabr) == len(SMILE_MATS)
+              and max(sabr.values()) < 1e-6, "SABR fits")
+        check(ssvi_fit["rmse_total_variance"] < 1e-3, "SSVI fit")
+        check(res["arbitrage_report"]["num_maturities_fitted"]
+              == len(SMILE_MATS)
+              and "is_arbitrage_free" in res["arbitrage_report"],
+              "arbitrage report present")
+        out["surface"] = {"iv_err": max(iv_err, put_err), "sabr": sabr,
+                          "ssvi_rmse": ssvi_fit["rmse_total_variance"]}
+
+        # ── /api/quotegreeks: host float64, card = CPU ──────────────────
+        res = ask("quotegreeks", qg_body, "/api/quotegreeks")
+        ref = server.handle_quotegreeks(dict(qg_body), device="cpu")
+        diff = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(
+            res["buckets"] + [res["product_price"]],
+            ref["buckets"] + [ref["product_price"]]))
+        log(f"/api/quotegreeks vs the same request on the CPU: max rel diff "
+            f"{diff:.2e} (tol 1e-9); cond {res['condition_number']:.3e}")
+        check(diff < 1e-9, "quotegreeks card vs CPU")
+        lap("surface, quotegreeks")
+
+        # ── /api/localvol ────────────────────────────────────────────────
+        flat_iv = np.full_like(smile_iv(), SLV_FLAT_SIGMA).tolist()
+        res = ask("localvol flat", dict(lv_body, iv=flat_iv),
+                  "/api/localvol")
+        r, q = lv_body["r"], lv_body["q"]
+        for row in res["chain"]:
+            bs = float(bs_price(100.0, row["strike"], lv_body["T"], r, q,
+                                SLV_FLAT_SIGMA))
+            check(abs(row["price"] - bs) < 3 * row["std_error"],
+                  f"flat local vol vs BS at {row['strike']}: {row} vs {bs}")
+        log(f"/api/localvol flat {SLV_FLAT_SIGMA}: "
+            f"{[round(x['price'], 4) for x in res['chain']]} within 3 se of "
+            f"BS")
+        lv_res = ask("localvol", lv_body, "/api/localvol")
+        # The SSVI-derived surface reprices its own input vols (the JAX
+        # package's gate, tests/test_localvol.py: 40 bp over 0.85-1.15 at
+        # 300 000 paths x 200 steps a year, T = 0.5).
+        shape = dict(rho=-0.7, eta=1.2, gamma=0.4)
+        mats = np.array([0.25, 0.5, 1.0])
+        ssvi_surf = ssvi.SSVISurface(mats, 0.04 * mats, **shape)
+        lv_surf = localvol.LocalVolSurface.from_ssvi(ssvi_surf, 100.0,
+                                                     r=0.05, q=0.01)
+        eng = localvol.LocalVolEngine(lv_surf,
+                                      num_paths=sz["roundtrip_paths"],
+                                      num_steps=sz["roundtrip_steps"],
+                                      seed=7, device=device)
+        ks = np.linspace(85.0, 115.0, 7)
+        f = 100.0 * np.exp(0.04 * 0.5)
+        target = ssvi_surf.vol(np.log(ks / f), 0.5)
+        rt = eng.implied_surface_error(100.0, ks, 0.5, target)
+        log(f"local vol from SSVI reprices its IVs over 0.85-1.15: max err "
+            f"{rt:.4f} (tol 0.004)")
+        check(rt < 0.004, "local-vol IV round trip")
+        out["localvol"] = {"flat": res["chain"], "roundtrip_err": rt}
+
+        # ── /api/slv ─────────────────────────────────────────────────────
+        res = ask("slv flat", dict(slv_body, iv=flat_iv), "/api/slv")
+        flat_rows = []
+        for row in res["chain"]:
+            bs = float(bs_price(100.0, row["strike"], slv_body["T"], r, q,
+                                SLV_FLAT_SIGMA))
+            z = (row["price"] - bs) / row["std_error"]
+            flat_rows.append((row["strike"], round(z, 2)))
+            if 95.0 <= row["strike"] <= 105.0:
+                check(abs(z) < 3, f"flat SLV vs BS at {row['strike']}: {z}")
+            check(abs(row["price"] - bs) < 4 * row["std_error"] + 0.01 * bs,
+                  f"flat SLV vs BS at {row['strike']} (the reference's pin)")
+        log(f"/api/slv flat {SLV_FLAT_SIGMA}, xi {slv_body.get('xi', 0.6)}: "
+            f"(strike, se from BS) {flat_rows} (3 se at 95-105, 4 se + 1 % "
+            f"elsewhere)")
+        res = ask("slv xi 0", dict(slv_body, xi=0.0), "/api/slv")
+        lv0 = ask("localvol at the slv's steps", dict(
+            lv_body, num_paths=sz["slv_paths"],
+            num_steps=int(sz["slv_steps"] / lv_body["T"])), "/api/localvol")
+        for a, b in zip(res["chain"], lv0["chain"]):
+            check(abs(a["price"] - b["price"]) < 3 * np.hypot(
+                a["std_error"], b["std_error"]),
+                f"SLV at xi = 0 vs local vol at {a['strike']}: {a} vs {b}")
+        log(f"/api/slv xi = 0 vs /api/localvol: "
+            f"{[(round(a['price'], 4), round(b['price'], 4)) for a, b in zip(res['chain'], lv0['chain'])]}"
+            f" within 3 combined se")
+        slv_res = ask("slv", slv_body, "/api/slv")
+        bar = ask("slv barrier", dict(slv_body, mode="barrier",
+                                      barrier=120.0), "/api/slv")
+        fwd = ask("slv forward_start", dict(slv_body, mode="forward_start",
+                                            t1=0.2), "/api/slv")
+        log(f"/api/slv barrier {bar['price']:.4f} ± {bar['std_error']:.4f} "
+            f"(hit {bar['hit_fraction']:.3f}), forward_start "
+            f"{fwd['price']:.5f} ± {fwd['std_error']:.5f}")
+        out["slv"] = {"flat_z": flat_rows, "chain": slv_res["chain"],
+                      "barrier": bar["price"], "forward_start": fwd["price"]}
+        lap("localvol, slv")
+
+        # ── warm latencies ───────────────────────────────────────────────
+        for what, body, path in (("calibrate", cal_body, "/api/calibrate"),
+                                 ("surface", surf_body, "/api/surface"),
+                                 ("quotegreeks", qg_body, "/api/quotegreeks"),
+                                 ("localvol", lv_body, "/api/localvol"),
+                                 ("slv", slv_body, "/api/slv")):
+            warm(what, body, path)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    lap("warm latencies")
+
+    # Each route but /api/calibrate once more in process under the
+    # profiler. A default calibrate is ~700 000 launches, whose profile
+    # takes the profiler minutes to summarize on the card's host: its
+    # numbers come from `python -m mcos_tpu_torch.profile_price --route
+    # calibrate --reps 1`.
+    prof = {}
+    for what, fn, body in (("surface", server.handle_surface, surf_body),
+                           ("quotegreeks", server.handle_quotegreeks,
+                            qg_body),
+                           ("localvol", server.handle_localvol, lv_body),
+                           ("slv", server.handle_slv, slv_body)):
+        prof[what] = profiled_call(
+            device, lambda fn=fn, body=body: fn(dict(body), device=device))
+        pr = prof[what]
+        log(f"profiled {what}: wall {pr['profiled_wall_ms']:.1f} ms, device "
+            f"{pr['device_ms_per_call']} ms, {pr['kernel_launches_per_call']}"
+            f" launches, busy share {pr['busy_share']}, peak "
+            f"{pr['peak_gib']:.3f} GiB")
+    out["profiles"] = prof
+    lap("profiles")
+
+    counts = ck.launch_counts()
+    gens = (max(cal.CALIBRATION_CONFIG.stage1_max_iter // 4, 25) + 1
+            + max(cal.CALIBRATION_CONFIG.stage2_max_iter // 4, 25) + 1)
+    want = sz["calibrate_members"] * gens * n_calibrates
+    log(f"launch counts over the calibration path: {counts} (expected K1 "
+        f"{want} = {sz['calibrate_members']} members x {gens} generations "
+        f"x {n_calibrates} calibrations, nothing else)")
+    for name, n in counts.items():
+        check(n == (want if name == "svj_terminal_from_draws" else 0),
+              f"{name} launched {n} times on the calibration path")
+    out["launches"] = counts
+    out["card_vs_cpu"] = slv_card_vs_cpu(device, localvol, slv, SVJParams,
+                                         lv_surf)
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"calibration path: {out['wall_s']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3277,6 +3729,8 @@ def main() -> None:
     from mcos_tpu_torch.ops import exotics as ox
     from mcos_tpu_torch.ops.exotics import barrier_bs
     from mcos_tpu_torch.engine import american, pde, regime, risk, termsvj
+    from mcos_tpu_torch.engine import calibration as cal
+    from mcos_tpu_torch.engine import localvol, slv, ssvi
     from mcos_tpu_torch.engine import rough as rough_engine
     from mcos_tpu_torch.ops import hhw, rough, sobol, svcj, tdsvj
     from mcos_tpu_torch.ops.bs import bs_all_greeks, bs_price
@@ -3362,6 +3816,16 @@ def main() -> None:
         f"{ap['warm_american with_greeks_ms']:.2f}; /api/pde heston "
         f"{ap['warm_pde heston_ms']:.2f}, bs {ap['warm_pde bs_ms']:.2f} ms; "
         f"on {card}")
+    k1_cal = k1_calibration_pin(device, ck, cal, cos_price, SVJParams)
+    cp = calibration_path(device, ck, server, cal, localvol, slv, ssvi,
+                          cos_price, bs_price, SVJParams)
+    cp["k1_calibration_shape"] = k1_cal
+    log(f"warm slice I over HTTP: /api/calibrate "
+        f"{cp['warm_calibrate_ms']:.1f} ms, /api/surface "
+        f"{cp['warm_surface_ms']:.2f}, /api/quotegreeks "
+        f"{cp['warm_quotegreeks_ms']:.2f}, /api/localvol "
+        f"{cp['warm_localvol_ms']:.2f}, /api/slv {cp['warm_slv_ms']:.2f} ms; "
+        f"on {card}")
 
     # (name, source, TPU kernel body, its check, the path that launched it)
     table = (
@@ -3383,7 +3847,8 @@ def main() -> None:
         ("rbergomi_lift_stats", "rbergomi_stats.cu", 2162, k11, rp),
     )
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
-             "rough": rp, "greeks": gp, "risk": gr, "american": ap}
+             "rough": rp, "greeks": gp, "risk": gr, "american": ap,
+             "calibration": cp}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -3413,7 +3878,8 @@ def main() -> None:
                    "options_path": op, "exotics_path": xp,
                    "families_path": fp, "rough_path": rp,
                    "greeks_path": gp, "risk_path": gr,
-                   "american_path": ap}, f, indent=1)
+                   "american_path": ap, "calibration_path": cp}, f,
+                  indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # the nvidia-smi line as it came

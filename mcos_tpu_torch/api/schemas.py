@@ -2,13 +2,15 @@
 `mcos_tpu/api/schemas.py` that `PriceRequest`, `GreeksRequest`,
 `SmileRequest`, `ExoticRequest`, `HHWRequest`, `SVCJRequest`,
 `TermSVJRequest`, `RoughRequest`, `StressRequest`, `RegimeRequest`,
-`HedgeRequest`, `VarRequest`, `AmericanRequest` and `PDERequest` need,
+`HedgeRequest`, `VarRequest`, `AmericanRequest`, `PDERequest`,
+`SurfaceRequest`, `CalibrateRequest`, `QuoteGreeksRequest` (with
+`ProductSpec`), `LocalVolRequest` and `SLVRequest` need,
 copied unchanged apart from the imports. tests/test_torch_copies.py holds the two equal.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 from pydantic import BaseModel, Field, model_validator
 
@@ -473,3 +475,115 @@ class PDERequest(BaseModel):
         if self.scheme not in ("cs", "douglas"):
             raise ValueError("scheme must be 'cs' or 'douglas'")
         return self
+
+
+class SurfaceRequest(BaseModel):
+    """POST /api/surface — full-chain IV extraction + arbitrage report +
+    per-maturity SABR fits (the reference keeps surface tooling library-only,
+    engine/surface.py)."""
+    spot: float
+    strikes: list[float] = Field(max_length=MAX_GRID_POINTS)
+    maturities: list[float] = Field(max_length=MAX_GRID_POINTS)
+    call_prices: list[list[float]]   # (num_maturities, num_strikes)
+    put_prices: list[list[float]]
+    bid_ask_spreads: Optional[list[list[float]]] = None
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    fit_sabr: bool = True
+    fit_ssvi: bool = False           # global SSVI surface fit + no-arb report
+    # "european" (index options, vectorized Newton) or "american" (stock
+    # options — de-Americanization through the CRR tree, engine/surface.py:
+    # implied_vol_american).
+    exercise: str = Field("european", pattern="^(european|american)$")
+
+
+class CalibrateRequest(BaseModel):
+    """POST /api/calibrate — advertised by the reference's docstring
+    (engine/app.py:9) but never implemented there (SURVEY.md §1); this
+    framework ships it."""
+    spot: float
+    strikes: list[float] = Field(max_length=MAX_GRID_POINTS)
+    T: float
+    market_prices: list[float] = Field(max_length=MAX_GRID_POINTS)
+    is_call: bool = True
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    bid_ask_spreads: Optional[list[float]] = None
+    atm_vol: float = 0.15
+    num_paths: int = Field(100_000, **_PATHS)
+    # "american": de-Americanize the quotes through the CRR tree before
+    # fitting (the SVJ CF prices European exercise only; NSE single-stock
+    # quotes are American). Quotes whose inversion fails are dropped.
+    exercise: str = "european"
+
+
+class ProductSpec(BaseModel):
+    """Product priced against the calibration chain (quotegreeks)."""
+    kind: str = "vanilla"            # "vanilla" | "digital" | "varswap"
+    T: float = Field(gt=0, le=10.0)
+    strike: float = 0.0              # vanilla/digital (0 → ATM = spot)
+    is_call: bool = True
+    notional: float = Field(1.0, gt=0, le=1e12)   # varswap
+
+
+class QuoteGreeksRequest(BaseModel):
+    """POST /api/quotegreeks — bucketed market-quote sensitivities via the
+    implicit function theorem through the calibration
+    (engine/quotegreeks.py; capability beyond the reference)."""
+    spot: float = Field(gt=0)
+    # One expiry: T float + strikes [..]. Surface: T [..] + strikes [[..]].
+    T: Union[float, list]
+    strikes: list = Field(min_length=1, max_length=MAX_GRID_POINTS)
+    is_call: bool = True
+    params: SVJParamsRequest = SVJParamsRequest()
+    product: ProductSpec
+    # Params the refit may move; default CORE4 = what one expiry
+    # identifies. Names from the SVJ 8-tuple.
+    free: Optional[list] = Field(None, max_length=8)
+    weights: Optional[list] = Field(None, max_length=MAX_GRID_POINTS)
+
+
+class LocalVolRequest(BaseModel):
+    """POST /api/localvol — build a Dupire local-vol surface from an IV grid
+    and price a strike chain under the surface-consistent diffusion (model
+    family absent from the reference; engine/localvol.py)."""
+    spot: float
+    strikes: list[float] = Field(max_length=MAX_GRID_POINTS)
+    maturities: list[float] = Field(max_length=MAX_GRID_POINTS)
+    iv: list[list[float]]            # (num_maturities, num_strikes)
+    price_strikes: list[float] = Field(max_length=MAX_GRID_POINTS)
+    T: float
+    is_call: bool = True
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    num_paths: int = Field(200_000, **_PATHS)
+    num_steps: int = Field(100, ge=16, le=2048)
+
+
+class SLVRequest(BaseModel):
+    """POST /api/slv — stochastic local vol: Dupire surface from an IV
+    grid + Heston mixing, priced by the in-scan particle method
+    (engine/slv.py)."""
+    spot: float = Field(gt=0)
+    strikes: list[float] = Field(max_length=MAX_GRID_POINTS)
+    maturities: list[float] = Field(max_length=MAX_GRID_POINTS)
+    iv: list[list[float]]            # (num_maturities, num_strikes)
+    price_strikes: list[float] = Field(max_length=MAX_GRID_POINTS)
+    T: float = Field(gt=0)
+    is_call: bool = True
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    # Heston mixing block (lambda ignored; SLV is diffusion + leverage)
+    kappa: float = Field(2.0, gt=0, le=50)
+    theta: float = Field(0.04, gt=0, le=4.0)
+    xi: float = Field(0.6, ge=0.0, le=10.0)
+    rho: float = Field(-0.7, ge=-0.999, le=0.999)
+    v0: float = Field(0.04, gt=0, le=4.0)
+    num_paths: int = Field(200_000, **_PATHS)
+    num_steps: int = Field(128, ge=16, le=2048)
+    # mode "chain" (default) | "barrier" | "forward_start"
+    mode: str = "chain"
+    barrier: float = 0.0
+    knock: str = "out"
+    t1: float = 0.0                  # forward-start reset date
+    k: float = 1.0                   # forward-start performance strike

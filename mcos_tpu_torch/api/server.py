@@ -36,6 +36,15 @@ serving slice).
     POST /api/pde          — the Heston ADI (PIDE with jumps) solve: plain,
                              barrier, American with its boundary surface;
                              or the Black-Scholes Crank-Nicolson grid
+    POST /api/calibrate    — two-stage Monte Carlo SVJ calibration (the DE
+                             members on K1), optionally de-Americanized
+    POST /api/surface      — IV surface, arbitrage report, SABR slice and
+                             SSVI fits
+    POST /api/quotegreeks  — market-quote bucket Greeks through the
+                             calibration (host float64)
+    POST /api/localvol     — Dupire surface + local-vol chain
+    POST /api/slv          — particle-method SLV: chain, barrier,
+                             forward_start
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
@@ -62,6 +71,7 @@ from pydantic import ValidationError
 
 from mcos_tpu_torch.api import coalesce, schemas
 from mcos_tpu_torch.engine.american import AmericanEngine, american_cos_oracle
+from mcos_tpu_torch.engine.calibration import CalibrationEngine
 from mcos_tpu_torch.engine.exotics import (
     ExoticEngine,
     variance_swap_fair_strike,
@@ -69,7 +79,10 @@ from mcos_tpu_torch.engine.exotics import (
 from mcos_tpu_torch.engine.greeks import GreeksEngine
 from mcos_tpu_torch.engine.guards import PricingGuard
 from mcos_tpu_torch.engine.hhw import HHWEngine
+from mcos_tpu_torch.engine.localvol import LocalVolEngine, LocalVolSurface
 from mcos_tpu_torch.engine.pde import HestonPDEEngine, PDEEngine
+from mcos_tpu_torch.engine.quotegreeks import (ALL_PARAMS, CORE4,
+                                               quote_bucket_greeks)
 from mcos_tpu_torch.engine.pricer import (MonteCarloEngine, seeded_generator,
                                           to_host)
 from mcos_tpu_torch.engine.regime import RegimeDetector
@@ -82,8 +95,17 @@ from mcos_tpu_torch.engine.risk import (
     portfolio_var,
 )
 from mcos_tpu_torch.engine.rough import RoughBergomiEngine, calibrate_rbergomi
-from mcos_tpu_torch.engine.surface import implied_vol
+from mcos_tpu_torch.engine.slv import SLVEngine
+from mcos_tpu_torch.engine.ssvi import calibrate_ssvi
+from mcos_tpu_torch.engine.surface import (
+    ArbitrageFreeSpline,
+    calibrate_sabr,
+    deamericanize_quotes,
+    extract_iv_surface,
+    implied_vol,
+)
 from mcos_tpu_torch.engine.svcj import SVCJEngine
+from mcos_tpu_torch.models.params import SVJParams, forward_price
 from mcos_tpu_torch.engine.termsvj import TDSVJEngine, bootstrap_calibrate_td
 from mcos_tpu_torch.ops.cos_pricer import cos_density, cos_price
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
@@ -909,6 +931,208 @@ def handle_pde(body: dict, device="cuda") -> dict:
     return out
 
 
+def handle_calibrate(body: dict, device="cuda") -> dict:
+    """`/api/calibrate` on `device`: the two-stage Monte Carlo SVJ fit
+    (the DE members on K1, the Adam polish on the twin), optionally
+    de-Americanizing the quotes first; the JAX handler's 400s."""
+    req = schemas.CalibrateRequest(**body)
+    start = time.time()
+    eng = CalibrationEngine(device=device)
+    strikes = np.asarray(req.strikes, np.float32)
+    market = np.asarray(req.market_prices, np.float32)
+    spreads = (np.asarray(req.bid_ask_spreads, np.float32)
+               if req.bid_ask_spreads is not None else None)
+    atm_vol = req.atm_vol
+    deamericanized = None
+    if req.exercise == "american":
+        ivs, eur, keep = deamericanize_quotes(
+            req.spot, strikes, req.T, market, req.r, req.q, req.is_call)
+        if keep.sum() < 4:
+            raise ApiError(400, f"only {int(keep.sum())} quotes "
+                                "de-Americanize cleanly (need >= 4)")
+        strikes, market = strikes[keep], eur.astype(np.float32)
+        if spreads is not None:
+            spreads = spreads[keep]
+        atm_idx = int(np.argmin(np.abs(
+            strikes - req.spot * np.exp((req.r - req.q) * req.T))))
+        atm_vol = float(ivs[atm_idx])
+        deamericanized = {
+            "ivs": [float(x) for x in ivs],
+            "strikes_kept": [float(k) for k in strikes],
+            "n_dropped": int(len(req.strikes) - keep.sum()),
+        }
+    elif req.exercise != "european":
+        raise ApiError(400, f"unknown exercise {req.exercise!r}")
+    result = eng.calibrate(
+        req.spot, strikes, req.T, market, is_call=req.is_call,
+        r=req.r, q=req.q, bid_ask_spreads=spreads,
+        atm_vol=atm_vol, num_paths=req.num_paths)
+    if deamericanized is not None:
+        result["deamericanized"] = deamericanized
+    params = result.pop("params")
+    result["params"] = params.as_dict()
+    result["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return result
+
+
+def handle_surface(body: dict, device="cuda") -> dict:
+    """`/api/surface`: IV surface extraction and arbitrage screening on
+    the host, the SABR slice fits and the SSVI fit on `device`."""
+    req = schemas.SurfaceRequest(**body)
+    start = time.time()
+    strikes = np.asarray(req.strikes, np.float64)
+    mats = np.asarray(req.maturities, np.float64)
+    surface = extract_iv_surface(
+        req.spot, req.r, req.q, strikes, mats,
+        np.asarray(req.call_prices, np.float64),
+        np.asarray(req.put_prices, np.float64),
+        bid_ask_spreads=(np.asarray(req.bid_ask_spreads, np.float64)
+                         if req.bid_ask_spreads is not None else None),
+        exercise=req.exercise)
+
+    spline = ArbitrageFreeSpline()
+    report = spline.fit(strikes, mats, surface["iv_call"])
+
+    out = {
+        "iv_call": np.where(np.isfinite(surface["iv_call"]),
+                            surface["iv_call"], None).tolist(),
+        "iv_put": np.where(np.isfinite(surface["iv_put"]),
+                           surface["iv_put"], None).tolist(),
+        "valid_mask": surface["valid_mask"].tolist(),
+        "arbitrage_report": report,
+    }
+    if req.fit_sabr:
+        sabr = {}
+        for i, T in enumerate(mats):
+            ivs = surface["iv_call"][i]
+            ok = np.isfinite(ivs)
+            if ok.sum() < 4:
+                continue
+            F = float(forward_price(req.spot, req.r, req.q, float(T)))
+            sabr[str(float(T))] = calibrate_sabr(
+                F, strikes[ok], float(T), ivs[ok], beta_fixed=0.8, iters=80,
+                device=device)
+        out["sabr_fits"] = sabr
+    if req.fit_ssvi:
+        rows_ok = [i for i in range(len(mats))
+                   if np.isfinite(surface["iv_call"][i]).sum() >= 4]
+        if len(rows_ok) >= 2:
+            sel = np.asarray(rows_ok)
+            fwds = np.array([forward_price(req.spot, req.r, req.q,
+                                           float(mats[i])) for i in sel])
+            fit = calibrate_ssvi(
+                mats[sel], fwds,
+                np.tile(strikes, (len(sel), 1)),
+                surface["iv_call"][sel], iters=100, device=device)
+            fit.pop("surface")
+            out["ssvi_fit"] = fit
+        else:
+            out["ssvi_fit"] = {"error": "need >=2 maturities with >=4 "
+                                        "valid quotes each"}
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_quotegreeks(body: dict, device="cuda") -> dict:
+    """`/api/quotegreeks`: dP/d(market quote) through the calibration, by
+    the implicit function theorem on the weighted-least-squares optimum
+    with the exact COS chain Jacobian. Host float64 on every device;
+    `device` is taken for the routing's sake."""
+    del device
+    req = schemas.QuoteGreeksRequest(**body)
+    start = time.time()
+    p = req.params.to_params()
+    product = req.product.model_dump()
+    if product["kind"] in ("vanilla", "digital") and product["strike"] <= 0:
+        product["strike"] = req.spot
+    free = tuple(req.free) if req.free else CORE4
+    bad = [n for n in free if n not in ALL_PARAMS]
+    if bad:
+        raise ApiError(400, f"unknown free parameter(s): {bad}")
+    try:
+        out = quote_bucket_greeks(
+            p, req.spot, req.strikes, req.T, product, free=free,
+            is_call=req.is_call,
+            weights=np.asarray(req.weights, np.float64)
+            if req.weights else None)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_localvol(body: dict, device="cuda") -> dict:
+    """`/api/localvol` on `device`: the Dupire surface built on the host,
+    the chain priced by the local-vol step loop."""
+    req = schemas.LocalVolRequest(**body)
+    start = time.time()
+    try:
+        surf = LocalVolSurface.from_iv_points(
+            req.spot, req.strikes, req.maturities,
+            np.asarray(req.iv, np.float64), r=req.r, q=req.q)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    eng = LocalVolEngine(surf, num_paths=req.num_paths,
+                         num_steps=req.num_steps, device=device)
+    chain = eng.price_batch(req.spot, req.price_strikes, req.T, req.is_call)
+    return {
+        "chain": chain,
+        "local_vol_grid": {
+            "t": surf.t_grid.tolist(),
+            "y": surf.y_grid.tolist(),
+            "local_vol": np.sqrt(surf.local_var).round(6).tolist(),
+        },
+        "elapsed_ms": round((time.time() - start) * 1000, 1),
+    }
+
+
+def handle_slv(body: dict, device="cuda") -> dict:
+    """`/api/slv` on `device`: particle-method SLV (chain, barrier,
+    forward_start), the JAX handler's 400s."""
+    req = schemas.SLVRequest(**body)
+    iv = np.asarray(req.iv, np.float64)
+    if iv.shape != (len(req.maturities), len(req.strikes)):
+        raise ApiError(400, "iv must be (num_maturities, num_strikes)")
+    if req.mode in ("barrier", "chain") and not req.price_strikes:
+        raise ApiError(400, f"{req.mode} mode needs non-empty price_strikes")
+    start = time.time()
+    try:
+        surf = LocalVolSurface.from_iv_points(
+            req.spot, req.strikes, req.maturities, iv, r=req.r, q=req.q)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    heston = SVJParams(kappa=req.kappa, theta=req.theta, xi=req.xi,
+                       rho=req.rho, v0=req.v0, lambda_j=0.0,
+                       r=req.r, q=req.q)
+    eng = SLVEngine(surf, heston, num_paths=req.num_paths,
+                    num_steps=req.num_steps, device=device)
+    if req.mode == "barrier":
+        if req.barrier <= 0:
+            raise ApiError(400, "barrier mode needs barrier > 0")
+        out = eng.price_barrier(req.spot, req.price_strikes[0], req.T,
+                                req.barrier, is_call=req.is_call,
+                                knock=req.knock)
+    elif req.mode == "forward_start":
+        if not 0.0 < req.t1 < req.T:
+            raise ApiError(400, "need 0 < t1 < T")
+        out = eng.price_forward_start(req.spot, req.t1, req.T, k=req.k,
+                                      is_call=req.is_call)
+    elif req.mode == "chain":
+        res = eng.price(req.spot, req.price_strikes, req.T,
+                        is_call=req.is_call)
+        out = {
+            "chain": [{"strike": float(k), "price": p, "std_error": s}
+                      for k, p, s in zip(req.price_strikes, res["price"],
+                                         res["std_error"])],
+            "mixing_xi": res["mixing_xi"],
+            "num_paths_used": res["num_paths_used"],
+        }
+    else:
+        raise ApiError(400, f"unknown mode {req.mode!r}")
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
                 "/api/greeks": handle_greeks,
                 "/api/smile": handle_smile,
@@ -923,7 +1147,12 @@ _POST_ROUTES = {"/api/price": handle_price,
                 "/api/hedge": handle_hedge,
                 "/api/var": handle_var,
                 "/api/american": handle_american,
-                "/api/pde": handle_pde}
+                "/api/pde": handle_pde,
+                "/api/calibrate": handle_calibrate,
+                "/api/surface": handle_surface,
+                "/api/quotegreeks": handle_quotegreeks,
+                "/api/localvol": handle_localvol,
+                "/api/slv": handle_slv}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,

@@ -273,3 +273,34 @@ class TermStructureSVJ:
             rows = np.asarray(values[n], np.float64).reshape(-1, 2)
             kw[n] = {float(m): float(v) for m, v in rows}
         return cls(**kw)
+
+
+def extract_forward_variance(atm_iv: float, T_shortest: float) -> float:
+    """v₀ ≈ σ²_ATM(T_min): the surface-consistent initial variance."""
+    del T_shortest  # kept for signature parity; the heuristic uses the IV
+    return atm_iv**2
+
+
+def build_term_structure_from_surface(
+    maturities: np.ndarray,
+    atm_ivs: np.ndarray,
+    skew_slopes: np.ndarray,
+    base_params: SVJParams,
+) -> TermStructureSVJ:
+    """Bootstrap a term structure from observed surface data (host
+    float64, the JAX package's heuristics):
+      θ(T) = ATM_IV(T)², ξ(T) = ξ·min(3, 1/√T), λ(T) = λ·max(1, |skew|/0.03).
+    """
+    ts = TermStructureSVJ(
+        kappa=float(base_params.kappa), rho=float(base_params.rho),
+        mu_j=float(base_params.mu_j), sigma_j=float(base_params.sigma_j),
+        v0=extract_forward_variance(float(atm_ivs[0]), float(maturities[0])),
+        r=float(base_params.r), q=float(base_params.q),
+    )
+    for i, T in enumerate(maturities):
+        ts.theta_curve[float(T)] = float(atm_ivs[i] ** 2)
+        xi_scale = min(3.0, 1.0 / np.sqrt(max(float(T), 1 / 252)))
+        ts.xi_curve[float(T)] = float(base_params.xi) * xi_scale
+        skew_scale = max(1.0, abs(float(skew_slopes[i])) / 0.03)
+        ts.lambda_curve[float(T)] = float(base_params.lambda_j) * skew_scale
+    return ts

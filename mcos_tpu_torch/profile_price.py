@@ -1,9 +1,11 @@
 """Where a warm `/api/price` (or `/api/exotic`, `/api/hhw`, `/api/svcj`,
 `/api/termsvj`, `/api/rough`, `/api/greeks`, `/api/smile`, `/api/stress`,
-`/api/hedge`, `/api/var`) spends its time on one CUDA device.
+`/api/hedge`, `/api/var`, `/api/american`, `/api/pde`, `/api/calibrate`,
+`/api/surface`, `/api/quotegreeks`, `/api/localvol`, `/api/slv`) spends
+its time on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde]
+        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde|calibrate|surface|quotegreeks|localvol|slv]
         [--options JSON] [--reps N] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
@@ -66,6 +68,18 @@ and `handle_pde` (the Heston ADI at 201 × 101 × 128, Craig-Sneyd;
 '{"model": "bs"}' for the 1-D Crank-Nicolson grid, '{"american": true,
 "with_boundary": true}' for the projected solve and its boundary surface).
 No kernel of the repo runs on either: they are torch ops throughout.
+`--route calibrate|surface|quotegreeks|localvol|slv` do the same for slice
+I at the schema defaults on synthetic market data (`slice_i_body`):
+`handle_calibrate` on an 11-strike call chain at 0.8-1.2 × the forward,
+T = 0.5, priced by COS at `CHAIN_PARAMS` (100k paths × 50 steps, 24
+members: one K1 launch a member a generation, then the Adam polish on the
+twin under autograd); `handle_surface` on a Black-Scholes chain of a known
+smile (9 strikes × 3 maturities, SABR slice fits; '{"fit_ssvi": true}' adds
+the SSVI fit); `handle_quotegreeks` (host float64; an 11-strike chain and
+an ATM vanilla); `handle_localvol` (200k paths, 100 steps a year) and
+`handle_slv` (200k paths × 128 steps, '{"mode": "barrier", "barrier":
+120}' or '{"mode": "forward_start", "t1": 0.2}') on the smile's IV grid.
+A default calibrate takes seconds: give it `--reps 1`.
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -77,6 +91,7 @@ import json
 import statistics
 import time
 
+import numpy as np
 import torch
 
 BODY = {"spot": 22500.0, "strike": 22500.0, "T": 0.25}
@@ -100,6 +115,56 @@ ROUTE_BODIES = {
     "american": {"spot": 100.0, "strike": 100.0, "T": 1.0, "is_call": False},
     "pde": {"spot": 100.0, "strike": 100.0, "T": 1.0},
 }
+
+
+#: The SVJ model behind `/api/calibrate`'s synthetic chain.
+CHAIN_PARAMS = dict(kappa=2.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.045,
+                    lambda_j=0.8, mu_j=-0.08, sigma_j=0.12, r=0.065,
+                    q=0.012)
+SMILE_STRIKES = (80.0, 85.0, 90.0, 95.0, 100.0, 105.0, 110.0, 115.0, 120.0)
+SMILE_MATS = (0.25, 0.5, 1.0)
+SLICE_I_ROUTES = ("calibrate", "surface", "quotegreeks", "localvol", "slv")
+
+
+def smile_iv(strikes=SMILE_STRIKES, mats=SMILE_MATS, spot: float = 100.0):
+    """A skewed, convex IV grid (maturities × strikes)."""
+    k = np.log(np.asarray(strikes, np.float64) / spot)
+    t = np.asarray(mats, np.float64)
+    return 0.2 - 0.12 * k[None, :] + 0.15 * k[None, :] ** 2 \
+        + 0.02 * np.sqrt(t)[:, None]
+
+
+def slice_i_body(route: str) -> dict:
+    """The request body of a slice I route on synthetic market data (its
+    other fields at the schema defaults)."""
+    from mcos_tpu_torch.engine.surface import _bs_price_np
+    from mcos_tpu_torch.models.params import SVJParams
+    from mcos_tpu_torch.ops.cos_pricer import cos_price
+
+    spot, r, q = 100.0, CHAIN_PARAMS["r"], CHAIN_PARAMS["q"]
+    if route in ("calibrate", "quotegreeks"):
+        strikes = spot * np.exp((r - q) * 0.5) * np.linspace(0.8, 1.2, 11)
+        if route == "quotegreeks":
+            return {"spot": spot, "T": 0.5, "strikes": strikes.tolist(),
+                    "product": {"kind": "vanilla", "T": 0.5}}
+        market = cos_price(SVJParams(**CHAIN_PARAMS), spot, strikes, 0.5)
+        return {"spot": spot, "strikes": strikes.tolist(), "T": 0.5,
+                "market_prices": np.asarray(market).tolist(), "r": r,
+                "q": q}
+    strikes = np.asarray(SMILE_STRIKES)
+    iv = smile_iv()
+    if route == "surface":
+        mats = np.asarray(SMILE_MATS)[:, None]
+        return {"spot": spot, "strikes": strikes.tolist(),
+                "maturities": list(SMILE_MATS), "r": r, "q": q,
+                "call_prices": _bs_price_np(spot, strikes, mats, r, q, iv,
+                                            True).tolist(),
+                "put_prices": _bs_price_np(spot, strikes, mats, r, q, iv,
+                                           False).tolist()}
+    return {"spot": spot, "strikes": strikes.tolist(),
+            "maturities": list(SMILE_MATS), "iv": iv.tolist(),
+            "price_strikes": [90.0, 95.0, 100.0, 105.0, 110.0], "T": 0.5,
+            "r": r, "q": q}
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -185,15 +250,14 @@ def profile_exotic(options: dict) -> dict:
 
 
 def profile_route(route: str, options: dict, reps: int = 5) -> dict:
-    """`/api/hhw`, `/api/svcj`, `/api/termsvj`, `/api/rough`, `/api/greeks`,
-    `/api/smile`, `/api/stress`, `/api/hedge`, `/api/var`, `/api/american`
-    or `/api/pde`: the whole
+    """A route handler other than `/api/price` and `/api/exotic`: the whole
     handler (median of 4 × `reps` calls, then
     `reps` under the profiler), and one call's peak device memory."""
     from mcos_tpu_torch.api import server
 
     device = torch.device("cuda", 0)
-    body = dict(ROUTE_BODIES[route], **options)
+    body = dict(slice_i_body(route) if route in SLICE_I_ROUTES
+                else ROUTE_BODIES[route], **options)
     handler = getattr(server, f"handle_{route}")
     server.warm(device)
     call = lambda: handler(dict(body), device=device)  # noqa
@@ -240,7 +304,8 @@ def _profiled(call, reps: int) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--route", default="price",
-                        choices=("price", "exotic", *ROUTE_BODIES))
+                        choices=("price", "exotic", *ROUTE_BODIES,
+                                 *SLICE_I_ROUTES))
     parser.add_argument("--options", default="{}",
                         help="JSON object of request fields to merge into "
                              "the default body")
@@ -252,7 +317,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_price needs a CUDA device")
     options = json.loads(args.options)
-    if args.route in ROUTE_BODIES:
+    if args.route in ROUTE_BODIES or args.route in SLICE_I_ROUTES:
         res = profile_route(args.route, options, args.reps)
     else:
         res = (profile if args.route == "price" else profile_exotic)(options)

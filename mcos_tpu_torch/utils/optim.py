@@ -35,12 +35,16 @@ def differential_evolution(
     iters: int = 100,
     mutation: float = 0.7,
     crossover: float = 0.9,
+    x0=None,
 ) -> DEResult:
     """DE/rand/1/bin with a vectorized population.
 
     obj_fn: (P, D) candidates → (P,) values, one call per generation.
     bounds: (D, 2) [lo, hi] per dimension; the population lives on
     `generator`'s device. Deterministic given the generator's seed.
+    x0: optional (D,) warm start, clipped to the bounds; it replaces
+    member 0 of the initial population, so the result is never worse than
+    f(x0).
     """
     device = generator.device
     bounds = _bounds(bounds, device)
@@ -48,6 +52,8 @@ def differential_evolution(
     dim = bounds.shape[0]
     pop = lo + (hi - lo) * torch.rand((pop_size, dim), generator=generator,
                                       device=device)
+    if x0 is not None:
+        pop[0] = torch.clamp(_bounds(x0, device), lo, hi)
     fitness = obj_fn(pop)
     history = []
     for _ in range(iters):

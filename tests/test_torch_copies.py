@@ -19,6 +19,7 @@ import mcos_tpu.ops.curves as jcurves
 import mcos_tpu.ops.dividends as jdivs
 import mcos_tpu.ops.exotics as jexotics
 import mcos_tpu.ops.levy as jlevy
+import mcos_tpu.utils.chain_loader as jchain
 import mcos_tpu.utils.fastjson as jfastjson
 import mcos_tpu_torch.api.schemas as pschemas
 import mcos_tpu_torch.config as pconfig
@@ -31,6 +32,7 @@ import mcos_tpu_torch.ops.curves as pcurves
 import mcos_tpu_torch.ops.dividends as pdivs
 import mcos_tpu_torch.ops.exotics as pexotics
 import mcos_tpu_torch.ops.levy as plevy
+import mcos_tpu_torch.utils.chain_loader as pchain
 import mcos_tpu_torch.utils.fastjson as pfastjson
 from mcos_tpu.models.params import SVJParams as JSVJParams
 from mcos_tpu_torch.models.params import SVJParams
@@ -51,7 +53,7 @@ _FRAMEWORKS = {"jax", "jnp", "torch"}
     (jconfig, pconfig), (jcurves, pcurves), (jdivs, pdivs),
     (jcos, pcos), (jfastjson, pfastjson), (jregime, pregime),
     (jamerican, pamerican), (jpde, ppde), (jcos_bermudan, pcos_bermudan),
-    (jlevy, plevy),
+    (jlevy, plevy), (jchain, pchain),
 ])
 def test_same_public_names(jmod, pmod):
     assert _public(pmod) - _FRAMEWORKS == _public(jmod) - _FRAMEWORKS
@@ -475,3 +477,72 @@ def test_american_and_pde_request_schemas_equal():
             jschemas.PDERequest(**body)
         with pytest.raises(ValidationError):
             pschemas.PDERequest(**body)
+
+
+_CHAIN_CSV = """expiry_years,strike,is_call,bid,ask,open_interest
+0.04,22000,CE,510.0,514.0,5000
+0.04,22500,CE,195.5,197.0,12000
+0.04,23000,CE,48.2,49.0,8000
+0.04,22500,PE,180.0,182.0,9000
+0.04,24000,CE,2.0,6.0,50
+garbage,row,that,should,be,skipped
+0.25,22500,1,560.0,564.0,3000
+0.25,23000,0,700.0,900.0,2000
+"""
+
+
+@pytest.mark.parametrize("force_python", [True, False])
+def test_chain_loader_equal(tmp_path, force_python):
+    path = tmp_path / "chain.csv"
+    path.write_text(_CHAIN_CSV)
+    a = pchain.load_chain(str(path), force_python=force_python)
+    b = jchain.load_chain(str(path), force_python=force_python)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for T, side in ((0.04, "call"), (0.04, "put"), (0.25, "call")):
+        ia = pchain.chain_to_calibration_inputs(a, T, side)
+        ib = jchain.chain_to_calibration_inputs(b, T, side)
+        for k in ib:
+            np.testing.assert_array_equal(ia[k], ib[k], err_msg=k)
+    with pytest.raises(ValueError) as got:
+        pchain.chain_to_calibration_inputs(a, 0.04, "straddle")
+    with pytest.raises(ValueError) as ref:
+        jchain.chain_to_calibration_inputs(b, 0.04, "straddle")
+    assert str(got.value) == str(ref.value)
+
+
+def test_slice_i_request_schemas_equal():
+    for name in ("SurfaceRequest", "CalibrateRequest", "ProductSpec",
+                 "QuoteGreeksRequest", "LocalVolRequest", "SLVRequest"):
+        a = getattr(jschemas, name).model_json_schema()
+        b = getattr(pschemas, name).model_json_schema()
+        assert a == b, name
+    grid = {"strikes": [90.0, 110.0], "maturities": [0.5, 1.0],
+            "iv": [[0.2, 0.2], [0.2, 0.2]], "price_strikes": [100.0],
+            "spot": 100.0, "T": 0.5}
+    bodies = {
+        "SurfaceRequest": {"spot": 100.0, "strikes": [90.0], "maturities":
+                           [0.5], "call_prices": [[12.0]],
+                           "put_prices": [[1.0]], "fit_ssvi": True},
+        "CalibrateRequest": {"spot": 100.0, "strikes": [90.0, 100.0],
+                             "T": 0.5, "market_prices": [12.0, 5.0],
+                             "exercise": "american", "num_paths": 2000},
+        "QuoteGreeksRequest": {"spot": 100.0, "T": [0.5, 1.0],
+                               "strikes": [[90.0], [110.0]],
+                               "product": {"kind": "varswap", "T": 1.0},
+                               "free": ["theta"], "params": {"xi": 0.7}},
+        "LocalVolRequest": dict(grid, num_steps=32),
+        "SLVRequest": dict(grid, mode="barrier", barrier=120.0, xi=0.0),
+    }
+    for name, body in bodies.items():
+        assert (getattr(jschemas, name)(**body).model_dump()
+                == getattr(pschemas, name)(**body).model_dump()), name
+    for name, bad in (("SurfaceRequest", {"exercise": "bermudan"}),
+                      ("SLVRequest", {"num_steps": 8}),
+                      ("CalibrateRequest", {"num_paths": 10})):
+        body = dict(bodies[name], **bad)
+        with pytest.raises(ValidationError):
+            getattr(jschemas, name)(**body)
+        with pytest.raises(ValidationError):
+            getattr(pschemas, name)(**body)

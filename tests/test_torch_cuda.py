@@ -1413,3 +1413,86 @@ def test_slice_h_handlers_on_card(cuda):
                           device=cuda)
     assert e.value.status == 400
     assert all(n == 0 for n in ck.launch_counts().values())
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice I: calibration and surfaces
+# ─────────────────────────────────────────────────────────────────────────────
+def _calibration_population(n, stage, seed=0):
+    """A numpy-seeded DE population inside the stage's bounds."""
+    from mcos_tpu_torch.engine import calibration as cal
+
+    bounds = cal.HESTON_BOUNDS if stage == 1 else cal.JUMP_BOUNDS
+    rng = np.random.default_rng(seed)
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    return (lo + (hi - lo) * rng.random((n, len(lo)))).astype(np.float32)
+
+
+@pytest.mark.parametrize("stage,lam", [(1, 0.0), (2, 0.0), (2, 1.0)])
+def test_k1_calibration_objective_matches_twin(cuda, stage, lam):
+    """The DE objective of `/api/calibrate` at its shape (24 members × 100 000
+    paths × 50 steps): through K1 against the Euler twin on the same draws.
+    Float32 rounding: the chain prices to rtol 2e-5 (K1's S to 1e-5 a path,
+    averaged over 200 000), the objectives to rtol 1e-4 (a squared
+    residual amplifies the prices' relative error by 2·price/residual)."""
+    from mcos_tpu_torch.engine import calibration as cal
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+    from mcos_tpu_torch.ops.cos_pricer import cos_price
+
+    spot, T = 100.0, 0.5
+    strikes = np.linspace(80.0, 120.0, 11)
+    market = cos_price(SVJParams(), spot, strikes, T).astype(np.float32)
+    draws = cal._calibration_draws(100_000, 50, seeded_generator(3, cuda))
+    data = {"spot": spot, "T": T, "r": 0.065, "q": 0.012, "draws": draws,
+            "strikes": torch.as_tensor(strikes, dtype=torch.float32,
+                                       device=cuda),
+            "market_prices": torch.as_tensor(market, device=cuda),
+            "weights": cal.compute_vega_weights(spot, strikes, T, 0.065,
+                                                0.012, 0.15, device=cuda),
+            "heston_x": [2.0, 0.05, 0.4, -0.6, 0.045]}
+    pop = _calibration_population(24, stage)
+    if stage == 2:
+        pop[:, 0] = lam
+    x = torch.as_tensor(pop, device=cuda)
+    fn = cal.heston_objective if stage == 1 else cal.svj_objective
+    n0 = ck.svj_terminal_from_draws.launches
+    with torch.no_grad():
+        ker = fn(x, data, backend="cuda")
+        torch.cuda.synchronize()
+        assert ck.svj_terminal_from_draws.launches == n0 + 24
+        twin = fn(x, data, backend="torch")
+    torch.testing.assert_close(ker, twin, rtol=1e-4, atol=1e-7)
+    assert ck.svj_terminal_from_draws.launches == n0 + 24
+
+
+def test_localvol_and_slv_on_card_match_cpu(cuda):
+    """The local-vol and SLV step loops on the card against the CPU on the
+    same normals: local-vol spots to rtol 2e-4 (float32; the card's and the
+    CPU's exp and sqrt differ by an ulp, which the local-vol feedback
+    carries over 64 steps: 3 of 200 000 paths part by 8e-5 on an H100),
+    SLV prices within 1 se (the bin sums are atomics on the card)."""
+    from mcos_tpu_torch.engine import localvol as lv
+    from mcos_tpu_torch.engine import slv
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+
+    k = np.log(np.linspace(70.0, 130.0, 13) / 100.0)
+    mats = np.array([0.25, 0.5, 1.0])
+    iv = 0.2 - 0.15 * k[None, :] + 0.2 * k[None, :] ** 2 + 0.0 * mats[:, None]
+    surf = lv.LocalVolSurface.from_iv_points(100.0, np.linspace(70, 130, 13),
+                                             mats, iv, r=0.05, q=0.01)
+    rows, t_mid = surf.step_tables(0.5, 64)
+    y0, dy = float(surf.y_grid[0]), float(surf.y_grid[1] - surf.y_grid[0])
+    z = torch.randn((64, 2, 100_000), generator=seeded_generator(4, "cpu"))
+    s = {dev: lv.simulate_terminal_localvol(
+        rows, t_mid, y0, dy, 100.0, 0.05, 0.01, 0.5,
+        normals=z[:, 0].to(dev)).cpu() for dev in ("cpu", cuda)}
+    torch.testing.assert_close(s[cuda], s["cpu"], rtol=2e-4, atol=0)
+    heston = SVJParams(kappa=2.0, theta=0.04, xi=0.6, rho=-0.7, v0=0.04,
+                       lambda_j=0.0, r=0.05, q=0.01)
+    out = {}
+    for dev in ("cpu", cuda):
+        st = slv.slv_terminal(heston, rows, t_mid, y0, dy, 100.0, 0.5,
+                              normals=z.to(dev)).cpu()
+        pay = torch.clamp(st - 100.0, min=0.0).mean(dim=0)
+        out[dev] = (float(pay.mean()), float(pay.std() / pay.numel() ** 0.5))
+    assert abs(out[cuda][0] - out["cpu"][0]) < out["cpu"][1], out

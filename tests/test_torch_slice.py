@@ -1,6 +1,7 @@
 """The port's slice end to end on CPU: `/api/price` against the JAX
 package's handler, the coalescer, the HTTP routes, and no JAX in the port."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -17,6 +18,7 @@ from mcos_tpu.api import coalesce as jcoalesce
 from mcos_tpu.api import server as jserver
 from mcos_tpu_torch.api import coalesce as pcoalesce
 from mcos_tpu_torch.api import server as pserver
+from mcos_tpu_torch.engine import calibration as pcal
 from mcos_tpu_torch.ops import cuda_kernels
 
 torch.set_num_threads(1)
@@ -111,6 +113,16 @@ def test_unported_options_answer_501(solo, extra):
 
 def test_http_routes(solo, monkeypatch):
     monkeypatch.setattr(pserver, "warm", lambda device: None)
+    # /api/calibrate's differential evolution cut to 4 steps, 4 members and
+    # 25 generations a stage: the route, not the fit.
+    calibrate = pcal.CalibrationEngine.calibrate
+
+    def small_calibrate(self, *a, **k):
+        self.config = dataclasses.replace(
+            self.config, stage1_max_iter=100, stage2_max_iter=100)
+        return calibrate(self, *a, num_steps=4, pop_size=4, **k)
+
+    monkeypatch.setattr(pcal.CalibrationEngine, "calibrate", small_calibrate)
     httpd = pserver.serve("127.0.0.1", 0, device="cpu")
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -128,9 +140,38 @@ def test_http_routes(solo, monkeypatch):
     try:
         assert call("/api/health")[0] == 200
         assert call("/api/metrics")[0] == 404
-        # A route still to port answers 404; the ported American, PDE,
-        # Greeks, smile and stress routes answer 200.
+        # A route still to port answers 404; the ported calibration and
+        # surface, American, PDE, Greeks, smile and stress routes answer 200.
         assert call("/api/roughheston", _BODY)[0] == 404
+        strikes = [90.0, 95.0, 100.0, 105.0, 110.0]
+        iv = [[0.22, 0.21, 0.2, 0.2, 0.21], [0.23, 0.22, 0.21, 0.21, 0.215]]
+        grid = {"spot": 100.0, "strikes": strikes, "maturities": [0.25, 0.5],
+                "iv": iv, "price_strikes": [95.0, 105.0], "T": 0.4,
+                "num_paths": 2000, "num_steps": 16}
+        status, res = call("/api/localvol", grid)
+        assert status == 200 and len(res["chain"]) == 2
+        status, res = call("/api/slv", dict(grid, mode="barrier",
+                                            barrier=120.0))
+        assert status == 200 and np.isfinite(res["price"])
+        assert call("/api/slv", dict(grid, mode="cliquet"))[0] == 400
+        status, res = call("/api/quotegreeks", {
+            "spot": 100.0, "T": 0.5, "strikes": strikes,
+            "product": {"kind": "vanilla", "T": 0.5}})
+        assert status == 200 and len(res["buckets"]) == 5
+        chain = {"spot": 100.0, "strikes": strikes, "maturities": [0.5],
+                 "call_prices": [[11.9, 8.1, 5.0, 2.8, 1.4]],
+                 "put_prices": [[0.9, 2.1, 4.0, 6.8, 10.3]],
+                 "fit_sabr": False}
+        status, res = call("/api/surface", chain)
+        assert status == 200 and len(res["iv_call"][0]) == 5
+        status, res = call("/api/calibrate", {
+            "spot": 100.0, "strikes": strikes, "T": 0.5,
+            "market_prices": chain["call_prices"][0], "num_paths": 1000})
+        assert status == 200 and res["params"].keys() >= {"kappa", "v0"}
+        assert call("/api/calibrate", {
+            "spot": 100.0, "strikes": strikes, "T": 0.5,
+            "market_prices": chain["call_prices"][0],
+            "exercise": "bermudan"})[0] == 400
         status, res = call("/api/american", dict(_BODY, num_paths=2000,
                                                  T=0.1))
         assert status == 200 and np.isfinite(res["price"])
