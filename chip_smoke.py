@@ -9,7 +9,9 @@
    prints how long it took.
 3. Kernels against their plain torch versions, at the main path's shapes:
    K1 `svj_terminal_from_draws` at 500 000 paths × 63 steps on the real
-   Sobol net (explicit jump uniforms, then in-kernel Philox jumps), and
+   Sobol net (explicit jump uniforms, then in-kernel Philox jumps; S, v
+   and G bit for bit; S and G path by path against the Euler twin, the
+   reference's step algebra, to rtol 1e-5), and
    K2 `gbm_terminal` at 2^20 pairs × 252 steps (word-for-word against the
    plain version, antithetic mirror, moments, Black-Scholes within 3σ);
    K3 `svj_terminal` and K4 `svj_terminal_qe` at 500 000 pairs × 63 steps
@@ -163,10 +165,15 @@
    no kernel launched.
 12. The calibration and surfaces path (slice I). First K1 at
    `/api/calibrate`'s shape: the DE objective of a 24-member population
-   through K1 against the same objective through the Euler twin on the
-   same draws (100 000 paths × 50 steps), stage 1, stage 2 at λ = 0 and
-   λ > 0, rtol 1e-4 (float32 rounding), one member's chain prices to 2e-5,
-   and K1 timed there. Then, with the counts set to 0 again, a new server
+   through one K1 launch against the same objective through the Euler
+   twin on the same draws (100 000 paths × 50 steps), stage 1, stage 2 at
+   λ = 0 and λ > 0, rtol 1e-4 (float32 rounding), one member's chain
+   prices to 2e-5; the population launch against its plain version (bit
+   for bit), against 24 one-member launches (each member word for word)
+   and against the Euler twin path by path (S and G to rtol 1e-5), timed
+   in turns with those 24 launches (at least 5x faster off a prebuilt
+   consts table; also from the members' SVJParams, as the calibration
+   calls it) beside its bound, and one member's launch timed. Then, with the counts set to 0 again, a new server
    on 127.0.0.1 answers a default POST /api/calibrate on an 11-strike chain
    (0.8-1.2 × F, T = 0.5) priced by COS at known SVJ parameters, whose fit
    must reprice the chain by COS within a bound derived from the estimator's
@@ -178,12 +185,14 @@
    surface reprices its IVs within 40 bp); POST /api/slv (flat at ξ > 0
    against Black-Scholes, ξ = 0 against /api/localvol, barrier and
    forward_start); 3 warm requests per route, each route but
-   /api/calibrate once in process under the profiler; then the counts show K1 launched exactly 24 members
-   × 127 generations a calibration and nothing else; and the SLV and
+   /api/calibrate once in process under the profiler; then the counts show K1 launched exactly 127 times
+   a calibration (one launch a generation) and nothing else; and the SLV and
    local-vol loops on the card against the CPU on the same normals.
 13. Prints the kernels' JSON line (each kernel's launches on its own path
-   and, under "launches_by_path", on every path), the card line and, last,
-   the result line {"ok": true, "device": {...}}.
+   and, under "launches_by_path", on every path; K1's row lists its two
+   shapes under "shapes": one member at `/api/price`'s 500 000 × 63 and
+   the 24-member population at `/api/calibrate`'s 100 000 × 50), the card
+   line and, last, the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Long output goes to chiprun_out/chip_smoke.json.
@@ -245,10 +254,26 @@ INSTR_PER_S = 67e12 / 2
 #     count and exps are left out.
 QE_COMMON = 6         # m 1, s2 1, psi 3 (square, max, divide), psi <= 1.5 1
 QE_AT_ZERO = 6        # p 5 ((psi-1)/(psi+1) clipped), u <= p 1
+# K1 per member path-step, in the algebra it computes (csrc/svj_draws.cu:
+# the drift, the jumps and the companion leg leave the step loop, and
+# sqrt(dt) folds into the terminal product): xi dW2 2 (xi rho sqrt(dt) z1
+# + xi rho_perp sqrt(dt) z2, one multiply and one FFMA), the jump compare
+# 1; two branches of 6 (sqrt, the sum of sqrt(v) z1 1, the sum of v 1, the
+# v update 2 FFMA and its floor 1). Per path-step, shared by the launch's
+# P members: the draw loads (3, or 4 with streamed jump uniforms), the sum
+# of z1 1, and with in-kernel uniforms a quarter Philox call + 4.
+K1_MEMBER = 2 + 1 + 2 * 6
+
+
+def k1_ops(members: int = 1, streamed_u: bool = False) -> float:
+    """Operations per member path-step of a P-member K1 launch."""
+    shared = (4 if streamed_u else 3 + 38 / 4 + 4) + 1
+    return K1_MEMBER + shared / members
+
+
 OPS = {
-    # 3 loads; jump uniform: a quarter Philox call + 4, compare 1; dW1 1,
-    # dW2 2; two branches of 9 (max, sqrt, log S 2, v 4, log G 1)
-    "svj_terminal_from_draws": 3 + (38 / 4 + 4 + 1) + 3 + 2 * 9,
+    # one member, in-kernel jump uniforms (`/api/price`)
+    "svj_terminal_from_draws": k1_ops(1),
     # a quarter Philox call, 4 uniforms / 4, two Box-Muller pairs / 4, one
     # FFMA per branch
     "gbm_terminal": (38 + 4 * 4 + 2 * 8) / 4 + 2,
@@ -381,10 +406,8 @@ def check_k1(device, ck, sobol, params):
     gen.manual_seed(1)
     uj = torch.rand(z1.shape, generator=gen, device=device)
     kw = dict(seed=42, antithetic=True, companion=True, steps_major=True)
-    # Tolerance: float32 on both sides; the kernel's multiply-adds are
-    # contracted to FMAs and the plain version's are not, which moves the
-    # log-spot carry by a few ulps per step: rtol 1e-5 on S and G. v can sit
-    # at the truncation floor 0, so it gets atol 1e-6 beside rtol 1e-4.
+    # Bit for bit: the kernel performs its plain version's IEEE operations
+    # in the same order (csrc/svj_draws.cu), nothing contracted.
     errs = {}
     for mode, u in (("explicit u_jump", uj), ("in-kernel jumps", None)):
         ker = ck.svj_terminal_from_draws(params, SPOT, T_DEFAULT, z1, z2, u,
@@ -393,13 +416,19 @@ def check_k1(device, ck, sobol, params):
         ref = ck.svj_terminal_from_draws_plain(params, SPOT, T_DEFAULT, z1,
                                                z2, u, zjs, **kw)
         torch.cuda.synchronize()
-        s_err, g_err = rel_err(ker[0], ref[0]), rel_err(ker[2], ref[2])
-        v_ok = torch.allclose(ker[1], ref[1], rtol=1e-4, atol=1e-6)
-        log(f"K1 {mode}: S rel err {s_err:.3e}, G rel err {g_err:.3e}, "
-            f"v allclose {v_ok} (rtol 1e-5 on S and G)")
+        same = [bool(torch.equal(a, b)) for a, b in zip(ker, ref)]
+        log(f"K1 {mode}: S, v, G bit for bit against the plain version: "
+            f"{same}")
         check(bool(torch.isfinite(ker[0]).all()), f"K1 {mode}: S finite")
-        check(s_err < 1e-5 and g_err < 1e-5 and v_ok, f"K1 {mode} vs plain")
+        check(all(same), f"K1 {mode} vs plain")
         errs[mode] = float((ker[0] - ref[0]).abs().max())
+    twin_err = k1_twin_errs(ck, [params], SPOT, T_DEFAULT, z1, z2, None, zjs,
+                            kw["seed"])
+    log(f"K1 at {NUM_PATHS} paths x {steps} steps (in-kernel jumps) vs the "
+        f"Euler twin (the reference's step algebra), path by path: S rel "
+        f"err {twin_err['s_rel_err']:.3e}, G {twin_err['g_rel_err']:.3e} "
+        f"(rtol {K1_TWIN_RTOL:g})")
+    check(max(twin_err.values()) < K1_TWIN_RTOL, "K1 vs the Euler twin")
     ms = cuda_ms(lambda: ck.svj_terminal_from_draws(
         params, SPOT, T_DEFAULT, z1, z2, None, zjs, **kw))
     plain_ms = cuda_ms(lambda: ck.svj_terminal_from_draws_plain(
@@ -411,7 +440,40 @@ def check_k1(device, ck, sobol, params):
         f"({b['bound_by']}); Sobol net (cold, 3 x {steps} dims) "
         f"{sobol_ms:.2f} ms")
     return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
-            "sobol_ms": sobol_ms, "shape": [steps, NUM_PATHS], **b}
+            "sobol_ms": sobol_ms, "shape": [steps, NUM_PATHS],
+            "twin_rel_err": twin_err, **b}
+
+
+# K1 against the Euler twin (`pricer._euler_twin_pair`: the JAX package's
+# step algebra, one step at a time), path by path. K1 sums the drift, the
+# jumps and the companion leg apart and carries sum(sqrt(v) z1) and sum(v),
+# so only the roundings differ: S and G to rtol 1e-5, as K1 was held before
+# its algebra was rearranged.
+K1_TWIN_RTOL = 1e-5
+
+
+def k1_twin_errs(ck, members, spot, T, z1, z2, u_jump, zjs, seed) -> dict:
+    """Max relative error of S and G, over every member, branch and path,
+    of one K1 launch (antithetic, companion) against the Euler twin on the
+    same draws; u_jump None: the kernel's in-kernel stream, which the twin
+    takes from `philox_jump_uniforms`."""
+    from mcos_tpu_torch.engine.pricer import _euler_twin_pair
+
+    kw = dict(seed=seed, antithetic=True, companion=True, steps_major=True)
+    ker = ck.svj_terminal_from_draws_population(members, spot, T, z1, z2,
+                                                u_jump, zjs, **kw)
+    if u_jump is None:
+        u_jump = ck.philox_jump_uniforms(z1.shape[0], z1.shape[1], seed,
+                                         z1.device)
+    errs = {"s_rel_err": 0.0, "g_rel_err": 0.0}
+    for p, params in enumerate(members):
+        twin = _euler_twin_pair(params, spot, T, z1, z2, u_jump, zjs, True,
+                                True, True)
+        errs["s_rel_err"] = max(errs["s_rel_err"], rel_err(ker[0][p],
+                                                           twin[0]))
+        errs["g_rel_err"] = max(errs["g_rel_err"], rel_err(ker[2][p],
+                                                           twin[2]))
+    return errs
 
 
 def check_k2(device, ck, bs_price):
@@ -3296,15 +3358,20 @@ SLV_FLAT_SIGMA = 0.25
 
 
 def k1_calibration_pin(device, ck, cal, cos_price, SVJParams):
-    """K1 at `/api/calibrate`'s shape: the DE objective of a 24-member
-    population through K1 against the same objective through the Euler
-    twin, on the same draws (100 000 paths × 50 steps), both stages, at
-    λ = 0 and λ > 0; then one member's launch timed beside its plain
-    version and its bound. Float32 rounding is the bound: the chain prices
-    to rtol 2e-5 (K1's S to 1e-5 a path, averaged over 200 000 paths) and
-    the objectives to rtol 1e-4 (a squared residual amplifies the prices'
-    relative error by 2·price/residual). Run before the path's counts are
-    set to 0: these launches compare, they are not the path's."""
+    """K1 at `/api/calibrate`'s shape. The DE objective of a 24-member
+    population (one K1 launch for all members) against the same objective
+    through the Euler twin, on the same draws (100 000 paths × 50 steps),
+    both stages, at λ = 0 and λ > 0. The population launch against its
+    plain version and against 24 one-member launches (word for word), and
+    path by path against the Euler twin (rtol `K1_TWIN_RTOL`), then timed
+    in turns with those 24 launches beside its bound, off a prebuilt
+    consts table and from SVJParams; one member's launch beside its plain
+    version and its bound. Float32 rounding is the
+    bound against the twin: the chain prices to rtol 2e-5 (K1's S to 1e-5
+    a path, averaged over 200 000 paths) and the objectives to rtol 1e-4 (a
+    squared residual amplifies the prices' relative error by
+    2·price/residual). Run before the path's counts are set to 0: these
+    launches compare, they are not the path's."""
     from mcos_tpu_torch.engine.pricer import seeded_generator
     from mcos_tpu_torch.profile_price import CHAIN_PARAMS, slice_i_body
 
@@ -3329,6 +3396,7 @@ def k1_calibration_pin(device, ck, cal, cos_price, SVJParams):
                          ("kappa", "theta", "xi", "rho", "v0")]}
     rng = np.random.default_rng(16)
     out = {}
+    pops = {}
     for name, fn, bounds, lam in (
             ("stage 1 (lambda 0)", cal.heston_objective, cal.HESTON_BOUNDS,
              None),
@@ -3340,18 +3408,23 @@ def k1_calibration_pin(device, ck, cal, cos_price, SVJParams):
             np.float32)
         if lam is not None:
             pop[:, 0] = lam
+        pops[name] = pop
         x = torch.as_tensor(pop, device=device)
+        n0 = ck.svj_terminal_from_draws.launches
         with torch.no_grad():
             ker = fn(x, data, backend="cuda")
+            torch.cuda.synchronize()
+            launched = ck.svj_terminal_from_draws.launches - n0
             twin = fn(x, data, backend="torch")
         err = float(((ker - twin).abs() / twin.abs()).max())
         log(f"K1 calibration objective, {name}, {members} members x {n} "
-            f"paths x {steps} steps: max rel err vs the twin {err:.3e} "
-            f"(rtol 1e-4)")
+            f"paths x {steps} steps: {launched} K1 launch, max rel err vs "
+            f"the twin {err:.3e} (rtol 1e-4)")
+        check(launched == 1, f"K1 objective {name}: {launched} launches")
         check(bool(torch.isfinite(ker).all()), f"K1 objective {name} finite")
         check(err < 1e-4, f"K1 objective {name} vs the twin: {err}")
         out[name] = err
-    # One member's chain prices, K1 against the twin, and its timing.
+    # One member's chain prices, K1 against the twin.
     p = SVJParams(**CHAIN_PARAMS)
     prices = {b: cal._chain_prices(p, body["spot"], data["strikes"],
                                    body["T"], draws, is_call=True,
@@ -3360,18 +3433,109 @@ def k1_calibration_pin(device, ck, cal, cos_price, SVJParams):
     log(f"K1 chain prices at the true parameters vs the twin: max rel err "
         f"{price_err:.3e} (rtol 2e-5)")
     check(price_err < 2e-5, f"K1 chain prices vs the twin: {price_err}")
+
+    # The population launch of a stage-2 generation (jumps on) against its
+    # plain version and against one-member launches, then timed.
     z1, z2, u, zjs = draws
     kw = dict(antithetic=True, companion=True, steps_major=True)
+    core = dict(zip(("kappa", "theta", "xi", "rho", "v0"), data["heston_x"]))
+    gen = [SVJParams(**core, lambda_j=float(a), mu_j=float(b),
+                     sigma_j=float(c), r=r, q=q)
+           for a, b, c in pops["stage 2, lambda > 0"]]
+    spot_t = (body["spot"], body["T"])
+    ker = ck.svj_terminal_from_draws_population(gen, *spot_t, z1, z2, u,
+                                                zjs, **kw)
+    ref = ck.svj_terminal_from_draws_population_plain(gen, *spot_t, z1, z2,
+                                                      u, zjs, **kw)
+    torch.cuda.synchronize()
+    s_err, g_err = rel_err(ker[0], ref[0]), rel_err(ker[2], ref[2])
+    exact = {k: float((a == b).float().mean())
+             for k, a, b in zip("svg", ker, ref)}
+    singles = [ck.svj_terminal_from_draws(m, *spot_t, z1, z2, u, zjs, **kw)
+               for m in gen]
+    same = all(torch.equal(ker[i][j], one[i])
+               for j, one in enumerate(singles) for i in range(3))
+    log(f"K1 population ({members} x {n} x {steps}) vs plain: S rel err "
+        f"{s_err:.3e}, G rel err {g_err:.3e}; bit-equal shares {exact}; "
+        f"each member word for word its one-member launch {same}")
+    check(all(x == 1.0 for x in exact.values()),
+          "K1 population vs plain, bit for bit")
+    check(same, "K1 population members vs one-member launches")
+    del singles
+    twin_err = k1_twin_errs(ck, gen, *spot_t, z1, z2, u, zjs, 0)
+    log(f"K1 population ({members} x {n} x {steps}) vs the Euler twin (the "
+        f"reference's step algebra), path by path: S rel err "
+        f"{twin_err['s_rel_err']:.3e}, G {twin_err['g_rel_err']:.3e} (rtol "
+        f"{K1_TWIN_RTOL:g})")
+    check(max(twin_err.values()) < K1_TWIN_RTOL,
+          "K1 population vs the Euler twin")
+
+    # In turns, the population launch against the 24 one-member launches
+    # it replaces: off the generation's consts table built once beforehand
+    # (the launches: the wrapper's checks, its table copy, the kernel), and
+    # from the members' SVJParams, as `_chain_sse` calls the wrapper (the
+    # host builds the table every call) and as the calibration launched
+    # K1 before, once a member.
+    table = ck._svj_consts_table(gen, *spot_t, steps)
+    calls = {
+        "population": lambda: ck.svj_terminal_from_draws_population(
+            table, *spot_t, z1, z2, u, zjs, **kw),
+        "single_x24": lambda: [ck.svj_terminal_from_draws_population(
+            table[m:m + 1], *spot_t, z1, z2, u, zjs, **kw)
+            for m in range(members)],
+        "population_from_params": lambda: (
+            ck.svj_terminal_from_draws_population(gen, *spot_t, z1, z2, u,
+                                                  zjs, **kw)),
+        "single_x24_from_params": lambda: [ck.svj_terminal_from_draws(
+            m, *spot_t, z1, z2, u, zjs, **kw) for m in gen]}
+    turns = {name: [] for name in calls}
+    for name in list(calls) + list(reversed(list(calls))):
+        turns[name].append(cuda_ms(calls[name], reps=10))
+    t_ms = {name: statistics.mean(v) for name, v in turns.items()}
+    pop_ms, singles_ms = t_ms["population"], t_ms["single_x24"]
+    pop_plain_ms = cuda_ms(
+        lambda: ck.svj_terminal_from_draws_population_plain(
+            gen, *spot_t, z1, z2, u, zjs, **kw), reps=2)
+    pb = bound(k1_ops(members, streamed_u=True), members * steps * n,
+               4 * steps * n * 4, 3 * members * 2 * n * 4)
+    log(f"K1 population launch ({members} members x {n} paths x {steps} "
+        f"steps, explicit jump uniforms, consts table built beforehand): "
+        f"{pop_ms:.4f} ms ({turns['population']}), {members} one-member "
+        f"launches {singles_ms:.4f} ms ({turns['single_x24']}): "
+        f"{singles_ms / pop_ms:.2f}x; plain {pop_plain_ms:.2f} ms; bound "
+        f"{pb['bound_ms']:.4f} ms ({pb['bound_by']}, "
+        f"{pb['ops_per_unit']:.3f} operations a member path-step), "
+        f"{pb['bound_ms'] / pop_ms:.1%} of it")
+    log(f"K1 from the members' SVJParams, as the calibration calls it: "
+        f"population {t_ms['population_from_params']:.4f} ms "
+        f"({turns['population_from_params']}), {members} one-member "
+        f"wrapper calls {t_ms['single_x24_from_params']:.4f} ms "
+        f"({turns['single_x24_from_params']}): "
+        f"{t_ms['single_x24_from_params'] / t_ms['population_from_params']:.2f}x")
+    check(singles_ms / pop_ms >= 5.0,
+          f"K1 population {pop_ms} ms vs 24 launches {singles_ms} ms")
     ms = cuda_ms(lambda: ck.svj_terminal_from_draws(
-        p, body["spot"], body["T"], z1, z2, u, zjs, **kw), reps=20)
+        p, *spot_t, z1, z2, u, zjs, **kw), reps=20)
     plain_ms = cuda_ms(lambda: ck.svj_terminal_from_draws_plain(
-        p, body["spot"], body["T"], z1, z2, u, zjs, **kw), reps=3)
-    b = bound("svj_terminal_from_draws", steps * n, 4 * steps * n * 4,
+        p, *spot_t, z1, z2, u, zjs, **kw), reps=3)
+    b = bound(k1_ops(1, streamed_u=True), steps * n, 4 * steps * n * 4,
               3 * 2 * n * 4)
-    log(f"K1 at the calibration shape ({n} paths x {steps} steps, explicit "
-        f"jump uniforms): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    log(f"K1 one member at the calibration shape ({n} paths x {steps} "
+        f"steps, explicit jump uniforms), wrapper calls from SVJParams in a "
+        f"loop: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"objective_rel_err": out, "price_rel_err": price_err,
+            "population": {
+                "shape": [members, steps, n], "ms": pop_ms,
+                "turns_ms": turns, "single_x24_ms": singles_ms,
+                "from_params_ms": t_ms["population_from_params"],
+                "single_x24_from_params_ms": t_ms["single_x24_from_params"],
+                "twin_rel_err": twin_err,
+                "speedup": singles_ms / pop_ms, "plain_ms": pop_plain_ms,
+                "max_abs_err": float((ker[0] - ref[0]).abs().max()),
+                "s_rel_err": s_err, "g_rel_err": g_err,
+                "bit_equal_share": exact, "members_equal_singles": same,
+                **pb},
             "ms": ms, "plain_ms": plain_ms, **b}
 
 
@@ -3420,9 +3584,9 @@ def calibration_path(device, ck, server, cal, localvol, slv, ssvi,
                      cos_price, bs_price, SVJParams):
     """Slice I over HTTP on a fresh server, with the launch counts set to 0
     just before: `/api/calibrate` (its DE members on K1, one launch a
-    member a generation), `/api/surface`, `/api/quotegreeks`,
-    `/api/localvol`, `/api/slv`; then K1 launched exactly members ×
-    (generations + 1) a stage a calibrate, and no other kernel."""
+    generation), `/api/surface`, `/api/quotegreeks`, `/api/localvol`,
+    `/api/slv`; then K1 launched exactly (generations + 1) a stage a
+    calibrate, 127, and no other kernel."""
     from mcos_tpu_torch.engine.american import binomial_american_bs
     from mcos_tpu_torch.engine.pricer import (mc_price_from_draws,
                                               seeded_generator)
@@ -3696,10 +3860,11 @@ def calibration_path(device, ck, server, cal, localvol, slv, ssvi,
     counts = ck.launch_counts()
     gens = (max(cal.CALIBRATION_CONFIG.stage1_max_iter // 4, 25) + 1
             + max(cal.CALIBRATION_CONFIG.stage2_max_iter // 4, 25) + 1)
-    want = sz["calibrate_members"] * gens * n_calibrates
+    want = gens * n_calibrates
     log(f"launch counts over the calibration path: {counts} (expected K1 "
-        f"{want} = {sz['calibrate_members']} members x {gens} generations "
-        f"x {n_calibrates} calibrations, nothing else)")
+        f"{want} = {gens} generations x {n_calibrates} calibrations, one "
+        f"launch for a generation's {sz['calibrate_members']} members, "
+        f"nothing else)")
     for name, n in counts.items():
         check(n == (want if name == "svj_terminal_from_draws" else 0),
               f"{name} launched {n} times on the calibration path")
@@ -3861,6 +4026,19 @@ def main() -> None:
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": None}
         for name, src, line, res, path in table]
+    pop = k1_cal["population"]
+    kernels[0]["shapes"] = [
+        {"shape": "1 x 500000 x 63 (/api/price)", "launches": mp["launches"][
+            "svj_terminal_from_draws"],
+         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by")}},
+        {"shape": "24 x 100000 x 50 (/api/calibrate)",
+         "launches": cp["launches"]["svj_terminal_from_draws"],
+         "single_x24_ms": pop["single_x24_ms"],
+         "from_params_ms": pop["from_params_ms"],
+         "single_x24_from_params_ms": pop["single_x24_from_params_ms"],
+         **{k: pop[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by")}}]
     kernels[5]["variants"] = [
         {"name": name, **{k: v[k] for k in ("steps", "max_abs_err", "ms",
                                             "plain_ms", "bound_ms",

@@ -145,8 +145,8 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
 // conversion (I2F runs on a slower pipe than FADD): the top 23 bits become
 // the mantissa of a float in [1, 2), and subtracting float32(1 - 2^-24)
 // leaves (m + 1/2) 2^-23. The subtraction is exact (Sterbenz: the operands
-// are within a factor 2), so no rounding differs. K2-K11 use it; K1 takes
-// bits_to_uniform.
+// are within a factor 2), so no rounding differs. K1-K11 use it (the
+// kernel_lab levers that take it out put bits_to_uniform back).
 __device__ __forceinline__ float bits_to_uniform_bitcast(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3f800000u) -
          __uint_as_float(0x3f7fffffu);

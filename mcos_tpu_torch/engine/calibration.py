@@ -19,12 +19,15 @@ The Monte Carlo objectives on the device (`calibrate`):
   paths), from the engine's seeded generator, kept for every generation
   and both stages (common random numbers: the JAX package prices every
   member on one key's paths).
-- A member's chain is `mc_price_from_draws` (antithetic, companion
-  control variate). The DE generations take backend="cuda": kernel K1
-  `svj_terminal_from_draws`, one launch a member, the population copied
-  to the host once a generation (on a CPU device the wrapper runs K1's
-  plain version). The Adam polish needs a gradient, so it takes
-  backend="torch": the Euler twin under autograd on the same draws.
+- A member's chain is the price of `mc_price_from_draws` (antithetic,
+  companion control variate). The DE generations take backend="cuda":
+  the population copied to the host once a generation, one K1 launch for
+  all its members (`svj_terminal_from_draws_population`; on a CPU device
+  its plain version) and one (P, K, paths) pricing tail
+  (`population_prices_from_draws`), as the JAX package vmaps the
+  objective over the population. The Adam polish needs a gradient, so it
+  takes backend="torch": the Euler twin under autograd on the same draws,
+  member by member (K1 has no backward kernel, in either package).
 
 `calibrate_fast`, `calibrate_from_chain`, `parameter_uncertainty` and
 `calibrate_term_structure` are host numpy and scipy over the port's copy
@@ -47,6 +50,7 @@ from mcos_tpu_torch.config import (
     REGULARIZATION,
 )
 from mcos_tpu_torch.engine.pricer import (mc_price_from_draws, not_ported,
+                                          population_prices_from_draws,
                                           seeded_generator)
 from mcos_tpu_torch.models.params import SVJParams, forward_price
 from mcos_tpu_torch.ops.bs import bs_vega
@@ -111,12 +115,21 @@ def _member_params(x: torch.Tensor, names, backend: str, **fixed):
 
 def _chain_sse(x: torch.Tensor, names, data, *, is_call: bool,
                backend: str, **fixed) -> torch.Tensor:
-    """(P,) weighted SSE of each member's chain against the market."""
-    model = torch.stack([
-        _chain_prices(p, data["spot"], data["strikes"], data["T"],
-                      data["draws"], is_call=is_call, backend=backend)
-        for p in _member_params(x, names, backend, r=data["r"],
-                                q=data["q"], **fixed)])
+    """(P,) weighted SSE of each member's chain against the market.
+    backend="cuda" prices the whole population at once: one K1 launch and
+    one (P, K, paths) pricing tail (`population_prices_from_draws`);
+    backend="torch" runs the twin member by member under autograd."""
+    members = _member_params(x, names, backend, r=data["r"], q=data["q"],
+                             **fixed)
+    if backend == "cuda":
+        model = population_prices_from_draws(
+            members, data["spot"], data["strikes"], data["T"],
+            *data["draws"], is_call=is_call)
+    else:
+        model = torch.stack([
+            _chain_prices(p, data["spot"], data["strikes"], data["T"],
+                          data["draws"], is_call=is_call, backend=backend)
+            for p in members])
     return torch.sum(data["weights"] * (model - data["market_prices"]) ** 2,
                      dim=-1)
 

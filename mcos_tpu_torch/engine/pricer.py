@@ -10,6 +10,9 @@ errors, and the terminal-state diagnostics the post-price guards read.
   draws, its plain version for CPU draws): K1 `svj_terminal_from_draws`
   for scheme="euler", K5 `svj_terminal_qe_from_draws` for scheme="qe";
   backend="torch" runs the step-loop twins.
+- `population_prices_from_draws` prices P parameter sets off one draw
+  set with one K1 launch (the calibration's differential-evolution
+  generations; the JAX package vmaps its objective over them).
 - `mc_price_cuda` (counterpart of `mc_price_pallas`) prices off the
   in-kernel generator: K3 `svj_terminal` (Euler) or K4 `svj_terminal_qe`.
   `mc_price_core` is the same estimator on the torch twins and a
@@ -66,10 +69,11 @@ def not_ported(option: str) -> NotImplementedError:
 # ─────────────────────────────────────────────────────────────────────────────
 def _payoff_table(s_final: torch.Tensor, strikes: torch.Tensor,
                   is_call: bool) -> torch.Tensor:
-    """(n_branch, paths) terminal spots → antithetic-combined (K, paths)."""
-    pay = simulate.vanilla_payoff(s_final[None], strikes[:, None, None],
-                                  is_call)
-    return simulate.combine_antithetic(pay.transpose(0, 1))
+    """(..., n_branch, paths) terminal spots → antithetic-combined
+    (..., K, paths)."""
+    pay = simulate.vanilla_payoff(s_final[..., None, :, :],
+                                  strikes[:, None, None], is_call)
+    return simulate.combine_antithetic(pay.movedim(-2, 0))
 
 
 def _finalize_price(
@@ -250,6 +254,64 @@ def mc_price_from_draws(
     return _price_terminal(params, spot, strikes, T, s_final, v_all[0],
                            g_final, is_call, control_variate, cv_mode,
                            cv_beta)
+
+
+#: Device memory the population tail may hold at once: the payoff and
+#: companion tables ((K, 2, paths) before the branch mean, two (K, paths)
+#: after it: 16·K·paths bytes a member) of as many members as fit, and at
+#: least one. At `/api/calibrate`'s default (11 strikes × 100 000 paths,
+#: 17.6 MB a member) a generation of 24 is one chunk; at the schema's
+#: largest (256 strikes × 2 000 000 paths, 8.2 GB a member) one member a
+#: chunk, the one-member peak.
+POPULATION_TAIL_BUDGET = 1 << 30
+
+
+def population_prices_from_draws(
+    members: Sequence[SVJParams], spot, strikes, T, z1: torch.Tensor,
+    z2: torch.Tensor, u_jump: Optional[torch.Tensor], z_js: torch.Tensor,
+    *, is_call: bool = True,
+) -> torch.Tensor:
+    """European prices of P parameter sets off one draw set, (P, K): the
+    `price` of `mc_price_from_draws` (backend="cuda", antithetic, the
+    companion control variate with β = 1) for every member at once, as the
+    JAX package's vmapped calibration objective prices a generation.
+
+    The draws are steps-major (num_steps, num_paths) with u_jump given, as
+    the calibration stages them. One K1 launch for the population
+    (`cuda_kernels.svj_terminal_from_draws_population`; its plain version
+    for CPU draws), then the estimator over the last axis of (P, K, paths)
+    tables, `bs_price` at σ = √v0 as a (P, 1) column. Only the price: no
+    standard error and no diagnostics. The tables are built a chunk of
+    members at a time within `POPULATION_TAIL_BUDGET`; the chunking does
+    not change a bit.
+    """
+    s_all, _, g_all = cuda_kernels.svj_terminal_from_draws_population(
+        members, spot, T, z1, z2, u_jump, z_js, antithetic=True,
+        companion=True, steps_major=True)
+    device = s_all.device
+    strikes = torch.atleast_1d(torch.as_tensor(strikes, dtype=torch.float32,
+                                               device=device))
+
+    def column(name):
+        return torch.as_tensor([getattr(p, name) for p in members],
+                               dtype=torch.float32, device=device)[:, None]
+
+    r, q, v0 = column("r"), column("q"), column("v0")
+    T_t = torch.as_tensor(T, dtype=torch.float32, device=device)
+    discount = torch.exp(-r * T_t)
+    bs_ref = bs_price(spot, strikes, T, r, q, torch.sqrt(v0), is_call,
+                      device=device)
+    per_member = 16 * strikes.numel() * s_all.shape[-1]
+    chunk = max(1, POPULATION_TAIL_BUDGET // per_member)
+    prices = []
+    for lo in range(0, s_all.shape[0], chunk):
+        part = slice(lo, lo + chunk)
+        raw_mc = discount[part] * torch.mean(
+            _payoff_table(s_all[part], strikes, is_call), dim=-1)
+        ctrl_mc = discount[part] * torch.mean(
+            _payoff_table(g_all[part], strikes, is_call), dim=-1)
+        prices.append(raw_mc - (ctrl_mc - bs_ref[part]))
+    return torch.cat(prices)
 
 
 def _euler_twin_pair(params, spot, T, z1, z2, u_jump, z_js, antithetic,

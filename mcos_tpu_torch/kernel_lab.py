@@ -1,20 +1,22 @@
-"""Look inside ten hand-written kernels on one CUDA card: K2
-(`csrc/gbm.cu`), K3 (`csrc/svj.cu`), K4 (`csrc/svj_qe.cu`), K5
-(`csrc/svj_qe_draws.cu`), K6 (`csrc/svj_stats.cu`), K7 (`csrc/hhw.cu`),
+"""Look inside the eleven hand-written kernels on one CUDA card: K1
+(`csrc/svj_draws.cu`), K2 (`csrc/gbm.cu`), K3 (`csrc/svj.cu`), K4
+(`csrc/svj_qe.cu`), K5 (`csrc/svj_qe_draws.cu`), K6 (`csrc/svj_stats.cu`),
+K7 (`csrc/hhw.cu`),
 K8 (`csrc/svcj.cu`), K9 (`csrc/svj_td.cu`), K10 (`csrc/rbergomi_lift.cu`)
 and K11 (`csrc/rbergomi_stats.cu`): what the compiler made of them, how
 accurate their special functions are, and how fast one version runs
 against another.
 
     python -m mcos_tpu_torch.kernel_lab [--csrc LABEL=DIR ...]
-        [--kernels k2,k3,k4,k5,k6,k7,k8,k9,k10,k11] [--sass] [--dump DIR]
-        [--probes] [--time] [--levers] [--out FILE]
+        [--kernels k1,k2,k3,k4,k5,k6,k7,k8,k9,k10,k11] [--sass] [--dump DIR]
+        [--probes] [--time] [--levers] [--wrappers LABEL=ROOT ...]
+        [--out FILE]
 
 Each `--csrc LABEL=DIR` names a directory holding a version of the chosen
 kernels' sources and `philox.cuh` (default: `new=` the package's own
 `csrc/`). Every version is compiled (all at once, one nvcc per source,
 with the package's NVCC_FLAGS plus `-Xptxas -v`) into its own shared
-library. `--kernels` picks the kernels (default all ten). `--levers`
+library. `--kernels` picks the kernels (default all eleven). `--levers`
 adds, for K3, K4, K5 and K7, one version per lever of the "new" design
 with that lever taken out alone (`_LEVERS`), timed in turns with the rest.
 
@@ -31,8 +33,10 @@ with that lever taken out alone (`_LEVERS`), timed in turns with the rest.
   in K10, two in K11), for K3, K4 and K6-K9 its Philox calls (from the
   products by the two Philox multipliers: `pair_steps_from_calls`; two
   steps a call in K3 and K9, one in K4), for K5 its draw loads (three a
-  path-step, four with loaded jump uniforms: `k5_steps`), and the counts
-  are also given per pair-step (per path-step for K5). `--dump DIR` writes
+  path-step, four with loaded jump uniforms: `k5_steps`), for K1 its
+  square roots (two a member path-step: `k1_steps`), and the counts are
+  also given per pair-step (per path-step for K5, per member path-step
+  for K1). `--dump DIR` writes
   each kernel's listing there to read it.
 - `--probes`: K2 and K9 over all 2^23 uniforms of the grid
   ((m + 1/2) 2^-23), the error of K2's Box-Muller radius and angle
@@ -43,7 +47,12 @@ with that lever taken out alone (`_LEVERS`), timed in turns with the rest.
   every float32 in (0, 1), whether Acklam's inverse with a float FMA a
   Horner step, and K5's own converged form, give the bits of the double
   step (`acklam_probe`).
-- `--time`: the versions in turns (A B ... B A), CUDA events: K2 at
+- `--time`: the versions in turns (A B ... B A), CUDA events: K1 at
+  `/api/price`'s one member x 500 000 paths x 63 steps (in-kernel jump
+  uniforms), at `/api/calibrate`'s 24-member generation x 100 000 x 50
+  (streamed uniforms; one launch, or one launch a member in a version
+  without the population entry point, as the parent source) and one
+  member there (`K1_CASES`); K2 at
   2^20 pairs x 252 steps and at the benchmark's 2^22 x 1024; K5 at the QE
   route's 500 000 paths x 63 steps on the Sobol QE net (in-kernel and
   loaded jump uniforms), its read floor and compute floor (`_K5_LAB_SRC`)
@@ -58,7 +67,10 @@ with that lever taken out alone (`_LEVERS`), timed in turns with the rest.
   from the host before every launch, as a wrapper without a device cache
   does ("upload"); K10 and K11 at the route's 131 072 pairs x 512 and x
   511 steps with 25 lift factors (H = 0.07). Each version's outputs are
-  first held against the plain torch versions (K3, K4, K5's v, and K6-K11,
+  first held against the plain torch versions (K1 at its cases and a
+  ragged 25 x 100 001 x 63, with each member against its one-member
+  launch, word for word, and the bit-equal share of S, v and G; K3, K4,
+  K5's v, and K6-K11,
   bit for bit: K3 and K4 at the route's shape, at 200 003 pairs x 13 steps
   and with one branch and no companion at 10 007 x 64, K4 also at K5's psi
   cases (`K4_PSI_CHECKS`); K5 at the route's shape and where its QE
@@ -68,6 +80,17 @@ with that lever taken out alone (`_LEVERS`), timed in turns with the rest.
   K7 at 128, 127 and 1 steps with one and two branches; K8 at 252 and 63
   steps, with and without the companion, at lambda = 0, 1 and 8; K10/K11
   also at 24 factors, at one and in the guarded fallback).
+
+- `--wrappers LABEL=ROOT ...`: K1's Python wrappers, each ROOT a tree
+  holding a version of the `mcos_tpu_torch` package (e.g. a `git archive`
+  of another commit), in turns (A B ... B A, twice), one process a turn
+  (`_WRAPPER_TIMER`): `svj_terminal_from_draws` from an SVJParams at one
+  member x 500 000 x 63 and x 50 000 x 63 (in-kernel jump uniforms), and a
+  24-member generation x 100 000 x 50 from SVJParams as the calibration
+  calls it (`svj_terminal_from_draws_population`, or one call a member in
+  a version without it); each the time a call in a loop of calls (host
+  and card overlapped), the host's time until the call returns, and one
+  call's latency to a synchronised result.
 
 Prints a summary and writes everything to `--out` (default
 mcos_tpu_torch/_build/lab/kernel_lab.json). Needs a CUDA card and nvcc;
@@ -84,6 +107,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -92,7 +116,8 @@ from mcos_tpu_torch.ops import cuda_kernels as ck
 
 _LAB_DIR = os.path.join(ck.BUILD_DIR, "lab")
 # The kernels the lab knows, by short name: their source.
-_KERNELS = {"k2": "gbm.cu", "k3": "svj.cu", "k4": "svj_qe.cu",
+_KERNELS = {"k1": "svj_draws.cu", "k2": "gbm.cu", "k3": "svj.cu",
+            "k4": "svj_qe.cu",
             "k5": "svj_qe_draws.cu", "k6": "svj_stats.cu", "k7": "hhw.cu",
             "k8": "svcj.cu", "k9": "svj_td.cu", "k10": "rbergomi_lift.cu",
             "k11": "rbergomi_stats.cu"}
@@ -100,8 +125,10 @@ _KERNELS = {"k2": "gbm.cu", "k3": "svj.cu", "k4": "svj_qe.cu",
 # the mangled length prefix and the template opener `I`, so that
 # `svj_kernel` finds neither `svj_qe_kernel`, `svj_td_kernel`,
 # `svj_qe_draws_kernel` nor `svj_stats_kernel`, and `svj_qe_kernel` not
-# `svj_qe_draws_kernel`.
-_SASS_PATTERN = {"k2": "gbm_kernel", "k3": "10svj_kernelI",
+# `svj_qe_draws_kernel`; K1's its length prefix, so that it does not find
+# `svj_qe_draws_kernel` either.
+_SASS_PATTERN = {"k1": "16svj_draws_kernel", "k2": "gbm_kernel",
+                 "k3": "10svj_kernelI",
                  "k4": "13svj_qe_kernelI", "k5": "svj_qe_draws_kernel",
                  "k6": "svj_stats_kernel", "k7": "hhw_kernel",
                  "k8": "svcj_kernel", "k9": "svj_td_kernel",
@@ -111,6 +138,8 @@ _SASS_PATTERN = {"k2": "gbm_kernel", "k3": "10svj_kernelI",
 # The card (NVIDIA H100 SXM): 132 SMs of 65 536 registers, handed out to
 # a warp in units of 256 (8 a thread), at most 64 warps and 32 blocks an SM.
 SMS, REGS_PER_SM, REG_UNIT, MAX_WARPS, MAX_BLOCKS = 132, 65_536, 8, 64, 32
+# Its shared memory: 228 KiB an SM, 1 KiB of it reserved for each block.
+SMEM_PER_SM, SMEM_RESERVED = 228 * 1024, 1024
 
 # Probe kernels over the uniform grid. The file includes the version's
 # gbm.cu and svj_td.cu, so the probes call the very helpers the kernels do.
@@ -621,6 +650,11 @@ def _load(path: str) -> ctypes.CDLL:
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     signatures = {
+        "mcos_svj_terminal_from_draws": [vp, vp, vp, vp, vp, vp, vp, i64,
+                                         i32, i32, u64, vp, vp],
+        "mcos_svj_terminal_from_draws_population": [vp, vp, vp, vp, vp, vp,
+                                                    i64, i32, i32, i32, i32,
+                                                    u64, vp],
         "mcos_gbm_terminal": [vp, i64, i32, i32, u64, f32, f32, f32, vp],
         "mcos_svj_terminal_td": [vp, vp, vp, vp, vp, i32, i64, i32, i32,
                                  u64, vp, vp],
@@ -678,14 +712,18 @@ def ptxas_resources(text: str) -> dict:
     return out
 
 
-def occupancy(registers: int, threads: int = 256, blocks=None) -> dict:
-    """Blocks of `threads` an SM holds at `registers` a thread (the
-    register file alone: these kernels use no shared memory) and, for a
-    launch of `blocks`, the waves it takes on the card's 132 SMs."""
+def occupancy(registers: int, threads: int = 256, blocks=None,
+              smem: int = 0) -> dict:
+    """Blocks of `threads` an SM holds at `registers` a thread and `smem`
+    bytes of shared memory a block (K1's stages; the other kernels use
+    none) and, for a launch of `blocks`, the waves it takes on the card's
+    132 SMs."""
     warps_per_block = -(-threads // 32)
     regs_per_warp = -(-registers // REG_UNIT) * REG_UNIT * 32
     warps = min(REGS_PER_SM // regs_per_warp, MAX_WARPS)
     per_sm = min(warps // warps_per_block, MAX_BLOCKS)
+    if smem:
+        per_sm = min(per_sm, SMEM_PER_SM // (smem + SMEM_RESERVED))
     out = {"blocks_per_sm": per_sm, "slots": per_sm * SMS}
     if blocks is not None:
         out.update(blocks=blocks, waves=blocks / (per_sm * SMS))
@@ -919,13 +957,21 @@ def k5_steps(loop: dict):
     return steps or None
 
 
+def k1_steps(loop: dict):
+    """The member path-steps a loop pass of K1 covers, from its IEEE square
+    roots (MUFU.RSQ, one a branch: two a member path-step). None for a
+    loop with none."""
+    return loop["hot_by_class"].get("MUFU.RSQ", 0) / 2 or None
+
+
 def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
                 dump_prefix: str = "") -> dict:
     """Per kernel matching `pattern`: instruction counts by class, whole and
     per loop; each loop's pair-steps and hot count per pair-step, for
     K10/K11 from its MUFU.EX2 count over the exps a pair-step takes, for
     K3, K4, K6-K9 from its Philox calls (`pair_steps_from_calls`), for
-    K5 (path-steps) from its draw loads (`k5_steps`); with
+    K5 (path-steps) from its draw loads (`k5_steps`), for K1 (member
+    path-steps) from its square roots (`k1_steps`); with
     `dump_prefix`, each kernel's listing is also written to
     `<dump_prefix><kernel>.sass`."""
     out = {}
@@ -941,9 +987,13 @@ def sass_report(lib_path: str, pattern=r"gbm_kernel|svj_td_kernel",
         exps = exps_per_pair_step(name)
         for lp in loops:
             ex2 = lp["hot_by_class"].get("MUFU.EX2", 0)
-            steps = (k5_steps(lp) if "svj_qe_draws_kernel" in name else
-                     pair_steps_from_calls(
-                         name, philox_calls(lp["philox_products"])))
+            if "svj_qe_draws_kernel" in name:
+                steps = k5_steps(lp)
+            elif _SASS_PATTERN["k1"] in name:
+                steps = k1_steps(lp)
+            else:
+                steps = pair_steps_from_calls(
+                    name, philox_calls(lp["philox_products"]))
             if exps and ex2:
                 lp["pair_steps"] = ex2 / exps
             elif steps:
@@ -1187,11 +1237,72 @@ PRNG_CHECKS = (("route", PRNG_PAIRS, 63, 0.25, 2, True, {}),
                ("one_branch", 10_007, 64, 0.25, 1, False, {}))
 K4_PSI_CHECKS = (("psi_4", PRNG_PAIRS, 4, 1.0, 2, True, K5_PSI),
                  ("psi_8", PRNG_PAIRS, 8, 1.0, 2, True, K5_PSI))
+# K1: (name, members, paths, steps, T, streamed jump uniforms). One member
+# at `/api/price`'s shape (in-kernel jump uniforms); a 24-member generation
+# at `/api/calibrate`'s (streamed uniforms, one launch, or one launch a
+# member in a version without the population entry point, as before it);
+# one member at the calibration shape. The checks add a ragged path count
+# at a step count that fills no stage, past one block's 24 members.
+K1_CASES = (("price", 1, 500_000, 63, 0.25, False),
+            ("calibration", 24, 100_000, 50, 0.5, True),
+            ("calibration_one", 1, 100_000, 50, 0.5, True))
+K1_CHECKS = K1_CASES + (("ragged", 25, 100_001, 63, 0.25, False),)
+K1_SMEM = 3 * 4 * 1024 * 4     # svj_draws.cu: kStages x kArrays x words
 # Timed launch of each kernel: (pairs, one thread each, blocks of 256).
-TIMED_PAIRS = {"k2": K2_SHAPES[0][0], "k3": PRNG_PAIRS, "k4": PRNG_PAIRS,
+TIMED_PAIRS = {"k1": K1_CASES[0][2], "k2": K2_SHAPES[0][0],
+               "k3": PRNG_PAIRS, "k4": PRNG_PAIRS,
                "k5": K5_PATHS, "k6": K6_PAIRS,
                "k7": K7_PAIRS, "k8": K8_PAIRS, "k9": K9_PAIRS,
                "k10": ROUGH_PAIRS, "k11": ROUGH_PAIRS}
+
+
+def _k1_case(members: int, paths: int, steps: int, T: float,
+             streamed_u: bool, device):
+    """(members' SVJParams, (z1, z2, u_jump or None, z_js), host consts
+    table, the table on the device) of one K1 case: normals and uniforms
+    from a seeded torch generator; the default SVJ parameters first, the
+    others drawn in the calibration's bounds with numpy."""
+    from mcos_tpu_torch.config import PARAM_BOUNDS
+    from mcos_tpu_torch.models.params import SVJParams
+
+    def make():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(5)
+        z = torch.randn((3, steps, paths), generator=gen, device=device)
+        u = torch.rand((steps, paths), generator=gen, device=device)
+        return z[0], z[1], (u if streamed_u else None), z[2]
+    draws = _plain_once(("k1_draws", paths, steps, streamed_u), make)
+    rng = np.random.default_rng(16)
+    pop = [SVJParams()] + [
+        SVJParams(**{k: float(lo + (hi - lo) * rng.random())
+                     for k, (lo, hi) in PARAM_BOUNDS.items()})
+        for _ in range(members - 1)]
+    table = np.stack([ck._svj_consts(p, 22500.0, T, steps) for p in pop])
+    return pop, draws, table, torch.from_numpy(table).to(device)
+
+
+def _k1_call(lib, out, draws, table, table_dev, seed=43):
+    """One K1 launch of the whole table into out (3, P, 2, paths); a
+    version without the population entry point launches once a member."""
+    z1, z2, u, zjs = draws
+    steps, paths = z1.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (z1.data_ptr(), z2.data_ptr(), zjs.data_ptr(),
+            None if u is None else u.data_ptr())
+    if hasattr(lib, "mcos_svj_terminal_from_draws_population"):
+        rc = lib.mcos_svj_terminal_from_draws_population(
+            *ptrs, table_dev.data_ptr(), out.data_ptr(), paths, steps, 2,
+            len(table), 1, seed, stream)
+    else:
+        for m in range(len(table)):
+            rc = lib.mcos_svj_terminal_from_draws(
+                *ptrs, out[0, m].data_ptr(), out[1, m].data_ptr(),
+                out[2, m].data_ptr(), paths, steps, 2, seed,
+                table[m].ctypes.data, stream)
+            if rc:
+                break
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: {rc}")
 
 
 def _k5_case(paths: int, steps: int, T: float, fields: dict, device):
@@ -1391,6 +1502,30 @@ def _plain_once(key, make):
 def check_outputs(lib, device, kernels=tuple(_KERNELS)) -> dict:
     """A version's kernels against the plain torch versions."""
     res = {}
+    for name, members, paths, steps, T, streamed in (
+            K1_CHECKS if "k1" in kernels else ()):
+        pop, draws, table, table_dev = _k1_case(members, paths, steps, T,
+                                                streamed, device)
+        out = torch.empty((3, members, 2, paths), device=device)
+        _k1_call(lib, out, draws, table, table_dev, seed=42)
+        ref = _plain_once(("k1", name), lambda: torch.stack(
+            ck.svj_terminal_from_draws_population_plain(
+                table, 22500.0, T, *draws, seed=42, companion=True,
+                steps_major=True)))
+        key = f"k1_{name}_{members}x{paths}x{steps}"
+        for i, label in enumerate("svg"):
+            res[f"{key}_{label}_bit_equal_share"] = float(
+                (out[i] == ref[i]).float().mean())
+        res[f"{key}_s_g_max_rel_err"] = max(
+            float(((out[i] - ref[i]).abs() / ref[i].abs()).max())
+            for i in (0, 2))
+        one = torch.empty((3, 1, 2, paths), device=device)
+        same = True
+        for m in range(members):
+            _k1_call(lib, one, draws, table[m:m + 1], table_dev[m:m + 1],
+                     seed=42)
+            same = same and bool((one[:, 0] == out[:, m]).all())
+        res[f"{key}_members_equal_one_member_launches"] = same
     for name, pairs, steps, T, kw in K6_CHECKS if "k6" in kernels else ():
         args, consts, rows, plain = _k6_args(pairs, steps, T, kw)
         out = torch.empty((rows, 2, pairs), device=device)
@@ -1508,6 +1643,17 @@ def time_versions(libs: dict, device, kernels=tuple(_KERNELS),
     k5_libs = k5_libs or {}
     order = list(libs) + list(reversed(list(libs)))
     res = {}
+    for name, members, paths, steps, T, streamed in (
+            K1_CASES if "k1" in kernels else ()):
+        _, draws, table, table_dev = _k1_case(members, paths, steps, T,
+                                              streamed, device)
+        out = torch.empty((3, members, 2, paths), device=device)
+        runs = collections.defaultdict(list)
+        for label in order:
+            runs[label].append(_events_ms(
+                lambda: _k1_call(libs[label], out, draws, table, table_dev),
+                20))
+        res[f"k1_{name}_{members}x{paths}x{steps}"] = dict(runs)
     for pairs, steps, reps in K2_SHAPES if "k2" in kernels else ():
         out = torch.empty((2, pairs), device=device)
         runs = collections.defaultdict(list)
@@ -1608,6 +1754,91 @@ def time_versions(libs: dict, device, kernels=tuple(_KERNELS),
     return res
 
 
+# K1's wrappers: (name, members, paths, steps, T, streamed jump uniforms).
+K1_WRAPPER_CASES = (("price", 1, 500_000, 63, 0.25, False),
+                    ("price_50k", 1, 50_000, 63, 0.25, False),
+                    ("calibration", 24, 100_000, 50, 0.5, True))
+# Run by `time_wrappers` in a fresh process inside one version's tree; its
+# last line of output is a JSON object {case: {loop_ms, host_ms,
+# latency_ms}}.
+_WRAPPER_TIMER = r"""
+import json, statistics, sys, time
+import numpy as np, torch
+from mcos_tpu_torch.config import PARAM_BOUNDS
+from mcos_tpu_torch.models.params import SVJParams
+from mcos_tpu_torch.ops import cuda_kernels as ck
+
+dev = torch.device("cuda", 0)
+ck.load_library()
+res = {}
+for name, members, paths, steps, T, streamed in json.loads(sys.argv[1]):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    z = torch.randn((3, steps, paths), generator=gen, device=dev)
+    u = torch.rand((steps, paths), generator=gen, device=dev) \
+        if streamed else None
+    rng = np.random.default_rng(16)
+    pop = [SVJParams()] + [
+        SVJParams(**{k: float(lo + (hi - lo) * rng.random())
+                     for k, (lo, hi) in PARAM_BOUNDS.items()})
+        for _ in range(members - 1)]
+    kw = dict(antithetic=True, companion=True, steps_major=True)
+    args = (22500.0, T, z[0], z[1], u, z[2])
+    if members == 1:
+        call = lambda: ck.svj_terminal_from_draws(pop[0], *args, **kw)
+    elif hasattr(ck, "svj_terminal_from_draws_population"):
+        call = lambda: ck.svj_terminal_from_draws_population(pop, *args,
+                                                             **kw)
+    else:
+        call = lambda: [ck.svj_terminal_from_draws(p, *args, **kw)
+                        for p in pop]
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    reps, host, lat = 100, [], []
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        h = time.perf_counter()
+        call()
+        host.append(time.perf_counter() - h)
+    torch.cuda.synchronize()
+    loop = (time.perf_counter() - t0) / reps
+    for _ in range(reps):
+        h = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - h)
+    res[name] = {"loop_ms": loop * 1e3,
+                 "host_ms": statistics.median(host) * 1e3,
+                 "latency_ms": statistics.median(lat) * 1e3}
+print(json.dumps(res))
+"""
+
+
+def time_wrappers(roots: dict, rounds: int = 2) -> dict:
+    """K1's wrappers of each version in turns (A B ... B A, `rounds`
+    times: the host's clock spreads more than the card's), a process a
+    turn, each importing `mcos_tpu_torch` from its ROOT (which builds its
+    own library there on first use)."""
+    order = (list(roots) + list(reversed(list(roots)))) * rounds
+    runs = collections.defaultdict(lambda: collections.defaultdict(list))
+    for label in order:
+        root = os.path.abspath(roots[label])
+        env = dict(os.environ, PYTHONPATH=root)
+        out = subprocess.run(
+            [sys.executable, "-c", _WRAPPER_TIMER,
+             json.dumps(K1_WRAPPER_CASES)], cwd=root, env=env,
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            raise RuntimeError(f"wrapper timer in {root} failed:\n"
+                               f"{out.stderr[-4000:]}")
+        for case, row in json.loads(out.stdout.strip().splitlines()[-1]
+                                    ).items():
+            for metric, ms in row.items():
+                runs[f"k1_wrapper_{case}_{metric}"][label].append(ms)
+    return {k: dict(v) for k, v in runs.items()}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1627,6 +1858,9 @@ def main() -> None:
     ap.add_argument("--levers", action="store_true",
                     help="also time each K3/K4/K5/K7 lever of the version "
                     "labelled 'new' taken out alone")
+    ap.add_argument("--wrappers", action="append", default=[],
+                    help="LABEL=ROOT holding a version of the package: "
+                    "time K1's wrappers in turns")
     ap.add_argument("--dump", default="",
                     help="directory for each kernel's SASS listing")
     ap.add_argument("--out", default=os.path.join(_LAB_DIR,
@@ -1660,7 +1894,9 @@ def main() -> None:
         for fn, res in entry["ptxas"].items():
             kernel = next(k for k in kernels if _SASS_PATTERN[k] in fn)
             blocks = -(-TIMED_PAIRS[kernel] // 256)
-            res["occupancy"] = occupancy(res["registers"], 256, blocks)
+            res["occupancy"] = occupancy(
+                res["registers"], 256, blocks,
+                smem=K1_SMEM if kernel == "k1" and "ILi" in fn else 0)
             occ = res["occupancy"]
             print(f"[{label}] {fn}: {res['registers']} registers, stack "
                   f"{res.get('stack')} B, spills {res.get('spill_stores')}/"
@@ -1705,6 +1941,13 @@ def main() -> None:
     if args.time:
         report["times_ms"] = time_versions(libs, device, kernels, k5_libs)
         for shape, runs in report["times_ms"].items():
+            print(f"{shape}: " + ", ".join(
+                f"{label} {np.mean(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
+                for label, v in runs.items()), flush=True)
+    if args.wrappers:
+        report["wrapper_times_ms"] = time_wrappers(
+            dict(v.split("=", 1) for v in args.wrappers))
+        for shape, runs in report["wrapper_times_ms"].items():
             print(f"{shape}: " + ", ".join(
                 f"{label} {np.mean(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
                 for label, v in runs.items()), flush=True)

@@ -4,7 +4,11 @@ for the kernels on the `/api/price`, `/api/convergence`, `/api/exotic`,
 `/api/hhw`, `/api/svcj`, `/api/termsvj` and `/api/rough` paths).
 
 K1 `svj_terminal_from_draws` (csrc/svj_draws.cu) replaces
-    `svj_terminal_from_draws_pallas` / `_svj_draws_kernel`.
+    `svj_terminal_from_draws_pallas` / `_svj_draws_kernel`, and
+    `svj_terminal_from_draws_population` the JAX package's vmap of it over
+    a calibration population: one launch for P parameter sets on one draw
+    set (the single-member wrapper is its P = 1 call; both count on
+    `svj_terminal_from_draws.launches`).
 K2 `gbm_terminal` (csrc/gbm.cu) replaces
     `gbm_terminal_pallas` / `_gbm_kernel`.
 K3 `svj_terminal` (csrc/svj.cu) replaces
@@ -47,10 +51,10 @@ K7 5, K8 6, K9 7, K10 8, K11 9.
 
 The plain versions repeat each kernel's float32 operations in the same
 order. Where a result feeds a discontinuous select (the QE transition's
-branches; K6's dead-or-alive test on the log-spot carry), and in K3, K4
-and K6-K11, the CUDA source keeps nvcc from contracting multiply-adds and
-the plain version here performs the same IEEE operations, so the two
-agree bit for bit; elsewhere (K1, K5's log spot) they differ by FMA
+branches; K6's dead-or-alive test on the log-spot carry), and in K1, K3,
+K4 and K6-K11, the CUDA source keeps nvcc from contracting multiply-adds
+and the plain version here performs the same IEEE operations, so the two
+agree bit for bit; elsewhere (K5's log spot) they differ by FMA
 rounding. K2 also takes the
 hardware's approximate log2, rsqrt and sincos where its plain version
 calls torch's accurate functions (csrc/gbm.cu says how far apart they
@@ -175,9 +179,9 @@ class _Library:
         vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_ulonglong,
                                   ctypes.c_float)
-        lib.mcos_svj_terminal_from_draws.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, u64, vp, vp]
-        lib.mcos_svj_terminal_from_draws.restype = i32
+        lib.mcos_svj_terminal_from_draws_population.argtypes = [
+            vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, u64, vp]
+        lib.mcos_svj_terminal_from_draws_population.restype = i32
         lib.mcos_gbm_terminal.argtypes = [
             vp, i64, i32, i32, u64, f32, f32, f32, vp]
         lib.mcos_gbm_terminal.restype = i32
@@ -444,25 +448,120 @@ def _device_step_table(tab_bytes: bytes, num_steps: int,
 def _svj_consts(params: SVJParams, spot, T, num_steps: int) -> np.ndarray:
     """The 15 per-launch float32 scalars of csrc/svj_draws.cu:SvjConsts, in
     the arithmetic of mcos_tpu/ops/pallas_kernels.py:_pack_params."""
+    return _svj_consts_table([params], spot, T, num_steps)[0]
+
+
+# SVJParams fields in the order of the table columns that copy them.
+_SVJ_FIELDS = ("v0", "kappa", "theta", "xi", "rho", "mu_j", "sigma_j",
+               "lambda_j", "r", "q")
+_SVJ_COPIED = [1, 4, 5, 6, 7, 10, 11]
+
+
+def _svj_consts_table(consts_or_params, spot, T,
+                      num_steps: int) -> np.ndarray:
+    """The (P, 15) float32 table of a population: `_svj_consts`'s
+    arithmetic a column at a time, in one numpy pass over a sequence of
+    SVJParams; or such a table itself (which carries its own spot, T and
+    step count)."""
+    if isinstance(consts_or_params, np.ndarray):
+        table = np.ascontiguousarray(consts_or_params, np.float32)
+        if table.ndim != 2 or table.shape[1] != 15:
+            raise ValueError(f"a consts table is (P, 15), got "
+                             f"{consts_or_params.shape}")
+        if table.shape[0] == 0:
+            raise ValueError("the population has no member")
+        return table
+    if len(consts_or_params) == 0:
+        raise ValueError("the population has no member")
     f = np.float32
+    fields = np.array([[getattr(p, name) for name in _SVJ_FIELDS]
+                       for p in consts_or_params], np.float32)
+    (v0, kappa, theta, xi, rho, mu_j, sig_j), (lam, r, q) = (
+        fields[:, :7].T, fields[:, 7:].T)
+    table = np.empty((len(fields), 15), np.float32)
+    table[:, _SVJ_COPIED] = fields[:, :7]
     with np.errstate(all="ignore"):
         dt = f(T) / f(num_steps)
-        k = np.exp(f(params.mu_j) + f(0.5) * f(params.sigma_j) ** 2) - f(1.0)
-        sigma_cv = np.sqrt(f(params.v0))
-        vals = (
-            f(spot), f(params.v0), dt, np.sqrt(dt), f(params.kappa),
-            f(params.theta), f(params.xi), f(params.rho),
-            np.sqrt(f(1.0) - f(params.rho) ** 2),
-            f(params.lambda_j) * dt, f(params.mu_j), f(params.sigma_j),
-            (f(params.r) - f(params.q) - f(params.lambda_j) * k) * dt,
-            (f(params.r) - f(params.q) - f(0.5) * sigma_cv ** 2) * dt,
-            sigma_cv,
-        )
-    return np.asarray(vals, np.float32)
+        k = np.exp(mu_j + f(0.5) * sig_j ** 2) - f(1.0)
+        sigma_cv = np.sqrt(v0)
+        table[:, 0] = f(spot)
+        table[:, 2] = dt
+        table[:, 3] = np.sqrt(dt)
+        table[:, 8] = np.sqrt(f(1.0) - rho ** 2)
+        table[:, 9] = lam * dt
+        table[:, 12] = (r - q - lam * k) * dt
+        table[:, 13] = (r - q - f(0.5) * sigma_cv ** 2) * dt
+        table[:, 14] = sigma_cv
+    return table
 
 
 def _steps_major(x: torch.Tensor, steps_major: bool) -> torch.Tensor:
     return x if steps_major else x.T
+
+
+def svj_terminal_from_draws_population_plain(
+    consts_or_params, spot, T, z1, z2, u_jump, z_js, *, seed: int = 0,
+    antithetic: bool = True, companion: bool = False,
+    steps_major: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch version of K1: every member's scalars, the kernel's
+    algebra (csrc/svj_draws.cu: sums of sqrt(v) z1 and of v carried for
+    the log spot, the drift, the jumps and the companion leg summed apart,
+    the mean reversion and xi dW2 on products taken once a member) in its
+    order of IEEE operations, and its output layout, one step at a time
+    with a leading member axis. u_jump=None
+    draws the uniforms from `philox_jump_uniforms` (the kernel's in-kernel
+    stream). Returns (S, v, G or None), each (P, n_branch, num_paths)."""
+    z1, z2, z_js = (_steps_major(x, steps_major) for x in (z1, z2, z_js))
+    num_steps, num_paths = z1.shape
+    device = z1.device
+    if u_jump is None:
+        u_jump = philox_jump_uniforms(num_steps, num_paths, seed, device)
+    else:
+        u_jump = _steps_major(u_jump, steps_major)
+    table = _svj_consts_table(consts_or_params, spot, T, num_steps)
+    # Each scalar a (P, 1, 1) column, exact float32 as the kernel reads it.
+    (spot_f, v0, dt, sqrt_dt, kappa, theta, xi, rho, rho_perp, lam_dt, mu_j,
+     sig_j, drift_dt, g_drift_dt, sig_cv) = torch.from_numpy(
+        table.T.copy()).to(device)[:, :, None, None]
+    kdt = kappa * dt
+    one_minus_kdt = 1.0 - kdt
+    kdt_theta = kdt * theta
+    xi_rho = (xi * rho) * sqrt_dt
+    xi_rho_perp = (xi * rho_perp) * sqrt_dt
+    n_branch = 2 if antithetic else 1
+    sign = torch.tensor([1.0, -1.0][:n_branch], dtype=torch.float32,
+                        device=device)[:, None]
+    members = table.shape[0]
+    sz = torch.zeros((members, n_branch, num_paths), dtype=torch.float32,
+                     device=device)
+    sv = torch.zeros_like(sz)
+    v = torch.clamp(v0, min=0.0).expand(sz.shape).clone()
+    hits = torch.zeros((members, 1, num_paths), dtype=torch.float32,
+                       device=device)
+    zj_sum = torch.zeros_like(hits)
+    z1_sum = torch.zeros(num_paths, dtype=torch.float32, device=device)
+    for t in range(num_steps):
+        z1_sum = z1_sum + z1[t]
+        a, b = z1[t] * sign, z2[t] * sign
+        xi_dw2 = xi_rho * a + xi_rho_perp * b
+        hit = u_jump[t] < lam_dt
+        hits = torch.where(hit, hits + 1.0, hits)
+        zj_sum = torch.where(hit, zj_sum + z_js[t], zj_sum)
+        sqrt_v = torch.sqrt(v)
+        sz = sz + sqrt_v * a
+        sv = sv + v
+        v = torch.clamp(v * one_minus_kdt + kdt_theta + sqrt_v * xi_dw2,
+                        min=0.0)
+    x = sqrt_dt * sz - (0.5 * dt) * sv
+    steps_f = float(num_steps)
+    jump = mu_j * hits + sign * (sig_j * zj_sum)
+    s = spot_f * torch.exp(drift_dt * steps_f + x + jump)
+    g = None
+    if companion:
+        log_g = g_drift_dt * steps_f + sign * ((z1_sum * sqrt_dt) * sig_cv)
+        g = spot_f * torch.exp(log_g)
+    return s, v, g
 
 
 def svj_terminal_from_draws_plain(
@@ -470,40 +569,12 @@ def svj_terminal_from_draws_plain(
     antithetic: bool = True, companion: bool = False,
     steps_major: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Plain torch version of K1: the same scalars, algebra and output
-    layout, one step at a time. u_jump=None draws the uniforms from
-    `philox_jump_uniforms` (the kernel's in-kernel stream)."""
-    z1, z2, z_js = (_steps_major(x, steps_major) for x in (z1, z2, z_js))
-    num_steps, num_paths = z1.shape
-    if u_jump is None:
-        u_jump = philox_jump_uniforms(num_steps, num_paths, seed, z1.device)
-    else:
-        u_jump = _steps_major(u_jump, steps_major)
-    (spot_f, v0, dt, sqrt_dt, kappa, theta, xi, rho, rho_perp, lam_dt, mu_j,
-     sig_j, drift_dt, g_drift_dt, sig_cv) = (
-        float(x) for x in _svj_consts(params, spot, T, num_steps))
-    n_branch = 2 if antithetic else 1
-    sign = torch.tensor([1.0, -1.0][:n_branch], dtype=torch.float32,
-                        device=z1.device)[:, None]
-    shape = (n_branch, num_paths)
-    log_s = torch.zeros(shape, dtype=torch.float32, device=z1.device)
-    v = torch.full(shape, v0, dtype=torch.float32, device=z1.device)
-    log_g = torch.zeros_like(log_s)
-    for t in range(num_steps):
-        a, b, zj = z1[t] * sign, z2[t] * sign, z_js[t] * sign
-        v_pos = torch.clamp(v, min=0.0)
-        sqrt_v = torch.sqrt(v_pos)
-        dw1 = a * sqrt_dt
-        dw2 = rho * dw1 + rho_perp * b * sqrt_dt
-        jump = torch.where(u_jump[t] < lam_dt, mu_j + sig_j * zj,
-                           torch.zeros_like(zj))
-        log_s = log_s + (drift_dt - 0.5 * v_pos * dt) + sqrt_v * dw1 + jump
-        v = torch.clamp(v_pos + kappa * (theta - v_pos) * dt
-                        + xi * sqrt_v * dw2, min=0.0)
-        log_g = log_g + g_drift_dt + sig_cv * dw1
-    s = spot_f * torch.exp(log_s)
-    g = spot_f * torch.exp(log_g) if companion else None
-    return s, v, g
+    """Plain torch version of K1 at one member: the population's plain
+    version on a one-row table, each output (n_branch, num_paths)."""
+    s, v, g = svj_terminal_from_draws_population_plain(
+        [params], spot, T, z1, z2, u_jump, z_js, seed=seed,
+        antithetic=antithetic, companion=companion, steps_major=steps_major)
+    return s[0], v[0], (g[0] if companion else None)
 
 
 def _check_draw(name: str, x: torch.Tensor, ref: torch.Tensor) -> None:
@@ -516,23 +587,29 @@ def _check_draw(name: str, x: torch.Tensor, ref: torch.Tensor) -> None:
                          f"z1 {tuple(ref.shape)}")
 
 
-def svj_terminal_from_draws(
-    params: SVJParams, spot, T, z1: torch.Tensor, z2: torch.Tensor,
+def svj_terminal_from_draws_population(
+    consts_or_params, spot, T, z1: torch.Tensor, z2: torch.Tensor,
     u_jump: Optional[torch.Tensor], z_js: torch.Tensor, *, seed: int = 0,
     antithetic: bool = True, companion: bool = False,
     steps_major: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """K1 wrapper, the counterpart of `svj_terminal_from_draws_pallas`.
+    """K1 wrapper: P parameter sets on one draw set in one launch, the
+    counterpart of the JAX package's vmap of `svj_terminal_from_draws_pallas`
+    over a population.
 
     Args:
+        consts_or_params: a sequence of P SVJParams, or their (P, 15)
+            `_svj_consts` table.
         z1, z2, z_js, u_jump: float32 draws, (num_steps, num_paths) with
             `steps_major=True` (what `sobol_svj_draws` gives) or
             (num_paths, num_steps). u_jump=None draws the jump uniforms
             in-kernel from Philox keyed on `seed`.
     Returns:
-        (S, v, G or None), each (n_branch, num_paths): row 0 the base
-        branch, row 1 (antithetic) the negated normals with shared jump
-        uniforms.
+        (S, v, G or None), each (P, n_branch, num_paths): member p's rows
+        are what a one-member launch on its parameters gives; branch 0 the
+        base, branch 1 (antithetic) the negated normals with shared jump
+        uniforms. The one launch counts once, on
+        `svj_terminal_from_draws.launches` (K1's count).
     """
     draws = {"z1": z1, "z2": z2, "z_js": z_js}
     if u_jump is not None:
@@ -542,8 +619,8 @@ def svj_terminal_from_draws(
     if z1.dim() != 2 or z1.numel() == 0:
         raise ValueError(f"draws must be non-empty 2-D, got {tuple(z1.shape)}")
     if z1.device.type == "cpu":
-        return svj_terminal_from_draws_plain(
-            params, spot, T, z1, z2, u_jump, z_js, seed=seed,
+        return svj_terminal_from_draws_population_plain(
+            consts_or_params, spot, T, z1, z2, u_jump, z_js, seed=seed,
             antithetic=antithetic, companion=companion,
             steps_major=steps_major)
     if z1.device.type != "cuda":
@@ -556,23 +633,42 @@ def svj_terminal_from_draws(
     num_steps, num_paths = draws["z1"].shape
     n_branch = 2 if antithetic else 1
     _seed_words(seed)
-    consts = _svj_consts(params, spot, T, num_steps)
-    out = torch.empty((3 if companion else 2, n_branch, num_paths),
+    table = _svj_consts_table(consts_or_params, spot, T, num_steps)
+    members = table.shape[0]
+    # One host-to-device copy of the table a launch, queued on the stream
+    # without waiting for it (the bytes are staged before the call returns).
+    consts = torch.from_numpy(table).to(z1.device, non_blocking=True)
+    out = torch.empty((3 if companion else 2, members, n_branch, num_paths),
                       dtype=torch.float32, device=z1.device)
     lib = load_library()
     with torch.cuda.device(z1.device):
-        rc = lib.mcos_svj_terminal_from_draws(
+        rc = lib.mcos_svj_terminal_from_draws_population(
             draws["z1"].data_ptr(), draws["z2"].data_ptr(),
             draws["z_js"].data_ptr(),
             draws["u_jump"].data_ptr() if u_jump is not None else None,
-            out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr() if companion else None,
-            num_paths, num_steps, n_branch, int(seed),
-            consts.ctypes.data, _stream_handle(z1.device))
-    _check_rc(lib, rc, "svj_terminal_from_draws")
+            consts.data_ptr(), out.data_ptr(), num_paths, num_steps,
+            n_branch, members, int(companion), int(seed),
+            _stream_handle(z1.device))
+    _check_rc(lib, rc, "svj_terminal_from_draws_population")
     with _COUNT_LOCK:
         svj_terminal_from_draws.launches += 1
     return out[0], out[1], (out[2] if companion else None)
+
+
+def svj_terminal_from_draws(
+    params: SVJParams, spot, T, z1: torch.Tensor, z2: torch.Tensor,
+    u_jump: Optional[torch.Tensor], z_js: torch.Tensor, *, seed: int = 0,
+    antithetic: bool = True, companion: bool = False,
+    steps_major: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K1 wrapper at one member, the counterpart of
+    `svj_terminal_from_draws_pallas`: `svj_terminal_from_draws_population`
+    on `[params]` (the same arguments), each output (n_branch,
+    num_paths)."""
+    s, v, g = svj_terminal_from_draws_population(
+        [params], spot, T, z1, z2, u_jump, z_js, seed=seed,
+        antithetic=antithetic, companion=companion, steps_major=steps_major)
+    return s[0], v[0], (g[0] if companion else None)
 
 
 svj_terminal_from_draws.launches = 0

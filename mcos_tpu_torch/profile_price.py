@@ -72,8 +72,10 @@ No kernel of the repo runs on either: they are torch ops throughout.
 I at the schema defaults on synthetic market data (`slice_i_body`):
 `handle_calibrate` on an 11-strike call chain at 0.8-1.2 × the forward,
 T = 0.5, priced by COS at `CHAIN_PARAMS` (100k paths × 50 steps, 24
-members: one K1 launch a member a generation, then the Adam polish on the
-twin under autograd); `handle_surface` on a Black-Scholes chain of a known
+members: one K1 launch a generation, then the Adam polish on the twin
+under autograd), with `phases`: the differential evolution's and the
+polish's wall time, launches and device time apart (`_calibrate_phases`);
+`handle_surface` on a Black-Scholes chain of a known
 smile (9 strikes × 3 maturities, SABR slice fits; '{"fit_ssvi": true}' adds
 the SSVI fit); `handle_quotegreeks` (host float64; an 11-strike chain and
 an ATM vanilla); `handle_localvol` (200k paths, 100 steps a year) and
@@ -267,10 +269,74 @@ def profile_route(route: str, options: dict, reps: int = 5) -> dict:
     call()
     torch.cuda.synchronize(device)
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    return {"device": torch.cuda.get_device_name(device), "body": body,
-            "wall_ms": _wall_ms(call, 4 * reps),
-            "peak_device_memory_gib": peak_gib,
-            "profile": _profiled(call, reps)}
+    out = {"device": torch.cuda.get_device_name(device), "body": body,
+           "wall_ms": _wall_ms(call, 4 * reps),
+           "peak_device_memory_gib": peak_gib}
+    if route == "calibrate":
+        out["phases"] = _calibrate_phases(call)
+    out["profile"] = _profiled(call, reps)
+    return out
+
+
+def _calibrate_phases(call) -> dict:
+    """A calibrate's differential evolution (both stages) and its Adam
+    polish apart: each phase's wall ms, synchronised at its ends, over one
+    call, and its kernel launches and device ms from a second call with
+    the profiler around each phase alone; "other" is the rest of the
+    first call's wall time (the chain's host work, the handler)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from mcos_tpu_torch.engine import calibration as cal
+
+    real = {"de": cal.differential_evolution, "polish": cal.adam_polish}
+    out = {k: {"calls": 0, "wall_ms": 0.0, "launches": 0,
+               "device_ms": 0.0} for k in real}
+
+    def timed(key, profiled):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not profiled:
+                res = real[key](*a, **kw)
+                torch.cuda.synchronize()
+                out[key]["calls"] += 1
+                out[key]["wall_ms"] += (time.perf_counter() - t0) * 1e3
+                return res
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                res = real[key](*a, **kw)
+                torch.cuda.synchronize()
+            dev_ms, launches, _ = _kernel_stats(prof)
+            out[key]["launches"] += launches
+            out[key]["device_ms"] += dev_ms
+            return res
+        return run
+
+    try:
+        for profiled in (False, True):
+            cal.differential_evolution = timed("de", profiled)
+            cal.adam_polish = timed("polish", profiled)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            if not profiled:
+                out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        cal.differential_evolution = real["de"]
+        cal.adam_polish = real["polish"]
+    out["other_wall_ms"] = (out["wall_ms"] - out["de"]["wall_ms"]
+                            - out["polish"]["wall_ms"])
+    return out
+
+
+def _kernel_stats(prof):
+    """(device ms, kernel launches, kernel events) over a profile."""
+    kernels = [e for e in prof.key_averages()
+               if _device_us(e) > 0 and getattr(e, "device_type", None)
+               is not None and "CUDA" in str(e.device_type)]
+    return (sum(_device_us(e) for e in kernels) / 1e3,
+            sum(e.count for e in kernels), kernels)
 
 
 def _profiled(call, reps: int) -> dict:
@@ -284,11 +350,8 @@ def _profiled(call, reps: int) -> dict:
             call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = [e for e in prof.key_averages()
-               if _device_us(e) > 0 and getattr(e, "device_type", None)
-               is not None and "CUDA" in str(e.device_type)]
-    dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
-    launches = sum(e.count for e in kernels) / reps
+    dev_ms, launches, kernels = _kernel_stats(prof)
+    dev_ms, launches = dev_ms / reps, launches / reps
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
     return {
         "profiled_wall_ms": wall,

@@ -265,6 +265,61 @@ def test_svj_objective_matches_jax_on_replayed_draws(replayed, backend):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("stage", [1, 2])
+def test_population_objectives_match_jax_vmap(replayed, monkeypatch, stage):
+    """The DE's objective (backend "cuda"): one K1 population call and one
+    (P, K, paths) pricing tail for the whole generation, against the JAX
+    package's vmapped objective, as its differential evolution calls it
+    (rtol 1e-4, as above)."""
+    from mcos_tpu_torch.ops import cuda_kernels as ck
+
+    k_price, draws = replayed
+    strikes = STRIKES if stage == 2 else STRIKES[3:8]
+    w = np.asarray(jcal.compute_vega_weights(SPOT, strikes, T, 0.065, 0.012,
+                                             0.15))
+    jdata, pdata = _data(k_price, draws, strikes, w)
+    core = [2.0, 0.05, 0.4, -0.6, 0.045]
+    jdata["heston_x"] = jnp.asarray(core, jnp.float32)
+    pdata["heston_x"] = core
+    base = HESTON_X if stage == 1 else JUMP_X
+    x = np.concatenate([base, base * np.float32(0.5)]).astype(np.float32)
+    jfn, pfn = ((jcal.heston_objective, pcal.heston_objective) if stage == 1
+                else (jcal.svj_objective, pcal.svj_objective))
+    calls = []
+    real = ck.svj_terminal_from_draws_population
+    monkeypatch.setattr(ck, "svj_terminal_from_draws_population",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = pfn(torch.from_numpy(x), pdata, backend="cuda").numpy()
+    assert len(calls) == 1
+    ref = np.asarray(jax.vmap(lambda xx: jfn(
+        xx, jdata, num_paths=N, num_steps=STEPS))(jnp.asarray(x)))
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("budget_members", [1, 2])
+def test_population_tail_chunks_keep_every_bit(replayed, monkeypatch,
+                                               budget_members):
+    """The population tail a few members at a time (a budget forced below
+    the generation's tables) gives the prices of the whole-generation tail,
+    word for word."""
+    from mcos_tpu_torch.engine import pricer
+
+    _, draws = replayed
+    members = [SVJParams(**dict(zip(pcal._HESTON_NAMES, row)), lambda_j=0.8,
+                         mu_j=-0.08, sigma_j=0.12, r=0.065, q=0.012)
+               for row in HESTON_X.tolist() * 2]
+    strikes = torch.from_numpy(STRIKES.astype(np.float32))
+    whole = pricer.population_prices_from_draws(members, SPOT, strikes, T,
+                                                *draws, is_call=True)
+    per_member = 16 * len(STRIKES) * N
+    monkeypatch.setattr(pricer, "POPULATION_TAIL_BUDGET",
+                        budget_members * per_member)
+    parts = pricer.population_prices_from_draws(members, SPOT, strikes, T,
+                                                *draws, is_call=True)
+    assert whole.shape == (6, len(STRIKES))
+    assert torch.equal(parts, whole)
+
+
 def test_polish_objective_is_differentiable(replayed):
     k_price, draws = replayed
     strikes = STRIKES[3:8]

@@ -38,6 +38,9 @@ _K4_KEYS = ("_ZN41_GLOBAL__N__1adea571_9_svj_qe_cu_385c63d113svj_qe_kernelILi1E"
             "EEvPfS1_S1_PKdixiN4mcos10PhiloxKeysENS1_8QeConstsE")
 _K1 = ("_ZN44_GLOBAL__N__3e1f0b2a_12_svj_draws_cu_7c4d9a1e16svj_draws_kernel"
        "EPKfS1_S1_S1_PfS2_S2_xii5uint2NS_9SvjConstsE")
+# K1 over a population (csrc/svj_draws.cu, three members a thread).
+_K1_POP = ("_ZN45_GLOBAL__N__0c02a65f_12_svj_draws_cu_70314c3216svj_draws_"
+           "kernelILi3EEEvPKfS2_S2_S2_S2_PfxiiiiiN4mcos10PhiloxKeysE")
 _K2 = ("_ZN38_GLOBAL__N__eca620af_6_gbm_cu_21a6af4110gbm_kernelEPfxiiN4mcos"
        "10PhiloxKeysEfff")
 _K9 = ("_ZN41_GLOBAL__N__ed5980cf_9_svj_td_cu_322ca70213svj_td_kernelILi2EEEv"
@@ -467,21 +470,39 @@ def test_the_lab_knows_k3_and_k4():
 
 
 @pytest.mark.parametrize("name, short", [
-    (_K1, None), (_K2, "k2"), (_K3, "k3"), (_K4, "k4"), (_K4_KEYS, "k4"),
+    (_K1, "k1"), (_K1_POP, "k1"), (_K2, "k2"), (_K3, "k3"), (_K4, "k4"),
+    (_K4_KEYS, "k4"),
     (_K5, "k5"), (_K6, "k6"), (_K7, "k7"), (_K8, "k8"), (_K9, "k9"),
     (_K10, "k10"), (_K11, "k11")])
 def test_anchored_patterns_find_each_kernel_alone(name, short):
     """Over the eleven kernels' instantiations, each of the lab's patterns
     finds its own kernel and no other's, as a substring (ptxas names) and
     as a regular expression (`sass_report`): `svj_kernel` is a part of no
-    other name once anchored, nor `svj_qe_kernel` of K5's. K1 is not in
-    the lab."""
+    other name once anchored, nor `svj_qe_kernel` of K5's, nor K1's
+    `svj_draws_kernel` of K5's `svj_qe_draws_kernel`; K1's pattern finds
+    the one-member kernel of earlier versions and the population kernel
+    alike."""
     import re
 
     hits = [k for k, pat in kl._SASS_PATTERN.items() if pat in name]
     assert hits == ([short] if short else [])
     hits = [k for k, pat in kl._SASS_PATTERN.items() if re.search(pat, name)]
     assert hits == ([short] if short else [])
+
+
+def test_sass_report_reads_k1_member_steps(monkeypatch):
+    """A K1 pass of three members' steps with both branches holds six
+    square roots (MUFU.RSQ): three member path-steps."""
+    body = [(0x100 + 0x10 * i, "MUFU.RSQ", f"MUFU.RSQ R{i}, R{i + 8}")
+            for i in range(6)]
+    body += [(0x160 + 0x10 * i, "FADD", "FADD R1, R1, R2")
+             for i in range(17)]
+    body += [(0x270, "BRA", "@P0 BRA 0x100"), (0x280, "EXIT", "EXIT")]
+    monkeypatch.setattr(kl, "sass_functions", lambda path: {_K1_POP: body})
+    (loop,) = kl.sass_report("lib.so", kl._SASS_PATTERN["k1"])[_K1_POP][
+        "loops"]
+    assert loop["pair_steps"] == 3
+    assert loop["hot_per_pair_step"] == 24 / 3
 
 
 @pytest.mark.parametrize("name, calls, steps", [

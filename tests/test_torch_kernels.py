@@ -205,3 +205,88 @@ def test_wrapper_rule_rejects_other_devices():
     z = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError):
         ck.svj_terminal_from_draws(SVJParams(), 1.0, 1.0, z, z, None, z)
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# K1 over a population: P parameter sets on one draw set
+# ─────────────────────────────────────────────────────────────────────────────
+_POPULATION = (
+    SVJParams(**_FIELDS),
+    SVJParams(kappa=1.0, theta=0.09, xi=0.9, rho=-0.2, v0=0.06, lambda_j=0.0,
+              mu_j=0.0, sigma_j=0.01),
+    SVJParams(kappa=6.0, theta=0.02, xi=1.2, rho=0.3, v0=0.01, lambda_j=4.0,
+              mu_j=-0.15, sigma_j=0.25),
+)
+
+
+@pytest.mark.parametrize("members", [1, 3])
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("companion", [True, False])
+@pytest.mark.parametrize("explicit_u", [True, False])
+def test_k1_population_plain_equals_each_member(draws, members, antithetic,
+                                                companion, explicit_u):
+    """Member p of the population's plain version is, word for word, the
+    one-member plain version on its parameters (the third member's ξ = 1.2
+    floors v at 0 on some paths)."""
+    z1, z2, uj, zjs = (torch.from_numpy(x.T.copy()) for x in draws)
+    u = uj if explicit_u else None
+    kw = dict(seed=5, antithetic=antithetic, companion=companion,
+              steps_major=True)
+    pop = _POPULATION[:members]
+    got = ck.svj_terminal_from_draws_population(pop, 22500.0, 0.5, z1, z2,
+                                                u, zjs, **kw)
+    assert (got[2] is None) == (not companion)
+    nb = 2 if antithetic else 1
+    for p, params in enumerate(pop):
+        ref = ck.svj_terminal_from_draws_plain(params, 22500.0, 0.5, z1, z2,
+                                               u, zjs, **kw)
+        for g, r in zip(got, ref):
+            if r is None:
+                continue
+            assert g.shape == (members, nb, 2048)
+            np.testing.assert_array_equal(g[p].numpy(), r.numpy())
+    if members == 3:
+        assert (got[1][2] == 0).any()
+
+
+def test_k1_population_takes_a_consts_table(draws):
+    z1, z2, uj, zjs = (torch.from_numpy(x.T.copy()) for x in draws)
+    table = np.stack([ck._svj_consts(p, 22500.0, 0.5, 20)
+                      for p in _POPULATION])
+    a = ck.svj_terminal_from_draws_population(
+        _POPULATION, 22500.0, 0.5, z1, z2, uj, zjs, steps_major=True)
+    b = ck.svj_terminal_from_draws_population(
+        table, 22500.0, 0.5, z1, z2, uj, zjs, steps_major=True)
+    for x, y in zip(a[:2], b[:2]):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    with pytest.raises(ValueError):
+        ck.svj_terminal_from_draws_population(table[:, :14], 1.0, 1.0, z1,
+                                              z2, uj, zjs, steps_major=True)
+    with pytest.raises(ValueError):
+        ck.svj_terminal_from_draws_population([], 1.0, 1.0, z1, z2, uj, zjs,
+                                              steps_major=True)
+
+
+def test_k1_consts_table_matches_pack_params():
+    """The population's (P, 15) table, built in one numpy pass, against the
+    JAX package's `_pack_params` member by member (the scalars the TPU
+    kernel reads), and each row bit for bit the one-member table of its
+    parameters: a member's launch constants do not depend on its
+    neighbours."""
+    from mcos_tpu.ops import pallas_kernels as jpk
+
+    order = [jpk._P_SPOT, jpk._P_V0, jpk._P_DT, jpk._P_SQRT_DT, jpk._P_KAPPA,
+             jpk._P_THETA, jpk._P_XI, jpk._P_RHO, jpk._P_RHO_PERP,
+             jpk._P_LAM_DT, jpk._P_MU_J, jpk._P_SIG_J, jpk._P_DRIFT_DT,
+             jpk._P_G_DRIFT_DT, jpk._P_SIG_CV]
+    fields = ("kappa", "theta", "xi", "rho", "v0", "lambda_j", "mu_j",
+              "sigma_j", "r", "q")
+    table = ck._svj_consts_table(_POPULATION, 22500.0, 0.5, 63)
+    assert table.dtype == np.float32 and table.shape == (3, 15)
+    for row, params in zip(table, _POPULATION):
+        ref = np.asarray(jpk._pack_params(
+            JSVJParams(**{k: getattr(params, k) for k in fields}), 22500.0,
+            0.5, 63))
+        np.testing.assert_allclose(row, ref[order], rtol=2e-6)
+        np.testing.assert_array_equal(
+            row, ck._svj_consts(params, 22500.0, 0.5, 63))
