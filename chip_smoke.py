@@ -188,7 +188,28 @@
    /api/calibrate once in process under the profiler; then the counts show K1 launched exactly 127 times
    a calibration (one launch a generation) and nothing else; and the SLV and
    local-vol loops on the card against the CPU on the same normals.
-13. Prints the kernels' JSON line (each kernel's launches on its own path
+13. The desk tools (slice J), with the counts set to 0 again: a new server
+   on 127.0.0.1 answers POST /api/pnl (explained + unexplained = total,
+   equal to the CPU's), /api/margin at the schema's width (200 000 pairs,
+   252 steps a year; a hedged book margins to 0, a short call's worst
+   scenario is up and matches moving the spot within 5 %, a short put's is
+   down, a long call's margin is at most its premium, a strangle is
+   strictly subadditive), /api/replicate (a vanilla replicates itself
+   against COS, a digital as a dense call spread, a GBM digital against
+   Black-Scholes), /api/volderivs (the variance swap within 4 se of its
+   closed form, the vol swap under GBM, the VIX MC check against the
+   quadrature, VIX put-call parity), /api/book (GBM positions against
+   `bs_all_greeks`, a flat book), /api/exposure (forward EE against Black,
+   a call's CVA closed form, cva_delta against a CRN difference) and
+   /api/modelrisk (an OTM put's premia in order), each route's 400s and the
+   500 of a `corr` that is not positive definite, 3 warm requests a route,
+   each route once in process under the profiler, a 4 096-position margin
+   with its peak device memory, and margin, an Asian replicate, the VIX MC
+   check and modelrisk's HHW leg on the card against the CPU (rtol 1e-5 at
+   10 000 paths). Every request's launches are checked: K3 exactly 3 a
+   margin maturity group, K6 1 a replicate, K4 1 a `with_mc_check`, K7 1 a
+   modelrisk, no other kernel, none for book, pnl, exposure and the swaps.
+14. Prints the kernels' JSON line (each kernel's launches on its own path
    and, under "launches_by_path", on every path; K1's row lists its two
    shapes under "shapes": one member at `/api/price`'s 500 000 × 63 and
    the 24-member population at `/api/calibrate`'s 100 000 × 50), the card
@@ -3876,6 +3897,442 @@ def calibration_path(device, ck, server, cal, localvol, slv, ssvi,
     return out
 
 
+#: Card against CPU: the same engines and seeds at a reduced width; every
+#: kernel equals its plain version bit for bit, so the two devices part by
+#: float32 rounding of the exp/log/sqrt in the plain versions and of the
+#: reductions over paths.
+DESK_CARD_CPU_PATHS = 10_000
+DESK_CARD_CPU_RTOL = 1e-5
+
+
+def desk_card_vs_cpu(device, margin, hedge, volderivs, modelrisk_hhw,
+                     SVJParams):
+    """Margin's price table (3 K3 launches), an Asian replicate (1 K6), the
+    VIX MC check (1 K4) and modelrisk's HHW leg (1 K7) on the card against
+    the same engines on the CPU, same seeds, DESK_CARD_CPU_PATHS paths."""
+    n = DESK_CARD_CPU_PATHS
+    params = SVJParams()
+    out = {}
+
+    def both(what, fn):
+        a, b = fn(device), fn("cpu")
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+        log(f"card vs CPU, {what}: max rel diff {err:.3e} (rtol "
+            f"{DESK_CARD_CPU_RTOL:g})")
+        check(err < DESK_CARD_CPU_RTOL, f"card vs CPU: {what}")
+        out[what] = err
+
+    strikes = np.array([21000.0, 22500.0, 24000.0])
+    both("margin price table (3 K3 launches)", lambda d: margin.MarginEngine(
+        params, num_paths=n, device=d).price_table(
+            SPOT, strikes, np.full(3, 0.25), np.array([False, True, True])))
+
+    def rep(d):
+        r = hedge.StaticHedgeEngine(params, num_paths=n, device=d).replicate(
+            SPOT, 0.25, kind="asian", strike=SPOT)
+        return [r["target_price_mc"], r["hedge_value"], r["r2"],
+                r["resid_std"]]
+
+    both("replicate asian (1 K6 launch)", rep)
+    both("VIX MC check (1 K4 launch)", lambda d: volderivs.VolDerivsEngine(
+        params, num_paths=n, device=d).vix_future_mc(0.5)["future_mc"])
+    both("modelrisk HHW leg (1 K7 launch)", lambda d: [
+        modelrisk_hhw(d, n)["price"]])
+    return out
+
+
+def desk_path(device, ck, server, cos_price, bs_price, bs_all_greeks,
+              SVJParams, gbm_params):
+    """Slice J over HTTP on a fresh server, with the launch counts set to 0
+    just before: `/api/pnl` (host), `/api/margin` (three K3 launches a
+    maturity group), `/api/replicate` (one K6), `/api/volderivs` (one K4 a
+    `with_mc_check`; the swaps a step loop), `/api/book` and
+    `/api/exposure` (step loops under autograd, no kernel) and
+    `/api/modelrisk` (one K7); each request's launches checked against
+    those counts, every other kernel at 0."""
+    from scipy.stats import norm
+
+    from mcos_tpu_torch.engine import hedge, margin, volderivs
+    from mcos_tpu_torch.engine.hhw import HHWEngine
+    from mcos_tpu_torch.engine.pricer import MonteCarloEngine
+    from mcos_tpu_torch.ops.hhw import HHWParams
+    from mcos_tpu_torch.profile_price import ROUTE_BODIES
+
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    want = dict.fromkeys(ck.launch_counts(), 0)
+    out = {"requests": {}}
+
+    def counted(what, n, fn):
+        """fn() must launch exactly n = {kernel: launches} and no other
+        kernel."""
+        before = ck.launch_counts()
+        res = fn()
+        after = ck.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        exp = {k: n.get(k, 0) for k in after}
+        check(got == exp, f"{what}: launches {got}, expected {exp}")
+        for k, v in n.items():
+            want[k] += v
+        return res
+
+    def ask(what, path, body, n=None):
+        status, res, ms = counted(what, n or {},
+                                  lambda: post(base, body, path=path))
+        check(status == 200, f"{what}: status {status}")
+        check(all_finite(res), f"{what}: every number finite")
+        out["requests"][what] = {"latency_ms": ms,
+                                 "elapsed_ms": res.get("elapsed_ms")}
+        return res
+
+    def refused(what, path, body, code=400):
+        try:
+            post(base, body, path=path)
+            check(False, f"{what} must answer {code}")
+        except urllib.error.HTTPError as e:
+            detail = json.loads(e.read())["detail"]
+            check(e.code == code, f"{what}: {e.code} {detail!r}")
+            log(f"{path} {what}: {code} {str(detail)[:80]!r}")
+
+    def lap(what):
+        log(f"  [{what}: {time.perf_counter() - t_start:.1f} s into the "
+            f"path]")
+
+    B = ROUTE_BODIES
+    gbm = {"kappa": 0.0, "theta": 0.04, "xi": 0.0, "rho": 0.0, "v0": 0.04,
+           "lambda_j": 0.0, "mu_j": 0.0, "sigma_j": 0.0, "r": 0.065,
+           "q": 0.012}
+    K6, K4, K7 = ({"svj_path_stats": 1}, {"svj_terminal_qe": 1},
+                  {"hhw_terminal": 1})
+    try:
+        # ── /api/pnl: host COS, equal to the CPU's ───────────────────────
+        res = ask("pnl", "/api/pnl", B["pnl"])
+        check(abs(res["explained"] + res["unexplained"] - res["total_pnl"])
+              < 1e-9, "pnl: explained + unexplained is the total")
+        cpu = server.handle_pnl(dict(B["pnl"]), device="cpu")
+        check(all(res[k] == cpu[k] for k in ("total_pnl", "explained",
+                                              "unexplained")),
+              "pnl equal to the CPU's")
+        log(f"/api/pnl: total {res['total_pnl']:.4f} = explained "
+            f"{res['explained']:.4f} + unexplained {res['unexplained']:.2e}")
+
+        # ── /api/margin: 3 K3 launches a maturity group ──────────────────
+        res = ask("margin", "/api/margin", B["margin"], {"svj_terminal": 6})
+        log(f"/api/margin default (4 positions, 2 maturities, 200000 "
+            f"pairs): margin {res['margin']:.2f}, worst "
+            f"{res['worst_scenario']!r}")
+        one = {"spot": SPOT, "Ts": [0.5], "params": gbm}
+        m3 = {"svj_terminal": 3}
+        hedged = ask("margin hedged", "/api/margin", {
+            "spot": SPOT, "strikes": [SPOT, SPOT], "Ts": [0.5, 0.5],
+            "is_calls": [True, True], "quantities": [5.0, -5.0]}, m3)
+        check(hedged["margin"] == 0.0 and all(
+            abs(x) < 1e-9 for x in hedged["risk_array"]),
+            "a hedged book margins to zero")
+        sc = ask("margin short call", "/api/margin", dict(
+            one, strikes=[SPOT], is_calls=[True], quantities=[-1.0]), m3)
+        sp = ask("margin short put", "/api/margin", dict(
+            one, strikes=[SPOT], is_calls=[False], quantities=[-1.0]), m3)
+        lc = ask("margin long call", "/api/margin", dict(
+            one, strikes=[SPOT], is_calls=[True], quantities=[1.0]), m3)
+        check(sc["margin"] > 0 and "price+" in sc["worst_scenario"],
+              "short call: worst scenario up")
+        check(sp["margin"] > 0 and "price-" in sp["worst_scenario"],
+              "short put: worst scenario down")
+        check(0.0 <= lc["margin"] <= lc["net_option_value"] + 1e-9,
+              "long call margin bounded by its premium")
+        a = ask("margin put leg", "/api/margin", dict(
+            one, strikes=[0.95 * SPOT], is_calls=[False],
+            quantities=[-2.0]), m3)
+        b = ask("margin call leg", "/api/margin", dict(
+            one, strikes=[1.05 * SPOT], is_calls=[True],
+            quantities=[-3.0]), m3)
+        both = ask("margin strangle", "/api/margin", dict(
+            one, strikes=[0.95 * SPOT, 1.05 * SPOT], Ts=[0.5, 0.5],
+            is_calls=[False, True], quantities=[-2.0, -3.0]), m3)
+        check(both["margin"] < a["margin"] + b["margin"] - 1e-6,
+              "margin strictly subadditive on a strangle")
+        # The scan identity: the worst scenario of a short call under GBM
+        # against moving the spot (two more K3 prices, independent paths).
+        direct = counted("scan identity", {"svj_terminal": 2}, lambda: (
+            MonteCarloEngine(margin._vol_shift(gbm_params(0.2, 0.065, 0.012),
+                                               0.04),
+                             num_paths=200_000, num_steps=252, seed=5,
+                             use_sobol=False, device=device).price(
+                SPOT * 1.06, SPOT, 0.5)["price"]
+            - MonteCarloEngine(gbm_params(0.2, 0.065, 0.012),
+                               num_paths=200_000, num_steps=252, seed=5,
+                               use_sobol=False, device=device).price(
+                SPOT, SPOT, 0.5)["price"]))
+        check(abs(sc["margin"] - direct) < 0.05 * direct,
+              f"scan identity: {sc['margin']} vs {direct}")
+        log(f"/api/margin oracles: hedged 0, short call {sc['margin']:.2f} "
+            f"({sc['worst_scenario']}) vs moving the spot {direct:.2f}, "
+            f"short put {sp['margin']:.2f} ({sp['worst_scenario']}), "
+            f"strangle {both['margin']:.2f} < {a['margin']:.2f} + "
+            f"{b['margin']:.2f}")
+        refused("unequal lengths", "/api/margin",
+                dict(B["margin"], quantities=[1.0]))
+        lap("margin")
+
+        # ── /api/replicate: 1 K6 launch ──────────────────────────────────
+        res = ask("replicate", "/api/replicate", B["replicate"], K6)
+        log(f"/api/replicate default digital (200000 pairs): R2 "
+            f"{res['r2']:.4f}, hedge {res['hedge_value']:.5f} vs MC "
+            f"{res['target_price_mc']:.5f} ± {res['target_se']:.5f}")
+        ks = (np.linspace(0.9, 1.1, 5) * SPOT).tolist()
+        van = ask("replicate vanilla", "/api/replicate", dict(
+            B["replicate"], kind="vanilla", hedge_strikes=ks), K6)
+        cos_atm = float(cos_price(SVJParams(), SPOT, [SPOT], 0.25)[0])
+        check(van["r2"] > 0.999999 and abs(van["hedge_value"] - cos_atm)
+              < 2e-3 * cos_atm, "vanilla replicates itself")
+        dig = ask("replicate digital dense", "/api/replicate", dict(
+            B["replicate"], hedge_strikes=(np.linspace(0.94, 1.06, 13)
+                                           * SPOT).tolist()), K6)
+        w = np.asarray(dig["weights"]["calls"])
+        check(dig["r2"] > 0.93 and abs(w.sum()) < 0.05 * np.abs(w).max()
+              and abs(dig["hedge_value"] - dig["target_price_mc"])
+              < 6 * dig["target_se"] + 0.01, "digital as a call spread")
+        gd = ask("replicate GBM digital", "/api/replicate", dict(
+            B["replicate"], params=gbm, hedge_strikes=(
+                np.linspace(0.92, 1.08, 17) * SPOT).tolist()), K6)
+        d2 = (0.065 - 0.012 - 0.02) * 0.25 / (0.2 * 0.5)
+        bs_dig = float(np.exp(-0.065 * 0.25) * norm.cdf(d2))
+        check(abs(gd["target_price_mc"] - bs_dig) < 4 * gd["target_se"]
+              and abs(gd["hedge_value"] - bs_dig) < 0.02 * bs_dig + 5e-3,
+              f"GBM digital: {gd['target_price_mc']}, {gd['hedge_value']} "
+              f"vs {bs_dig}")
+        log(f"/api/replicate oracles: vanilla R2 {van['r2']:.8f}, hedge "
+            f"{van['hedge_value']:.3f} vs COS {cos_atm:.3f}; dense digital "
+            f"R2 {dig['r2']:.4f}; GBM digital MC {gd['target_price_mc']:.5f}"
+            f", hedge {gd['hedge_value']:.5f} vs BS {bs_dig:.5f}")
+        for what, bad in (("digital strike 0", {"strike": 0.0}),
+                          ("barrier 0", {"kind": "barrier"}),
+                          ("fixed lookback strike 0",
+                           {"kind": "lookback", "strike": 0.0})):
+            refused(what, "/api/replicate", dict(B["replicate"], **bad))
+        lap("replicate")
+
+        # ── /api/volderivs: step loop; 1 K4 a with_mc_check ──────────────
+        res = ask("variance swap", "/api/volderivs", B["volderivs"])
+        check(res["mc_vs_closed_sigmas"] < 4.0, "variance swap pin")
+        vol = ask("vol swap GBM", "/api/volderivs", dict(
+            B["volderivs"], kind="vol_swap", T=0.5, params=dict(
+                gbm, v0=0.0625, theta=0.0625)))
+        check(abs(vol["fair_vol_strike"] - (0.25 - 0.25 * 2 / (8 * 126)))
+              < 2e-3 and 0.0 < vol["convexity_discount"] < 5e-3,
+              "vol swap under GBM")
+        fut = ask("vix future + mc check", "/api/volderivs", {
+            "kind": "vix_future", "T": 0.5, "with_mc_check": True}, K4)
+        mc = fut["mc_check"]
+        check(abs(mc["future_mc"] - fut["future"]) < 4 * mc["std_error"]
+              + 2e-3, "VIX MC check against the quadrature")
+        c = ask("vix call", "/api/volderivs", {"kind": "vix_option",
+                                                "T": 0.5, "strike": 0.2})
+        pt = ask("vix put", "/api/volderivs", {
+            "kind": "vix_option", "T": 0.5, "strike": 0.2,
+            "is_call": False})
+        check(abs(c["price"] - pt["price"] - c["discount_factor"]
+                  * (fut["future"] - 0.2)) < 1e-10, "VIX parity")
+        log(f"/api/volderivs: variance swap {res['mc_fair_variance']:.5f} vs"
+            f" {res['fair_variance']:.5f} ({res['mc_vs_closed_sigmas']:.2f}"
+            f" se); GBM vol swap {vol['fair_vol_strike']:.5f}; VIX future "
+            f"{fut['future']:.5f}, MC {mc['future_mc']:.5f} ± "
+            f"{mc['std_error']:.5f}")
+        refused("vix_option without strike", "/api/volderivs",
+                {"kind": "vix_option", "T": 0.5})
+        lap("volderivs")
+
+        # ── /api/book: no kernel ─────────────────────────────────────────
+        res = ask("book", "/api/book", B["book"])
+        gb = {"spots": [SPOT, SPOT, SPOT, 18000.0],
+              "strikes": [SPOT, 21000.0, 24000.0, 18500.0],
+              "Ts": [0.1, 0.25, 0.5, 0.08],
+              "is_calls": [True, True, False, False], "params": gbm}
+        g = ask("book GBM", "/api/book", gb)
+        for i in range(4):
+            ref = bs_all_greeks(gb["spots"][i], gb["strikes"][i],
+                                gb["Ts"][i], 0.065, 0.012, 0.2,
+                                gb["is_calls"][i])
+            ref = {k: float(v) for k, v in ref.items()}
+            check(abs(g["price"][i] - ref["price"])
+                  < max(4 * g["std_error"][i], 0.01 * ref["price"] + 0.5)
+                  and abs(g["delta"][i] - ref["delta"]) < 0.02
+                  and abs(g["theta"][i] - ref["theta"])
+                  < 0.1 * abs(ref["theta"])
+                  and abs(g["vega"][i] - ref["vega"])
+                  < 0.05 * abs(ref["vega"])
+                  and abs(g["rho"][i] - ref["rho"]) < 0.05 * abs(ref["rho"]),
+                  f"book GBM position {i} against bs_all_greeks")
+        flat = ask("book flat", "/api/book", dict(
+            gb, spots=[SPOT] * 2, strikes=[SPOT] * 2, Ts=[0.25] * 2,
+            is_calls=[True, True], quantities=[1.0, -1.0]))
+        check(abs(flat["book_value"]) < 1e-4 * SPOT
+              and abs(flat["book_delta"]) < 1e-6, "a flat book nets to 0")
+        log(f"/api/book default (8 positions x 100000 paths x 64 steps): "
+            f"value {res['book_value']:.2f}, delta {res['book_delta']:.4f}; "
+            f"GBM positions within the bs_all_greeks bands")
+        refused("unequal lengths", "/api/book", dict(B["book"], Ts=[0.1]))
+        lap("book")
+
+        # ── /api/exposure: no kernel ─────────────────────────────────────
+        res = ask("exposure", "/api/exposure", dict(
+            B["exposure"], with_cva_delta=True, wwr_gamma=1.0))
+        one_a = {"spots": [100.0], "sigmas": [0.25], "corr": [[1.0]],
+                 "r": 0.05, "q": [0.0], "num_paths": 200_000}
+        fwd = ask("exposure forward", "/api/exposure", dict(
+            one_a, positions=[{"kind": "forward", "strike": 100.0,
+                               "T": 1.0}], num_dates=4, hazard_rate=0.0))
+        t = np.asarray(fwd["dates"])
+        s_ = 0.25 * np.sqrt(t)
+        f_mean = 100.0 * np.exp(0.05)
+        d1 = (np.log(f_mean / 100.0) + 0.5 * s_**2) / s_
+        black = np.exp(-0.05 * (1.0 - t)) * (f_mean * norm.cdf(d1)
+                                              - 100.0 * norm.cdf(d1 - s_))
+        check(np.allclose(fwd["ee"], black, rtol=0.02),
+              f"forward EE vs Black: {fwd['ee']} vs {black}")
+        call_pos = [{"kind": "call", "strike": 100.0, "T": 1.0}]
+        cva = ask("exposure call CVA", "/api/exposure", dict(
+            one_a, positions=call_pos, num_dates=16, hazard_rate=0.03))
+        c0 = float(bs_price(100.0, 100.0, 1.0, 0.05, 0.0, 0.25))
+        oracle = 0.6 * c0 * (1.0 - np.exp(-0.03))
+        # The reference's pin takes a horizon of 0.999 T; at T the last
+        # bucket holds the intrinsic value, the same expectation.
+        check(abs(cva["credit"]["cva"] - oracle) < 0.01 * oracle,
+              f"call CVA {cva['credit']['cva']} vs {oracle}")
+        d = ask("exposure cva delta", "/api/exposure", dict(
+            one_a, positions=call_pos, num_paths=100_000, num_dates=8,
+            hazard_rate=0.03, with_cva_delta=True))
+        up, dn = (ask(f"exposure cva {s}", "/api/exposure", dict(
+            one_a, spots=[100.0 + h], positions=call_pos, num_paths=100_000,
+            num_dates=8, hazard_rate=0.03)) for s, h in (("up", 0.5),
+                                                          ("down", -0.5)))
+        fd = (up["credit"]["cva"] - dn["credit"]["cva"]) / 1.0
+        check(abs(d["cva_delta"][0] - fd) < 1e-4,
+              f"cva_delta {d['cva_delta'][0]} vs CRN FD {fd}")
+        log(f"/api/exposure default: EPE {res['epe']:.2f}, CVA "
+            f"{res['credit']['cva']:.4f}, WWR {res['credit']['wwr']['cva']:.4f}"
+            f", cva_delta {res['cva_delta']}; forward EE vs Black max rel "
+            f"{np.max(np.abs(np.asarray(fwd['ee']) / black - 1)):.2e}; call "
+            f"CVA {cva['credit']['cva']:.5f} vs {oracle:.5f}; cva_delta "
+            f"{d['cva_delta'][0]:.6f} vs CRN FD {fd:.6f}")
+        refused("no positions", "/api/exposure",
+                dict(B["exposure"], positions=[]))
+        refused("corr not positive definite", "/api/exposure", dict(
+            B["exposure"], corr=[[1.0, 1.2], [1.2, 1.0]]), code=500)
+        lap("exposure")
+
+        # ── /api/modelrisk: 1 K7 launch ──────────────────────────────────
+        res = ask("modelrisk", "/api/modelrisk", B["modelrisk"], K7)
+        p = res["prices"]
+        ivs = res["implied_vols"]
+        check(p["heston"] > p["bs"] and p["svj"] > p["heston"]
+              and p["rough"] > p["bs"] and res["model_risk_band_volpts"]
+              > 0.01 and all(v is not None for v in ivs.values())
+              and abs(res["model_risk_band_volpts"]
+                      - (max(ivs.values()) - min(ivs.values()))) < 1e-12,
+              f"modelrisk OTM put premia: {p}")
+        log(f"/api/modelrisk default OTM put: prices "
+            f"{ {k: round(v, 3) for k, v in p.items()} }, band "
+            f"{res['model_risk_band_volpts']:.4f} vol points")
+        lap("modelrisk")
+
+        # ── warm latencies: median of 3 over HTTP ────────────────────────
+        for route, n in (("pnl", None), ("margin", {"svj_terminal": 6}),
+                         ("replicate", K6), ("volderivs", None),
+                         ("book", None), ("exposure", None),
+                         ("modelrisk", K7)):
+            lat = []
+            for _ in range(3):
+                before = time.perf_counter()
+                ask(f"warm {route}", f"/api/{route}", B[route], n)
+                lat.append((time.perf_counter() - before) * 1e3)
+            out[f"warm_{route}_ms"] = statistics.median(lat)
+            log(f"warm /api/{route}: median {statistics.median(lat):.2f} ms"
+                f" over 3 ({[round(x, 2) for x in lat]})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    lap("warm latencies")
+
+    # Each route once in process under the profiler, its peak device
+    # memory from the same (warm) call: the profiler's buffers are host
+    # memory, and a loop route's ~30 000 events take it seconds to sum.
+    from mcos_tpu_torch.profile_price import _profiled
+
+    def profiled_once(call):
+        torch.cuda.synchronize(device)
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        res = _profiled(call, 1)
+        return dict(res, peak_gib=(torch.cuda.max_memory_allocated(device)
+                                   - held) / 2**30)
+
+    prof = {}
+    for route, n in (("pnl", {}), ("margin", {"svj_terminal": 6}),
+                     ("replicate", K6), ("volderivs", {}), ("book", {}),
+                     ("exposure", {}), ("modelrisk", K7)):
+        fn = getattr(server, f"handle_{route}")
+        prof[route] = counted(f"profiled {route}", n, lambda fn=fn, route=route:
+                              profiled_once(lambda: fn(dict(B[route]),
+                                                       device=device)))
+        pr = prof[route]
+        log(f"profiled {route}: wall {pr['profiled_wall_ms']:.1f} ms, device "
+            f"{pr['device_ms_per_call']} ms, {pr['kernel_launches_per_call']}"
+            f" launches, busy share {pr['busy_share']}, peak "
+            f"{pr['peak_gib']:.3f} GiB")
+    out["profiles"] = prof
+    # The margin of a 4 096-position book (MAX_BOOK_POSITIONS) at 200 000
+    # pairs in one maturity: its strike table reduced in chunks.
+    big = {"spot": SPOT,
+           "strikes": (np.linspace(0.7, 1.3, 4096) * SPOT).tolist(),
+           "Ts": [0.25] * 4096, "is_calls": [True, False] * 2048,
+           "quantities": [1.0, -1.0] * 2048}
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = counted("margin 4096 positions", {"svj_terminal": 3},
+                  lambda: server.handle_margin(dict(big), device=device))
+    big_ms = (time.perf_counter() - t0) * 1e3
+    big_gib = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+    check(np.isfinite(res["margin"]), "4096-position margin finite")
+    out["margin_4096"] = {"ms": big_ms, "peak_gib": big_gib}
+    log(f"/api/margin at 4096 positions x 9 factors (36 864 strikes) x "
+        f"200000 pairs: {big_ms:.1f} ms, peak device memory {big_gib:.3f} "
+        f"GiB (payoff chunks of {margin._PAYOFF_CHUNK_BYTES >> 20} MiB)")
+    lap("profiles, 4096-position margin")
+
+    def hhw_leg(d, n):
+        # modelrisk's HHW leg at the default anchor (atm_vol 0.2).
+        return HHWEngine(HHWParams(kappa=3.0, theta=0.04, xi=0.5, v0=0.04,
+                                   a=0.1, b=0.065, sigma_r=0.01, r0=0.065,
+                                   rho_sv=-0.7, rho_sr=0.3, q=0.012),
+                         num_paths=n, num_steps=96, seed=7,
+                         device=d).price(SPOT, SPOT, 0.25, True)
+
+    out["card_vs_cpu"] = counted(
+        "card vs CPU", {"svj_terminal": 3, "svj_path_stats": 1,
+                        "svj_terminal_qe": 1, "hhw_terminal": 1},
+        lambda: desk_card_vs_cpu(device, margin, hedge, volderivs, hhw_leg,
+                                 SVJParams))
+    counts = ck.launch_counts()
+    log(f"launch counts over the desk path: {counts} (expected {want}: K3 "
+        f"3 a margin maturity group, K6 1 a replicate, K4 1 a VIX MC check,"
+        f" K7 1 a modelrisk, nothing else)")
+    check(counts == want, "desk path launch counts")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"desk path: {out['wall_s']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3985,6 +4442,14 @@ def main() -> None:
     cp = calibration_path(device, ck, server, cal, localvol, slv, ssvi,
                           cos_price, bs_price, SVJParams)
     cp["k1_calibration_shape"] = k1_cal
+    dp = desk_path(device, ck, server, cos_price, bs_price, bs_all_greeks,
+                   SVJParams, gbm_params)
+    log(f"warm slice J over HTTP (median of 3): /api/pnl "
+        f"{dp['warm_pnl_ms']:.2f} ms, /api/margin {dp['warm_margin_ms']:.2f},"
+        f" /api/replicate {dp['warm_replicate_ms']:.2f}, /api/volderivs "
+        f"{dp['warm_volderivs_ms']:.2f}, /api/book {dp['warm_book_ms']:.2f}, "
+        f"/api/exposure {dp['warm_exposure_ms']:.2f}, /api/modelrisk "
+        f"{dp['warm_modelrisk_ms']:.2f} ms; on {card}")
     log(f"warm slice I over HTTP: /api/calibrate "
         f"{cp['warm_calibrate_ms']:.1f} ms, /api/surface "
         f"{cp['warm_surface_ms']:.2f}, /api/quotegreeks "
@@ -4013,7 +4478,7 @@ def main() -> None:
     )
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
              "rough": rp, "greeks": gp, "risk": gr, "american": ap,
-             "calibration": cp}
+             "calibration": cp, "desk": dp}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -4056,7 +4521,8 @@ def main() -> None:
                    "options_path": op, "exotics_path": xp,
                    "families_path": fp, "rough_path": rp,
                    "greeks_path": gp, "risk_path": gr,
-                   "american_path": ap, "calibration_path": cp}, f,
+                   "american_path": ap, "calibration_path": cp,
+                   "desk_path": dp}, f,
                   indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

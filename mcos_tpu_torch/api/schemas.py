@@ -4,8 +4,11 @@
 `TermSVJRequest`, `RoughRequest`, `StressRequest`, `RegimeRequest`,
 `HedgeRequest`, `VarRequest`, `AmericanRequest`, `PDERequest`,
 `SurfaceRequest`, `CalibrateRequest`, `QuoteGreeksRequest` (with
-`ProductSpec`), `LocalVolRequest` and `SLVRequest` need,
-copied unchanged apart from the imports. tests/test_torch_copies.py holds the two equal.
+`ProductSpec`), `LocalVolRequest`, `SLVRequest`, and the desk tools'
+`ReplicateRequest`, `MarginRequest`, `VolDerivsRequest`, `BookRequest`,
+`ExposurePosition`, `ExposureRequest`, `ModelRiskRequest` and `PnlRequest`
+need, copied unchanged apart from the imports. tests/test_torch_copies.py
+holds the two equal.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from mcos_tpu_torch.models.params import SVCJParams, SVJParams
 # Compute-parameter admission bounds: path counts flow straight into device
 # allocations, so every request field that sizes a buffer is clamped here.
 _PATHS = dict(ge=1_000, le=MAX_PATHS)
+MAX_BOOK_POSITIONS = 4_096
 MAX_GRID_POINTS = 256
 
 
@@ -587,3 +591,136 @@ class SLVRequest(BaseModel):
     knock: str = "out"
     t1: float = 0.0                  # forward-start reset date
     k: float = 1.0                   # forward-start performance strike
+
+
+class ReplicateRequest(BaseModel):
+    """POST /api/replicate — static replication of a target payoff onto a
+    vanilla call chain (engine/hedge.py; beyond the reference). The residual
+    distribution quantifies the statically-unhedgeable path risk."""
+    spot: float = Field(gt=0.0)
+    T: float = Field(gt=0.0, le=10.0)
+    kind: str = Field("digital",
+                      pattern="^(digital|vanilla|asian|barrier|lookback)$")
+    strike: float = Field(0.0, ge=0.0)
+    is_call: bool = True
+    barrier: float = Field(0.0, ge=0.0)
+    averaging: str = Field("arithmetic", pattern="^(arithmetic|geometric)$")
+    knock: str = Field("out", pattern="^(in|out)$")
+    direction: str = Field("up", pattern="^(up|down)$")
+    floating: bool = False
+    hedge_strikes: Optional[list[float]] = Field(None, min_length=1,
+                                                 max_length=MAX_GRID_POINTS)
+    n_hedge: int = Field(13, ge=1, le=MAX_GRID_POINTS)
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+
+
+class MarginRequest(BaseModel):
+    """POST /api/margin — SPAN-style 16-scenario portfolio initial margin
+    (engine/margin.py; beyond the reference). Quantities signed (+long)."""
+    spot: float = Field(gt=0.0)
+    strikes: list[float] = Field(min_length=1, max_length=MAX_BOOK_POSITIONS)
+    Ts: list[float] = Field(min_length=1, max_length=MAX_BOOK_POSITIONS)
+    is_calls: list[bool] = Field(min_length=1,
+                                 max_length=MAX_BOOK_POSITIONS)
+    quantities: list[float] = Field(min_length=1,
+                                    max_length=MAX_BOOK_POSITIONS)
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    price_scan_range: float = Field(0.06, gt=0.0, le=0.5)
+    vol_scan_range: float = Field(0.04, ge=0.0, le=0.5)
+    extreme_multiplier: float = Field(2.0, ge=1.0, le=5.0)
+    extreme_coverage: float = Field(0.35, ge=0.0, le=1.0)
+
+
+class VolDerivsRequest(BaseModel):
+    """POST /api/volderivs — variance/vol swaps + VIX-style futures/options
+    under the SVJ model (engine/volderivs.py; beyond the reference)."""
+    kind: str = Field("variance_swap",
+                      pattern="^(variance_swap|vol_swap|vix_future|"
+                              "vix_option)$")
+    T: float = Field(gt=0.0, le=30.0)
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    # vix_option only:
+    strike: Optional[float] = Field(None, gt=0.0)   # in vol units (0.20=20%)
+    is_call: bool = True
+    # VIX definition window and jump convention.
+    tau: float = Field(30.0 / 365.0, gt=0.0, le=1.0)
+    convention: str = Field("log_contract",
+                            pattern="^(log_contract|quadratic_variation)$")
+    with_mc_check: bool = False
+
+
+class BookRequest(BaseModel):
+    """POST /api/book — vectorized portfolio pricing + Greeks (new)."""
+    spots: list[float] = Field(max_length=MAX_BOOK_POSITIONS)
+    strikes: list[float] = Field(max_length=MAX_BOOK_POSITIONS)
+    Ts: list[float] = Field(max_length=MAX_BOOK_POSITIONS)
+    is_calls: list[bool] = Field(max_length=MAX_BOOK_POSITIONS)
+    quantities: Optional[list[float]] = Field(None,
+                                              max_length=MAX_BOOK_POSITIONS)
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(100_000, **_PATHS)
+
+
+class ExposurePosition(BaseModel):
+    kind: str = "call"               # "call" | "put" | "forward"
+    strike: float = Field(gt=0)
+    T: float = Field(gt=0, le=30.0)
+    qty: float = Field(1.0, ge=-1e9, le=1e9)
+    asset: int = Field(0, ge=0)
+
+
+class ExposureRequest(BaseModel):
+    """POST /api/exposure — counterparty EE/PFE profiles + CVA/DVA
+    (engine/exposure.py; XVA layer beyond the reference)."""
+    spots: list
+    sigmas: list
+    corr: list
+    positions: list                  # of ExposurePosition dicts
+    r: float = RISK_FREE_RATE
+    q: Optional[list] = None
+    num_paths: int = Field(65_536, **_PATHS)
+    num_dates: int = Field(32, ge=2, le=MAX_GRID_POINTS)
+    quantile: float = Field(0.975, gt=0.5, lt=1.0)
+    # credit inputs (CVA block; hazard 0 → profile only)
+    hazard_rate: float = Field(0.02, ge=0.0, le=5.0)
+    own_hazard: float = Field(0.0, ge=0.0, le=5.0)
+    lgd: float = Field(0.6, ge=0.0, le=1.0)
+    with_cva_delta: bool = False
+    # CSA terms: variation margin above the threshold, held with a
+    # margin-period-of-risk lag (None = uncollateralized)
+    collateral_threshold: Optional[float] = Field(None, ge=0.0)
+    margin_period: float = Field(10.0 / 252.0, gt=0.0, le=1.0)
+    # Wrong-way risk: spot-linked intensity h0 * (S0/S_t)^gamma on asset 0
+    # (0 = independent hazard, the default)
+    wwr_gamma: float = Field(0.0, ge=-10.0, le=10.0)
+
+
+class ModelRiskRequest(BaseModel):
+    """POST /api/modelrisk — one contract priced under every model family
+    (engine/modelrisk.py)."""
+    spot: float = Field(gt=0)
+    strike: float = Field(gt=0)
+    T: float = Field(gt=0, le=30.0)
+    is_call: bool = True
+    atm_vol: float = Field(0.2, gt=0, le=3.0)
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    params: Optional[SVJParamsRequest] = None   # calibrated SVJ anchor
+    num_paths: int = Field(65_536, **_PATHS)
+
+
+class PnlRequest(BaseModel):
+    """POST /api/pnl — daily P&L attribution between two market states
+    (engine/pnl.py; COS-exact endpoints, deterministic report)."""
+    strike: float = Field(gt=0)
+    is_call: bool = True
+    quantity: float = Field(1.0, ge=-1e9, le=1e9)
+    spot_old: float = Field(gt=0)
+    spot_new: float = Field(gt=0)
+    T_old: float = Field(gt=0, le=30.0)
+    T_new: float = Field(gt=0, le=30.0)
+    params_old: SVJParamsRequest = SVJParamsRequest()
+    params_new: SVJParamsRequest = SVJParamsRequest()

@@ -45,6 +45,13 @@ serving slice).
     POST /api/localvol     — Dupire surface + local-vol chain
     POST /api/slv          — particle-method SLV: chain, barrier,
                              forward_start
+    POST /api/book         — a whole book's prices and AD Greeks
+    POST /api/pnl          — P&L explain between two market states (COS)
+    POST /api/margin       — SPAN-style 16-scenario portfolio margin
+    POST /api/replicate    — static replication onto a vanilla call chain
+    POST /api/exposure     — EE/ENE/PFE profiles, CVA/DVA, CVA delta
+    POST /api/volderivs    — variance and vol swaps, VIX futures/options
+    POST /api/modelrisk    — one contract under every model family
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
@@ -71,16 +78,22 @@ from pydantic import ValidationError
 
 from mcos_tpu_torch.api import coalesce, schemas
 from mcos_tpu_torch.engine.american import AmericanEngine, american_cos_oracle
+from mcos_tpu_torch.engine.book import BookEngine
 from mcos_tpu_torch.engine.calibration import CalibrationEngine
 from mcos_tpu_torch.engine.exotics import (
     ExoticEngine,
     variance_swap_fair_strike,
 )
+from mcos_tpu_torch.engine.exposure import ExposureEngine
 from mcos_tpu_torch.engine.greeks import GreeksEngine
 from mcos_tpu_torch.engine.guards import PricingGuard
+from mcos_tpu_torch.engine.hedge import StaticHedgeEngine
 from mcos_tpu_torch.engine.hhw import HHWEngine
 from mcos_tpu_torch.engine.localvol import LocalVolEngine, LocalVolSurface
+from mcos_tpu_torch.engine.margin import MarginEngine
+from mcos_tpu_torch.engine.modelrisk import model_risk_report
 from mcos_tpu_torch.engine.pde import HestonPDEEngine, PDEEngine
+from mcos_tpu_torch.engine.pnl import pnl_explain
 from mcos_tpu_torch.engine.quotegreeks import (ALL_PARAMS, CORE4,
                                                quote_bucket_greeks)
 from mcos_tpu_torch.engine.pricer import (MonteCarloEngine, seeded_generator,
@@ -107,6 +120,7 @@ from mcos_tpu_torch.engine.surface import (
 from mcos_tpu_torch.engine.svcj import SVCJEngine
 from mcos_tpu_torch.models.params import SVJParams, forward_price
 from mcos_tpu_torch.engine.termsvj import TDSVJEngine, bootstrap_calibrate_td
+from mcos_tpu_torch.engine.volderivs import VolDerivsEngine
 from mcos_tpu_torch.ops.cos_pricer import cos_density, cos_price
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
 from mcos_tpu_torch.ops.rough import RoughBergomiParams
@@ -1133,6 +1147,166 @@ def handle_slv(body: dict, device="cuda") -> dict:
     return out
 
 
+def handle_margin(body: dict, device="cuda") -> dict:
+    """`/api/margin` on `device`: SPAN-style portfolio margin, the
+    16-scenario price/vol scan off one common-random-number path set a
+    maturity (three K3 launches a maturity group)."""
+    req = schemas.MarginRequest(**body)
+    if not (len(req.strikes) == len(req.Ts) == len(req.is_calls)
+            == len(req.quantities)):
+        raise ApiError(400,
+                       "strikes/Ts/is_calls/quantities must be equal length")
+    start = time.time()
+    eng = MarginEngine(req.params.to_params(), num_paths=req.num_paths,
+                       price_scan_range=req.price_scan_range,
+                       vol_scan_range=req.vol_scan_range,
+                       extreme_multiplier=req.extreme_multiplier,
+                       extreme_coverage=req.extreme_coverage, device=device)
+    out = eng.margin(req.spot, req.strikes, req.Ts, req.is_calls,
+                     req.quantities)
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_replicate(body: dict, device="cuda") -> dict:
+    """`/api/replicate` on `device`: static replication of a (possibly
+    path-dependent) payoff onto a vanilla chain; the paths are one K6
+    launch, the L² projection host float64, the hedge valued by COS."""
+    req = schemas.ReplicateRequest(**body)
+    if req.kind in ("digital", "vanilla", "asian") and req.strike <= 0:
+        raise ApiError(400, f"kind={req.kind} needs strike > 0")
+    if req.kind == "barrier" and req.barrier <= 0:
+        raise ApiError(400, "kind=barrier needs barrier > 0")
+    if req.kind == "lookback" and not req.floating and req.strike <= 0:
+        raise ApiError(400, "fixed-strike lookback needs strike > 0")
+    start = time.time()
+    eng = StaticHedgeEngine(req.params.to_params(), num_paths=req.num_paths,
+                            device=device)
+    try:
+        out = eng.replicate(
+            req.spot, req.T, kind=req.kind, strike=req.strike,
+            is_call=req.is_call, barrier=req.barrier,
+            averaging=req.averaging, knock=req.knock,
+            direction=req.direction, floating=req.floating,
+            hedge_strikes=req.hedge_strikes, n_hedge=req.n_hedge)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_volderivs(body: dict, device="cuda") -> dict:
+    """`/api/volderivs` on `device`: variance/vol swaps (the
+    realized-variance step loop) and VIX futures/options (host quadrature;
+    `with_mc_check` one K4 launch)."""
+    req = schemas.VolDerivsRequest(**body)
+    start = time.time()
+    eng = VolDerivsEngine(req.params.to_params(), num_paths=req.num_paths,
+                          device=device)
+    if req.kind == "variance_swap":
+        out = eng.variance_swap(req.T)
+    elif req.kind == "vol_swap":
+        out = eng.vol_swap(req.T)
+    elif req.kind == "vix_future":
+        out = eng.vix_future(req.T, tau=req.tau, convention=req.convention)
+        if req.with_mc_check:
+            out["mc_check"] = eng.vix_future_mc(req.T, tau=req.tau,
+                                                convention=req.convention)
+    else:  # vix_option
+        if req.strike is None:
+            raise ApiError(400, "vix_option requires strike (in vol units)")
+        out = eng.vix_option(req.T, req.strike, req.is_call,
+                             tau=req.tau, convention=req.convention)
+    out["kind"] = req.kind
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_book(body: dict, device="cuda") -> dict:
+    """`/api/book` on `device`: whole-portfolio prices and Greeks, one step
+    loop of the member twin under autograd (no kernel)."""
+    req = schemas.BookRequest(**body)
+    if not (len(req.spots) == len(req.strikes) == len(req.Ts)
+            == len(req.is_calls)):
+        raise ApiError(400, "spots/strikes/Ts/is_calls must be equal length")
+    start = time.time()
+    eng = BookEngine(req.params.to_params(), num_paths=req.num_paths,
+                     device=device)
+    out = eng.price_book(req.spots, req.strikes, req.Ts, req.is_calls,
+                         req.quantities)
+    out = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+           for k, v in out.items()}
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_modelrisk(body: dict, device="cuda") -> dict:
+    """`/api/modelrisk` on `device`: the model-risk band across the model
+    zoo (the COS legs on the host, rough on the exact sampler, hhw one K7
+    launch)."""
+    req = schemas.ModelRiskRequest(**body)
+    start = time.time()
+    out = model_risk_report(
+        req.spot, req.strike, req.T, is_call=req.is_call,
+        atm_vol=req.atm_vol, r=req.r, q=req.q,
+        svj=req.params.to_params() if req.params is not None else None,
+        num_paths=req.num_paths, device=device)
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_pnl(body: dict, device="cuda") -> dict:
+    """`/api/pnl`: Greeks-based attribution of a price move between two
+    market states, COS on the host (no device work)."""
+    req = schemas.PnlRequest(**body)
+    start = time.time()
+    out = pnl_explain(req.params_old.to_params(),
+                      req.params_new.to_params(),
+                      req.spot_old, req.spot_new, req.T_old, req.T_new,
+                      req.strike, is_call=req.is_call,
+                      quantity=req.quantity)
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_exposure(body: dict, device="cuda") -> dict:
+    """`/api/exposure` on `device`: EE/ENE/PFE profile, CVA/DVA (with wrong-way
+    risk) and the autograd CVA delta for a vanilla netting set, the JAX
+    handler's contract: a `corr` that is not positive definite raises
+    `np.linalg.LinAlgError` there and here, which the transport answers
+    500."""
+    req = schemas.ExposureRequest(**body)
+    positions = [schemas.ExposurePosition(**p).model_dump()
+                 for p in req.positions]
+    if not positions or len(positions) > schemas.MAX_BOOK_POSITIONS:
+        raise ApiError(400, f"need 1..{schemas.MAX_BOOK_POSITIONS} positions")
+    n = len(req.spots)
+    if len(req.sigmas) != n or len(req.corr) != n:
+        raise ApiError(400, "spots/sigmas/corr dimensions must agree")
+    start = time.time()
+    eng = ExposureEngine(req.spots, req.sigmas,
+                         np.asarray(req.corr, np.float64), positions,
+                         r=req.r, q=req.q, num_paths=req.num_paths,
+                         device=device)
+    out = eng.profile(num_dates=req.num_dates, quantile=req.quantile,
+                      collateral_threshold=req.collateral_threshold,
+                      margin_period=req.margin_period)
+    if req.hazard_rate > 0.0:
+        out["credit"] = eng.cva(hazard_rate=req.hazard_rate, lgd=req.lgd,
+                                num_dates=req.num_dates,
+                                own_hazard=req.own_hazard)
+        if req.wwr_gamma != 0.0:
+            out["credit"]["wwr"] = eng.cva_wwr(
+                hazard_rate=req.hazard_rate, lgd=req.lgd,
+                gamma=req.wwr_gamma, num_dates=req.num_dates)
+    if req.with_cva_delta:
+        out["cva_delta"] = eng.cva_delta(
+            hazard_rate=req.hazard_rate, lgd=req.lgd,
+            num_dates=req.num_dates)["cva_delta"]
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
                 "/api/greeks": handle_greeks,
                 "/api/smile": handle_smile,
@@ -1152,7 +1326,14 @@ _POST_ROUTES = {"/api/price": handle_price,
                 "/api/surface": handle_surface,
                 "/api/quotegreeks": handle_quotegreeks,
                 "/api/localvol": handle_localvol,
-                "/api/slv": handle_slv}
+                "/api/slv": handle_slv,
+                "/api/book": handle_book,
+                "/api/pnl": handle_pnl,
+                "/api/margin": handle_margin,
+                "/api/replicate": handle_replicate,
+                "/api/exposure": handle_exposure,
+                "/api/volderivs": handle_volderivs,
+                "/api/modelrisk": handle_modelrisk}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,

@@ -240,22 +240,31 @@ def simulate_terminal_members(
     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A batch of M members on one set of draws (common random numbers,
-    antithetic pairs included), in one step loop with an explicit leading
+    """A batch of M members in one step loop with an explicit leading
     member axis: each leaf of `params_batch` is a float (shared) or an
     (M,) tensor, and so may `spot` and `T` be. Draws as in
-    `simulate_terminal_with_score`, every member on the same ones.
-    Differentiable in every tensor leaf: the members are independent, so
-    the gradient of the sum of member prices with respect to an (M,) leaf
-    is each member's own derivative.
+    `simulate_terminal_with_score`, every member on the same ones (common
+    random numbers, antithetic pairs included); or draws with a member
+    axis, (steps, 3, M, paths) normals and (steps, M, paths) uniforms,
+    each member on its own. Differentiable in every tensor leaf: the
+    members are independent, so the gradient of the sum of member prices
+    with respect to an (M,) leaf is each member's own derivative.
 
     Returns (S, G, score): (M, 2, paths), (M, 2, paths), (M, paths); the
-    companion leg always on, the λ-score per member (λ_m·dt differs, the
-    uniforms are shared). Leaves that are all shared give M = 1 unless
-    spot or T carries the member axis.
+    companion leg always on, the λ-score per member (λ_m·dt differs).
+    Leaves that are all shared give M = 1 unless spot, T or the draws
+    carry the member axis.
     """
     device = draws[0].device if draws is not None else torch.device(device)
-    z, u = _euler_draws(draws, generator, num_paths, num_steps, device)
+    if draws is not None and draws[1].dim() == 3:
+        z, u = draws
+        if z.dim() != 4 or tuple(z.shape[:1] + z.shape[2:]) != (
+                u.shape[0], u.shape[1], u.shape[2]) or z.shape[1] != 3:
+            raise ValueError("member draws must be (steps, 3, M, paths) "
+                             "normals and (steps, M, paths) uniforms")
+        z, u = z.unsqueeze(3), u.unsqueeze(2)
+    else:
+        z, u = _euler_draws(draws, generator, num_paths, num_steps, device)
     p = params_batch.replace(**{
         f.name: _member_leaf(getattr(params_batch, f.name), 3)
         for f in dataclasses.fields(params_batch)})
@@ -273,7 +282,7 @@ def simulate_terminal_members(
             g_final.shape[0] if g_final.dim() == 3 else 1)
     s_final = s_final.expand(m, 2, -1)
     g_final = g_final.expand(m, 2, -1)
-    return s_final, g_final, score.reshape(-1, u.shape[1]).expand(m, -1)
+    return s_final, g_final, score.reshape(-1, u.shape[-1]).expand(m, -1)
 
 
 def simulate_terminal_from_draws(

@@ -1,11 +1,12 @@
 """Where a warm `/api/price` (or `/api/exotic`, `/api/hhw`, `/api/svcj`,
 `/api/termsvj`, `/api/rough`, `/api/greeks`, `/api/smile`, `/api/stress`,
 `/api/hedge`, `/api/var`, `/api/american`, `/api/pde`, `/api/calibrate`,
-`/api/surface`, `/api/quotegreeks`, `/api/localvol`, `/api/slv`) spends
-its time on one CUDA device.
+`/api/surface`, `/api/quotegreeks`, `/api/localvol`, `/api/slv`,
+`/api/book`, `/api/pnl`, `/api/margin`, `/api/replicate`, `/api/exposure`,
+`/api/volderivs`, `/api/modelrisk`) spends its time on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde|calibrate|surface|quotegreeks|localvol|slv]
+        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde|calibrate|surface|quotegreeks|localvol|slv|book|pnl|margin|replicate|exposure|volderivs|modelrisk]
         [--options JSON] [--reps N] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
@@ -82,6 +83,18 @@ an ATM vanilla); `handle_localvol` (200k paths, 100 steps a year) and
 `handle_slv` (200k paths × 128 steps, '{"mode": "barrier", "barrier":
 120}' or '{"mode": "forward_start", "t1": 0.2}') on the smile's IV grid.
 A default calibrate takes seconds: give it `--reps 1`.
+`--route book|pnl|margin|replicate|exposure|volderivs|modelrisk` do the
+same for the desk tools (slice J) at the schema defaults (`ROUTE_BODIES`):
+`handle_book` (8 positions, 100k paths × 64 steps, the member twin under
+autograd, no kernel), `handle_pnl` (host COS only), `handle_margin` (a
+4-position book over two maturities, 200k pairs, 252 steps a year: three
+K3 launches a maturity), `handle_replicate` (a digital at 200k pairs, T =
+0.25 → 63 steps: one K6 launch, then the host lstsq), `handle_exposure`
+(a two-asset netting set, 65 536 paths × 32 dates; '{"with_cva_delta":
+true}' adds the autograd pass), `handle_volderivs` (a one-year variance
+swap, 200k pairs × 252 steps; '{"kind": "vix_future", "T": 0.5,
+"with_mc_check": true}' for the one K4 launch) and `handle_modelrisk` (an
+OTM put under six models: one K7 launch, the rough exact sampler).
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -116,6 +129,33 @@ ROUTE_BODIES = {
             "T": 0.05},
     "american": {"spot": 100.0, "strike": 100.0, "T": 1.0, "is_call": False},
     "pde": {"spot": 100.0, "strike": 100.0, "T": 1.0},
+    # The desk tools (slice J), each at its schema's widths.
+    "book": {"spots": [22500.0] * 8,
+             "strikes": [21000.0, 22000.0, 22500.0, 23000.0, 24000.0,
+                         22500.0, 21500.0, 23500.0],
+             "Ts": [0.1, 0.25, 0.25, 0.5, 1.0, 0.05, 0.5, 0.25],
+             "is_calls": [True, True, False, True, True, False, False, True],
+             "quantities": [1.0, -2.0, 1.0, 3.0, -1.0, 2.0, -1.0, 1.0]},
+    "pnl": {"strike": 22500.0, "spot_old": 22500.0, "spot_new": 22275.0,
+            "T_old": 0.25, "T_new": 0.25 - 1.0 / 252.0,
+            "params_new": {"v0": 0.045, "theta": 0.042}},
+    "margin": {"spot": 22500.0,
+               "strikes": [21500.0, 22500.0, 23500.0, 22500.0],
+               "Ts": [0.25, 0.25, 0.25, 0.5],
+               "is_calls": [False, True, True, False],
+               "quantities": [-2.0, -1.0, 1.0, -1.0]},
+    "replicate": {"spot": 22500.0, "T": 0.25, "kind": "digital",
+                  "strike": 22500.0},
+    "exposure": {"spots": [22500.0, 1500.0], "sigmas": [0.18, 0.3],
+                 "corr": [[1.0, 0.6], [0.6, 1.0]],
+                 "positions": [{"kind": "call", "strike": 22500.0, "T": 1.0},
+                               {"kind": "put", "strike": 1400.0, "T": 0.5,
+                                "qty": -10.0, "asset": 1},
+                               {"kind": "forward", "strike": 22000.0,
+                                "T": 0.75, "qty": -0.5}]},
+    "volderivs": {"kind": "variance_swap", "T": 1.0},
+    "modelrisk": {"spot": 22500.0, "strike": 21500.0, "T": 0.25,
+                  "is_call": False},
 }
 
 

@@ -546,3 +546,64 @@ def test_slice_i_request_schemas_equal():
             getattr(jschemas, name)(**body)
         with pytest.raises(ValidationError):
             getattr(pschemas, name)(**body)
+
+
+@pytest.mark.parametrize("name", ["pnl", "modelrisk", "margin", "hedge",
+                                  "volderivs", "book", "exposure"])
+def test_desk_public_names_match_jax(name):
+    """The desk modules define the JAX package's public names (modules
+    they import aside: the port's own `cuda_kernels` has no JAX twin)."""
+    import importlib
+    import inspect
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))
+                and n not in _FRAMEWORKS | {"Array"}
+                and getattr(getattr(mod, n), "__module__", mod.__name__)
+                == mod.__name__}
+
+    jmod = importlib.import_module(f"mcos_tpu.engine.{name}")
+    pmod = importlib.import_module(f"mcos_tpu_torch.engine.{name}")
+    assert public(pmod) == public(jmod)
+
+
+def test_desk_request_schemas_equal():
+    names = ("ReplicateRequest", "MarginRequest", "VolDerivsRequest",
+             "BookRequest", "ExposurePosition", "ExposureRequest",
+             "ModelRiskRequest", "PnlRequest")
+    for name in names:
+        a = getattr(jschemas, name).model_json_schema()
+        b = getattr(pschemas, name).model_json_schema()
+        assert a == b, name
+    assert pschemas.MAX_BOOK_POSITIONS == jschemas.MAX_BOOK_POSITIONS
+    bodies = {
+        "ReplicateRequest": {"spot": 100.0, "T": 0.5, "kind": "asian",
+                             "strike": 95.0, "hedge_strikes": [90.0, 110.0]},
+        "MarginRequest": {"spot": 100.0, "strikes": [95.0], "Ts": [0.5],
+                          "is_calls": [True], "quantities": [-1.0]},
+        "VolDerivsRequest": {"kind": "vix_option", "T": 1.0, "strike": 0.2},
+        "BookRequest": {"spots": [100.0], "strikes": [95.0], "Ts": [0.5],
+                        "is_calls": [False]},
+        "ExposurePosition": {"kind": "put", "strike": 95.0, "T": 0.5},
+        "ExposureRequest": {"spots": [100.0], "sigmas": [0.2],
+                            "corr": [[1.0]], "positions": [{"strike": 95.0,
+                                                            "T": 0.5}]},
+        "ModelRiskRequest": {"spot": 100.0, "strike": 95.0, "T": 0.5,
+                             "params": {"v0": 0.05}},
+        "PnlRequest": {"strike": 100.0, "spot_old": 100.0, "spot_new": 99.0,
+                       "T_old": 0.5, "T_new": 0.49},
+    }
+    for name, body in bodies.items():
+        assert (getattr(jschemas, name)(**body).model_dump()
+                == getattr(pschemas, name)(**body).model_dump()), name
+    for name, bad in (("ReplicateRequest", {"kind": "cliquet"}),
+                      ("MarginRequest", {"strikes": []}),
+                      ("VolDerivsRequest", {"convention": "other"}),
+                      ("ExposureRequest", {"num_dates": 1}),
+                      ("PnlRequest", {"T_new": 0.0})):
+        body = dict(bodies[name], **bad)
+        with pytest.raises(ValidationError):
+            getattr(jschemas, name)(**body)
+        with pytest.raises(ValidationError):
+            getattr(pschemas, name)(**body)
