@@ -209,7 +209,27 @@
    10 000 paths). Every request's launches are checked: K3 exactly 3 a
    margin maturity group, K6 1 a replicate, K4 1 a `with_mc_check`, K7 1 a
    modelrisk, no other kernel, none for book, pnl, exposure and the swaps.
-14. Prints the kernels' JSON line (each kernel's launches on its own path
+14. The multi-asset and path products (slice K), with the counts set to 0
+   again: a new server on 127.0.0.1 answers POST /api/cliquet (a
+   GBM-degenerate cliquet and forward start against `cliquet_bs` and
+   `forward_start_bs` within 3 se, with the control variate and raw in
+   process), /api/quanto (GBM against `quanto_bs`, σ_fx = 0 against
+   Black-Scholes), /api/basket (two-asset GBM rainbows against Stulz within
+   5 se or 0.02, a K = 0 spread against Margrabe, a single-asset basket
+   against Black-Scholes, an implied-correlation round trip; the
+   Broadie-Glasserman 9-right max call at S0 = 90, 100, 110 inside the
+   reference's bands and its duality bracket reaching [13.892, 13.934]
+   with a gap under 0.8) and /api/autocall (an unreachable autocall
+   against `no_call_note_bs`, a ρ = 1 worst-of against its single-asset
+   note, the par coupon pricing at its target, single-asset and worst-of),
+   the routes' 400s and kept 500s, 3 warm requests per default body, each
+   default body once in process under the profiler, the wide bodies (64
+   assets, a 16-asset worst-of, a 16 384 × 512 bracket) with their peak
+   device memory, and every program on the card against the CPU on the
+   same draws (rtol 1e-5; the dual 1e-4; the notes' barrier flips and the
+   in-sample LSM's exercise flips at 200 000 paths, multi-asset and
+   single-asset, counted). No kernel launches on this path.
+15. Prints the kernels' JSON line (each kernel's launches on its own path
    and, under "launches_by_path", on every path; K1's row lists its two
    shapes under "shapes": one member at `/api/price`'s 500 000 × 63 and
    the 24-member population at `/api/calibrate`'s 100 000 × 50), the card
@@ -4333,6 +4353,573 @@ def desk_path(device, ck, server, cos_price, bs_price, bs_all_greeks,
     return out
 
 
+#: Slice K: the schemas' path count (BasketRequest, CliquetRequest,
+#: QuantoRequest, AutocallRequest default) and the card-against-CPU width.
+MULTI_PATHS = 200_000
+MULTI_CARD_CPU_PATHS = 20_000
+#: The widest bodies the schemas allow: a basket of 64 assets, a worst-of
+#: autocall of 16, a bracket of 16 384 outer × 512 inner paths.
+WIDE_BASKET_ASSETS, WIDE_WORST_ASSETS, WIDE_BRACKET = 64, 16, (16384, 512)
+#: The Broadie-Glasserman world: GBM at σ = 20 %, r = 5 %, q = 10 %, ρ = 0.
+BG_GBM = {"kappa": 0.0, "theta": 0.04, "xi": 0.0, "rho": 0.0, "v0": 0.04,
+          "lambda_j": 0.0, "mu_j": 0.0, "sigma_j": 0.0, "r": 0.05,
+          "q": 0.10}
+#: The reference tests' bands for the 9-right max call (Andersen-Broadie
+#: 2004's duality midpoints 8.08 / 13.90 / 21.34).
+BG_BANDS = ((90.0, 7.95, 8.20), (100.0, 13.75, 14.05), (110.0, 21.15, 21.50))
+
+
+def shared_draws(seed, steps, shape, device):
+    """(CPU draws, the same on the card): (steps, 3, *shape) normals and
+    (steps, *shape) uniforms from a CPU generator."""
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+
+    gen = seeded_generator(seed, "cpu")
+    z = torch.randn((steps, 3, *shape), generator=gen)
+    u = torch.rand((steps, *shape), generator=gen)
+    return (z, u), (z.to(device), u.to(device))
+
+
+def agree(what, a, b, rtol, atol=0.0) -> float:
+    """Check |a − b| ≤ atol + rtol·|b| everywhere (a on the card, b on the
+    CPU); returns the largest |a − b| / (atol + rtol·|b|)."""
+    a = np.asarray(torch.as_tensor(a).cpu(), np.float64)
+    b = np.asarray(torch.as_tensor(b).cpu(), np.float64)
+    ratio = float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b) + 1e-300)))
+    log(f"card vs CPU, {what}: max |card - CPU| {np.max(np.abs(a - b)):.3e}"
+        f" ({ratio:.3f} of rtol {rtol:g} + atol {atol:g})")
+    check(ratio <= 1.0, f"card vs CPU: {what}")
+    return ratio
+
+
+def multiasset_card_vs_cpu(device, cl, qu, bk, ba, ac, american,
+                           SVJParams, gbm_params):
+    """Every slice K program on the card against the CPU on the same draws
+    (CPU generator, copied to the card): the period loop, the quanto
+    terminal, the basket terminal and states, each engine's price, the
+    note, the LSM's fixed-policy lower bound and the dual (rtol 1e-5, the
+    dual 1e-4), and the in-sample LSM at 200 000 paths, multi-asset and
+    single-asset, with its exercise flips counted."""
+    n = MULTI_CARD_CPU_PATHS
+    p = SVJParams()
+    out = {}
+    cpu, card = shared_draws(21, 64, (n,), device)
+    out["period_returns"] = [agree(
+        f"period log returns {w} (4 x 16 steps, {n} paths)", a, b,
+        1e-5, 1e-6) for w, a, b in zip(("S", "G"), *(
+            cl.simulate_period_log_returns(
+                p, 1.0, None, num_paths=n, n_periods=4, steps_per_period=16,
+                draws=d) for d in (card, cpu)))]
+    out["quanto_terminal"] = [agree(
+        f"quanto terminal {w} (64 steps)", a, b, 1e-5) for w, a, b in zip(
+            ("S", "G"), *(qu._quanto_terminal(
+                p, 100.0, 1.0, 0.03, 0.12, -0.4, None, num_paths=n,
+                num_steps=64, draws=d) for d in (card, cpu)))]
+    fields = [{}, {"v0": 0.06, "rho": -0.3, "lambda_j": 2.0},
+              {"kappa": 1.5, "xi": 0.7, "q": 0.03}]
+    params3 = [SVJParams(**f) for f in fields]
+    corr3 = np.array([[1.0, 0.5, 0.2], [0.5, 1.0, 0.35], [0.2, 0.35, 1.0]])
+    chol = np.linalg.cholesky(corr3).astype(np.float32)
+    batch = bk._stack_params(params3)
+    cpu3, card3 = shared_draws(22, 32, (3, n), device)
+    out["basket_terminal"] = [agree(
+        f"basket terminal {w} (3 assets, 32 steps)", a, b, 1e-5)
+        for w, a, b in zip(("S", "G"), *(bk.simulate_basket_terminal(
+            batch, [100.0, 50.0, 200.0], chol, 0.5, None, num_paths=n,
+            num_steps=32, draws=d) for d in (card3, cpu3)))]
+    out["basket_states"] = [agree(
+        f"basket states {w} (3 assets, 4 x 8 steps)", a, b, 1e-5, atol)
+        for w, a, b, atol in zip(("levels", "v"), *(
+            bk.simulate_basket_states(
+                batch, [100.0, 50.0, 200.0], chol, 0.5, None, num_paths=n,
+                n_obs=4, steps_per_period=8, draws=d)
+            for d in (card3, cpu3)), (0.0, 1e-6))]
+
+    cpu_w, card_w = shared_draws(28, 64, (3, n), device)
+
+    def engine_prices(d1, d3, dev):
+        """The basket, cliquet and quanto engines' results on shared draws
+        (their replay hooks): d1 one asset × 64 steps, d3 three assets ×
+        32 steps."""
+        res = {}
+        eng = bk.BasketEngine(params3, corr3, num_paths=n, num_steps=64,
+                              device=dev)
+        eng._draws = lambda k, steps: d3
+        res["basket"] = eng.price([100.0, 50.0, 200.0], [0.5, 0.3, 0.2],
+                                  110.0, 0.5)
+        eng = cl.CliquetEngine(p, num_paths=n, device=dev)
+        eng._draws = lambda steps: d1
+        res["cliquet"] = eng.price_cliquet(1.0)
+        eng = qu.QuantoEngine(p, 0.03, 0.12, -0.4, num_paths=n, device=dev)
+        eng._draws = lambda steps: d1
+        res["quanto"] = eng.price(100.0, 100.0, 1.0)
+        return res
+
+    def note_values(d1, d3w):
+        """Per-pair note values, single-asset and worst-of, default
+        terms."""
+        ratio = torch.exp(torch.cumsum(cl.simulate_period_log_returns(
+            p, 1.0, None, num_paths=n, n_periods=4, steps_per_period=16,
+            companion=False, draws=d1)[0], dim=0))
+        levels = bk.simulate_basket_observations(
+            batch, np.ones(3, np.float32), chol, 1.0, None, num_paths=n,
+            n_obs=4, steps_per_period=16, draws=d3w)
+        terms = (1.0, float(p.r), 4, 1.0, 0.8, 0.7, 0.02, 0.08, 1.0)
+        return [ac._note_path_values(x, *terms)[0].cpu()
+                for x in (ratio, torch.amin(levels, dim=2))]
+
+    got = engine_prices(card, card3, device)
+    ref = engine_prices(cpu, cpu3, "cpu")
+    # A note's payoff jumps at its barriers: a path within rounding of one
+    # takes another leg on the card (counted), every other path agrees.
+    out["notes"] = {}
+    for name, a, b in zip(("single-asset", "worst-of"),
+                          note_values(card, card_w), note_values(cpu, cpu_w)):
+        jump = (a - b).abs() > 1e-3
+        check(int(jump.sum()) <= 0.001 * n,
+              f"{name} note flips {int(jump.sum())}")
+        out["notes"][name] = {"barrier_flips": int(jump.sum()),
+                              "agree": agree(
+                                  f"{name} note pair values "
+                                  f"({int(jump.sum())} barrier flips aside)",
+                                  a[~jump], b[~jump], 1e-5, 1e-7)}
+    out["engines"] = {}
+    for name in ref:
+        keys = [k for k, v in ref[name].items()
+                if isinstance(v, float) and k != "cv_beta"]
+        out["engines"][name] = agree(
+            f"{name} engine ({', '.join(keys)})",
+            [got[name][k] for k in keys], [ref[name][k] for k in keys],
+            1e-5, 1e-9)
+
+    # The Broadie-Glasserman max call at the route's width, in sample on
+    # the same draws: a path's cashflow that moves by more than rounding
+    # is a flipped exercise decision.
+    gbm2 = [gbm_params(0.2, r=0.05, q=0.10)] * 2
+    b2 = bk._stack_params(gbm2)
+    eye = np.eye(2, dtype=np.float32)
+    cpu2, card2 = shared_draws(23, 9, (2, MULTI_PATHS), device)
+    lsm = {}
+    for name, d, dev in (("card", card2, device), ("cpu", cpu2, "cpu")):
+        spots, strike, w = ba._prepare([100.0, 100.0], 100.0, None, dev)
+        sheet = ba._sheet(b2, spots, eye, 3.0, None, num_paths=MULTI_PATHS,
+                          n_ex=9, steps_per_period=1, draws=d, device=dev)
+        pay = ba._ma_payoff_fn(strike, "max", True, w)
+        basis = ba._ma_basis_fn(strike, "max", True, w)
+        sdf = torch.exp(-torch.tensor(0.05, device=dev)
+                        * torch.tensor(3.0, device=dev) / 9).expand(9)
+        cf = american.lsm_backward_cashflows(
+            pay(sheet[-1]), sheet, sheet, np.ones(8, bool), sdf, pay, basis)
+        pairs = 0.5 * (cf[:MULTI_PATHS] + cf[MULTI_PATHS:])
+        lsm[name] = {"cf": cf.cpu(), "price": float(pairs.mean()),
+                     "se": float(pairs.std(correction=0))
+                     / np.sqrt(MULTI_PATHS),
+                     "coefs": ba.lsm_basket_train(
+                         b2, [100.0, 100.0], eye, 100.0, 3.0, 0.05, None,
+                         num_paths=MULTI_PATHS, n_ex=9, steps_per_period=1,
+                         kind="max", is_call=True, draws=d, device=dev)}
+    flips = int(((lsm["card"]["cf"] - lsm["cpu"]["cf"]).abs()
+                 > 1e-3 * float(lsm["cpu"]["cf"].abs().max())).sum())
+    log(f"multi-asset LSM (max call, 2 x {MULTI_PATHS} paths, 9 rights) in"
+        f" sample: card {lsm['card']['price']:.5f} vs CPU "
+        f"{lsm['cpu']['price']:.5f} (se {lsm['cpu']['se']:.5f}); {flips} of"
+        f" {2 * MULTI_PATHS} paths' exercise dates differ")
+    check(abs(lsm["card"]["price"] - lsm["cpu"]["price"])
+          < 0.5 * lsm["cpu"]["se"], "multi-asset in-sample LSM card vs CPU")
+    check(flips <= 0.03 * 2 * MULTI_PATHS, f"multi-asset LSM flips {flips}")
+    out["basket_lsm"] = {"card": lsm["card"]["price"],
+                         "cpu": lsm["cpu"]["price"], "se": lsm["cpu"]["se"],
+                         "flips": flips, "paths": 2 * MULTI_PATHS}
+
+    # The CPU's fitted policy and value function on both devices.
+    coefs = lsm["cpu"]["coefs"]
+    cpu_e, card_e = shared_draws(24, 9, (2, n), device)
+    lb = [ba._lower_bound_pairs(
+        b2, [100.0, 100.0], eye, 100.0, 3.0, 0.05, None,
+        coefs["policy"].to(dev), num_paths=n, n_ex=9, steps_per_period=1,
+        kind="max", is_call=True, draws=d, device=dev)
+        for d, dev in ((card_e, device), (cpu_e, "cpu"))]
+    lb_flips = int(((lb[0].cpu() - lb[1]).abs()
+                    > 1e-3 * float(lb[1].abs().max())).sum())
+    check(lb_flips <= 0.001 * n, f"fixed-policy flips card vs CPU {lb_flips}")
+    out["lower_bound_flips"] = lb_flips
+    keep = ((lb[0].cpu() - lb[1]).abs()
+            <= 1e-3 * float(lb[1].abs().max()))
+    out["lower_bound"] = agree(
+        f"fixed-policy lower bound, pairs ({lb_flips} flips aside)",
+        lb[0].cpu()[keep], lb[1][keep], 1e-5, 1e-7 * 100.0)
+    n_outer, half = 2048, 32
+    cpu_o, card_o = shared_draws(25, 9, (2, n_outer), device)
+    gen = torch.Generator().manual_seed(26)
+    zh = torch.randn((9, 1, 3, half, 2, 2 * n_outer), generator=gen)
+    uh = torch.rand((9, 1, half, 2, 2 * n_outer), generator=gen)
+    dual = [ba._dual_pairs(
+        b2, [100.0, 100.0], eye, 100.0, 3.0, 0.05, None,
+        coefs["value"].to(dev), n_outer=n_outer, n_inner=2 * half, n_ex=9,
+        steps_per_period=1, kind="max", is_call=True, draws=d,
+        inner_draws=(zh.to(dev), uh.to(dev)), device=dev)
+        for d, dev in ((card_o, device), (cpu_o, "cpu"))]
+    out["dual"] = agree(f"dual pairs ({n_outer} x {2 * half}, 9 dates)",
+                        dual[0], dual[1], 1e-4, 1e-7 * 100.0)
+
+    # The single-asset LSM at /api/american's width: a put, 200 000 paths
+    # x 64 steps, in sample on the same draws.
+    cpu_a, card_a = shared_draws(27, 64, (MULTI_PATHS,), device)
+    am = {}
+    for name, d in (("card", card_a), ("cpu", cpu_a)):
+        strike, s_ex, s_cum = american._sheets(
+            p, 100.0, 100.0, 1.0, None, num_paths=None, num_steps=None,
+            div_grid=None, div_kind="cash", rate_offsets=None,
+            td_table=None, draws=d, device=d[0].device)
+        pay = american._payoff_fn(strike, False)
+        cf = american.lsm_backward_cashflows(
+            pay(s_ex[-1]), s_cum, s_ex, american._exercise_mask(64, 1),
+            american._step_dfs(p, 1.0, 64, None, s_ex.device), pay,
+            american._basis_fn(strike, False, 3))
+        am[name] = {"cf": cf.cpu(), "price": float(cf.mean()),
+                    "se": float(cf.std(correction=0)) / np.sqrt(MULTI_PATHS)}
+    am_flips = int(((am["card"]["cf"] - am["cpu"]["cf"]).abs()
+                    > 1e-3 * float(am["cpu"]["cf"].abs().max())).sum())
+    log(f"single-asset LSM (put, {MULTI_PATHS} paths x 64 steps) in sample:"
+        f" card {am['card']['price']:.5f} vs CPU {am['cpu']['price']:.5f} "
+        f"(se {am['cpu']['se']:.5f}); {am_flips} of {MULTI_PATHS} paths' "
+        f"exercise dates differ")
+    check(abs(am["card"]["price"] - am["cpu"]["price"])
+          < 0.5 * am["cpu"]["se"], "single-asset in-sample LSM card vs CPU")
+    check(am_flips <= 0.03 * MULTI_PATHS, f"single-asset flips {am_flips}")
+    out["american_lsm"] = {"card": am["card"]["price"],
+                           "cpu": am["cpu"]["price"], "se": am["cpu"]["se"],
+                           "flips": am_flips, "paths": MULTI_PATHS}
+    return out
+
+
+def multiasset_path(device, ck, server, bs_price, SVJParams, gbm_params):
+    """Slice K over HTTP on a fresh server, with the launch counts set to 0
+    just before: `/api/cliquet`, `/api/quanto`, `/api/basket` (European
+    payoffs, the implied correlation, the Bermudan and its bracket) and
+    `/api/autocall` at the schemas' widths against their oracles, the
+    400s, warm latencies, the default bodies once under the profiler, the
+    wide bodies' peak device memory, and the programs on the card against
+    the CPU. No kernel of the repo is on this path: every count stays 0."""
+    from mcos_tpu_torch.engine import autocallable as ac
+    from mcos_tpu_torch.engine import basket as bk
+    from mcos_tpu_torch.engine import basket_american as ba
+    from mcos_tpu_torch.engine import cliquet as cl
+    from mcos_tpu_torch.engine import american
+    from mcos_tpu_torch.engine import quanto as qu
+    from mcos_tpu_torch.ops import rainbow
+    from mcos_tpu_torch.profile_price import ROUTE_BODIES
+
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {"requests": {}}
+
+    def ask(what, route, body):
+        status, res, ms = post(base, body, path=f"/api/{route}")
+        check(status == 200, f"{what}: status {status}")
+        check(all_finite(res), f"{what}: every number finite")
+        out["requests"][what] = {"latency_ms": ms,
+                                 "elapsed_ms": res.get("elapsed_ms")}
+        return res
+
+    def refused(what, route, body, code=400):
+        try:
+            post(base, body, path=f"/api/{route}")
+            check(False, f"{what} must answer {code}")
+        except urllib.error.HTTPError as e:
+            detail = json.loads(e.read())["detail"]
+            check(e.code == code, f"{what}: {e.code} {detail!r}")
+            log(f"/api/{route} {what}: {code} {str(detail)[:80]!r}")
+
+    def lap(what):
+        log(f"  [{what}: {time.perf_counter() - t_start:.1f} s into the "
+            f"path]")
+
+    def within(what, got, exact, tol):
+        log(f"{what}: {got:.6f} vs {exact:.6f} (tol {tol:.2e})")
+        check(abs(got - exact) <= tol, what)
+
+    B = ROUTE_BODIES
+    gbm = {"kappa": 0.0, "theta": 0.0625, "xi": 0.0, "rho": 0.0,
+           "v0": 0.0625, "lambda_j": 0.0, "mu_j": 0.0, "sigma_j": 0.0,
+           "r": 0.05, "q": 0.01}
+    gbm_p = gbm_params(0.25, r=0.05, q=0.01)
+    try:
+        # ── /api/cliquet: GBM-degenerate against the closed forms ────────
+        res = ask("cliquet", "cliquet", B["cliquet"])
+        c = ask("cliquet GBM", "cliquet", dict(B["cliquet"], params=gbm,
+                                               local_cap=0.06))
+        exact = cl.cliquet_bs(1.0, 4, 0.05, 0.01, 0.25, 0.0, 0.06)
+        within("GBM cliquet (CV) vs cliquet_bs", c["price"], exact,
+               3 * c["std_error"] + 1e-6 * exact)
+        raw = cl.CliquetEngine(gbm_p, num_paths=MULTI_PATHS, device=device,
+                               use_control_variate=False).price_cliquet(
+            1.0, local_cap=0.06)
+        within("GBM cliquet (raw) vs cliquet_bs", raw["price"], exact,
+               3 * raw["std_error"])
+        f = ask("forward start GBM", "cliquet", dict(
+            B["cliquet"], params=gbm, kind="forward_start", t1=0.25))
+        exact = cl.forward_start_bs(f["t1_effective"], 1.0, 1.0, 0.05, 0.01,
+                                    0.25)
+        within("GBM forward start (CV) vs forward_start_bs", f["price"],
+               exact, 3 * f["std_error"] + 1e-6 * exact)
+        raw = cl.CliquetEngine(gbm_p, num_paths=MULTI_PATHS, device=device,
+                               use_control_variate=False
+                               ).price_forward_start(0.25, 1.0)
+        within("GBM forward start (raw) vs forward_start_bs", raw["price"],
+               exact, 3 * raw["std_error"])
+        log(f"/api/cliquet default (4 x 16 steps, {MULTI_PATHS} paths): "
+            f"{res['price']:.6f} ± {res['std_error']:.6f}")
+        refused("t1 >= T", "cliquet", dict(B["cliquet"],
+                                           kind="forward_start", t1=1.0))
+        refused("unknown kind", "cliquet", dict(B["cliquet"], kind="x"))
+        lap("cliquet")
+
+        # ── /api/quanto: quanto_bs and the σ_fx = 0 limit ────────────────
+        res = ask("quanto", "quanto", B["quanto"])
+        qb = dict(B["quanto"], params=gbm, r_domestic=0.03)
+        q = ask("quanto GBM", "quanto", qb)
+        exact = qu.quanto_bs(100.0, 100.0, 1.0, 0.03, 0.05, 0.01, 0.25, 0.1,
+                             -0.3)
+        within("GBM quanto (CV) vs quanto_bs", q["price"], exact,
+               3 * q["std_error"] + 1e-6 * exact)
+        raw = qu.QuantoEngine(gbm_p, 0.03, 0.1, -0.3, num_paths=MULTI_PATHS,
+                              use_control_variate=False,
+                              device=device).price(100.0, 100.0, 1.0)
+        within("GBM quanto (raw) vs quanto_bs", raw["price"], exact,
+               3 * raw["std_error"])
+        q0 = ask("quanto sigma_fx 0", "quanto", dict(qb, sigma_fx=0.0))
+        plain = float(bs_price(100.0, 100.0, 1.0, 0.03, 0.03 - 0.05 + 0.01,
+                               0.25))
+        within("quanto at sigma_fx = 0 vs Black-Scholes", q0["price"], plain,
+               3 * q0["std_error"] + 1e-5 * plain)
+        log(f"/api/quanto default (64 steps): {res['price']:.5f} ± "
+            f"{res['std_error']:.5f}, BS adjustment "
+            f"{res['quanto_adjustment_bs']:.5f}")
+        refused("rho_fx 1", "quanto", dict(B["quanto"], rho_fx=1.0), 422)
+        lap("quanto")
+
+        # ── /api/basket: Stulz, Margrabe, the vanilla, implied ρ ─────────
+        res = ask("basket", "basket", B["basket"])
+        g1, g2 = dict(gbm, v0=0.0625, theta=0.0625), dict(
+            gbm, v0=0.1225, theta=0.1225, q=0.03)
+        two = {"spots": [100.0, 95.0], "strike": 100.0, "T": 0.75,
+               "corr": [[1.0, 0.4], [0.4, 1.0]], "params": [g1, g2]}
+        for kind in ("worst_of", "best_of"):
+            for is_call in (True, False):
+                r_ = ask(f"rainbow {kind} {is_call}", "basket", dict(
+                    two, payoff=kind, is_call=is_call))
+                exact = rainbow.rainbow_price(
+                    100.0, 95.0, 100.0, 0.75, 0.05, 0.01, 0.03, 0.25, 0.35,
+                    0.4, kind=kind, is_call=is_call)
+                within(f"GBM rainbow {kind} {'call' if is_call else 'put'}"
+                       " vs Stulz", r_["price"], exact,
+                       max(5 * r_["std_error"], 0.02))
+        s = ask("spread K=0", "basket", dict(two, payoff="spread",
+                                             strike=0.0))
+        exact = rainbow.margrabe_exchange(100.0, 95.0, 0.75, 0.01, 0.03,
+                                          0.25, 0.35, 0.4)
+        within("GBM spread K=0 vs Margrabe", s["price"], exact,
+               max(5 * s["std_error"], 0.02))
+        one = ask("single-asset basket", "basket", {
+            "spots": [100.0], "weights": [1.0], "strike": 100.0, "T": 0.25,
+            "corr": [[1.0]], "params": [dict(gbm, v0=0.04, theta=0.04)]})
+        exact = float(bs_price(100.0, 100.0, 0.25, 0.05, 0.01, 0.2))
+        within("single-asset basket vs Black-Scholes", one["price"], exact,
+               1e-3)
+        trio = {"spots": [100.0, 50.0, 200.0], "weights": [1 / 3] * 3,
+                "strike": 115.0, "T": 0.5, "corr": [
+                    [1.0, 0.45, 0.45], [0.45, 1.0, 0.45], [0.45, 0.45, 1.0]],
+                "params": [dict(gbm, v0=s_ * s_, theta=s_ * s_)
+                           for s_ in (0.2, 0.25, 0.3)]}
+        quote = ask("basket quote at rho 0.45", "basket", trio)
+        t0 = time.perf_counter()
+        ic = ask("implied correlation", "basket", dict(
+            trio, implied_corr_from_price=quote["price"]))
+        out["implied_corr_ms"] = (time.perf_counter() - t0) * 1e3
+        within(f"implied correlation round trip ({ic['iterations']} "
+               "bisections)", ic["implied_correlation"], 0.45, 0.02)
+        log(f"/api/basket default (2 assets, {MULTI_PATHS} x 64 steps): "
+            f"{res['price']:.5f} ± {res['std_error']:.5f} (beta "
+            f"{res['cv_beta']:.4f}); implied correlation "
+            f"{out['implied_corr_ms']:.0f} ms")
+        lap("basket European")
+
+        # ── /api/basket american: the Broadie-Glasserman table ───────────
+        bg = {"strike": 100.0, "T": 3.0, "corr": [[1.0, 0.0], [0.0, 1.0]],
+              "params": [BG_GBM, BG_GBM], "payoff": "best_of",
+              "american": True, "n_exercise": 9, "steps_per_period": 1}
+        for s0, lo, hi in BG_BANDS:
+            r_ = ask(f"Bermudan max call S0={s0:g}", "basket",
+                     dict(bg, spots=[s0, s0]))
+            log(f"BG max call S0 = {s0:g}: {r_['price']:.4f} ± "
+                f"{r_['std_error']:.4f} (band {lo}-{hi})")
+            check(lo < r_["price"] < hi, f"BG max call at {s0}")
+        r_ = ask("Bermudan bracket", "basket", dict(
+            bg, spots=[100.0, 100.0], with_bounds=True))
+        b = r_["bounds"]
+        log(f"duality bracket at S0 = 100 (2048 x 64): [{b['lower_bound']:.4f}"
+            f" ± {b['lower_se']:.4f}, {b['upper_bound']:.4f} ± "
+            f"{b['upper_se']:.4f}], gap {b['duality_gap']:.4f}")
+        check(b["lower_bound"] - 3 * b["lower_se"] < 13.934
+              and b["upper_bound"] + 3 * b["upper_se"] > 13.892
+              and b["duality_gap"] < 0.8
+              and b["lower_bound"] - 3 * b["lower_se"] < 13.902
+              < b["upper_bound"] + 3 * b["upper_se"],
+              "duality bracket reaches [13.892, 13.934]")
+        out["bg"] = {"bracket": b}
+        for what, bad in (("corr rows", {"corr": [[1.0]]}),
+                          ("weights", {"weights": [1.0]}),
+                          ("spread of 3", {"payoff": "spread",
+                                           "spots": [1.0, 2.0, 3.0],
+                                           "corr": np.eye(3).tolist(),
+                                           "params": []}),
+                          ("params length", {"params": [{}]}),
+                          ("implied corr on worst_of",
+                           {"payoff": "worst_of",
+                            "implied_corr_from_price": 3.0}),
+                          ("american spread", {"payoff": "spread",
+                                               "american": True})):
+            refused(what, "basket", dict(B["basket"], **bad))
+        refused("corr not PSD", "basket", dict(
+            B["basket"], corr=[[1.0, 1.5], [1.5, 1.0]]), code=500)
+        lap("basket Bermudan")
+
+        # ── /api/autocall: no_call_note_bs, ρ = 1, the par coupon ────────
+        res = ask("autocall", "autocall", B["autocall"])
+        gbm20 = dict(gbm, v0=0.04, theta=0.04)
+        a = ask("autocall unreachable", "autocall", dict(
+            B["autocall"], params=gbm20, autocall_barrier=50.0))
+        exact = ac.no_call_note_bs(1.0, 0.05, 0.01, 0.2, 0.8, 0.7, 0.08)
+        within("unreachable autocall vs no_call_note_bs", a["price"], exact,
+               4 * a["std_error"] + 5e-4)
+        check(a["survival_prob"] == 1.0, "unreachable: every path survives")
+        single = ask("autocall GBM", "autocall", dict(B["autocall"],
+                                                      params=gbm20))
+        w3 = ask("worst-of rho 1", "autocall", dict(
+            B["autocall"], params_list=[gbm20] * 3,
+            corr=np.ones((3, 3)).tolist()))
+        within("worst-of at rho = 1 vs its single-asset note", w3["price"],
+               single["price"], 3e-3)
+        par = ask("par coupon", "autocall", dict(B["autocall"],
+                                                 solve_par=True))
+        within(f"price at the par coupon {par['par_coupon']:.5f}",
+               par["price_at_par_coupon"], 1.0, 1e-5)
+        wpar = ask("worst-of par coupon", "autocall", dict(
+            B["autocall"], solve_par=True, params_list=[{}] * 3,
+            corr=(np.full((3, 3), 0.6) + 0.4 * np.eye(3)).tolist()))
+        within("worst-of price at its par coupon",
+               wpar["price_at_par_coupon"], 1.0, 1e-5)
+        check(wpar["par_coupon"] > par["par_coupon"],
+              "worst-of pays a dispersion premium")
+        log(f"/api/autocall default: {res['price']:.5f} ± "
+            f"{res['std_error']:.5f}, call probabilities "
+            f"{np.round(res['call_prob_by_date'], 4).tolist()}; par coupon "
+            f"{par['par_coupon']:.5f} (worst of 3: {wpar['par_coupon']:.5f})")
+        refused("barrier order", "autocall", dict(B["autocall"],
+                                                 coupon_barrier=1.2))
+        refused("worst-of without corr", "autocall", dict(
+            B["autocall"], params_list=[{}, {}]))
+        refused("17 assets", "autocall", dict(
+            B["autocall"], params_list=[{}] * 17,
+            corr=np.eye(17).tolist()))
+        refused("mixed r", "autocall", dict(
+            B["autocall"], params_list=[{}, {"r": 0.01}],
+            corr=np.eye(2).tolist()), code=500)
+        lap("autocall")
+
+        # ── warm latencies: median of 3 over HTTP ────────────────────────
+        bodies = {"basket": B["basket"], "cliquet": B["cliquet"],
+                  "quanto": B["quanto"], "autocall": B["autocall"],
+                  "bermudan": dict(B["basket"], american=True,
+                                   payoff="best_of")}
+        for name, body in bodies.items():
+            route = "basket" if name == "bermudan" else name
+            lat = []
+            for _ in range(3):
+                before = time.perf_counter()
+                ask(f"warm {name}", route, body)
+                lat.append((time.perf_counter() - before) * 1e3)
+            out[f"warm_{name}_ms"] = statistics.median(lat)
+            log(f"warm /api/{route} {name}: median "
+                f"{statistics.median(lat):.2f} ms over 3 "
+                f"({[round(x, 2) for x in lat]})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    lap("warm latencies")
+
+    # The default bodies once in process under the profiler, each with its
+    # peak device memory; then the widest bodies the schemas allow.
+    bodies["bracket"] = dict(bodies["bermudan"], with_bounds=True)
+    prof = {}
+    for name, body in bodies.items():
+        fn = getattr(server, "handle_basket" if name in ("bermudan",
+                                                          "bracket")
+                     else f"handle_{name}")
+        prof[name] = profiled_call(
+            device, lambda fn=fn, body=body: fn(dict(body), device=device))
+        pr = prof[name]
+        log(f"profiled {name}: wall {pr['profiled_wall_ms']:.1f} ms, device "
+            f"{pr['device_ms_per_call']} ms, {pr['kernel_launches_per_call']}"
+            f" launches, busy share {pr['busy_share']}, peak "
+            f"{pr['peak_gib']:.3f} GiB")
+    out["profiles"] = prof
+    lap("profiles")
+
+    def wide(name, fn):
+        torch.cuda.synchronize(device)
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+        check(all_finite(res), f"{name}: finite")
+        log(f"{name}: {ms:.1f} ms, peak device memory {peak:.3f} GiB")
+        out.setdefault("wide", {})[name] = {"ms": ms, "peak_gib": peak}
+        return res
+
+    def eq(a, r):
+        """An a × a flat correlation r."""
+        return (np.full((a, a), r) + (1 - r) * np.eye(a)).tolist()
+
+    a, w = WIDE_BASKET_ASSETS, WIDE_WORST_ASSETS
+    wide(f"basket {a} assets x {MULTI_PATHS} paths x 64 steps",
+         lambda: server.handle_basket({
+             "spots": [100.0] * a, "weights": [1 / a] * a,
+             "strike": 100.0, "T": 1.0, "corr": eq(a, 0.3)},
+             device=device))
+    wide(f"worst-of autocall {w} assets x {MULTI_PATHS} paths",
+         lambda: server.handle_autocall(dict(
+             B["autocall"], params_list=[{}] * w, corr=eq(w, 0.5)),
+             device=device))
+    n_outer, n_inner = WIDE_BRACKET
+    res = wide(f"bracket 2 assets, {n_outer} outer x {n_inner} inner, "
+               "9 x 8 steps", lambda: server.handle_basket(dict(
+                   bodies["bracket"], n_outer=n_outer, n_inner=n_inner),
+                   device=device))
+    log(f"wide bracket: {res['bounds']}")
+    lap("wide bodies")
+
+    out["card_vs_cpu"] = multiasset_card_vs_cpu(
+        device, cl, qu, bk, ba, ac, american, SVJParams, gbm_params)
+    counts = ck.launch_counts()
+    log(f"launch counts over the slice K path: {counts} (expected all 0: "
+        f"no kernel on the path)")
+    check(all(v == 0 for v in counts.values()), "slice K launches no kernel")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"slice K path: {out['wall_s']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4444,6 +5031,12 @@ def main() -> None:
     cp["k1_calibration_shape"] = k1_cal
     dp = desk_path(device, ck, server, cos_price, bs_price, bs_all_greeks,
                    SVJParams, gbm_params)
+    kp = multiasset_path(device, ck, server, bs_price, SVJParams, gbm_params)
+    log(f"warm slice K over HTTP (median of 3): /api/basket "
+        f"{kp['warm_basket_ms']:.2f} ms, Bermudan {kp['warm_bermudan_ms']:.2f}"
+        f", /api/cliquet {kp['warm_cliquet_ms']:.2f}, /api/quanto "
+        f"{kp['warm_quanto_ms']:.2f}, /api/autocall "
+        f"{kp['warm_autocall_ms']:.2f} ms; on {card}")
     log(f"warm slice J over HTTP (median of 3): /api/pnl "
         f"{dp['warm_pnl_ms']:.2f} ms, /api/margin {dp['warm_margin_ms']:.2f},"
         f" /api/replicate {dp['warm_replicate_ms']:.2f}, /api/volderivs "
@@ -4478,7 +5071,7 @@ def main() -> None:
     )
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
              "rough": rp, "greeks": gp, "risk": gr, "american": ap,
-             "calibration": cp, "desk": dp}
+             "calibration": cp, "desk": dp, "multiasset": kp}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -4522,7 +5115,7 @@ def main() -> None:
                    "families_path": fp, "rough_path": rp,
                    "greeks_path": gp, "risk_path": gr,
                    "american_path": ap, "calibration_path": cp,
-                   "desk_path": dp}, f,
+                   "desk_path": dp, "multiasset_path": kp}, f,
                   indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,9 +4,8 @@ The JAX package `mcos_tpu` is the reference; this package imports neither
 JAX nor `mcos_tpu`. Its layout mirrors the reference's (`config`, `models`,
 `ops`, `engine`, `api`, `utils`), with the hand-written CUDA sources in
 `csrc/`: one kernel for each of the JAX package's eleven Pallas kernels
-(K1-K11). It serves `/api/price`, `/api/convergence`, `/api/exotic`,
-`/api/hhw`, `/api/svcj`, `/api/termsvj` and `/api/rough`. ROADMAP.md lists
-what is left.
+(K1-K11). Its HTTP server (`api/server.py`) serves `/api/health` and 31
+of the reference's POST routes. ROADMAP.md lists what is left.
 """
 
 from mcos_tpu_torch.engine.pricer import MonteCarloEngine, mc_price_from_draws

@@ -6,9 +6,10 @@
 `SurfaceRequest`, `CalibrateRequest`, `QuoteGreeksRequest` (with
 `ProductSpec`), `LocalVolRequest`, `SLVRequest`, and the desk tools'
 `ReplicateRequest`, `MarginRequest`, `VolDerivsRequest`, `BookRequest`,
-`ExposurePosition`, `ExposureRequest`, `ModelRiskRequest` and `PnlRequest`
-need, copied unchanged apart from the imports. tests/test_torch_copies.py
-holds the two equal.
+`ExposurePosition`, `ExposureRequest`, `ModelRiskRequest` and `PnlRequest`,
+and the multi-asset and path products' `BasketRequest`, `QuantoRequest`,
+`AutocallRequest` and `CliquetRequest` need, copied unchanged apart from the
+imports. tests/test_torch_copies.py holds the two equal.
 """
 
 from __future__ import annotations
@@ -724,3 +725,95 @@ class PnlRequest(BaseModel):
     T_new: float = Field(gt=0, le=30.0)
     params_old: SVJParamsRequest = SVJParamsRequest()
     params_new: SVJParamsRequest = SVJParamsRequest()
+
+
+class BasketRequest(BaseModel):
+    """POST /api/basket — European option on a weighted basket of correlated
+    SVJ assets (multi-asset capability beyond the reference)."""
+    spots: list[float] = Field(max_length=64)
+    weights: list[float] = Field(default_factory=list, max_length=64)
+    strike: float
+    T: float
+    is_call: bool = True
+    corr: list[list[float]]          # (A, A) spot-shock correlation
+    params: list[SVJParamsRequest] = Field(default_factory=list,
+                                           max_length=64)
+    num_paths: int = Field(200_000, **_PATHS)
+    # "basket" (weighted sum; needs weights), "worst_of"/"best_of" rainbow
+    # (exact Stulz companion CV for 2 assets), or "spread" (S1-S2-K; exact
+    # Margrabe companion CV) — engine/basket.py.
+    payoff: str = "basket"
+    # Dispersion inverse problem: given a basket quote, return the flat
+    # implied correlation instead of a price (basket payoff only).
+    implied_corr_from_price: Optional[float] = Field(None, gt=0)
+    # Bermudan exercise (engine/basket_american.py): n_exercise rights at
+    # t_1..T on payoff "basket" | "worst_of" (min) | "best_of" (max).
+    american: bool = False
+    n_exercise: int = Field(9, ge=1, le=64)
+    steps_per_period: int = Field(8, ge=1, le=64)
+    # Honest price bracket: out-of-sample LSM lower + Andersen-Broadie
+    # dual upper bound (american mode only).
+    with_bounds: bool = False
+    n_outer: int = Field(2048, ge=128, le=16384)
+    n_inner: int = Field(64, ge=16, le=512)
+
+
+class QuantoRequest(BaseModel):
+    """POST /api/quanto — quanto vanilla under SVJ (engine/quanto.py).
+    `params.r` is the FOREIGN rate; `r_domestic` discounts the payoff."""
+    spot: float = Field(gt=0)
+    strike: float = Field(gt=0)
+    T: float = Field(gt=0, le=10.0)
+    is_call: bool = True
+    r_domestic: float = 0.05
+    sigma_fx: float = Field(0.1, ge=0.0, le=2.0)
+    rho_fx: float = Field(-0.3, ge=-0.999, le=0.999)
+    fx_fixed: float = Field(1.0, gt=0)
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    num_steps: int = Field(64, ge=8, le=1024)
+
+
+class AutocallRequest(BaseModel):
+    """POST /api/autocall — Express/Phoenix note pricing under SVJ
+    (engine/autocallable.py; structured product beyond the reference)."""
+    T: float = Field(gt=0, le=10.0)
+    n_obs: int = Field(4, ge=1, le=64)
+    autocall_barrier: float = Field(1.0, gt=0, le=100.0)
+    coupon_barrier: float = Field(0.8, ge=0.0, le=100.0)
+    protection_barrier: float = Field(0.7, ge=0.0, le=100.0)
+    coupon: float = Field(0.02, ge=0.0, le=1.0)
+    final_coupon: Optional[float] = Field(None, ge=0.0, le=10.0)
+    notional: float = Field(1.0, gt=0, le=1e12)
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    steps_per_period: int = Field(16, ge=2, le=256)
+    # Worst-of basket variant: per-asset params + correlation (the
+    # trigger/coupon/capital legs then read min_i S_i(t)/S_i(0)).
+    params_list: Optional[list] = None       # of SVJParamsRequest dicts
+    corr: Optional[list] = None              # (A, A)
+    # Issuance: solve the coupon pricing the note at `par_target`
+    # (exact by coupon-linearity on CRN paths; `coupon` is then ignored)
+    solve_par: bool = False
+    par_target: float = Field(1.0, gt=0.1, le=10.0)
+
+
+class CliquetRequest(BaseModel):
+    """POST /api/cliquet — cliquet (ratchet) / forward-start pricing under
+    SVJ (forward-skew instruments; engine/cliquet.py)."""
+    T: float
+    kind: str = "cliquet"            # "cliquet" | "forward_start"
+    params: SVJParamsRequest = SVJParamsRequest()
+    num_paths: int = Field(200_000, **_PATHS)
+    steps_per_period: int = Field(16, ge=2, le=256)
+    # cliquet terms
+    n_periods: int = Field(4, ge=1, le=64)
+    local_floor: float = 0.0
+    local_cap: float = 0.08
+    global_floor: float = 0.0
+    global_cap: float = 1e18
+    notional: float = Field(1.0, gt=0, le=1e12)
+    # forward-start terms
+    t1: float = 0.25
+    k: float = 1.0
+    is_call: bool = True

@@ -52,6 +52,14 @@ serving slice).
     POST /api/exposure     — EE/ENE/PFE profiles, CVA/DVA, CVA delta
     POST /api/volderivs    — variance and vol swaps, VIX futures/options
     POST /api/modelrisk    — one contract under every model family
+    POST /api/basket       — basket, rainbow and spread options on
+                             correlated SVJ assets, the implied correlation
+                             of a quote, the Bermudan LSM and its duality
+                             bracket
+    POST /api/cliquet      — cliquet and forward-start options
+    POST /api/quanto       — quanto vanillas with the pathwise √v tilt
+    POST /api/autocall     — Express notes, single-asset or worst-of, and
+                             the par coupon
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
@@ -78,8 +86,14 @@ from pydantic import ValidationError
 
 from mcos_tpu_torch.api import coalesce, schemas
 from mcos_tpu_torch.engine.american import AmericanEngine, american_cos_oracle
+from mcos_tpu_torch.engine.autocallable import (
+    AutocallableEngine,
+    WorstOfAutocallableEngine,
+)
+from mcos_tpu_torch.engine.basket import BasketEngine, implied_correlation
 from mcos_tpu_torch.engine.book import BookEngine
 from mcos_tpu_torch.engine.calibration import CalibrationEngine
+from mcos_tpu_torch.engine.cliquet import CliquetEngine
 from mcos_tpu_torch.engine.exotics import (
     ExoticEngine,
     variance_swap_fair_strike,
@@ -94,6 +108,7 @@ from mcos_tpu_torch.engine.margin import MarginEngine
 from mcos_tpu_torch.engine.modelrisk import model_risk_report
 from mcos_tpu_torch.engine.pde import HestonPDEEngine, PDEEngine
 from mcos_tpu_torch.engine.pnl import pnl_explain
+from mcos_tpu_torch.engine.quanto import QuantoEngine
 from mcos_tpu_torch.engine.quotegreeks import (ALL_PARAMS, CORE4,
                                                quote_bucket_greeks)
 from mcos_tpu_torch.engine.pricer import (MonteCarloEngine, seeded_generator,
@@ -1307,6 +1322,156 @@ def handle_exposure(body: dict, device="cuda") -> dict:
     return out
 
 
+def handle_basket(body: dict, device="cuda") -> dict:
+    """`/api/basket` on `device`: European basket, rainbow and spread
+    options on correlated SVJ assets, the flat implied correlation of a
+    basket quote, and the Bermudan LSM with its duality bracket (torch step
+    loops, no kernel). The JAX handler's contract: a `corr` that does not
+    factor (not PSD, or rows of the wrong length) raises ValueError outside
+    the handler's checks, which the transport answers 500."""
+    req = schemas.BasketRequest(**body)
+    n = len(req.spots)
+    if len(req.corr) != n:
+        raise ApiError(400, "spots/corr dimensions must agree")
+    if req.payoff == "basket" and len(req.weights) != n:
+        raise ApiError(400, "basket payoff needs one weight per spot")
+    if req.payoff == "spread" and n != 2:
+        raise ApiError(400, "spread payoff needs exactly 2 assets")
+    params = ([p.to_params() for p in req.params] if req.params
+              else [schemas.SVJParamsRequest().to_params()] * n)
+    if len(params) != n:
+        raise ApiError(400, "params list must match spots length")
+    start = time.time()
+    if req.implied_corr_from_price is not None:
+        if req.payoff != "basket":
+            raise ApiError(400, "implied correlation needs payoff=basket")
+        try:
+            out = implied_correlation(
+                params, req.spots, req.weights, req.strike, req.T,
+                req.implied_corr_from_price, is_call=req.is_call,
+                num_paths=min(req.num_paths, 200_000), device=device)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+        return out
+    eng = BasketEngine(params, np.asarray(req.corr, np.float64),
+                       num_paths=req.num_paths, device=device)
+    if req.american:
+        kind = {"basket": "basket", "best_of": "max",
+                "worst_of": "min"}.get(req.payoff)
+        if kind is None:
+            raise ApiError(400, "american supports payoff basket/"
+                                "worst_of/best_of (not spread)")
+        weights = req.weights if kind == "basket" else None
+        try:
+            out = eng.price_american(
+                req.spots, req.strike, req.T, kind=kind,
+                is_call=req.is_call, weights=weights, n_ex=req.n_exercise,
+                steps_per_period=req.steps_per_period)
+            if req.with_bounds:
+                out["bounds"] = eng.price_bounds_american(
+                    req.spots, req.strike, req.T, kind=kind,
+                    is_call=req.is_call, weights=weights,
+                    n_ex=req.n_exercise,
+                    steps_per_period=req.steps_per_period,
+                    n_outer=req.n_outer, n_inner=req.n_inner)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+        return out
+    if req.payoff == "basket":
+        out = eng.price(req.spots, req.weights, req.strike, req.T,
+                        req.is_call)
+    elif req.payoff in ("worst_of", "best_of"):
+        out = eng.price_rainbow(req.spots, req.strike, req.T,
+                                kind=req.payoff, is_call=req.is_call)
+    elif req.payoff == "spread":
+        out = eng.price_spread(req.spots, req.strike, req.T, req.is_call)
+    else:
+        raise ApiError(400, f"unknown payoff {req.payoff!r}")
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_cliquet(body: dict, device="cuda") -> dict:
+    """`/api/cliquet` on `device`: a cliquet or a forward start, the
+    period loop of torch ops (no kernel)."""
+    req = schemas.CliquetRequest(**body)
+    start = time.time()
+    eng = CliquetEngine(req.params.to_params(), num_paths=req.num_paths,
+                        steps_per_period=req.steps_per_period, device=device)
+    if req.kind == "cliquet":
+        out = eng.price_cliquet(
+            req.T, n_periods=req.n_periods, local_floor=req.local_floor,
+            local_cap=req.local_cap, global_floor=req.global_floor,
+            global_cap=req.global_cap, notional=req.notional)
+    elif req.kind == "forward_start":
+        if not 0.0 < req.t1 < req.T:
+            raise ApiError(400, "need 0 < t1 < T")
+        out = eng.price_forward_start(req.t1, req.T, k=req.k,
+                                      is_call=req.is_call)
+    else:
+        raise ApiError(400, f"unknown kind {req.kind!r}")
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_quanto(body: dict, device="cuda") -> dict:
+    """`/api/quanto` on `device`: a quanto vanilla with the pathwise √v
+    tilt and the exact companion control, a step loop of torch ops (no
+    kernel)."""
+    req = schemas.QuantoRequest(**body)
+    start = time.time()
+    eng = QuantoEngine(req.params.to_params(), req.r_domestic,
+                       req.sigma_fx, req.rho_fx, num_paths=req.num_paths,
+                       num_steps=req.num_steps, device=device)
+    out = eng.price(req.spot, req.strike, req.T, is_call=req.is_call,
+                    fx_fixed=req.fx_fixed)
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_autocall(body: dict, device="cuda") -> dict:
+    """`/api/autocall` on `device`: an Express note's price and
+    early-redemption accounting, on one asset or the worst of up to 16
+    correlated ones (torch step loops, no kernel). The JAX handler's
+    contract: a worst-of book with mixed `r`, a `corr` that does not
+    factor and a `solve_par` with no feasible coupon raise ValueError,
+    which the transport answers 500."""
+    req = schemas.AutocallRequest(**body)
+    if not (req.protection_barrier <= req.coupon_barrier
+            <= req.autocall_barrier):
+        raise ApiError(400, "need protection <= coupon <= autocall barrier")
+    start = time.time()
+    if req.params_list is not None:
+        if req.corr is None or len(req.corr) != len(req.params_list):
+            raise ApiError(400, "worst-of needs corr matching params_list")
+        if len(req.params_list) > 16:
+            raise ApiError(400, "at most 16 basket assets")
+        plist = [schemas.SVJParamsRequest(**p).to_params()
+                 for p in req.params_list]
+        eng = WorstOfAutocallableEngine(
+            plist, np.asarray(req.corr, np.float64),
+            num_paths=req.num_paths,
+            steps_per_period=req.steps_per_period, device=device)
+    else:
+        eng = AutocallableEngine(req.params.to_params(),
+                                 num_paths=req.num_paths,
+                                 steps_per_period=req.steps_per_period,
+                                 device=device)
+    terms = dict(n_obs=req.n_obs, autocall_barrier=req.autocall_barrier,
+                 coupon_barrier=req.coupon_barrier,
+                 protection_barrier=req.protection_barrier,
+                 notional=req.notional)
+    if req.solve_par:
+        out = eng.solve_par_coupon(req.T, target=req.par_target, **terms)
+    else:
+        out = eng.price(req.T, coupon=req.coupon,
+                        final_coupon=req.final_coupon, **terms)
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
 _POST_ROUTES = {"/api/price": handle_price,
                 "/api/greeks": handle_greeks,
                 "/api/smile": handle_smile,
@@ -1333,7 +1498,11 @@ _POST_ROUTES = {"/api/price": handle_price,
                 "/api/replicate": handle_replicate,
                 "/api/exposure": handle_exposure,
                 "/api/volderivs": handle_volderivs,
-                "/api/modelrisk": handle_modelrisk}
+                "/api/modelrisk": handle_modelrisk,
+                "/api/basket": handle_basket,
+                "/api/cliquet": handle_cliquet,
+                "/api/quanto": handle_quanto,
+                "/api/autocall": handle_autocall}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,

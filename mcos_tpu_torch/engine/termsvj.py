@@ -28,6 +28,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from mcos_tpu_torch.engine.cliquet import (
+    _cliquet_payoff,
+    _optimal_beta_adjust,
+    _period_loop,
+    cliquet_bs,
+    forward_start_bs,
+)
 from mcos_tpu_torch.engine.pricer import (
     _price_terminal,
     not_ported,
@@ -38,9 +45,7 @@ from mcos_tpu_torch.models.params import SVJParams, TermStructureSVJ
 from mcos_tpu_torch.ops import cuda_kernels
 from mcos_tpu_torch.ops.bs import bs_price
 from mcos_tpu_torch.ops.simulate import (
-    _companion,
-    _f32,
-    _svj_step_core,
+    _step_draws,
     combine_antithetic,
     mc_mean_stderr,
 )
@@ -134,57 +139,28 @@ def _period_log_returns_td(params: SVJParams, th_ps, xi_ps, lam_ps, T,
     `companion`), antithetic branches on axis 1.
 
     `th_ps/xi_ps/lam_ps` are (n_periods, steps_per_period) per-step levels
-    (a host-side reshape of `step_param_arrays`' output). The period's log
-    carry starts at 0, so the reset is free; only v crosses boundaries.
+    (a host-side reshape of `step_param_arrays`' output). The period loop
+    is `cliquet.simulate_period_log_returns`'s, with per-step parameters.
     Randoms: `generator`'s (steps, 3, paths) normals and (steps, paths)
-    uniforms, all up front, or `draws=(z, u_jump)` of those shapes.
+    uniforms, all up front, or `draws=(z, u)` of those shapes.
     """
     n_steps = n_periods * steps_per_period
     if draws is not None:
-        z, u_jump = draws
-        device = z.device
+        device = draws[0].device
     else:
         device = torch.device(device)
-        z = torch.randn((n_steps, 3, num_paths), generator=generator,
-                        device=device, dtype=torch.float32)
-        u_jump = torch.rand((n_steps, num_paths), generator=generator,
-                            device=device, dtype=torch.float32)
+        draws = (torch.randn((n_steps, 3, num_paths), generator=generator,
+                             device=device, dtype=torch.float32),
+                 torch.rand((n_steps, num_paths), generator=generator,
+                            device=device, dtype=torch.float32))
     th, xi, lam = _step_levels(th_ps, xi_ps, lam_ps, n_steps)
-    dt = _f32(T, device) / n_steps
-    sqrt_dt = torch.sqrt(dt)
-    sign = torch.tensor([1.0, -1.0], dtype=torch.float32,
-                        device=device)[:, None]
-    sigma_cv, g_drift = _companion(params, dt, device)
-    zero = torch.zeros((2, num_paths), dtype=torch.float32, device=device)
-    v = _f32(params.v0, device).expand(2, num_paths)
-    dlog_s, dlog_g = [], []
-    for period in range(n_periods):
-        log_s = log_g = zero
-        for t in range(period * steps_per_period,
-                       (period + 1) * steps_per_period):
-            p_i = params.replace(theta=th[t], xi=xi[t], lambda_j=lam[t])
-            z1 = z[t, 0] * sign
-            log_s, v = _svj_step_core(p_i, dt, sqrt_dt, log_s, v, z1,
-                                      z[t, 1] * sign, u_jump[t][None, :],
-                                      z[t, 2] * sign)
-            if companion:
-                log_g = log_g + g_drift + sigma_cv * sqrt_dt * z1
-        dlog_s.append(log_s)
-        dlog_g.append(log_g)
-    return (torch.stack(dlog_s),
-            torch.stack(dlog_g) if companion else None)
-
-
-def _optimal_beta_adjust(pay: torch.Tensor, ctrl: torch.Tensor,
-                         ctrl_exact: float, discount: float):
-    """(β*, payoffs adjusted by β*·(control − its exact undiscounted
-    mean)): the per-contract optimal control-variate arithmetic of the
-    forward-start and cliquet pricers."""
-    ctrl_c = ctrl - torch.mean(ctrl)
-    var_c = float(torch.mean(ctrl_c**2))
-    beta = (float(torch.mean((pay - torch.mean(pay)) * ctrl_c))
-            / max(var_c, 1e-12) if var_c > 1e-12 else 0.0)
-    return beta, pay - beta * (ctrl - ctrl_exact / discount)
+    return _period_loop(
+        params, T, _step_draws(draws, None, (num_paths,), n_steps, device),
+        num_paths=num_paths, n_periods=n_periods,
+        steps_per_period=steps_per_period, companion=companion,
+        step_params=lambda t: params.replace(theta=th[t], xi=xi[t],
+                                             lambda_j=lam[t]),
+        device=device)
 
 
 class TDSVJEngine:
@@ -334,8 +310,6 @@ class TDSVJEngine:
         Companion control: the GBM leg's forward-start price is exact
         (`forward_start_bs` at σ = √v0); β* absorbs decorrelation.
         """
-        from mcos_tpu_torch.engine.cliquet import forward_start_bs
-
         if not 0.0 < t1 < T:
             raise ValueError("need 0 < t1 < T for a forward start")
         p = self.params
@@ -374,8 +348,6 @@ class TDSVJEngine:
         td dynamics: per-period coupons accrue under different (θ, ξ, λ)
         regimes. Control: the capped-sum cliquet on the GBM companion legs
         with the exact `cliquet_bs` expectation (β*)."""
-        from mcos_tpu_torch.engine.cliquet import _cliquet_payoff, cliquet_bs
-
         p = self.params
         spp = max(self.num_steps // n_periods, 1)
         n_steps = n_periods * spp

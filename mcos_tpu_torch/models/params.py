@@ -198,6 +198,16 @@ def gbm_params(sigma: float, r: float = RISK_FREE_RATE,
                      lambda_j=0.0, mu_j=0.0, sigma_j=0.0, r=r, q=q)
 
 
+def _stack_params(params_list) -> SVJParams:
+    """One `SVJParams` whose every field is the (A,) float32 array of the
+    A sets' values, in order: the asset axis of the multi-asset engines
+    (the JAX package stacks the pytree leaves with `jnp.stack`)."""
+    return SVJParams(**{
+        f.name: np.asarray([getattr(p, f.name) for p in params_list],
+                           np.float32)
+        for f in dataclasses.fields(SVJParams)})
+
+
 def forward_price(spot, r, q, T):
     """Forward price F = S₀·e^{(r−q)T} for float r, q and T; a tensor spot
     gives a tensor, differentiable in it."""

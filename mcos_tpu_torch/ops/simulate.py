@@ -112,6 +112,28 @@ def _euler_draws(draws, generator, num_paths, num_steps, device):
     return z, u
 
 
+def _step_draws(draws, generator, shape, num_steps: int, device):
+    """A function of the step t → (z (3, *shape) normals, u (*shape) jump
+    uniforms): row t of the supplied `draws`, (steps, 3, *shape) and
+    (steps, *shape), else one step's fresh from `generator`, normals first,
+    so no more than a step of randoms is ever held. Call it for t = 0, 1, …
+    in order."""
+    if draws is not None:
+        z, u = draws
+        if (tuple(u.shape) != (num_steps, *shape)
+                or tuple(z.shape) != (num_steps, 3, *shape)):
+            raise ValueError(f"draws must be ({num_steps}, 3, *{shape}) "
+                             f"normals and ({num_steps}, *{shape}) uniforms")
+        return lambda t: (z[t], u[t])
+
+    def fresh(t):
+        return (torch.randn((3, *shape), generator=generator, device=device,
+                            dtype=torch.float32),
+                torch.rand(shape, generator=generator, device=device,
+                           dtype=torch.float32))
+    return fresh
+
+
 def _member_leaf(x, ndim: int):
     """A leaf with a leading (M,) member axis → (M, 1, ...) over `ndim`
     dimensions; scalars and 0-d tensors as they are."""

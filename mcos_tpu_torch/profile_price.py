@@ -3,10 +3,11 @@
 `/api/hedge`, `/api/var`, `/api/american`, `/api/pde`, `/api/calibrate`,
 `/api/surface`, `/api/quotegreeks`, `/api/localvol`, `/api/slv`,
 `/api/book`, `/api/pnl`, `/api/margin`, `/api/replicate`, `/api/exposure`,
-`/api/volderivs`, `/api/modelrisk`) spends its time on one CUDA device.
+`/api/volderivs`, `/api/modelrisk`, `/api/basket`, `/api/cliquet`,
+`/api/quanto`, `/api/autocall`) spends its time on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde|calibrate|surface|quotegreeks|localvol|slv|book|pnl|margin|replicate|exposure|volderivs|modelrisk]
+        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde|calibrate|surface|quotegreeks|localvol|slv|book|pnl|margin|replicate|exposure|volderivs|modelrisk|basket|cliquet|quanto|autocall]
         [--options JSON] [--reps N] [--out FILE]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
@@ -95,6 +96,15 @@ true}' adds the autograd pass), `handle_volderivs` (a one-year variance
 swap, 200k pairs × 252 steps; '{"kind": "vix_future", "T": 0.5,
 "with_mc_check": true}' for the one K4 launch) and `handle_modelrisk` (an
 OTM put under six models: one K7 launch, the rough exact sampler).
+`--route basket|cliquet|quanto|autocall` do the same for the multi-asset
+and path products (slice K; torch step loops, no kernel) at the schema
+defaults (`ROUTE_BODIES`): `handle_basket` (a two-asset basket call,
+200k paths × 64 steps, the geometric control; '{"american": true,
+"payoff": "best_of"}' for the Bermudan's 9 rights × 8 sub-steps, with
+'"with_bounds": true' for its bracket, 2048 outer × 64 inner paths),
+`handle_cliquet` (4 periods × 16 steps), `handle_quanto` (64 steps) and
+`handle_autocall` (4 observations × 16 steps; '{"params_list": [...],
+"corr": [...]}' for a worst-of note).
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -156,6 +166,16 @@ ROUTE_BODIES = {
     "volderivs": {"kind": "variance_swap", "T": 1.0},
     "modelrisk": {"spot": 22500.0, "strike": 21500.0, "T": 0.25,
                   "is_call": False},
+    # Multi-asset and path products (slice K), each at its schema's
+    # widths: 200 000 paths, the basket's 64 steps a year (a two-asset
+    # call at T = 1), the cliquet's and the autocall's 4 periods of 16
+    # steps, the quanto's 64 steps.
+    "basket": {"spots": [100.0, 100.0], "weights": [0.5, 0.5],
+               "strike": 100.0, "T": 1.0,
+               "corr": [[1.0, 0.5], [0.5, 1.0]]},
+    "cliquet": {"T": 1.0},
+    "quanto": {"spot": 100.0, "strike": 100.0, "T": 1.0},
+    "autocall": {"T": 1.0},
 }
 
 

@@ -607,3 +607,108 @@ def test_desk_request_schemas_equal():
             getattr(jschemas, name)(**body)
         with pytest.raises(ValidationError):
             getattr(pschemas, name)(**body)
+
+
+@pytest.mark.parametrize("name", ["engine.cliquet", "engine.quanto",
+                                  "engine.basket", "engine.basket_american",
+                                  "engine.autocallable", "ops.rainbow"])
+def test_multiasset_public_names_match_jax(name):
+    """Slice K's modules define the JAX package's public names."""
+    import importlib
+    import inspect
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))
+                and n not in _FRAMEWORKS | {"Array"}
+                and getattr(getattr(mod, n), "__module__", mod.__name__)
+                == mod.__name__}
+
+    jmod = importlib.import_module(f"mcos_tpu.{name}")
+    pmod = importlib.import_module(f"mcos_tpu_torch.{name}")
+    assert public(pmod) == public(jmod)
+
+
+@pytest.mark.parametrize("rho", [-0.6, 0.0, 0.45, 0.999])
+def test_rainbow_closed_forms_equal(rho):
+    """`ops/rainbow.py`: host float64, equal to the JAX package's; the
+    best-of call's two vanilla legs are float32 Black-Scholes in both
+    (tests/test_torch_params_bs.py holds those at rtol 1e-5)."""
+    import mcos_tpu.ops.rainbow as jr
+    import mcos_tpu_torch.ops.rainbow as pr
+
+    assert pr._bvn_cdf(0.3, -0.2, rho) == jr._bvn_cdf(0.3, -0.2, rho)
+    args = (100.0, 95.0, 0.75, 0.01, 0.03, 0.25, 0.35, rho)
+    assert pr.margrabe_exchange(*args) == jr.margrabe_exchange(*args)
+    assert pr.min_asset_value(*args) == jr.min_asset_value(*args)
+    for K in (0.0, 90.0, 110.0):
+        stulz = (100.0, 95.0, K, 0.75, 0.05, 0.01, 0.03, 0.25, 0.35, rho)
+        assert pr.stulz_min_call(*stulz) == jr.stulz_min_call(*stulz)
+        for kind in ("worst_of", "best_of"):
+            for is_call in (True, False):
+                got = pr.rainbow_price(*stulz, kind=kind, is_call=is_call)
+                ref = jr.rainbow_price(*stulz, kind=kind, is_call=is_call)
+                if kind == "worst_of":
+                    assert got == ref
+                else:
+                    assert got == pytest.approx(ref, rel=1e-5, abs=1e-4)
+    with pytest.raises(ValueError, match="worst_of\\|best_of"):
+        pr.rainbow_price(*stulz, kind="middle")
+
+
+def test_slice_k_host_closed_forms_equal():
+    """`quanto_bs` (float32 Black-Scholes in both, rtol 1e-6),
+    `no_call_note_bs` and `_geometric_basket_undiscounted` (host float64,
+    exactly)."""
+    import mcos_tpu.engine.autocallable as ja
+    import mcos_tpu.engine.basket as jb
+    import mcos_tpu.engine.quanto as jq
+    import mcos_tpu_torch.engine.autocallable as pa
+    import mcos_tpu_torch.engine.basket as pb
+    import mcos_tpu_torch.engine.quanto as pq
+
+    for is_call in (True, False):
+        for rho_fx, sigma_fx in ((-0.3, 0.1), (0.5, 0.25), (0.0, 0.0)):
+            args = (100.0, 95.0, 0.5, 0.06, 0.04, 0.01, 0.2, sigma_fx,
+                    rho_fx, is_call)
+            assert pq.quanto_bs(*args) == pytest.approx(jq.quanto_bs(*args),
+                                                        rel=1e-6)
+        w = np.array([0.5, 0.3, 0.2])
+        args = (350.0, w, np.array([0.01, -0.02, 0.03]), 0.035, 340.0,
+                is_call)
+        assert (pb._geometric_basket_undiscounted(*args)
+                == jb._geometric_basket_undiscounted(*args))
+    for terms in ((0.8, 0.7, 0.08), (1.0, 0.5, 0.1), (0.0, 0.0, 0.02)):
+        args = (1.0, 0.05, 0.01, 0.2, *terms, 100.0)
+        assert pa.no_call_note_bs(*args) == ja.no_call_note_bs(*args)
+
+
+def test_slice_k_request_schemas_equal():
+    names = ("BasketRequest", "QuantoRequest", "AutocallRequest",
+             "CliquetRequest")
+    for name in names:
+        a = getattr(jschemas, name).model_json_schema()
+        b = getattr(pschemas, name).model_json_schema()
+        assert a == b, name
+    bodies = {
+        "BasketRequest": {"spots": [100.0, 95.0], "strike": 100.0,
+                          "T": 0.5, "corr": [[1.0, 0.3], [0.3, 1.0]],
+                          "params": [{"v0": 0.05}, {}],
+                          "american": True, "with_bounds": True},
+        "QuantoRequest": {"spot": 100.0, "strike": 95.0, "T": 0.5},
+        "AutocallRequest": {"T": 1.0, "params_list": [{}, {"r": 0.03}],
+                            "corr": [[1.0, 0.5], [0.5, 1.0]]},
+        "CliquetRequest": {"T": 1.0, "kind": "forward_start", "t1": 0.3},
+    }
+    for name, body in bodies.items():
+        assert (getattr(jschemas, name)(**body).model_dump()
+                == getattr(pschemas, name)(**body).model_dump()), name
+    for name, bad in (("BasketRequest", {"n_outer": 64}),
+                      ("QuantoRequest", {"rho_fx": 1.0}),
+                      ("AutocallRequest", {"steps_per_period": 1}),
+                      ("CliquetRequest", {"n_periods": 0})):
+        body = dict(bodies[name], **bad)
+        with pytest.raises(ValidationError):
+            getattr(jschemas, name)(**body)
+        with pytest.raises(ValidationError):
+            getattr(pschemas, name)(**body)

@@ -1615,3 +1615,111 @@ def test_localvol_and_slv_on_card_match_cpu(cuda):
         pay = torch.clamp(st - 100.0, min=0.0).mean(dim=0)
         out[dev] = (float(pay.mean()), float(pay.std() / pay.numel() ** 0.5))
     assert abs(out[cuda][0] - out["cpu"][0]) < out["cpu"][1], out
+
+
+# ── slice K: multi-asset and path products (torch ops, no kernel) ───────────
+def _shared(shape, steps, seed=12):
+    """CPU draws (steps, 3, *shape) and (steps, *shape)."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((steps, 3, *shape), generator=g),
+            torch.rand((steps, *shape), generator=g))
+
+
+def _on(draws, dev):
+    return tuple(x.to(dev) for x in draws)
+
+
+def test_slice_k_simulators_on_card_match_cpu(cuda):
+    """The period loop, the quanto terminal and the basket terminal and
+    states on the card against the CPU on the same draws (rtol 1e-5,
+    beside 1e-6 for log returns and variance states near 0)."""
+    from mcos_tpu_torch.engine import basket as bk
+    from mcos_tpu_torch.engine import cliquet as cl
+    from mcos_tpu_torch.engine import quanto as qu
+    from mcos_tpu_torch.models.params import _stack_params
+
+    n = 20_000
+    d1 = _shared((n,), 32)
+    out = [cl.simulate_period_log_returns(
+        _P, 1.0, None, num_paths=n, n_periods=4, steps_per_period=8,
+        draws=_on(d1, dev)) for dev in (cuda, "cpu")]
+    for a, b in zip(*out):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    out = [qu._quanto_terminal(_P, 100.0, 0.5, 0.03, 0.12, -0.4, None,
+                               num_paths=n, num_steps=32,
+                               draws=_on(d1, dev)) for dev in (cuda, "cpu")]
+    for a, b in zip(*out):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=0)
+    batch = _stack_params([_P, SVJParams(v0=0.06, rho=-0.3, q=0.03)])
+    chol = np.linalg.cholesky(np.array([[1.0, 0.4], [0.4, 1.0]]))
+    d2 = _shared((2, n), 32)
+    out = [bk.simulate_basket_terminal(
+        batch, [100.0, 95.0], chol, 0.5, None, num_paths=n, num_steps=32,
+        draws=_on(d2, dev)) for dev in (cuda, "cpu")]
+    for a, b in zip(*out):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=0)
+    out = [bk.simulate_basket_states(
+        batch, [100.0, 95.0], chol, 0.5, None, num_paths=n, n_obs=4,
+        steps_per_period=8, draws=_on(d2, dev)) for dev in (cuda, "cpu")]
+    for a, b in zip(*out):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+def test_slice_k_fixed_policy_programs_on_card_match_cpu(cuda):
+    """The lower bound and the dual on one fitted policy (the CPU's), on
+    the same outer and inner draws: the lower bound's pairs at rtol 1e-5
+    but for stopping decisions within rounding of their boundary (at most
+    0.1 %), the dual's at rtol 1e-4."""
+    from mcos_tpu_torch.engine import basket_american as ba
+    from mcos_tpu_torch.models.params import gbm_params, _stack_params
+
+    b2 = _stack_params([gbm_params(0.2, r=0.05, q=0.1)] * 2)
+    eye = np.eye(2)
+    kw = dict(n_ex=9, steps_per_period=1, kind="max", is_call=True)
+    args = (b2, [100.0, 100.0], eye, 100.0, 3.0, 0.05, None)
+    coefs = ba.lsm_basket_train(*args, num_paths=20_000,
+                                draws=_shared((2, 20_000), 9, 3), **kw)
+    d = _shared((2, 20_000), 9, 4)
+    lb = [ba._lower_bound_pairs(*args, coefs["policy"].to(dev),
+                                num_paths=20_000, draws=_on(d, dev), **kw)
+          .cpu() for dev in (cuda, "cpu")]
+    jump = (lb[0] - lb[1]).abs() > 1e-3 * float(lb[1].abs().max())
+    assert int(jump.sum()) <= 20
+    torch.testing.assert_close(lb[0][~jump], lb[1][~jump], rtol=1e-5,
+                               atol=1e-5)
+    outer = _shared((2, 512), 9, 5)
+    g = torch.Generator().manual_seed(6)
+    inner = (torch.randn((9, 1, 3, 16, 2, 1024), generator=g),
+             torch.rand((9, 1, 16, 2, 1024), generator=g))
+    dual = [ba._dual_pairs(*args, coefs["value"].to(dev), n_outer=512,
+                           n_inner=32, draws=_on(outer, dev),
+                           inner_draws=_on(inner, dev), **kw).cpu()
+            for dev in (cuda, "cpu")]
+    torch.testing.assert_close(dual[0], dual[1], rtol=1e-4, atol=1e-5)
+
+
+def test_slice_k_handlers_on_card_launch_no_kernel(cuda):
+    """The four routes on the card from their engines' generators: every
+    number finite, no kernel launched."""
+    from mcos_tpu_torch.api import server
+
+    two = {"spots": [100.0, 95.0], "weights": [0.5, 0.5], "strike": 100.0,
+           "T": 0.5, "corr": [[1.0, 0.3], [0.3, 1.0]], "num_paths": 20_000}
+    bodies = [
+        ("basket", two), ("basket", dict(two, payoff="worst_of")),
+        ("basket", dict(two, payoff="spread", strike=5.0)),
+        ("basket", dict(two, american=True, payoff="best_of",
+                        with_bounds=True, n_outer=256, n_inner=16)),
+        ("cliquet", {"T": 1.0, "num_paths": 20_000}),
+        ("cliquet", {"T": 1.0, "kind": "forward_start", "num_paths": 20_000}),
+        ("quanto", {"spot": 100.0, "strike": 100.0, "T": 0.5,
+                    "num_paths": 20_000}),
+        ("autocall", {"T": 1.0, "num_paths": 20_000, "solve_par": True}),
+        ("autocall", {"T": 1.0, "num_paths": 20_000, "params_list": [{}, {}],
+                      "corr": [[1.0, 0.5], [0.5, 1.0]]})]
+    ck.reset_launch_counts()
+    for route, body in bodies:
+        res = getattr(server, f"handle_{route}")(dict(body), device=cuda)
+        flat = [v for v in res.values() if isinstance(v, float)]
+        assert flat and all(np.isfinite(flat)), (route, res)
+    assert all(n == 0 for n in ck.launch_counts().values())
