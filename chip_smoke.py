@@ -229,7 +229,29 @@
    same draws (rtol 1e-5; the dual 1e-4; the notes' barrier flips and the
    in-sample LSM's exercise flips at 200 000 paths, multi-asset and
    single-asset, counted). No kernel launches on this path.
-15. Prints the kernels' JSON line (each kernel's launches on its own path
+15. Slices L and M (rough Heston, MLMC, the serving tail), with the
+   counts set to 0 again: a new server on 127.0.0.1 answers POST
+   /api/roughheston at the default body (200 000 pairs × 2 048 steps × 24
+   factors): price against the fractional-Riccati COS price within 4 se +
+   0.6 %, H = 1/2 against Heston COS within 4 se + 0.4 %, compare (its ATM
+   row the price), greeks (the AD delta within 0.03 of a CRN
+   bump-and-reprice in process), smile, skew (six negative skews; T =
+   0.025 against 0.4 in the T^(H - 1/2) band), calibrate on COS prices of
+   known parameters (the reference test's bands), two 400s and warm
+   latencies (median of 5); then GET /api/metrics (counting this phase's
+   requests), /api/symbols, /api/quote?symbol=NIFTY (the static universe:
+   every urlopen to a host other than the loopback fails at once), / and
+   a static file, and a traversal that answers 404. In process: price and
+   greeks once under the profiler with their peak device memory (a price
+   under 1 GiB: no (steps, 2, paths) sheet); the lifted loop on the card
+   against the CPU on the same normals at 16 384 pairs × 512 steps × 24
+   factors (G path by path to rtol 1e-5, 99 % of the S paths within rtol
+   1e-4, the control-variate payoff means within 1e-5 of the spot; the
+   largest S error and the share above 1e-4 printed); an MLMC coupled
+   level on the card against the CPU on the same normals and Poisson
+   counts; `mlmc_price` at eps = 1 against the Bates COS price. No kernel
+   launches on this path.
+16. Prints the kernels' JSON line (each kernel's launches on its own path
    and, under "launches_by_path", on every path; K1's row lists its two
    shapes under "shapes": one member at `/api/price`'s 500 000 × 63 and
    the 24-member population at `/api/calibrate`'s 100 000 × 50), the card
@@ -251,6 +273,7 @@ import sys
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -4920,6 +4943,350 @@ def multiasset_path(device, ck, server, bs_price, SVJParams, gbm_params):
     return out
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Slices L and M: rough Heston, MLMC and the serving tail
+# ─────────────────────────────────────────────────────────────────────────────
+RH_BODY = {"spot": SPOT, "T": T_DEFAULT}       # RoughHestonRequest defaults
+RH_PATHS = 200_000
+RH_CARD_CPU = (16_384, 512, 24)                # pairs x steps x factors
+MLMC_SVJ = {"kappa": 3.0, "theta": 0.05, "xi": 0.4, "rho": -0.6, "v0": 0.04,
+            "lambda_j": 1.0, "mu_j": -0.05, "sigma_j": 0.1}
+
+
+def offline_urlopen() -> None:
+    """Every urlopen to a host other than the loopback fails at once: the
+    card's machine has no network, and `/api/quote` must answer from the
+    static universe without waiting out its timeout."""
+    real = urllib.request.urlopen
+
+    def guarded(req, *args, **kwargs):
+        url = req.full_url if isinstance(req, urllib.request.Request) \
+            else req
+        if urllib.parse.urlparse(url).hostname not in ("127.0.0.1",
+                                                        "localhost"):
+            raise urllib.error.URLError("no network on this machine")
+        return real(req, *args, **kwargs)
+
+    urllib.request.urlopen = guarded
+
+
+def roughheston_card_vs_cpu(device, rh_ops, rh_eng, mlmc, SVJParams):
+    """The lifted loop and an MLMC coupled level on the card against the
+    CPU on the same normals (and Poisson counts)."""
+    from mcos_tpu_torch.engine.pricer import seeded_generator
+
+    out = {}
+    pairs, steps, nf = RH_CARD_CPU
+    p = rh_ops.RoughHestonParams()
+    c, x = rh_eng._nodes(p, T_DEFAULT, nf)
+    z = torch.randn((steps, 2, pairs), generator=seeded_generator(0, "cpu"))
+    kw = dict(num_paths=pairs, num_steps=steps, companion=True)
+    cpu = rh_ops.lifted_terminal(p, SPOT, T_DEFAULT, None, c, x, draws=z,
+                                 device="cpu", **kw)
+    card = [t.cpu() for t in rh_ops.lifted_terminal(
+        p, SPOT, T_DEFAULT, None, c, x, draws=z.to(device), device=device,
+        **kw)]
+    s_rel = ((card[0] - cpu[0]).abs() / cpu[0].abs()).flatten()
+    g_rel = rel_err(card[2], cpu[2])
+    strikes = torch.tensor([0.9, 0.95, 1.0, 1.05, 1.1]) * SPOT
+
+    def cv(S, G):
+        return (torch.clamp(S[..., None] - strikes, min=0.0)
+                - torch.clamp(G[..., None] - strikes, min=0.0)
+                ).double().mean(dim=(0, 1))
+    cv_err = float((cv(card[0], card[2]) - cv(cpu[0], cpu[2])).abs().max()
+                   / SPOT)
+    q99 = float(s_rel.kthvalue(int(0.99 * s_rel.numel())).values)
+    out["lifted"] = {
+        "shape": f"{pairs} pairs x {steps} steps x {nf} factors",
+        "s_max_rel_err": float(s_rel.max()), "s_q99_rel_err": q99,
+        "s_share_above_1e-4": float((s_rel > 1e-4).float().mean()),
+        "s_bit_equal_share": float((s_rel == 0).float().mean()),
+        "g_max_rel_err": g_rel, "cv_means_max_err_over_spot": cv_err,
+        "v_max_abs_err": float((card[1] - cpu[1]).abs().max())}
+    log(f"lifted rough Heston card vs CPU ({out['lifted']['shape']}): S "
+        f"max rel err {out['lifted']['s_max_rel_err']:.3e}, 99th pct "
+        f"{q99:.3e}, {100 * out['lifted']['s_share_above_1e-4']:.3f} % of "
+        f"paths above 1e-4, {100 * out['lifted']['s_bit_equal_share']:.1f} "
+        f"% bit equal; G max rel err {g_rel:.3e}; CV payoff means "
+        f"{cv_err:.3e} of the spot")
+    # Float32 rounding of the factor contraction (cuBLAS against the CPU's
+    # order) is amplified where v touches 0: paths part, the law does not.
+    check(g_rel < 1e-5, "lifted G card vs CPU path by path (rtol 1e-5)")
+    check(q99 < 1e-4, "lifted S card vs CPU: 99 % of paths within rtol 1e-4")
+    check(cv_err < 1e-5, "lifted CV payoff means card vs CPU within 1e-5 "
+          "of the spot")
+
+    # An MLMC coupled level (16 coarse steps, 65 536 pairs) on shared
+    # normals and Poisson counts.
+    n, cs = 65_536, 16
+    prm = SVJParams(**MLMC_SVJ)
+    gen = seeded_generator(1, "cpu")
+    lam_dt = torch.tensor(prm.lambda_j, dtype=torch.float32) * (
+        torch.tensor(T_DEFAULT, dtype=torch.float32) / (2 * cs))
+    draws = [torch.randn((cs, 2, n), generator=gen),
+             torch.randn((cs, 2, n), generator=gen)]
+    for _ in range(2):
+        draws += [torch.poisson(torch.full((cs, n), float(lam_dt)),
+                                generator=gen),
+                  torch.randn((cs, n), generator=gen)]
+    args = (prm, SPOT, SPOT, T_DEFAULT, None)
+    m_cpu = [float(v) for v in mlmc._coupled_level(
+        *args, num_paths=n, num_coarse_steps=cs, is_call=True, draws=draws,
+        device="cpu")]
+    m_card = [float(v) for v in mlmc._coupled_level(
+        *args, num_paths=n, num_coarse_steps=cs, is_call=True,
+        draws=[d.to(device) for d in draws], device=device)]
+    scale = math.sqrt(m_cpu[1])
+    out["coupled_level"] = {"card": m_card, "cpu": m_cpu,
+                            "mean_err_over_rms": abs(m_card[0] - m_cpu[0])
+                            / scale,
+                            "m2_rel_err": abs(m_card[1] / m_cpu[1] - 1)}
+    log(f"MLMC coupled level card vs CPU (65 536 pairs x 16 coarse steps): "
+        f"mean {m_card[0]:.6f} vs {m_cpu[0]:.6f}, E[x^2] {m_card[1]:.6f} vs "
+        f"{m_cpu[1]:.6f}")
+    check(abs(m_card[0] - m_cpu[0]) <= 1e-5 * scale,
+          "coupled level mean card vs CPU (1e-5 of its rms)")
+    check(abs(m_card[1] - m_cpu[1]) <= 1e-5 * m_cpu[1],
+          "coupled level E[x^2] card vs CPU (rtol 1e-5)")
+    return out
+
+
+def roughheston_path(device, ck, server, cos_price, SVJParams):
+    """Slices L and M, with the launch counts set to 0 just before: on a
+    fresh server `/api/roughheston` in every mode at the default body
+    against the COS oracle and its own bumps, two 400s and warm
+    latencies; price and greeks once under the profiler with their peak
+    device memory; the lifted loop and a coupled MLMC level on the card
+    against the CPU; `mlmc_price` at eps = 1 against the Bates COS price;
+    then the serving tail over HTTP (`/api/metrics`, `/api/symbols`,
+    `/api/quote`, the static UI). No kernel of the repo is on this path:
+    every count stays 0."""
+    from mcos_tpu_torch.engine import mlmc
+    from mcos_tpu_torch.engine import roughheston as rh_eng
+    from mcos_tpu_torch.ops import roughheston as rh_ops
+
+    ck.reset_launch_counts()
+    t_start = time.perf_counter()
+    httpd = server.serve("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {"requests": {}}
+    posts = [0]
+
+    def ask(what, body):
+        posts[0] += 1
+        status, res, ms = post(base, body, path="/api/roughheston")
+        check(status == 200, f"{what}: status {status}")
+        check(all_finite({k: v for k, v in res.items() if k != "iv"}),
+              f"{what}: every number finite")
+        out["requests"][what] = {"latency_ms": ms,
+                                 "elapsed_ms": res.get("elapsed_ms")}
+        log(f"/api/roughheston {what}: {ms:.1f} ms over HTTP")
+        return res
+
+    def refused(what, body):
+        posts[0] += 1
+        try:
+            post(base, body, path="/api/roughheston")
+            check(False, f"{what} must answer 400")
+        except urllib.error.HTTPError as e:
+            detail = json.loads(e.read())["detail"]
+            check(e.code == 400, f"{what}: {e.code} {detail!r}")
+            log(f"/api/roughheston {what}: 400 {str(detail)[:70]!r}")
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+
+    def within(what, got, exact, tol):
+        log(f"{what}: {got:.6f} vs {exact:.6f} (tol {tol:.3e})")
+        check(abs(got - exact) <= tol, what)
+
+    def lap(what):
+        out.setdefault("laps_s", {})[what] = time.perf_counter() - t_start
+        log(f"  [{what}: {out['laps_s'][what]:.1f} s into the path]")
+
+    p = rh_ops.RoughHestonParams()
+    lap("server up")
+    try:
+        # ── price: the COS oracle, H = 1/2 against Heston ────────────────
+        res = ask("price", RH_BODY)
+        check(res["num_steps"] == 2048 and res["n_factors"] == 24
+              and res["num_paths_used"] == RH_PATHS, "default widths")
+        check(res["frac_nonfinite"] == 0.0, "price: every path finite")
+        exact = float(rh_ops.rough_heston_cos_price(p, SPOT, [SPOT],
+                                                    T_DEFAULT)[0])
+        within("price vs the fractional-Riccati COS price", res["price"],
+               exact, 4 * res["std_error"] + 0.006 * exact)
+        out["price"] = {"mc": res["price"], "se": res["std_error"],
+                        "cos": exact}
+        half = ask("price H = 1/2", dict(RH_BODY, hurst=0.5))
+        heston = float(cos_price(SVJParams(kappa=1.5, theta=0.04, xi=0.35,
+                                           rho=-0.7, v0=0.04, lambda_j=0.0),
+                                 SPOT, [SPOT], T_DEFAULT)[0])
+        within("H = 1/2 price vs Heston COS", half["price"], heston,
+               4 * half["std_error"] + 0.004 * heston)
+        check(half["n_factors"] == 1, "H = 1/2 runs one factor")
+
+        # ── compare: five strikes; its ATM row is the price ──────────────
+        cmp_ = ask("compare", dict(RH_BODY, mode="compare"))
+        rows = cmp_["rows"]
+        check(len(rows) == 5 and rows[2]["strike"] == SPOT, "compare rows")
+        check(abs(rows[2]["mc_price"] / res["price"] - 1) < 1e-6,
+              "compare's ATM row is the price (same normals)")
+        for r_ in rows:
+            log(f"  compare K = {r_['strike']:.0f}: MC {r_['mc_price']:.4f}"
+                f" ± {r_['std_error']:.4f}, COS {r_['cos_price']:.4f} "
+                f"({(r_['mc_price'] / r_['cos_price'] - 1) * 100:+.3f} %)")
+        out["compare"] = rows
+
+        # ── greeks: AD delta against a CRN bump-and-reprice ──────────────
+        g = ask("greeks", dict(RH_BODY, mode="greeks"))
+        h = 0.01 * SPOT
+        eng = rh_eng.RoughHestonEngine(p, device=device)
+        up = eng.price(SPOT + h, SPOT, T_DEFAULT)["price"]
+        dn = eng.price(SPOT - h, SPOT, T_DEFAULT)["price"]
+        within("AD delta vs CRN bump-and-reprice", g["delta"],
+               (up - dn) / (2 * h), 0.03)
+        check(abs(g["price"] / res["price"] - 1) < 1e-5,
+              "greeks' price is the price (same normals)")
+        check(0.3 < g["delta"] < 0.8 and g["vega"] > 0.0
+              and g["dP_drho"] != 0.0, "greeks sane")
+        out["greeks"] = {k: g[k] for k in ("delta", "vega", "dP_dv0",
+                                           "dP_dnu", "dP_drho")}
+        lap("price, compare, greeks")
+
+        # ── smile, skew, calibrate: the host oracle ──────────────────────
+        sm = ask("smile", dict(RH_BODY, mode="smile"))
+        check(all(v is not None for v in sm["iv"])
+              and sm["iv"][0] > sm["iv"][2] > sm["iv"][4], "smile skewed")
+        sk = ask("skew", dict(RH_BODY, mode="skew"))
+        check(len(sk["rows"]) == 6 and all(r_["atm_skew"] < 0
+                                           for r_ in sk["rows"]),
+              "skew term structure: six negative skews")
+        pl = ask("skew 0.025 / 0.4", dict(RH_BODY, mode="skew",
+                                         maturities=[0.025, 0.4]))
+        ratio = pl["rows"][0]["atm_skew"] / pl["rows"][1]["atm_skew"]
+        expected = (0.025 / 0.4) ** (p.hurst - 0.5)
+        log(f"skew ratio T = 0.025 / 0.4: {ratio:.3f} (power law "
+            f"{expected:.3f})")
+        check(0.55 * expected < ratio < 1.6 * expected,
+              "short-dated skew follows T^(H - 1/2)")
+        ks = [m * SPOT for m in (0.92, 0.96, 1.0, 1.04, 1.08)]
+        market = rh_ops.rough_heston_cos_price(p, SPOT, ks, T_DEFAULT,
+                                               n_terms=192, n_steps=128)
+        fit = ask("calibrate", dict(RH_BODY, mode="calibrate", strikes=ks,
+                                    market_prices=market.tolist(),
+                                    hurst=0.1))
+        log(f"calibrate: nu {fit['nu']:.4f}, rho {fit['rho']:.4f}, v0 "
+            f"{fit['v0']:.5f}, rmse {fit['rmse_price']:.3e}")
+        check(fit["rmse_price"] < 0.5 and abs(fit["nu"] - 0.35) < 0.05
+              and abs(fit["rho"] + 0.7) < 0.08
+              and abs(fit["v0"] - 0.04) < 0.004, "calibration round trip")
+        out["calibrate"] = {k: fit[k] for k in ("nu", "rho", "v0",
+                                                "rmse_price")}
+        refused("unknown mode", dict(RH_BODY, mode="nope"))
+        refused("calibrate without market_prices", dict(
+            RH_BODY, mode="calibrate", strikes=ks))
+        lap("host modes, 400s")
+
+        # ── warm latencies: median of 5 over HTTP ────────────────────────
+        for name, body in (("price", RH_BODY),
+                           ("greeks", dict(RH_BODY, mode="greeks")),
+                           ("smile", dict(RH_BODY, mode="smile"))):
+            lat = []
+            for _ in range(5):
+                before = time.perf_counter()
+                ask(f"warm {name}", body)
+                lat.append((time.perf_counter() - before) * 1e3)
+            out[f"warm_{name}_ms"] = statistics.median(lat)
+            log(f"warm /api/roughheston {name}: median "
+                f"{out[f'warm_{name}_ms']:.1f} ms over 5 "
+                f"({[round(x, 1) for x in lat]})")
+        lap("warm latencies")
+
+        # ── the serving tail over HTTP ───────────────────────────────────
+        status, _, body = get("/api/metrics")
+        snap = json.loads(body)["endpoints"]["/api/roughheston"]
+        log(f"/api/metrics /api/roughheston: {snap}")
+        check(status == 200 and snap["count"] == posts[0]
+              and snap["errors"] == 2, "metrics count this phase's requests")
+        status, _, body = get("/api/symbols?q=bank")
+        syms = [r_["symbol"] for r_ in json.loads(body)["symbols"]]
+        check(status == 200 and "HDFCBANK" in syms, "/api/symbols?q=bank")
+        status, _, body = get("/api/quote?symbol=NIFTY")
+        quote = json.loads(body)
+        log(f"/api/quote?symbol=NIFTY: {quote}")
+        check(status == 200 and quote["source"] == "CACHED"
+              and quote["price"] == 22500.0, "/api/quote falls back")
+        for path, mime in (("/", "text/html"),
+                           ("/static/app.js", "application/javascript")):
+            status, got_mime, body = get(path)
+            check(status == 200 and got_mime == mime and len(body) > 0,
+                  f"GET {path}")
+        try:
+            get("/static/../chip_smoke.py")
+            check(False, "traversal must answer 404")
+        except urllib.error.HTTPError as e:
+            check(e.code == 404, "traversal answers 404")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    out["http_s"] = time.perf_counter() - t_start
+    lap("serving tail")
+
+    # ── in process: price and greeks under the profiler ──────────────────
+    prof = {}
+    for name, body in (("price", RH_BODY),
+                       ("greeks", dict(RH_BODY, mode="greeks"))):
+        prof[name] = profiled_call(device, lambda body=body:
+                                   server.handle_roughheston(
+                                       dict(body), device=device))
+        pr = prof[name]
+        log(f"profiled {name}: wall {pr['profiled_wall_ms']:.1f} ms, device "
+            f"{pr['device_ms_per_call']} ms, {pr['kernel_launches_per_call']}"
+            f" launches, busy share {pr['busy_share']}, peak "
+            f"{pr['peak_gib']:.3f} GiB")
+    out["profiles"] = prof
+    # One step's normals at a time: a (steps, 2, paths) sheet would be
+    # 2048 x 2 x 200 000 float32, 3.05 GiB.
+    check(prof["price"]["peak_gib"] < 1.0,
+          "a default price holds no (steps, 2, paths) sheet")
+    lap("profiles")
+
+    out["card_vs_cpu"] = roughheston_card_vs_cpu(device, rh_ops, rh_eng,
+                                                 mlmc, SVJParams)
+    lap("card vs CPU")
+
+    # ── MLMC at eps = 1 against the Bates COS price ──────────────────────
+    svj = SVJParams(**MLMC_SVJ)
+    exact = float(cos_price(svj, SPOT, [SPOT], T_DEFAULT)[0])
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    ml = mlmc.mlmc_price(svj, SPOT, SPOT, T_DEFAULT, eps=1.0, seed=3,
+                         max_paths_per_level=1 << 20, device=device)
+    ml_ms = (time.perf_counter() - t0) * 1e3
+    within(f"mlmc_price eps = 1 ({ml['num_levels']} levels, paths "
+           f"{[lv['n'] for lv in ml['levels']]}, {ml_ms:.0f} ms) vs Bates "
+           "COS", ml["price"], exact,
+           3 * (ml["std_error"] + ml["bias_estimate"]) + 1.0)
+    check(ml["num_levels"] >= 3, "mlmc: at least three levels")
+    out["mlmc_eps1"] = dict(ml, wall_ms=ml_ms, cos=exact)
+
+    counts = ck.launch_counts()
+    log(f"launch counts over the slice L + M path: {counts} (expected all "
+        f"0: no kernel on the path)")
+    check(all(v == 0 for v in counts.values()),
+          "slices L and M launch no kernel")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"slice L + M path: {out['wall_s']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4945,6 +5312,7 @@ def main() -> None:
     from mcos_tpu_torch.ops.bs import bs_all_greeks, bs_price
     from mcos_tpu_torch.ops.cos_pricer import cos_price
 
+    offline_urlopen()
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -5032,6 +5400,10 @@ def main() -> None:
     dp = desk_path(device, ck, server, cos_price, bs_price, bs_all_greeks,
                    SVJParams, gbm_params)
     kp = multiasset_path(device, ck, server, bs_price, SVJParams, gbm_params)
+    lp = roughheston_path(device, ck, server, cos_price, SVJParams)
+    log(f"warm slices L + M over HTTP (median of 5): /api/roughheston price "
+        f"{lp['warm_price_ms']:.1f} ms, greeks {lp['warm_greeks_ms']:.1f}, "
+        f"smile {lp['warm_smile_ms']:.1f} ms; on {card}")
     log(f"warm slice K over HTTP (median of 3): /api/basket "
         f"{kp['warm_basket_ms']:.2f} ms, Bermudan {kp['warm_bermudan_ms']:.2f}"
         f", /api/cliquet {kp['warm_cliquet_ms']:.2f}, /api/quanto "
@@ -5071,7 +5443,8 @@ def main() -> None:
     )
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
              "rough": rp, "greeks": gp, "risk": gr, "american": ap,
-             "calibration": cp, "desk": dp, "multiasset": kp}
+             "calibration": cp, "desk": dp, "multiasset": kp,
+             "roughheston": lp}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -5115,7 +5488,8 @@ def main() -> None:
                    "families_path": fp, "rough_path": rp,
                    "greeks_path": gp, "risk_path": gr,
                    "american_path": ap, "calibration_path": cp,
-                   "desk_path": dp, "multiasset_path": kp}, f,
+                   "desk_path": dp, "multiasset_path": kp,
+                   "roughheston_path": lp}, f,
                   indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,9 +7,9 @@
 `ProductSpec`), `LocalVolRequest`, `SLVRequest`, and the desk tools'
 `ReplicateRequest`, `MarginRequest`, `VolDerivsRequest`, `BookRequest`,
 `ExposurePosition`, `ExposureRequest`, `ModelRiskRequest` and `PnlRequest`,
-and the multi-asset and path products' `BasketRequest`, `QuantoRequest`,
-`AutocallRequest` and `CliquetRequest` need, copied unchanged apart from the
-imports. tests/test_torch_copies.py holds the two equal.
+the multi-asset and path products' `BasketRequest`, `QuantoRequest`,
+`AutocallRequest` and `CliquetRequest`, and `RoughHestonRequest` need,
+copied unchanged apart from the imports. tests/test_torch_copies.py holds the two equal.
 """
 
 from __future__ import annotations
@@ -817,3 +817,37 @@ class CliquetRequest(BaseModel):
     t1: float = 0.25
     k: float = 1.0
     is_call: bool = True
+
+
+class RoughHestonRequest(BaseModel):
+    """POST /api/roughheston — rough Heston: CIR mean-reversion driven
+    through the fractional kernel (engine/roughheston.py; exact
+    fractional-Riccati COS oracle in ops/roughheston.py; model family
+    beyond the reference)."""
+    spot: float = Field(gt=0)
+    T: float = Field(gt=0, le=10.0)
+    # "price" | "greeks" | "smile" | "compare" | "skew" | "calibrate"
+    mode: str = "price"
+    strike: float = 0.0              # 0 → ATM
+    strikes: Optional[list] = Field(None, max_length=MAX_GRID_POINTS)
+    is_call: bool = True
+    # model parameters (hurst < 0.5 = rough; 0.5 = classical Heston)
+    hurst: float = Field(0.1, gt=0.0, le=0.5)
+    lam: float = Field(1.5, gt=0.0, le=20.0)
+    theta: float = Field(0.04, gt=0.0, le=4.0)
+    nu: float = Field(0.35, gt=0.0, le=5.0)
+    rho: float = Field(-0.7, ge=-0.999, le=0.999)
+    v0: float = Field(0.04, gt=0.0, le=4.0)
+    r: float = RISK_FREE_RATE
+    q: float = DIVIDEND_YIELD
+    # discretization (num_steps is per-year, oversampling the T/256
+    # lifted-kernel resolution; None → engine default 8192)
+    num_paths: int = Field(200_000, **_PATHS)
+    num_steps: Optional[int] = Field(None, ge=8, le=65_536)
+    n_factors: int = Field(24, ge=1, le=64)
+    # skew mode: maturity grid for the T^(H-1/2) term structure
+    maturities: Optional[list] = Field(None, max_length=MAX_GRID_POINTS)
+    # calibrate mode: market prices for `strikes` at maturity T
+    market_prices: Optional[list] = Field(None,
+                                          max_length=MAX_GRID_POINTS)
+    fit_hurst: bool = False          # calibrate: grid-search H too

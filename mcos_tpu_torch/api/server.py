@@ -60,14 +60,25 @@ serving slice).
     POST /api/quanto       — quanto vanillas with the pathwise √v tilt
     POST /api/autocall     — Express notes, single-asset or worst-of, and
                              the par coupon
+    POST /api/roughheston  — rough Heston: price, greeks (lifted MC, torch
+                             step loop), smile, compare, skew, calibrate
+                             (the fractional-Riccati COS oracle on the host)
+    GET  /api/metrics      — per-route request counts, errors and latency
+                             (EWMA and max), the coalescer's counters
+    GET  /api/quote        — a market quote (live, or the static NIFTY
+                             universe when the network is unreachable)
+    GET  /api/symbols      — the tradeable universe, `?q=` filters it
+    GET  /, /index.html, /advanced, /static/... — the dashboard in `web/`
 
 Every other route answers 404, as the JAX server does for unknown paths.
 
-Transport: the stdlib ThreadingHTTPServer. Every device program goes onto
-the device's default stream. Before it serves, `serve` builds the CUDA
-kernels and the default-shape Sobol net, so the first client request does
-not pay for either (the kernels of `/api/exotic`, `/api/hhw`, `/api/svcj`,
-`/api/termsvj` and `/api/rough` are in the same library).
+Transport: the stdlib ThreadingHTTPServer (`create_fastapi_app` builds the
+same routes as an ASGI app where fastapi is installed). Every device
+program goes onto the device's default stream. Before it serves, `serve`
+builds the CUDA kernels and the default-shape Sobol net, so the first
+client request does not pay for either (the kernels of `/api/exotic`,
+`/api/hhw`, `/api/svcj`, `/api/termsvj` and `/api/rough` are in the same
+library).
 
     python -m mcos_tpu_torch.api.server --device cuda --port 8000
 """
@@ -77,14 +88,19 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
+import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 from pydantic import ValidationError
 
 from mcos_tpu_torch.api import coalesce, schemas
+from mcos_tpu_torch.api.quotes import fetch_quote, list_symbols
 from mcos_tpu_torch.engine.american import AmericanEngine, american_cos_oracle
 from mcos_tpu_torch.engine.autocallable import (
     AutocallableEngine,
@@ -123,6 +139,8 @@ from mcos_tpu_torch.engine.risk import (
     portfolio_var,
 )
 from mcos_tpu_torch.engine.rough import RoughBergomiEngine, calibrate_rbergomi
+from mcos_tpu_torch.engine.roughheston import (RoughHestonEngine,
+                                               calibrate_rough_heston)
 from mcos_tpu_torch.engine.slv import SLVEngine
 from mcos_tpu_torch.engine.ssvi import calibrate_ssvi
 from mcos_tpu_torch.engine.surface import (
@@ -139,6 +157,7 @@ from mcos_tpu_torch.engine.volderivs import VolDerivsEngine
 from mcos_tpu_torch.ops.cos_pricer import cos_density, cos_price
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
 from mcos_tpu_torch.ops.rough import RoughBergomiParams
+from mcos_tpu_torch.ops.roughheston import RoughHestonParams
 from mcos_tpu_torch.utils import fastjson
 
 logger = logging.getLogger("mcos_tpu_torch.api")
@@ -147,6 +166,49 @@ logger = logging.getLogger("mcos_tpu_torch.api")
 MAX_BODY_BYTES = 10 * 1024 * 1024
 
 VERSION = "1.0.0"
+
+
+class _Metrics:
+    """Per-route serving counters: requests, errors, latency EWMA and max.
+
+    Thread-safe through a plain lock (the stdlib transport serves from a
+    thread pool); GET /api/metrics returns `snapshot()`.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._stats: Dict[str, Dict[str, float]] = {}
+        self.started = time.time()
+
+    def observe(self, path: str, ms: float, ok: bool) -> None:
+        with self._lock:
+            st = self._stats.setdefault(
+                path, {"count": 0, "errors": 0, "ewma_ms": 0.0,
+                       "max_ms": 0.0})
+            st["count"] += 1
+            if not ok:
+                st["errors"] += 1
+            alpha = 0.2
+            st["ewma_ms"] = ms if st["count"] == 1 else \
+                alpha * ms + (1 - alpha) * st["ewma_ms"]
+            st["max_ms"] = max(st["max_ms"], ms)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "uptime_s": round(time.time() - self.started, 1),
+                "endpoints": {k: {kk: round(vv, 2) for kk, vv in v.items()}
+                              for k, v in self._stats.items()},
+                "coalescer": {
+                    "window_ms": coalesce.coalescer.window_s * 1000,
+                    "batches_run": coalesce.coalescer.batches_run,
+                    "requests_coalesced":
+                        coalesce.coalescer.requests_coalesced,
+                },
+            }
+
+
+METRICS = _Metrics()
 
 
 class ApiError(Exception):
@@ -1472,7 +1534,82 @@ def handle_autocall(body: dict, device="cuda") -> dict:
     return out
 
 
-_POST_ROUTES = {"/api/price": handle_price,
+def handle_roughheston(body: dict, device="cuda") -> dict:
+    """`/api/roughheston` on `device`: rough Heston, the JAX handler's
+    contract. price, greeks and compare run the lifted Monte Carlo (a
+    torch step loop over the factor block, one step's normals at a time:
+    no kernel of the repo); smile, skew and calibrate run the
+    fractional-Riccati COS oracle on the host."""
+    req = schemas.RoughHestonRequest(**body)
+    start = time.time()
+    p = RoughHestonParams(lam=req.lam, theta=req.theta, nu=req.nu,
+                          rho=req.rho, v0=req.v0, r=req.r, q=req.q,
+                          hurst=req.hurst)
+    kwargs = {"num_paths": req.num_paths, "n_factors": req.n_factors}
+    if req.num_steps is not None:
+        kwargs["num_steps"] = req.num_steps
+    eng = RoughHestonEngine(p, device=device, **kwargs)
+    strike = req.strike if req.strike > 0 else req.spot
+    strikes = req.strikes or [m * req.spot
+                              for m in (0.9, 0.95, 1.0, 1.05, 1.1)]
+    if req.mode == "price":
+        out = eng.price(req.spot, strike, req.T, req.is_call)
+    elif req.mode == "greeks":
+        out = eng.greeks(req.spot, strike, req.T, req.is_call)
+    elif req.mode == "smile":
+        out = eng.smile(req.spot, req.T, strikes)
+    elif req.mode == "compare":
+        out = eng.mc_vs_cos(req.spot, strikes, req.T, req.is_call)
+    elif req.mode == "skew":
+        mats = req.maturities or [0.02, 0.05, 0.1, 0.25, 0.5, 1.0]
+        out = eng.atm_skew_term_structure(req.spot, mats)
+    elif req.mode == "calibrate":
+        if not req.strikes or req.market_prices is None:
+            raise ApiError(400, "calibrate mode needs strikes and "
+                                "market_prices")
+        if len(req.strikes) != len(req.market_prices):
+            raise ApiError(400, "strikes and market_prices length mismatch")
+        try:
+            fit = calibrate_rough_heston(
+                req.spot, req.strikes, req.T, req.market_prices,
+                r=req.r, q=req.q, is_call=req.is_call,
+                hurst=None if req.fit_hurst else req.hurst)
+        except RuntimeError as e:
+            raise ApiError(400, str(e))
+        out = {k: v for k, v in fit.items() if k != "params"}
+    else:
+        raise ApiError(400, f"unknown mode {req.mode!r} "
+                            "(price|greeks|smile|compare|skew|calibrate)")
+    out["elapsed_ms"] = round((time.time() - start) * 1000, 1)
+    return out
+
+
+def handle_quote(query: dict) -> dict:
+    """GET /api/quote?symbol=… — a live quote, else the static universe's
+    (`api/quotes.py`); 400 without a symbol, 503 for an unknown one."""
+    symbol = (query.get("symbol") or [""])[0]
+    if not symbol:
+        raise ApiError(400, "missing ?symbol=")
+    quote = fetch_quote(symbol)
+    if quote is None:
+        raise ApiError(503, f"no quote available for {symbol}")
+    return quote
+
+
+def handle_symbols(query: dict) -> dict:
+    """GET /api/symbols — the tradeable universe (50 NIFTY constituents +
+    the index) for the UI's picker; `?q=` filters on symbol, name or
+    sector (case-insensitive substring)."""
+    rows = list_symbols()
+    q = (query.get("q", [""])[0] or "").strip().lower()
+    if q:
+        rows = [row for row in rows
+                if q in row["symbol"].lower() or q in row["name"].lower()
+                or q in row["sector"].lower()]
+    return {"symbols": rows}
+
+
+_POST_ROUTES: Dict[str, Callable[..., dict]] = {"/api/price": handle_price,
                 "/api/greeks": handle_greeks,
                 "/api/smile": handle_smile,
                 "/api/convergence": handle_convergence,
@@ -1502,7 +1639,8 @@ _POST_ROUTES = {"/api/price": handle_price,
                 "/api/basket": handle_basket,
                 "/api/cliquet": handle_cliquet,
                 "/api/quanto": handle_quanto,
-                "/api/autocall": handle_autocall}
+                "/api/autocall": handle_autocall,
+                "/api/roughheston": handle_roughheston}
 
 
 def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,
@@ -1521,6 +1659,26 @@ def _finish_price(result: dict, guard: PricingGuard, pre: dict, req,
 
 
 # ─────────────────────────────────────────────────────────────────────────────
+# Static UI: the dashboard in the repo's `web/`, behind a traversal guard
+# ─────────────────────────────────────────────────────────────────────────────
+WEB_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "web"))
+_MIME = {".html": "text/html", ".js": "application/javascript",
+         ".css": "text/css", ".svg": "image/svg+xml", ".png": "image/png"}
+
+
+def _static_file(name: str) -> Optional[Tuple[bytes, str]]:
+    path = os.path.normpath(os.path.join(WEB_DIR, name))
+    # The trailing separator keeps sibling directories (`web2/`) out.
+    if not path.startswith(WEB_DIR + os.sep) or not os.path.isfile(path):
+        return None
+    with open(path, "rb") as f:
+        data = f.read()
+    return data, _MIME.get(os.path.splitext(path)[1],
+                           "application/octet-stream")
+
+
+# ─────────────────────────────────────────────────────────────────────────────
 # stdlib transport
 # ─────────────────────────────────────────────────────────────────────────────
 class _Handler(BaseHTTPRequestHandler):
@@ -1528,14 +1686,31 @@ class _Handler(BaseHTTPRequestHandler):
     # Socket read timeout against clients that never finish their body.
     timeout = 30
 
+    def _security_headers(self, cache: str) -> None:
+        self.send_header("X-Content-Type-Options", "nosniff")
+        self.send_header("X-Frame-Options", "DENY")
+        self.send_header("Referrer-Policy", "strict-origin-when-cross-origin")
+        self.send_header("Cache-Control", cache)
+
     def _send_json(self, status: int, payload) -> None:
         data = fastjson.dumps(payload).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
         self.send_header("Access-Control-Allow-Origin", "*")
-        self.send_header("X-Content-Type-Options", "nosniff")
-        self.send_header("Cache-Control", "no-store")
+        self._security_headers("no-store")
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _send_file(self, data: bytes, mime: str) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", mime)
+        self.send_header("Content-Length", str(len(data)))
+        # The HTML shell revalidates; its subresources cache for a year.
+        cache = ("public, max-age=0, must-revalidate"
+                 if mime == "text/html"
+                 else "public, max-age=31536000, immutable")
+        self._security_headers(cache)
         self.end_headers()
         self.wfile.write(data)
 
@@ -1543,30 +1718,62 @@ class _Handler(BaseHTTPRequestHandler):
         logger.debug(fmt, *args)
 
     def do_GET(self):
-        if self.path.split("?", 1)[0] == "/api/health":
-            self._send_json(200, handle_health({}))
-        else:
-            self._send_json(404, {"detail": "not found"})
+        parsed = urlparse(self.path)
+        try:
+            if parsed.path == "/api/health":
+                self._send_json(200, handle_health({}))
+            elif parsed.path == "/api/metrics":
+                self._send_json(200, METRICS.snapshot())
+            elif parsed.path == "/api/quote":
+                self._send_json(200, handle_quote(parse_qs(parsed.query)))
+            elif parsed.path == "/api/symbols":
+                self._send_json(200, handle_symbols(parse_qs(parsed.query)))
+            elif parsed.path in ("/", "/index.html", "/advanced"):
+                hit = _static_file("index.html")
+                if hit:
+                    self._send_file(*hit)
+                else:
+                    self._send_json(404, {"detail": "UI not bundled"})
+            elif parsed.path.startswith("/static/"):
+                hit = _static_file(parsed.path[len("/static/"):])
+                if hit:
+                    self._send_file(*hit)
+                else:
+                    self._send_json(404, {"detail": "not found"})
+            else:
+                self._send_json(404, {"detail": "not found"})
+        except ApiError as e:
+            self._send_json(e.status, {"detail": e.detail})
+        except Exception as e:  # noqa: BLE001 — the server must not die
+            logger.exception("GET %s failed", parsed.path)
+            self._send_json(500, {"detail": str(e)})
 
     def do_POST(self):
-        handler = _POST_ROUTES.get(self.path.split("?", 1)[0])
+        path = urlparse(self.path).path
+        handler = _POST_ROUTES.get(path)
         if handler is None:
             self._send_json(404, {"detail": "not found"})
             return
+        t0 = time.time()
+        ok = False
         try:
             length = int(self.headers.get("Content-Length", 0))
             if length > MAX_BODY_BYTES:
                 self._send_json(413, {"detail": "request body too large"})
                 return
             body = json.loads(self.rfile.read(max(length, 0)) or b"{}")
-            self._send_json(200, handler(body, device=self.server.device))
+            out = handler(body, device=self.server.device)
+            ok = True
+            self._send_json(200, out)
         except ApiError as e:
             self._send_json(e.status, {"detail": e.detail})
         except (ValidationError, json.JSONDecodeError) as e:
             self._send_json(422, {"detail": str(e)})
         except Exception as e:  # noqa: BLE001 — the server must not die
-            logger.exception("POST %s failed", self.path)
+            logger.exception("POST %s failed", path)
             self._send_json(500, {"detail": str(e)})
+        finally:
+            METRICS.observe(path, (time.time() - t0) * 1000, ok)
 
 
 def warm(device) -> None:
@@ -1635,6 +1842,39 @@ def serve(host: str = "0.0.0.0", port: int = 8000,
     return httpd
 
 
+def create_fastapi_app(device="cuda"):
+    """The same routes as an ASGI app, where fastapi is installed: GET
+    /api/health and every POST route on `device`, with the stdlib
+    transport's 4xx contract."""
+    from fastapi import FastAPI, HTTPException
+    from fastapi.middleware.cors import CORSMiddleware
+
+    app = FastAPI(title="NIFTY Monte Carlo Engine (PyTorch/CUDA)",
+                  description="The SVJ pricing & risk engine on one GPU",
+                  version=VERSION)
+    app.add_middleware(CORSMiddleware, allow_origins=["*"],
+                       allow_methods=["*"], allow_headers=["*"])
+
+    @app.get("/api/health")
+    async def health():
+        return handle_health({})
+
+    def _wrap(fn):
+        async def endpoint(body: dict):
+            try:
+                return fn(body, device=device)
+            except ApiError as e:
+                raise HTTPException(e.status, detail=e.detail)
+            except ValidationError as e:
+                # The stdlib transport's 422 contract.
+                raise HTTPException(422, detail=str(e))
+        return endpoint
+
+    for path, fn in _POST_ROUTES.items():
+        app.post(path)(_wrap(fn))
+    return app
+
+
 def main():
     parser = argparse.ArgumentParser(description="mcos_tpu_torch pricing API")
     parser.add_argument("--host", default="0.0.0.0")
@@ -1642,6 +1882,13 @@ def main():
     parser.add_argument("--device", default="cuda",
                         help="torch device to price on (default: cuda)")
     args = parser.parse_args()
+    # The kernels' build directory persists across restarts (the role of
+    # the JAX package's persistent compilation cache); MCOS_JIT_CACHE
+    # moves it, MCOS_DISABLE_JIT_CACHE=1 keeps the package's own.
+    from mcos_tpu_torch.utils.checkpoint import enable_compilation_cache
+
+    if "MCOS_JIT_CACHE" in os.environ:
+        enable_compilation_cache(os.environ["MCOS_JIT_CACHE"])
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s [%(name)s] %(levelname)s: %(message)s")

@@ -4,11 +4,12 @@
 `/api/surface`, `/api/quotegreeks`, `/api/localvol`, `/api/slv`,
 `/api/book`, `/api/pnl`, `/api/margin`, `/api/replicate`, `/api/exposure`,
 `/api/volderivs`, `/api/modelrisk`, `/api/basket`, `/api/cliquet`,
-`/api/quanto`, `/api/autocall`) spends its time on one CUDA device.
+`/api/quanto`, `/api/autocall`, `/api/roughheston`) or an `mlmc_price`
+call spends its time on one CUDA device.
 
     python -m mcos_tpu_torch.profile_price
-        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde|calibrate|surface|quotegreeks|localvol|slv|book|pnl|margin|replicate|exposure|volderivs|modelrisk|basket|cliquet|quanto|autocall]
-        [--options JSON] [--reps N] [--out FILE]
+        [--route price|exotic|hhw|svcj|termsvj|rough|greeks|smile|stress|hedge|var|american|pde|calibrate|surface|quotegreeks|localvol|slv|book|pnl|margin|replicate|exposure|volderivs|modelrisk|basket|cliquet|quanto|autocall|roughheston]
+        [--options JSON] [--reps N] [--out FILE] [--mlmc]
 
 Calls the port's `handle_price` in process (coalescing off, so each call is
 the solo path) on the default body (500k paths, T = 0.25 → 63 steps), with
@@ -105,6 +106,16 @@ defaults (`ROUTE_BODIES`): `handle_basket` (a two-asset basket call,
 `handle_cliquet` (4 periods × 16 steps), `handle_quanto` (64 steps) and
 `handle_autocall` (4 observations × 16 steps; '{"params_list": [...],
 "corr": [...]}' for a worst-of note).
+`--route roughheston` does the same for rough Heston (slice L) at the
+schema defaults (200k pairs, 24 factors, 8192 steps a year → 2048 steps at
+T = 0.25, the lifted loop as torch ops, no kernel): the price, or
+'{"mode": "greeks"}' for the AD delta pass and the six-member FD pass,
+'{"mode": "smile"}' / '"skew"' / '"calibrate"' for the host COS oracle.
+`--mlmc` profiles `mlmc_price` instead of a route: at eps = 1 on the
+Bates parameters of `MLMC_SVJ` with up to 2^20 pairs a level (wall time,
+levels and their paths; launches, device time and busy share under the
+profiler), then a default call (eps = 0.05, up to 4 000 000 pairs a
+level: wall time, levels and paths; its launches are not profiled).
 
 Without a CUDA device it fails: no CPU number is reported as a device one.
 """
@@ -176,7 +187,12 @@ ROUTE_BODIES = {
     "cliquet": {"T": 1.0},
     "quanto": {"spot": 100.0, "strike": 100.0, "T": 1.0},
     "autocall": {"T": 1.0},
+    # Rough Heston (slice L) at its schema's widths.
+    "roughheston": {"spot": 22500.0, "T": 0.25},
 }
+#: The Bates parameters of `--mlmc` (the JAX package's MLMC test's).
+MLMC_SVJ = dict(kappa=3.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.04,
+                lambda_j=1.0, mu_j=-0.05, sigma_j=0.1)
 
 
 #: The SVJ model behind `/api/calibrate`'s synthetic chain.
@@ -238,13 +254,6 @@ def _wall_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
 
 
 def profile(options: dict) -> dict:
@@ -391,12 +400,24 @@ def _calibrate_phases(call) -> dict:
 
 
 def _kernel_stats(prof):
-    """(device ms, kernel launches, kernel events) over a profile."""
-    kernels = [e for e in prof.key_averages()
-               if _device_us(e) > 0 and getattr(e, "device_type", None)
-               is not None and "CUDA" in str(e.device_type)]
-    return (sum(_device_us(e) for e in kernels) / 1e3,
-            sum(e.count for e in kernels), kernels)
+    """(device ms, kernel launches, [(name, device ms, launches)] by device
+    time) over a profile: its device-side events (kernels, copies,
+    memsets) read straight from the trace. The profiler's own summary
+    (`key_averages`) builds an event tree first, minutes for a few hundred
+    thousand launches."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(e.device_type()):
+            continue
+        ns = e.duration_ns()
+        if ns > 0:
+            row = by_name.setdefault(e.name(), [0.0, 0])
+            row[0] += ns / 1e6
+            row[1] += 1
+    kernels = sorted(((n, ms, c) for n, (ms, c) in by_name.items()),
+                     key=lambda k: k[1], reverse=True)
+    return (sum(k[1] for k in kernels), sum(k[2] for k in kernels),
+            kernels)
 
 
 def _profiled(call, reps: int) -> dict:
@@ -412,16 +433,45 @@ def _profiled(call, reps: int) -> dict:
         wall = (time.perf_counter() - t0) * 1e3 / reps
     dev_ms, launches, kernels = _kernel_stats(prof)
     dev_ms, launches = dev_ms / reps, launches / reps
-    top = sorted(kernels, key=_device_us, reverse=True)[:8]
     return {
         "profiled_wall_ms": wall,
         "device_ms_per_call": dev_ms if kernels else "not measured",
         "kernel_launches_per_call": launches if kernels else "not measured",
         "busy_share": dev_ms / wall if kernels else "not measured",
-        "top_kernels": [{"name": e.key[:90],
-                         "device_ms_per_call": _device_us(e) / 1e3 / reps,
-                         "launches_per_call": e.count / reps} for e in top],
+        "top_kernels": [{"name": name[:90], "device_ms_per_call": ms / reps,
+                         "launches_per_call": count / reps}
+                        for name, ms, count in kernels[:8]],
     }
+
+
+def profile_mlmc(reps: int = 1) -> dict:
+    """`mlmc_price` at eps = 1 (profiled) and at its defaults (timed)."""
+    from mcos_tpu_torch.engine.mlmc import mlmc_price
+    from mcos_tpu_torch.models.params import SVJParams
+    from mcos_tpu_torch.ops.cos_pricer import cos_price
+
+    device = torch.device("cuda", 0)
+    params = SVJParams(**MLMC_SVJ)
+    spot, T = 22500.0, 0.25
+    out = {"device": torch.cuda.get_device_name(device),
+           "cos": float(cos_price(params, spot, [spot], T)[0])}
+    for name, kw in (("eps_1", {"eps": 1.0, "max_paths_per_level": 1 << 20,
+                                "seed": 3}),
+                     ("default", {})):
+        call = lambda kw=kw: mlmc_price(params, spot, spot, T,  # noqa
+                                        device=device, **kw)
+        if name == "eps_1":
+            call()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize(device)
+        out[name] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "kwargs": kw, **res,
+                     "paths": [lv["n"] for lv in res["levels"]]}
+        if name == "eps_1":
+            out[name]["profile"] = _profiled(call, reps)
+    return out
 
 
 def main() -> None:
@@ -436,11 +486,15 @@ def main() -> None:
                         help="profiled calls of a route handler (its wall "
                              "time takes 4x as many)")
     parser.add_argument("--out", default=None, help="also write JSON here")
+    parser.add_argument("--mlmc", action="store_true",
+                        help="profile mlmc_price instead of a route")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_price needs a CUDA device")
     options = json.loads(args.options)
-    if args.route in ROUTE_BODIES or args.route in SLICE_I_ROUTES:
+    if args.mlmc:
+        res = profile_mlmc(args.reps)
+    elif args.route in ROUTE_BODIES or args.route in SLICE_I_ROUTES:
         res = profile_route(args.route, options, args.reps)
     else:
         res = (profile if args.route == "price" else profile_exotic)(options)

@@ -712,3 +712,152 @@ def test_slice_k_request_schemas_equal():
             getattr(jschemas, name)(**body)
         with pytest.raises(ValidationError):
             getattr(pschemas, name)(**body)
+
+
+@pytest.mark.parametrize("name", ["ops.roughheston", "engine.roughheston",
+                                  "engine.mlmc", "api.quotes", "api.client",
+                                  "api.serverless", "utils.timing",
+                                  "utils.checkpoint", "cli"])
+def test_slice_lm_public_names_match_jax(name, monkeypatch):
+    """Slices L and M define the JAX package's public names. (Importing
+    the port's serverless entry points the kernels' build directory at
+    $MCOS_JIT_CACHE; it is put back after the test.)"""
+    import importlib
+    import inspect
+
+    from mcos_tpu_torch.ops import cuda_kernels
+
+    monkeypatch.setattr(cuda_kernels, "BUILD_DIR", cuda_kernels.BUILD_DIR)
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))
+                and n not in _FRAMEWORKS | {"Array"}
+                and getattr(getattr(mod, n), "__module__", mod.__name__)
+                == mod.__name__}
+
+    jmod = importlib.import_module(f"mcos_tpu.{name}")
+    pmod = importlib.import_module(f"mcos_tpu_torch.{name}")
+    # The port's serverless entry names the device it serves on; the JAX
+    # package's picks its platform through JAX_PLATFORMS instead.
+    extra = {"DEVICE"} if name == "api.serverless" else set()
+    assert public(pmod) - extra == public(jmod)
+
+
+_RH_FIELDS = dict(lam=1.5, theta=0.04, nu=0.35, rho=-0.7, v0=0.04,
+                  r=0.065, q=0.012)
+
+
+@pytest.mark.parametrize("hurst,T", [(0.1, 0.25), (0.3, 1.0), (0.5, 0.1)])
+def test_rough_heston_host_copies_equal(hurst, T):
+    """The fractional Adams solve, the CF, the cumulant range and the COS
+    prices: the same float64 numpy code, equal to the JAX package's."""
+    import mcos_tpu.ops.roughheston as jr
+    import mcos_tpu_torch.ops.roughheston as pr
+
+    jp = jr.RoughHestonParams(hurst=hurst, **_RH_FIELDS)
+    pp = pr.RoughHestonParams(hurst=hurst, **_RH_FIELDS)
+    assert dataclasses.asdict(pp) == dataclasses.asdict(jp)
+    assert pp.replace(nu=0.5) == pr.RoughHestonParams(
+        hurst=hurst, **dict(_RH_FIELDS, nu=0.5))
+    u = np.linspace(0.1, 60.0, 9)
+    for a, b in zip(pr.rough_heston_h(u, pp, T, n_steps=64),
+                    jr.rough_heston_h(u, jp, T, n_steps=64)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        pr.rough_heston_cf(u, pp, T, 22500.0, n_steps=64),
+        jr.rough_heston_cf(u, jp, T, 22500.0, n_steps=64))
+    assert pr._cf_cumulant_range(pp, T, 22500.0, n_steps=96) == \
+        jr._cf_cumulant_range(jp, T, 22500.0, n_steps=96)
+    strikes = np.array([0.9, 1.0, 1.1]) * 22500.0
+    for is_call in (True, False):
+        np.testing.assert_array_equal(
+            pr.rough_heston_cos_price(pp, 22500.0, strikes, T, is_call,
+                                      n_terms=128, n_steps=64),
+            jr.rough_heston_cos_price(jp, 22500.0, strikes, T, is_call,
+                                      n_terms=128, n_steps=64))
+
+
+def test_rough_heston_cos_guard_raises_as_jax(monkeypatch):
+    """A CF that never turns finite: three step doublings, then
+    FloatingPointError, in both."""
+    import mcos_tpu.ops.roughheston as jr
+    import mcos_tpu_torch.ops.roughheston as pr
+
+    for mod, params in ((pr, pr.RoughHestonParams()),
+                        (jr, jr.RoughHestonParams())):
+        real, calls = mod.rough_heston_cf, []
+
+        def cf(u, p, T, spot, n_steps=256, _real=real, _calls=calls):
+            _calls.append(n_steps)
+            out = _real(u, p, T, spot, n_steps=n_steps)
+            return out if len(u) == 2 else out * np.nan
+        monkeypatch.setattr(mod, "rough_heston_cf", cf)
+        with pytest.raises(FloatingPointError, match="raise n_steps"):
+            mod.rough_heston_cos_price(params, 100.0, [100.0], 0.25,
+                                       n_terms=32, n_steps=32)
+        assert calls == [96, 32, 64, 128]
+
+
+def test_calibrate_rough_heston_equal():
+    """The scipy least-squares fit on the COS objective, at a reduced COS
+    grid, on quotes from known parameters: a fixed H and the H grid."""
+    import mcos_tpu.engine.roughheston as je
+    import mcos_tpu.ops.roughheston as jr
+    import mcos_tpu_torch.engine.roughheston as pe
+
+    strikes = np.array([0.95, 1.0, 1.05]) * 100.0
+    market = jr.rough_heston_cos_price(
+        jr.RoughHestonParams(nu=0.3, rho=-0.5, v0=0.05, theta=0.05,
+                             hurst=0.2), 100.0, strikes, 0.5, True,
+        n_terms=64, n_steps=32)
+    for kw in ({"hurst": 0.2, "n_starts": 1},
+               {"hurst_grid": (0.1, 0.2), "n_starts": 1,
+                "fit_lam_theta": True}):
+        got = pe.calibrate_rough_heston(100.0, strikes, 0.5, market,
+                                        n_terms=64, n_adams=32, **kw)
+        ref = je.calibrate_rough_heston(100.0, strikes, 0.5, market,
+                                        n_terms=64, n_adams=32, **kw)
+        assert dataclasses.asdict(got.pop("params")) == \
+            dataclasses.asdict(ref.pop("params"))
+        assert got == ref
+
+
+def test_giles_driver_equal():
+    """The host allocation loop on a deterministic fake run_level: the
+    same levels, path counts and result."""
+    import mcos_tpu.engine.mlmc as jm
+    import mcos_tpu_torch.engine.mlmc as pm
+
+    def fake(calls):
+        def run_level(level, n):
+            calls.append((level, n))
+            n = 1 << int(np.ceil(np.log2(max(n, 256))))
+            mean = 10.0 if level == 0 else 2.0 ** -level
+            return n, mean, mean * mean + 4.0 * 2.0 ** -level
+        return run_level
+
+    for eps in (0.5, 0.05):
+        a, b = [], []
+        got = pm.giles_driver(fake(a), eps=eps, base_steps=4, max_levels=8,
+                              pilot_paths=1024)
+        ref = jm.giles_driver(fake(b), eps=eps, base_steps=4, max_levels=8,
+                              pilot_paths=1024)
+        assert got == ref and a == b and got["num_levels"] >= 3
+
+
+def test_rough_heston_request_schema_equal():
+    a = jschemas.RoughHestonRequest.model_json_schema()
+    b = pschemas.RoughHestonRequest.model_json_schema()
+    assert a == b
+    body = {"spot": 22500.0, "T": 0.25, "mode": "calibrate",
+            "strikes": [22000.0, 23000.0], "market_prices": [700.0, 300.0],
+            "fit_hurst": True, "num_steps": 1024}
+    assert (jschemas.RoughHestonRequest(**body).model_dump()
+            == pschemas.RoughHestonRequest(**body).model_dump())
+    for bad in ({"hurst": 0.0}, {"T": 11.0}, {"n_factors": 0},
+                {"num_paths": 999}):
+        with pytest.raises(ValidationError):
+            jschemas.RoughHestonRequest(**dict(body, **bad))
+        with pytest.raises(ValidationError):
+            pschemas.RoughHestonRequest(**dict(body, **bad))

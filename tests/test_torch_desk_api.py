@@ -324,12 +324,13 @@ def test_exposure_corr_not_positive_definite_raises_in_both():
 
 # ── routing and kernels ──────────────────────────────────────────────────────
 def test_desk_routes_and_kernel_launches(monkeypatch):
-    """31 POST routes; on the CPU the desk's cuda backends run the plain
-    versions of K3 (3 a maturity group), K6 (1 a replicate), K4 (1 a VIX
-    check) and K7 (1 a modelrisk), and no wrapper counts a launch."""
+    """32 POST routes (the reference's); on the CPU the desk's cuda
+    backends run the plain versions of K3 (3 a maturity group), K6 (1 a
+    replicate), K4 (1 a VIX check) and K7 (1 a modelrisk), and no wrapper
+    counts a launch."""
     desk = ("/api/book", "/api/pnl", "/api/margin", "/api/replicate",
             "/api/exposure", "/api/volderivs", "/api/modelrisk")
-    assert len(pserver._POST_ROUTES) == 31
+    assert len(pserver._POST_ROUTES) == 32
     for route in desk:
         assert pserver._POST_ROUTES[route] is getattr(
             pserver, "handle_" + route.rsplit("/", 1)[1])

@@ -237,9 +237,10 @@ def test_reference_500s_kept(route, bad, exc):
 
 
 def test_routes_run_no_kernel(monkeypatch):
-    """31 POST routes; the four run torch step loops only: no kernel's
-    plain version is called on the CPU, no wrapper counts a launch."""
-    assert len(pserver._POST_ROUTES) == 31
+    """32 POST routes (the reference's); the four run torch step loops
+    only: no kernel's plain version is called on the CPU, no wrapper counts
+    a launch."""
+    assert len(pserver._POST_ROUTES) == 32
     for route in ("basket", "cliquet", "quanto", "autocall"):
         assert pserver._POST_ROUTES[f"/api/{route}"] is getattr(
             pserver, f"handle_{route}")

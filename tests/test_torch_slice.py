@@ -139,10 +139,11 @@ def test_http_routes(solo, monkeypatch):
 
     try:
         assert call("/api/health")[0] == 200
-        assert call("/api/metrics")[0] == 404
-        # A route still to port answers 404; the ported calibration and
-        # surface, American, PDE, Greeks, smile and stress routes answer 200.
-        assert call("/api/roughheston", _BODY)[0] == 404
+        assert call("/api/nosuchroute")[0] == 404
+        # A route neither package serves answers 404; the ported
+        # calibration and surface, American, PDE, Greeks, smile and stress
+        # routes answer 200.
+        assert call("/api/nosuchroute", _BODY)[0] == 404
         strikes = [90.0, 95.0, 100.0, 105.0, 110.0]
         iv = [[0.22, 0.21, 0.2, 0.2, 0.21], [0.23, 0.22, 0.21, 0.21, 0.215]]
         grid = {"spot": 100.0, "strikes": strikes, "maturities": [0.25, 0.5],
@@ -231,7 +232,11 @@ def test_cpu_price_launches_no_kernel(solo):
 
 def test_port_imports_no_jax():
     code = ("import sys, mcos_tpu_torch, mcos_tpu_torch.api.server, "
-            "mcos_tpu_torch.bench, mcos_tpu_torch.ops.cuda_kernels; "
+            "mcos_tpu_torch.bench, mcos_tpu_torch.ops.cuda_kernels, "
+            "mcos_tpu_torch.engine.roughheston, mcos_tpu_torch.engine.mlmc, "
+            "mcos_tpu_torch.cli, mcos_tpu_torch.api.client, "
+            "mcos_tpu_torch.api.quotes, mcos_tpu_torch.api.serverless, "
+            "mcos_tpu_torch.utils.timing, mcos_tpu_torch.utils.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mcos_tpu' or "
             "m.startswith('mcos_tpu.')]; print(bad); sys.exit(1 if bad else 0)")
