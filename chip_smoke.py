@@ -251,7 +251,24 @@
    level on the card against the CPU on the same normals and Poisson
    counts; `mlmc_price` at eps = 1 against the Bates COS price. No kernel
    launches on this path.
-16. Prints the kernels' JSON line (each kernel's launches on its own path
+16. Slice N1, the path-sharded mesh on cuda:0 (`mesh_path`, ~30 s):
+   first K3, K4, K6, K7, K8 and K9 against their plain versions at the
+   shapes a 4-shard mesh gives them (a quarter of each route's pairs, on a
+   shard's seed), bit for bit; then, with the counts set to 0, each
+   sharded driver on a one-shard mesh against its unsharded engine
+   (`MonteCarloEngine(use_sobol=False)` Euler and QE at 500 000 paths × 63
+   steps, the Asian and the digital through `sharded_exotic_price` at
+   200 000, `/api/hhw`'s, `/api/svcj`'s and `/api/termsvj`'s engines at
+   200 000): the kernel's terminal outputs bit for bit, price and standard
+   error within rtol 1e-6; on a 4-shard mesh of cuda:0 at the same total
+   paths, each shard's moment dict bit for bit the one-shard run on that
+   shard's seed, the 4-shard result their pooled moments; the 4-shard
+   wall time against the unsharded time at the same total paths;
+   MCOS_AUTO_MESH=1 on one card giving the unsharded price bit for bit;
+   the SLV's 4 shards stepping as one cloud (within 1 se of a one-shard
+   run of 4·ppd particles); then the counts show each kernel launched as
+   often as the drivers say.
+17. Prints the kernels' JSON line (each kernel's launches on its own path
    and, under "launches_by_path", on every path; K1's row lists its two
    shapes under "shapes": one member at `/api/price`'s 500 000 × 63 and
    the 24-member population at `/api/calibrate`'s 100 000 × 50), the card
@@ -5290,6 +5307,331 @@ def roughheston_path(device, ck, server, cos_price, SVJParams):
 T_START = time.perf_counter()
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice N1: the path-sharded mesh on cuda:0
+# ─────────────────────────────────────────────────────────────────────────────
+MESH_SHARDS = 4
+MESH_SEED = 42
+
+
+class KernelCapture:
+    """While installed, records what the kernel wrapper `ck.<name>` returns.
+    The wrapper counts its launches (and K6 its variants) on the module's
+    name, which is this spy until exit; the counts go back to the wrapper
+    then."""
+
+    def __init__(self, ck, name):
+        self.ck, self.name, self.outs = ck, name, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.ck, self.name)
+
+        def spy(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.outs.append(out)
+            return out
+
+        spy.__dict__.update(real.__dict__)
+        self.spy = spy
+        setattr(self.ck, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ck, self.name, self.real)
+        self.real.__dict__.update(self.spy.__dict__)
+
+
+class PoolCapture:
+    """While installed, records every (shard dicts, pooled dict) that
+    `parallel.mesh.pool_shards` pools."""
+
+    def __init__(self, pm):
+        self.pm, self.calls = pm, []
+
+    def __enter__(self):
+        real = self.real = self.pm.pool_shards
+
+        def spy(stats):
+            stats = list(stats)
+            out = real(stats)
+            self.calls.append((stats, out))
+            return out
+
+        self.pm.pool_shards = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.pm.pool_shards = self.real
+
+
+def bitwise_equal(a, b) -> bool:
+    """Same floats (NaN matching NaN) in every tensor of two outputs."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bitwise_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(bitwise_equal(x, y)
+                                        for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def price_pair(res) -> tuple:
+    """(price, std_error) of the first strike, as host floats."""
+    return tuple(float(torch.as_tensor(res[k]).reshape(-1)[0])
+                 for k in ("price", "std_error"))
+
+
+def timed(fn) -> float:
+    """Host wall ms of fn() ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mesh_path(device, ck, card, SVJParams, SVCJParams, hhw, localvol):
+    """Slice N1 on cuda:0: the kernels at a 4-shard mesh's shard shapes
+    against their plain versions; each sharded driver on a one-shard mesh
+    against its unsharded engine (the kernel's outputs bit for bit, price
+    and standard error within rtol 1e-6); on a 4-shard mesh, each shard
+    the one-shard run on its seed, bit for bit; MCOS_AUTO_MESH=1; the
+    SLV's shards as one cloud; the kernels' launches; the 4-shard wall
+    time against the unsharded one at the same total paths."""
+    from mcos_tpu_torch.engine import pricer, termsvj
+    from mcos_tpu_torch.engine.exotics import ExoticEngine
+    from mcos_tpu_torch.engine.hhw import HHWEngine
+    from mcos_tpu_torch.engine.svcj import SVCJEngine
+    from mcos_tpu_torch.parallel import families as pf
+    from mcos_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    params = SVJParams()
+    svcj_p = SVCJParams()
+    hp = hhw.HHWParams(kappa=2.0, theta=0.05, xi=0.4, v0=0.04, a=0.1,
+                       b=0.05, sigma_r=0.012, r0=0.05, rho_sv=-0.6,
+                       rho_sr=0.3, rho_vr=0.1, q=0.01)
+    seg = tuple([s[k] for s in TD_SEGMENTS]
+                for k in ("t_end", "theta", "xi", "lambda_j"))
+    td_steps = 512
+    td_levels = termsvj.TDSVJEngine(params, *seg, num_steps=td_steps,
+                                    device=device)._step_arrays(T_DEFAULT)
+    one = pm.make_mesh([device])
+    four = pm.make_mesh([device] * MESH_SHARDS)
+
+    # 1. Each kernel at a shard's shape, on a shard's seed, against its
+    # plain version (not counted: launches that compare).
+    s1 = pm.shard_seed(MESH_SEED, 1)
+    pins = {}
+    for name, args, kw, labels in (
+            ("svj_terminal", (params, SPOT, T_DEFAULT, s1),
+             dict(num_paths=NUM_PATHS // MESH_SHARDS,
+                  num_steps=STEPS_DEFAULT, companion=True), ("S", "v", "G")),
+            ("svj_terminal_qe", (params, SPOT, T_DEFAULT, s1),
+             dict(num_paths=NUM_PATHS // MESH_SHARDS,
+                  num_steps=STEPS_DEFAULT, companion=True), ("S", "v", "G")),
+            ("hhw_terminal", (hp, SPOT, 1.0, s1),
+             dict(num_paths=FAMILY_PAIRS // MESH_SHARDS, num_steps=128),
+             ("S", "D")),
+            ("svcj_terminal", (svcj_p, SPOT, T_DEFAULT, s1),
+             dict(num_paths=FAMILY_PAIRS // MESH_SHARDS,
+                  num_steps=STEPS_DEFAULT, companion=True), ("S", "v", "G")),
+            ("svj_terminal_td", (params, *td_levels, SPOT, T_DEFAULT, s1),
+             dict(num_paths=FAMILY_PAIRS // MESH_SHARDS, num_steps=td_steps,
+                  companion=True), ("S", "v", "G"))):
+        kw = dict(kw, antithetic=True, device=device)
+        ker = getattr(ck, name)(*args, **kw)
+        torch.cuda.synchronize()
+        ref = getattr(ck, name + "_plain")(*args, **kw)
+        err, _ = compare_family(f"{name} at a shard's shape "
+                                f"({kw['num_paths']} pairs)", ker, ref,
+                                labels, bit_for_bit=True)
+        pins[name] = {"pairs": kw["num_paths"], "steps": kw["num_steps"],
+                      "max_abs_err": err}
+    kw = dict(num_paths=EXOTIC_PATHS // MESH_SHARDS, num_steps=STEPS_DEFAULT,
+              antithetic=True, companion=True, device=device)
+    err, _, _ = compare_stats(
+        "at a shard's shape", ck.svj_path_stats(params, SPOT, T_DEFAULT, s1,
+                                                **kw),
+        ck.svj_path_stats_plain(params, SPOT, T_DEFAULT, s1, **kw))
+    pins["svj_path_stats"] = {"pairs": kw["num_paths"],
+                              "steps": STEPS_DEFAULT, "max_abs_err": err}
+
+    # The drivers: run(mesh, seed, paths) on a mesh; with mesh=None the
+    # unsharded engine (for the termsvj its core at β = 1, the estimator
+    # the sharded driver pools).
+    def mc(scheme):
+        return lambda mesh, seed, n: pricer.MonteCarloEngine(
+            params, num_paths=n, seed=seed, use_sobol=False, scheme=scheme,
+            mesh=mesh, device=device).price(SPOT, STRIKE, T_DEFAULT)
+
+    def exotic(kind):
+        def run(mesh, seed, n):
+            if mesh is not None:
+                return pm.sharded_exotic_price(
+                    params, SPOT, STRIKE, T_DEFAULT, seed, mesh=mesh,
+                    kind=kind, num_paths=n, num_steps=STEPS_DEFAULT)
+            eng = ExoticEngine(params, num_paths=n, seed=seed, device=device)
+            return (eng.price_asian if kind == "asian"
+                    else eng.price_digital)(SPOT, STRIKE, T_DEFAULT)
+        return run
+
+    def hhw_run(mesh, seed, n):
+        if mesh is None:
+            return HHWEngine(hp, num_paths=n, num_steps=128, seed=seed,
+                             device=device).price(SPOT, STRIKE, 1.0)
+        return pf.sharded_hhw_price(hp, SPOT, [STRIKE], 1.0, seed, mesh=mesh,
+                                    num_paths=n, num_steps=128)
+
+    def svcj_run(mesh, seed, n):
+        return SVCJEngine(svcj_p, num_paths=n, seed=seed, mesh=mesh,
+                          device=device).price(SPOT, STRIKE, T_DEFAULT)
+
+    def td_run(mesh, seed, n):
+        if mesh is not None:
+            return termsvj.TDSVJEngine(
+                params, *seg, num_paths=n, num_steps=td_steps, seed=seed,
+                mesh=mesh, device=device).price(SPOT, STRIKE, T_DEFAULT)
+        return termsvj.mc_price_td_cuda(
+            params, *td_levels, SPOT, [STRIKE], T_DEFAULT, seed,
+            num_paths=n, num_steps=td_steps, cv_beta="one", device=device)
+
+    cases = (("price euler", "svj_terminal", NUM_PATHS, mc("euler")),
+             ("price qe", "svj_terminal_qe", NUM_PATHS, mc("qe")),
+             ("asian", "svj_path_stats", EXOTIC_PATHS, exotic("asian")),
+             ("digital", "svj_terminal", EXOTIC_PATHS, exotic("digital")),
+             ("hhw", "hhw_terminal", FAMILY_PAIRS, hhw_run),
+             ("svcj", "svcj_terminal", FAMILY_PAIRS, svcj_run),
+             ("termsvj", "svj_terminal_td", FAMILY_PAIRS, td_run))
+
+    # 2. The unsharded engines, with their kernels' outputs.
+    refs = {}
+    for label, kname, n, run in cases:
+        with KernelCapture(ck, kname) as cap:
+            res = run(None, MESH_SEED, n)
+        refs[label] = (price_pair(res), cap.outs[-1])
+
+    # 3. The mesh path, counted.
+    os.environ.pop("MCOS_AUTO_MESH", None)
+    ck.reset_launch_counts()
+    expect = {}
+    out = {}
+    for label, kname, n, run in cases:
+        with KernelCapture(ck, kname) as cap:
+            got = price_pair(run(one, MESH_SEED, n))
+        (ref, ref_out) = refs[label]
+        check(len(cap.outs) == 1 and bitwise_equal(cap.outs[0], ref_out),
+              f"mesh {label}: one shard's {kname} outputs bit for bit")
+        errs = [abs(g / r - 1.0) for g, r in zip(got, ref)]
+        log(f"mesh {label}: one shard {got} vs unsharded {ref}: rel errs "
+            f"price {errs[0]:.2e}, std_error {errs[1]:.2e} (rtol 1e-6); "
+            f"{kname} outputs bit for bit")
+        check(max(errs) <= 1e-6, f"mesh {label}: one shard = unsharded")
+        with PoolCapture(pm) as whole:
+            got4 = price_pair(run(four, MESH_SEED, n))
+        with PoolCapture(pm) as parts:
+            for i in range(MESH_SHARDS):
+                run(one, pm.shard_seed(MESH_SEED, i), n // MESH_SHARDS)
+        shard_dicts, pooled4 = whole.calls[-1]
+        check(len(shard_dicts) == MESH_SHARDS, f"mesh {label}: 4 shards")
+        singles = [c[0][0] for c in parts.calls]
+        check(all(bitwise_equal(a, b) for a, b in zip(shard_dicts, singles)),
+              f"mesh {label}: each shard = its one-shard run, bit for bit")
+        check(bitwise_equal(pm.pool_shards(singles), pooled4),
+              f"mesh {label}: 4 shards = their one-shard runs pooled")
+        check(all(math.isfinite(x) for x in got4) and got4[1] > 0,
+              f"mesh {label}: 4-shard result finite")
+        expect[kname] = expect.get(kname, 0) + 1 + 2 * MESH_SHARDS
+        out[label] = {"paths": n, "one_shard": got, "unsharded": ref,
+                      "rel_err_price": errs[0], "rel_err_std_error": errs[1],
+                      "four_shards": got4, "pooled_bit_equal": True}
+        log(f"mesh {label}: 4 shards {got4}; each shard's moments bit for "
+            f"bit its one-shard run, pooled in shard order")
+
+    # MCOS_AUTO_MESH=1 on one card: no mesh, the unsharded price exactly.
+    os.environ["MCOS_AUTO_MESH"] = "1"
+    try:
+        check(pricer.resolve_mesh(None) is None, "auto mesh on one card")
+        auto = mc("euler")(None, MESH_SEED, NUM_PATHS)
+    finally:
+        os.environ.pop("MCOS_AUTO_MESH")
+    plain_euler = mc("euler")(None, MESH_SEED, NUM_PATHS)
+    check(auto == plain_euler, "MCOS_AUTO_MESH=1: the unsharded price")
+    expect["svj_terminal"] += 2
+    log(f"MCOS_AUTO_MESH=1 on {torch.cuda.device_count()} card(s): mesh "
+        f"None, price {auto['price']} = unsharded, bit for bit")
+
+    # The SLV: 4 shards fed the column blocks of one normal sheet step as
+    # the one cloud of that sheet (their bin statistics pooled each step).
+    strikes = SPOT * np.linspace(0.7, 1.3, 13)
+    k = np.log(strikes / SPOT)
+    surf = localvol.LocalVolSurface.from_iv_points(
+        SPOT, strikes, [0.25, 0.5, 1.0],
+        np.tile(0.2 - 0.15 * k + 0.2 * k * k, (3, 1)), r=0.05, q=0.01)
+    heston = SVJParams(kappa=2.0, theta=0.04, xi=0.6, rho=-0.7, v0=0.04,
+                       lambda_j=0.0, sigma_j=1e-4, r=0.05, q=0.01)
+    slv_steps, ppd = 64, 50_000
+    rows, t_mid = surf.step_tables(0.5, slv_steps)
+    y0, dy = float(surf.y_grid[0]), float(surf.y_grid[1] - surf.y_grid[0])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    sheet = torch.randn((slv_steps, 2, MESH_SHARDS * ppd), generator=gen,
+                        device=device)
+    slv_k = [0.9 * SPOT, SPOT, 1.1 * SPOT]
+    slv = {}
+    for tag, mesh, draws in (
+            ("one cloud", one, lambda i: sheet),
+            ("4 shards", four,
+             lambda i: sheet[:, :, i * ppd:(i + 1) * ppd])):
+        t0 = time.perf_counter()
+        res = pf.sharded_slv_price(heston, rows, t_mid, y0, dy, SPOT, slv_k,
+                                   0.5, MESH_SEED, mesh=mesh,
+                                   num_paths=MESH_SHARDS * ppd,
+                                   num_steps=slv_steps, shard_draws=draws)
+        torch.cuda.synchronize()
+        slv[tag] = {"price": res["price"].tolist(),
+                    "std_error": res["std_error"].tolist(),
+                    "ms": (time.perf_counter() - t0) * 1e3}
+    dev_se = [abs(a - b) / s for a, b, s in zip(
+        slv["4 shards"]["price"], slv["one cloud"]["price"],
+        slv["one cloud"]["std_error"])]
+    log(f"SLV {MESH_SHARDS} x {ppd} particles x {slv_steps} steps: "
+        f"{slv['4 shards']['price']} vs one cloud "
+        f"{slv['one cloud']['price']}: {[round(d, 4) for d in dev_se]} se "
+        f"(limit 1); {slv['4 shards']['ms']:.0f} ms vs "
+        f"{slv['one cloud']['ms']:.0f} ms")
+    check(max(dev_se) < 1.0, "SLV: 4 shards are one cloud")
+    slv["deviation_se"] = dev_se
+
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    log(f"mesh path launches: {launches}")
+    for name, n in launches.items():
+        check(n == expect.get(name, 0),
+              f"mesh path: {name} launched {n} times, expected "
+              f"{expect.get(name, 0)}")
+
+    # 4. Wall time: 4 shards of cuda:0 against the unsharded engine at the
+    # same total paths, warm, in turns (unsharded, 4, 4, unsharded).
+    for label, kname, n, run in cases:
+        run(None, MESH_SEED, n)
+        run(four, MESH_SEED, n)
+        t = [timed(lambda: run(m, MESH_SEED, n))
+             for m in (None, four, four, None)]
+        t_one, t_four = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        out[label].update(unsharded_ms=t_one, four_shard_ms=t_four)
+        log(f"mesh {label} at {n} paths: 4 shards {t_four:.2f} ms vs "
+            f"unsharded {t_one:.2f} ms (ratio {t_four / t_one:.2f}); on "
+            f"{card}")
+    wall = time.perf_counter() - t_phase
+    log(f"mesh path {wall:.1f} s; on {card}")
+    return {"launches": launches, "cases": out, "kernel_pins": pins,
+            "slv": slv, "wall_s": wall, "card": card}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
@@ -5401,6 +5743,7 @@ def main() -> None:
                    SVJParams, gbm_params)
     kp = multiasset_path(device, ck, server, bs_price, SVJParams, gbm_params)
     lp = roughheston_path(device, ck, server, cos_price, SVJParams)
+    sp = mesh_path(device, ck, card, SVJParams, SVCJParams, hhw, localvol)
     log(f"warm slices L + M over HTTP (median of 5): /api/roughheston price "
         f"{lp['warm_price_ms']:.1f} ms, greeks {lp['warm_greeks_ms']:.1f}, "
         f"smile {lp['warm_smile_ms']:.1f} ms; on {card}")
@@ -5444,7 +5787,7 @@ def main() -> None:
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
              "rough": rp, "greeks": gp, "risk": gr, "american": ap,
              "calibration": cp, "desk": dp, "multiasset": kp,
-             "roughheston": lp}
+             "roughheston": lp, "mesh": sp}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -5489,7 +5832,7 @@ def main() -> None:
                    "greeks_path": gp, "risk_path": gr,
                    "american_path": ap, "calibration_path": cp,
                    "desk_path": dp, "multiasset_path": kp,
-                   "roughheston_path": lp}, f,
+                   "roughheston_path": lp, "mesh_path": sp}, f,
                   indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1697,10 +1697,16 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
+        # CORS-any, as the reference configures it.
         self.send_header("Access-Control-Allow-Origin", "*")
+        self.send_header("Access-Control-Allow-Methods", "*")
+        self.send_header("Access-Control-Allow-Headers", "*")
         self._security_headers("no-store")
         self.end_headers()
         self.wfile.write(data)
+
+    def do_OPTIONS(self):  # CORS preflight
+        self._send_json(204, {})
 
     def _send_file(self, data: bytes, mime: str) -> None:
         self.send_response(200)

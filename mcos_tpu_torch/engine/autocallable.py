@@ -34,7 +34,7 @@ from mcos_tpu_torch.engine.basket import (
     simulate_basket_observations,
 )
 from mcos_tpu_torch.engine.cliquet import simulate_period_log_returns
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator
+from mcos_tpu_torch.engine.pricer import resolve_mesh, seeded_generator
 from mcos_tpu_torch.models.params import SVJParams, _stack_params
 
 
@@ -219,14 +219,15 @@ def _solve_par_coupon(price_fn, target: float = 1.0) -> Dict[str, object]:
 class WorstOfAutocallableEngine:
     """Worst-of autocallable on a correlated multi-asset SVJ basket: the
     trigger, coupon and capital-at-risk legs all read the WORST performer
-    min_i S_i(t)/S_i(0). On `device` (default the card)."""
+    min_i S_i(t)/S_i(0). On `device` (default the card). mesh: None |
+    "auto" | a `parallel.mesh.Mesh` (`resolve_mesh`); a resolved mesh
+    shards `price` (`parallel/families.py:sharded_worstof_autocall`)."""
 
     def __init__(self, params_list: Sequence[SVJParams], corr,
                  num_paths: int = DEFAULT_NUM_PATHS,
                  steps_per_period: int = 16, seed: int = 42, mesh=None, *,
                  device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
+        self.mesh = mesh
         self.device = torch.device(device)
         self.params_batch = _stack_params(list(params_list))
         self.n_assets = len(params_list)
@@ -263,6 +264,22 @@ class WorstOfAutocallableEngine:
               notional: float = 1.0) -> Dict[str, object]:
         if final_coupon is None:
             final_coupon = n_obs * coupon
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.families import (
+                sharded_worstof_autocall,
+            )
+
+            res = sharded_worstof_autocall(
+                self, T, self.seed, mesh=mesh, n_obs=n_obs,
+                autocall_barrier=autocall_barrier,
+                coupon_barrier=coupon_barrier,
+                protection_barrier=protection_barrier, coupon=coupon,
+                final_coupon=final_coupon, notional=notional)
+            res["price"] = float(res["price"])
+            res["std_error"] = float(res["std_error"])
+            res["num_paths_used"] = int(res["num_paths_used"])
+            return res
         levels = simulate_basket_observations(
             self.params_batch, np.ones((self.n_assets,), np.float32),
             self.corr_chol, T, seeded_generator(self.seed, self.device),

@@ -37,7 +37,7 @@ import torch
 
 from mcos_tpu_torch.config import scaled_steps
 from mcos_tpu_torch.engine.cliquet import _optimal_beta_adjust
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator
+from mcos_tpu_torch.engine.pricer import resolve_mesh, seeded_generator
 from mcos_tpu_torch.models.params import SVJParams, _stack_params
 from mcos_tpu_torch.ops.simulate import (
     _f32,
@@ -275,14 +275,17 @@ class BasketEngine:
     `device` (default the card). Generators: `seed` for the European
     payoffs, the Bermudan's price and its policy's training set,
     `seed + 1` for the bracket's evaluation set, `seed + 2` for the dual's
-    outer and inner paths (the JAX package splits one key three ways)."""
+    outer and inner paths (the JAX package splits one key three ways).
+    mesh: None | "auto" | a `parallel.mesh.Mesh` (`resolve_mesh`); a
+    resolved mesh shards `price` (`parallel/families.py:
+    sharded_basket_price`); the rainbow, spread and Bermudan payoffs stay
+    on one device."""
 
     def __init__(self, params_list: Sequence[SVJParams], corr,
                  num_paths: int = 200_000, num_steps: int = 64,
                  seed: int = 42, use_control_variate: bool = True,
                  mesh=None, *, device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
+        self.mesh = mesh
         self.params_list = list(params_list)
         self.corr = np.asarray(corr, np.float64)
         a = len(self.params_list)
@@ -320,6 +323,13 @@ class BasketEngine:
               strike: float, T: float, is_call: bool = True
               ) -> Dict[str, float]:
         """Price max(±(Σ wᵢ S_T,i − K), 0) with a geometric-basket control."""
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.families import sharded_basket_price
+
+            return sharded_basket_price(self, spots, weights, strike, T,
+                                        self.seed, mesh=mesh,
+                                        is_call=is_call)
         spots = np.asarray(spots, np.float64)
         weights = np.asarray(weights, np.float64)
         s, g, steps = self._terminal(spots, T, self.use_control_variate)

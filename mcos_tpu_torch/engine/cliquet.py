@@ -35,7 +35,7 @@ import torch
 from scipy.stats import norm
 
 from mcos_tpu_torch.config import DEFAULT_NUM_PATHS
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator
+from mcos_tpu_torch.engine.pricer import resolve_mesh, seeded_generator
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops.simulate import (
     _companion,
@@ -99,6 +99,23 @@ def _cliquet_payoff(dlog: torch.Tensor, local_floor, local_cap, global_floor,
     total = torch.clamp(torch.sum(r_per, dim=0), min=global_floor,
                         max=global_cap)
     return combine_antithetic(total)
+
+
+def _cliquet_legs(dlog_s: torch.Tensor, dlog_g: Optional[torch.Tensor],
+                  local_floor, local_cap, global_floor, global_cap,
+                  notional: float, control_variate: bool):
+    """Pairs-collapsed (paths,) payoffs of the cliquet and of its control
+    (None without the CV): `CliquetEngine.price_cliquet`'s and its mesh
+    shards'. The control is the UNCAPPED-sum cliquet on the companion
+    legs, exact in closed form (`cliquet_bs`); the global clip only
+    weakens the correlation, it never biases (optimal β absorbs the
+    slope)."""
+    pay = notional * _cliquet_payoff(dlog_s, local_floor, local_cap,
+                                     global_floor, global_cap)
+    if not control_variate:
+        return pay, None
+    return pay, notional * _cliquet_payoff(dlog_g, local_floor, local_cap,
+                                           -np.inf, np.inf)
 
 
 def _optimal_beta_adjust(pay: torch.Tensor, ctrl: torch.Tensor,
@@ -176,14 +193,15 @@ def simulate_period_log_returns(params: SVJParams, T,
 class CliquetEngine:
     """Cliquet and forward-start pricing with exact companion controls, on
     `device` (default the card); the paths come from a generator seeded
-    with `seed`."""
+    with `seed`. mesh: None | "auto" | a `parallel.mesh.Mesh`
+    (`resolve_mesh`); a resolved mesh shards `price_cliquet`
+    (`parallel/families.py:sharded_cliquet_price`)."""
 
     def __init__(self, params: SVJParams, num_paths: int = DEFAULT_NUM_PATHS,
                  steps_per_period: int = 16, seed: int = 42,
                  use_control_variate: bool = True, mesh=None, *,
                  device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
+        self.mesh = mesh
         self.params = params
         self.num_paths = int(num_paths)
         self.steps_per_period = int(steps_per_period)
@@ -220,9 +238,30 @@ class CliquetEngine:
                       notional: float = 1.0) -> Dict[str, float]:
         """N · clip(Σⱼ clip(Rⱼ, f_loc, c_loc), f_glob, c_glob), paid at T."""
         p = self.params
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.families import sharded_cliquet_price
+
+            res = sharded_cliquet_price(
+                p, T, self.seed, mesh=mesh, num_paths=self.num_paths,
+                n_periods=n_periods, steps_per_period=self.steps_per_period,
+                local_floor=local_floor, local_cap=local_cap,
+                global_floor=global_floor, global_cap=global_cap,
+                notional=notional, control_variate=self.use_control_variate)
+            out = {
+                "price": float(res["price"]),
+                "std_error": float(res["std_error"]),
+                "n_periods": n_periods,
+                "num_paths_used": int(res["num_paths_used"]),
+                "num_steps": n_periods * self.steps_per_period,
+            }
+            if self.use_control_variate:
+                out["cv_beta"] = float(res["cv_beta"])
+            return out
         dlog_s, dlog_g = self._returns(T, n_periods, self.steps_per_period)
-        pay = notional * _cliquet_payoff(dlog_s, local_floor, local_cap,
-                                         global_floor, global_cap)
+        pay, ctrl_pay = _cliquet_legs(dlog_s, dlog_g, local_floor, local_cap,
+                                      global_floor, global_cap, notional,
+                                      self.use_control_variate)
         discount = float(np.exp(-float(p.r) * T))
         mean, se = mc_mean_stderr(pay)
         out = {
@@ -233,11 +272,6 @@ class CliquetEngine:
             "num_steps": n_periods * self.steps_per_period,
         }
         if self.use_control_variate:
-            # Control: the UNCAPPED-sum cliquet on the companion legs, exact
-            # in closed form; the global clip only weakens the correlation,
-            # it never biases (optimal β absorbs the slope).
-            ctrl_pay = notional * _cliquet_payoff(
-                dlog_g, local_floor, local_cap, -np.inf, np.inf)
             ctrl_exact = cliquet_bs(
                 T, n_periods, float(p.r), float(p.q),
                 float(np.sqrt(float(p.v0))), local_floor, local_cap,

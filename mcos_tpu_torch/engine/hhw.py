@@ -22,6 +22,7 @@ import torch
 from mcos_tpu_torch.engine.pricer import seeded_generator, to_host
 from mcos_tpu_torch.ops import cuda_kernels
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_terminal, vasicek_bond
+from mcos_tpu_torch.ops.simulate import _pair_payoffs
 
 
 def _reduce_disc_payoff(s: torch.Tensor, d: torch.Tensor,
@@ -29,10 +30,7 @@ def _reduce_disc_payoff(s: torch.Tensor, d: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """((strikes,) mean, (strikes,) stderr, scalar E[D]) of the pathwise
     discounted payoff, antithetic pairs pooled before the moments."""
-    phi = 1.0 if is_call else -1.0
-    pay = torch.clamp(phi * (s[..., None] - strikes[None, None, :]),
-                      min=0.0) * d[..., None]
-    comb = torch.mean(pay, dim=0)
+    comb = _pair_payoffs(s, strikes, is_call, d)
     mean = torch.mean(comb, dim=0)
     se = (torch.std(comb, dim=0, correction=0)
           / float(np.sqrt(np.float32(comb.shape[0]))))

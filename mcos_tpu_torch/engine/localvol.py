@@ -32,10 +32,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator
+from mcos_tpu_torch.engine.pricer import (resolve_mesh, seeded_generator,
+                                          to_host)
 from mcos_tpu_torch.engine.surface import NaturalCubicSpline
-from mcos_tpu_torch.ops.simulate import (combine_antithetic, mc_mean_stderr,
-                                         vanilla_payoff)
+from mcos_tpu_torch.ops.simulate import _pair_payoffs, mc_mean_stderr
 
 # Local-variance clamps: keep the diffusion well-posed where the input
 # surface is noisy / extrapolated (vols between ~3% and ~300%).
@@ -312,13 +312,15 @@ class LocalVolEngine:
 
     API mirrors `MonteCarloEngine.price/price_batch`. Each pricing call
     draws from `seeded_generator(seed, device)`: the same paths a call.
+    mesh: None | "auto" | a `parallel.mesh.Mesh` (`resolve_mesh`); a
+    resolved mesh shards antithetic `price_batch` calls
+    (`parallel/families.py:sharded_localvol_price`).
     """
 
     def __init__(self, surface: LocalVolSurface, num_paths: int = 200_000,
                  num_steps: int = 100, seed: int = 42,
                  use_antithetic: bool = True, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
+        self.mesh = mesh
         self.surface = surface
         self.num_paths = int(num_paths)
         self.num_steps = int(num_steps)
@@ -345,12 +347,27 @@ class LocalVolEngine:
     def price_batch(self, spot: float, strikes: Sequence[float], T: float,
                     is_call: bool = True) -> list:
         """Price a strike chain off one shared local-vol path set."""
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None and self.use_antithetic:
+            from mcos_tpu_torch.parallel.families import (
+                sharded_localvol_price,
+            )
+
+            res = to_host(sharded_localvol_price(
+                self.surface, spot, np.asarray(strikes, np.float32), T,
+                self.seed, mesh=mesh, num_paths=self.num_paths,
+                num_steps=max(int(self.num_steps * T), 16),
+                is_call=is_call))
+            return [
+                {"strike": float(k), "price": float(p),
+                 "std_error": float(s)}
+                for k, p, s in zip(np.asarray(strikes, np.float64),
+                                   np.atleast_1d(res["price"]),
+                                   np.atleast_1d(res["std_error"]))]
         s_final = self._terminal(spot, T)
         strikes_arr = _f32(np.asarray(strikes, np.float32), self.device)
-        pay = vanilla_payoff(s_final[None], strikes_arr[:, None, None],
-                             is_call)
-        pay = combine_antithetic(pay.transpose(0, 1))
-        mean, se = mc_mean_stderr(pay)
+        mean, se = mc_mean_stderr(
+            _pair_payoffs(s_final, strikes_arr, is_call).T)
         disc = float(np.exp(-self.surface.r * T))
         host = torch.stack([mean, se]).cpu().numpy().astype(np.float64)
         return [

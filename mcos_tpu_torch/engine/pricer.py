@@ -25,8 +25,12 @@ errors, and the terminal-state diagnostics the post-price guards read.
 - `price_term_structure` prices a strikes × maturities grid under a
   `TermStructureSVJ`, one PRNG engine (K3) per maturity.
 
-Every engine takes an explicit `device`. Sharding (`mesh=`) is not ported
-and raises `NotImplementedError` naming its ROADMAP.md item.
+Every engine takes an explicit `device`. `mesh=` (None, "auto" or a
+`parallel.mesh.Mesh`, resolved by `resolve_mesh`) routes the PRNG driver
+through `parallel/mesh.py:sharded_price`; the sharded Sobol driver is not
+ported: an explicit mesh raises `NotImplementedError` naming its
+ROADMAP.md slice, and the MCOS_AUTO_MESH toggle's mesh leaves the Sobol
+engine on one device.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ from mcos_tpu_torch.ops.bs import bs_price
 #: option, named by its letter and subject (item numbers change when the
 #: queue is re-anchored).
 NOT_PORTED = {
-    "mesh": "ROADMAP.md queue 1, slice N (sharding over NCCL)",
+    "mesh": ("ROADMAP.md queue 1, slice N2 (the sharded programs with "
+             "pooling of their own, and torch.distributed)"),
 }
 
 
@@ -76,6 +81,35 @@ def _payoff_table(s_final: torch.Tensor, strikes: torch.Tensor,
     return simulate.combine_antithetic(pay.movedim(-2, 0))
 
 
+def _control(params: SVJParams, spot, strikes: torch.Tensor, T,
+             s_final: torch.Tensor, g_final: Optional[torch.Tensor],
+             is_call: bool, cv_mode: str):
+    """The control's (K, paths) payoffs and their exact value, the
+    Black-Scholes price at √v0, (K,): the companion's payoffs, or with
+    cv_mode="reference" the base branch's (biased; parity only)."""
+    device = s_final.device
+    # as_tensor keeps a tensor v0's graph (the Greeks' ∂/∂v0).
+    sigma_bs = torch.sqrt(torch.as_tensor(params.v0, dtype=torch.float32,
+                                          device=device))
+    bs_ref = bs_price(spot, strikes, T, params.r, params.q, sigma_bs,
+                      is_call, device=device)
+    if cv_mode == "companion":
+        ctrl = _payoff_table(g_final, strikes, is_call)
+    elif cv_mode == "reference":
+        ctrl = simulate.vanilla_payoff(s_final[0][None], strikes[:, None],
+                                       is_call)
+    else:
+        raise ValueError(f"unknown cv_mode: {cv_mode!r}")
+    return ctrl, bs_ref
+
+
+def _cv_payoffs(pay: torch.Tensor, ctrl: torch.Tensor, bs_ref: torch.Tensor,
+                discount, beta: torch.Tensor) -> torch.Tensor:
+    """The CV-adjusted (K, paths) payoffs pay − β·(ctrl − BS/discount):
+    what the standard error reads, and what a mesh shard pools."""
+    return pay - beta[:, None] * (ctrl - bs_ref[:, None] / discount)
+
+
 def _finalize_price(
     params: SVJParams, spot, strikes: torch.Tensor, T, discount,
     pay: torch.Tensor, s_final: torch.Tensor,
@@ -91,20 +125,8 @@ def _finalize_price(
         "raw_mc_price": raw_price,
     }
     if control_variate:
-        device = pay.device
-        # as_tensor keeps a tensor v0's graph (the Greeks' ∂/∂v0).
-        sigma_bs = torch.sqrt(torch.as_tensor(params.v0, dtype=torch.float32,
-                                              device=device))
-        bs_ref = bs_price(spot, strikes, T, params.r, params.q, sigma_bs,
-                          is_call, device=device)
-        if cv_mode == "companion":
-            ctrl = _payoff_table(g_final, strikes, is_call)
-        elif cv_mode == "reference":
-            ctrl = simulate.vanilla_payoff(s_final[0][None],
-                                           strikes[:, None], is_call)
-        else:
-            raise ValueError(f"unknown cv_mode: {cv_mode!r}")
-
+        ctrl, bs_ref = _control(params, spot, strikes, T, s_final, g_final,
+                                is_call, cv_mode)
         if cv_beta == "optimal":
             ctrl_c = ctrl - torch.mean(ctrl, dim=-1, keepdim=True)
             var_c = torch.mean(ctrl_c**2, dim=-1)
@@ -123,10 +145,33 @@ def _finalize_price(
         out["price"] = raw_price - beta * (ctrl_mc - bs_ref)
         out["bs_cv_adjustment"] = ctrl_mc - bs_ref
         out["bs_ref"] = bs_ref
-        cv_pay = pay - beta[:, None] * (ctrl - bs_ref[:, None] / discount)
-        _, cv_se = simulate.mc_mean_stderr(cv_pay)
+        _, cv_se = simulate.mc_mean_stderr(
+            _cv_payoffs(pay, ctrl, bs_ref, discount, beta))
         out["std_error"] = discount * cv_se
     return out
+
+
+def _companion_pairs(params, spot, strikes: torch.Tensor, T,
+                     s_final: torch.Tensor, g_final: torch.Tensor,
+                     is_call: bool):
+    """β = 1 companion-CV payoffs of (2, paths) terminals with the pairs
+    collapsed, (paths, K), with the Black-Scholes value and the discount:
+    the estimator of the SVCJ and rough-Heston cores and of their mesh
+    shards. Pairs collapse before the moments: the branches share jump
+    draws and z² magnitudes, so their 2n values are not iid."""
+    device = s_final.device
+    discount = torch.exp(-params.r * torch.as_tensor(T, dtype=torch.float32,
+                                                     device=device))
+    sign = 1.0 if is_call else -1.0
+    pay = torch.clamp(sign * (s_final[..., None] - strikes), min=0.0)
+    g_pay = torch.clamp(sign * (g_final[..., None] - strikes), min=0.0)
+    bs_ref = bs_price(spot, strikes, T, params.r, params.q,
+                      torch.sqrt(torch.as_tensor(params.v0,
+                                                 dtype=torch.float32,
+                                                 device=device)),
+                      is_call, device=device)
+    eff = torch.mean(pay - g_pay, dim=0) + bs_ref / discount
+    return eff, bs_ref, discount
 
 
 def _check_scheme(scheme: str) -> None:
@@ -453,12 +498,46 @@ _SOBOL_DRAWS_CACHE_MAX = 12
 _SOBOL_DRAWS_LOCK = threading.Lock()
 
 
+# One process-wide auto mesh (largest power-of-two prefix of the CUDA
+# devices), built at the first sharded price. [None] = "computed, one
+# device".
+_AUTO_MESH: list = []
+
+
+def _auto_mesh():
+    if not _AUTO_MESH:
+        from mcos_tpu_torch.parallel import mesh as pmesh
+
+        devs = pmesh._cuda_devices()
+        n = 1 << (len(devs).bit_length() - 1) if devs else 0
+        _AUTO_MESH.append(pmesh.make_mesh(devs[:n]) if n >= 2 else None)
+    return _AUTO_MESH[0]
+
+
+def resolve_mesh(mesh):
+    """None | "auto" | Mesh → Mesh | None (one device).
+
+    Shared by every engine that honours the MCOS_AUTO_MESH=1 serving
+    toggle: None consults the toggle; "auto" resolves to the process-wide
+    mesh over the largest power-of-two prefix of the CUDA devices, or None
+    with fewer than two (one H100: None)."""
+    import os
+
+    if mesh is None and os.environ.get("MCOS_AUTO_MESH") == "1":
+        mesh = "auto"
+    if mesh == "auto":
+        mesh = _auto_mesh()
+    return mesh
+
+
 class MonteCarloEngine:
     """Counterpart of `mcos_tpu.engine.pricer.MonteCarloEngine` on `device`.
 
     backend: "cuda" (the kernels: K1/K5 on the Sobol draws, K3/K4 with
     use_sobol=False; their plain versions on the CPU) or "torch" (the
-    step-loop twins).
+    step-loop twins). mesh: None (one device; MCOS_AUTO_MESH=1 makes it
+    "auto"), "auto" or a `parallel.mesh.Mesh` with a "paths" axis; a
+    resolved mesh shards the PRNG driver over its devices.
     """
 
     def __init__(
@@ -480,8 +559,6 @@ class MonteCarloEngine:
         *,
         device="cuda",
     ):
-        if mesh is not None:
-            raise not_ported("mesh")
         self.params = params
         self.num_paths = int(num_paths)
         self.num_steps = int(num_steps)
@@ -495,9 +572,14 @@ class MonteCarloEngine:
         self.backend = backend
         self.rate_curve = rate_curve
         self.dividends = dividends
+        self.mesh = mesh
         self.device = torch.device(device)
 
     # -- internals ------------------------------------------------------------
+    def _resolved_mesh(self):
+        """The pricing mesh, or None for the single-device path."""
+        return resolve_mesh(self.mesh)
+
     def _sobol_draws(self, steps: int):
         key = (self.scheme, steps, self.num_paths, self.seed, str(self.device))
         with _SOBOL_DRAWS_LOCK:
@@ -548,6 +630,28 @@ class MonteCarloEngine:
         spot = self._spot_eff(spot, T)
         params = self._params_T(T)
         steps = self._steps(T)
+        mesh = self._resolved_mesh()
+        if mesh is not None and self.cv_beta == "one" \
+                and self.cv_mode == "companion":
+            # Path-sharded pricing, routed as the reference routes it: the
+            # serving-default estimator only; other configurations (optimal
+            # β, reference-parity CV, QE × Sobol, no antithetic Sobol) fall
+            # through to the single-device drivers below. The sharded Sobol
+            # driver is slice N2: a mesh the caller asked for refuses it,
+            # and one the MCOS_AUTO_MESH toggle made falls through too.
+            if self.use_sobol and self.scheme != "qe" \
+                    and self.use_antithetic and self.mesh is not None:
+                raise not_ported("mesh")
+            if not self.use_sobol:
+                from mcos_tpu_torch.parallel.mesh import sharded_price
+
+                return sharded_price(
+                    params, spot, strikes, T, self.seed, mesh=mesh,
+                    num_paths=self.num_paths, num_steps=steps,
+                    is_call=is_call, antithetic=self.use_antithetic,
+                    control_variate=self.use_control_variate,
+                    cv_mode=self.cv_mode, scheme=self.scheme,
+                    backend=self.backend)
         if self.use_sobol:
             z1, z2, u_jump, z_js = self._sobol_draws(steps)
             return mc_price_from_draws(
@@ -595,7 +699,8 @@ class MonteCarloEngine:
         out = {
             "price": float(res["price"][0]),
             "std_error": float(res["std_error"][0]),
-            "num_paths_used": self.num_paths,
+            "num_paths_used": int(np.asarray(
+                res.get("num_paths_used", self.num_paths))),
             "num_steps": self._steps(T),
         }
         if self.use_control_variate:

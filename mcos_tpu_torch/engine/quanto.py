@@ -32,7 +32,7 @@ import torch
 
 from mcos_tpu_torch.config import DEFAULT_NUM_PATHS
 from mcos_tpu_torch.engine.cliquet import _optimal_beta_adjust
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator
+from mcos_tpu_torch.engine.pricer import resolve_mesh, seeded_generator
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops.bs import bs_price
 from mcos_tpu_torch.ops.simulate import (
@@ -97,12 +97,26 @@ def _quanto_terminal(params: SVJParams, spot, T, r_d, sigma_fx, rho_fx,
     return spot * torch.exp(log_s), spot * torch.exp(log_g)
 
 
+def _quanto_payoffs(s: torch.Tensor, g: torch.Tensor, strike,
+                    is_call: bool, control_variate: bool):
+    """Pairs-collapsed (paths,) payoffs of the quanto vanilla on (2, paths)
+    terminals, and of its companion control (None without the CV): what
+    `QuantoEngine.price` and its mesh shards read."""
+    phi = 1.0 if is_call else -1.0
+    pay = combine_antithetic(torch.clamp(phi * (s - strike), min=0.0))
+    if not control_variate:
+        return pay, None
+    return pay, combine_antithetic(torch.clamp(phi * (g - strike), min=0.0))
+
+
 class QuantoEngine:
     """Quanto vanilla pricing under SVJ with an exact companion control, on
     `device` (default the card).
 
     `params.r` plays the FOREIGN rate r_f (the asset's own carry);
-    `r_domestic` prices and discounts the payoff currency.
+    `r_domestic` prices and discounts the payoff currency. mesh: None |
+    "auto" | a `parallel.mesh.Mesh` (`resolve_mesh`); a resolved mesh
+    shards `price` (`parallel/families.py:sharded_quanto_price`).
     """
 
     def __init__(self, params: SVJParams, r_domestic: float,
@@ -111,8 +125,7 @@ class QuantoEngine:
                  num_steps: int = 64, seed: int = 42,
                  use_control_variate: bool = True, mesh=None, *,
                  device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
+        self.mesh = mesh
         self.params = params
         self.r_d = float(r_domestic)
         self.sigma_fx = float(sigma_fx)
@@ -132,6 +145,44 @@ class QuantoEngine:
               is_call: bool = True,
               fx_fixed: float = 1.0) -> Dict[str, float]:
         p = self.params
+        sigma = np.sqrt(float(p.v0))
+        ctrl_exact = quanto_bs(spot, strike, T, self.r_d, float(p.r),
+                               float(p.q), float(sigma), self.sigma_fx,
+                               self.rho_fx, is_call)
+        out = {"num_paths_used": self.num_paths,
+               "num_steps": self.num_steps,
+               "quanto_adjustment_bs": ctrl_exact - float(bs_price(
+                   spot, strike, T, self.r_d,
+                   self.r_d - float(p.r) + float(p.q), sigma, is_call))}
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.families import sharded_quanto_price
+
+            res = sharded_quanto_price(
+                p, self.r_d, self.sigma_fx, self.rho_fx, spot, strike, T,
+                self.seed, mesh=mesh, num_paths=self.num_paths,
+                num_steps=self.num_steps, is_call=is_call,
+                control_variate=self.use_cv, fx_fixed=fx_fixed)
+            out["num_paths_used"] = int(res["num_paths_used"])
+            if self.use_cv:
+                out["cv_beta"] = float(res["cv_beta"])
+            out["price"] = float(res["price"])
+            out["std_error"] = float(res["std_error"])
+            return out
+        s, g = _quanto_terminal(
+            p, spot, T, self.r_d, self.sigma_fx, self.rho_fx,
+            seeded_generator(self.seed, self.device),
+            num_paths=self.num_paths, num_steps=self.num_steps,
+            draws=self._draws(self.num_steps), device=self.device)
+        pay, ctrl = _quanto_payoffs(s, g, strike, is_call, self.use_cv)
+        disc = float(np.exp(-self.r_d * T))
+        if self.use_cv:
+            out["cv_beta"], pay = _optimal_beta_adjust(pay, ctrl, ctrl_exact,
+                                                       disc)
+        mean, se = mc_mean_stderr(pay)
+        out["price"] = fx_fixed * disc * float(mean)
+        out["std_error"] = fx_fixed * disc * float(se)
+        return out
         s, g = _quanto_terminal(
             p, spot, T, self.r_d, self.sigma_fx, self.rho_fx,
             seeded_generator(self.seed, self.device),
@@ -140,7 +191,6 @@ class QuantoEngine:
         phi = 1.0 if is_call else -1.0
         pay = combine_antithetic(torch.clamp(phi * (s - strike), min=0.0))
         disc = float(np.exp(-self.r_d * T))
-        sigma = np.sqrt(float(p.v0))
         ctrl_exact = quanto_bs(spot, strike, T, self.r_d, float(p.r),
                                float(p.q), float(sigma), self.sigma_fx,
                                self.rho_fx, is_call)

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from mcos_tpu_torch.config import scaled_steps
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator, to_host
+from mcos_tpu_torch.engine.pricer import (_companion_pairs, resolve_mesh,
+                                          seeded_generator, to_host)
 from mcos_tpu_torch.ops.bs import bs_price
 from mcos_tpu_torch.ops.roughheston import (
     RoughHestonParams,
@@ -64,14 +65,8 @@ def _rh_price_core(params: RoughHestonParams, spot, strikes, T,
         params, spot, T, generator, c_weights, x_nodes,
         num_paths=num_paths, num_steps=num_steps, antithetic=True,
         companion=True, draws=draws, device=device)
-    discount = torch.exp(-params.r * _f32(T, device))
-    sign = 1.0 if is_call else -1.0
-    pay = torch.clamp(sign * (s_final[..., None] - strikes), min=0.0)
-    g_pay = torch.clamp(sign * (g_final[..., None] - strikes), min=0.0)
-    bs_ref = bs_price(spot, strikes, T, params.r, params.q,
-                      torch.sqrt(_f32(params.v0, device)), is_call,
-                      device=device)
-    eff = torch.mean(pay - g_pay, dim=0) + bs_ref / discount
+    eff, bs_ref, discount = _companion_pairs(params, spot, strikes, T,
+                                             s_final, g_final, is_call)
     n = float(eff.shape[0])
     mean = torch.mean(eff, dim=0)
     var = torch.clamp(torch.mean(eff * eff, dim=0) - mean * mean, min=0.0)
@@ -166,15 +161,16 @@ class RoughHestonEngine:
 
     `num_steps` is per year (scaled by maturity like every other engine);
     the default 8192 a year oversamples the T/256 kernel resolution 8x.
-    `mesh` is for slice N: anything but None raises.
+    mesh: None | "auto" | a `parallel.mesh.Mesh` (`resolve_mesh`); a
+    resolved mesh shards `price`
+    (`parallel/families.py:sharded_roughheston_price`).
     """
 
     def __init__(self, params: RoughHestonParams,
                  num_paths: int = 200_000, num_steps: int = 8192,
                  n_factors: int = 24, seed: int = 42, mesh=None, *,
                  device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
+        self.mesh = mesh
         self.params = params
         self.num_paths = int(num_paths)
         self.num_steps = int(num_steps)
@@ -214,7 +210,25 @@ class RoughHestonEngine:
     def price(self, spot: float, strike, T: float,
               is_call: bool = True) -> Dict:
         strikes = np.atleast_1d(np.asarray(strike, np.float32))
-        res = self._price_host(spot, strikes, T, is_call)
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.families import (
+                sharded_roughheston_price,
+            )
+
+            res = sharded_roughheston_price(
+                self.params, spot, strikes, T, self.seed, mesh=mesh,
+                num_paths=self.num_paths, num_steps=self._steps(T),
+                n_factors=self.n_factors, is_call=is_call)
+            device = res["price"].device
+            res["bs_ref"] = bs_price(
+                spot, torch.as_tensor(strikes, device=device), T,
+                self.params.r, self.params.q,
+                torch.sqrt(_f32(self.params.v0, device)), is_call,
+                device=device)
+            res = to_host(res)
+        else:
+            res = self._price_host(spot, strikes, T, is_call)
         out = {
             "price": float(res["price"][0]),
             "std_error": float(res["std_error"][0]),

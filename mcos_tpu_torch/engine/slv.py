@@ -18,13 +18,14 @@ path. On a CUDA device `bincount` sums with atomics in no fixed order, so
 the bin sums differ from the CPU's by float32 rounding.
 
 Oracles: xi -> 0 collapses v to v0 and SLV to pure local vol; a flat
-Dupire surface makes vanillas Black-Scholes. Pooling the bin statistics
-across devices (the JAX package's `axis_name`) is not ported yet.
+Dupire surface makes vanillas Black-Scholes. A sharded run (the JAX
+package's `axis_name`) passes `pool`, which pools each step's bin
+statistics over the shards (`parallel/families.py:sharded_slv_price`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,7 +34,8 @@ from mcos_tpu_torch.engine.localvol import (LocalVolSurface, _f32,
                                             _local_var_lookup)
 from mcos_tpu_torch.engine.pricer import seeded_generator
 from mcos_tpu_torch.models.params import SVJParams
-from mcos_tpu_torch.ops.simulate import _safe_sqrt, combine_antithetic
+from mcos_tpu_torch.ops.simulate import (_pair_payoffs, _safe_sqrt,
+                                         combine_antithetic)
 
 _VAR_FLOOR, _VAR_CAP = 1e-6, 16.0
 _LEV2_MIN, _LEV2_MAX = 0.01, 100.0      # leverage^2 clip (stability)
@@ -46,7 +48,8 @@ def slv_terminal(params: SVJParams, var_rows, t_mid, y0, dy, spot, T,
                  k_snapshot: int = -1, track_extremes: bool = False,
                  emit_sheet: bool = False,
                  normals: Optional[torch.Tensor] = None,
-                 device="cuda") -> torch.Tensor:
+                 pool: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None, device="cuda") -> torch.Tensor:
     """(2, num_paths) terminal spots under the particle-calibrated SLV —
     or, with `k_snapshot >= 0`, a (2, 2, num_paths) stack of (S at step
     k_snapshot, S at T) for forward-start payoffs; with `track_extremes`,
@@ -59,6 +62,11 @@ def slv_terminal(params: SVJParams, var_rows, t_mid, y0, dy, spot, T,
     the localvol engine's step-table layout. `normals`: an explicit
     (num_steps, 2, num_paths) sheet (z1 and z2 of each step); else drawn
     from `generator` up front on `device`.
+
+    `pool`: one shard of a sharded cloud. Each step it takes this shard's
+    (n_bins + 2,) float32 vector (bin sums of v, bin counts, the sum of v
+    and the particle count) and returns the vector pooled over every
+    shard, so that the leverage is estimated from the whole cloud.
     """
     if normals is None:
         normals = torch.randn((num_steps, 2, num_paths), generator=generator,
@@ -104,8 +112,17 @@ def slv_terminal(params: SVJParams, var_rows, t_mid, y0, dy, spot, T,
         v_flat = v_pos.reshape(-1)
         sums = torch.bincount(bins, weights=v_flat, minlength=n_bins)
         cnts = torch.bincount(bins, minlength=n_bins).to(torch.float32)
-        ev_bin = (sums + prior * (torch.sum(v_flat) / v_cnt)) \
-            / (cnts + prior)
+        if pool is None:
+            ev_bin = (sums + prior * (torch.sum(v_flat) / v_cnt)) \
+                / (cnts + prior)
+        else:
+            pooled = pool(torch.cat([
+                sums, cnts, torch.sum(v_flat)[None],
+                torch.full((1,), v_cnt, dtype=torch.float32,
+                           device=device)]))
+            ev_bin = ((pooled[:n_bins]
+                       + prior * (pooled[-2] / pooled[-1]))
+                      / (pooled[n_bins:2 * n_bins] + prior))
         ev = ev_bin[bins].reshape(2, num_paths)
 
         lev2 = torch.clamp(sig_loc2 / torch.clamp(ev, min=_VAR_FLOOR),
@@ -269,11 +286,8 @@ class SLVEngine:
               is_call: bool = True) -> Dict[str, object]:
         strikes_arr = torch.atleast_1d(_f32(np.asarray(strikes, np.float32),
                                             self.device))
-        s = self.terminal(spot, T)
-        phi = 1.0 if is_call else -1.0
-        pay = combine_antithetic(
-            torch.clamp(phi * (s[..., None] - strikes_arr[None, None, :]),
-                        min=0.0))                  # (paths, strikes)
+        pay = _pair_payoffs(self.terminal(spot, T), strikes_arr,
+                            is_call)               # (paths, strikes)
         price, stderr = self._mean_se(pay, T)
         scalar = np.ndim(strikes) == 0
         return {

@@ -17,7 +17,8 @@ import torch
 
 from mcos_tpu_torch.config import scaled_steps
 from mcos_tpu_torch.engine.pricer import (
-    not_ported,
+    _companion_pairs,
+    resolve_mesh,
     seeded_generator,
     to_host,
 )
@@ -55,19 +56,8 @@ def _svcj_price_core(params: SVCJParams, spot, strikes, T, seed: int, *,
             companion=True, device=device)
     else:
         raise ValueError(f"unknown backend: {backend!r}")
-    discount = torch.exp(-params.r * torch.tensor(T, dtype=torch.float32,
-                                                  device=device))
-    sign = 1.0 if is_call else -1.0
-    pay = torch.clamp(sign * (s_final[..., None] - strikes), min=0.0)
-    g_pay = torch.clamp(sign * (g_final[..., None] - strikes), min=0.0)
-    sigma_bs = torch.sqrt(torch.tensor(params.v0, dtype=torch.float32,
-                                       device=device))
-    bs_ref = bs_price(spot, strikes, T, params.r, params.q, sigma_bs,
-                      is_call, device=device)
-    # Collapse antithetic pairs before the moments: branch members share
-    # jump draws and z² magnitudes, so treating the 2n branch values as iid
-    # would mis-scale the standard error.
-    eff = torch.mean(pay - g_pay, dim=0) + bs_ref / discount
+    eff, bs_ref, discount = _companion_pairs(params, spot, strikes, T,
+                                             s_final, g_final, is_call)
     n = float(eff.shape[0])
     mean = torch.mean(eff, dim=0)
     var = torch.clamp(torch.mean(eff * eff, dim=0) - mean * mean, min=0.0)
@@ -112,13 +102,14 @@ def _svcj_delta_vega(params: SVCJParams, spot, strike, T,
 class SVCJEngine:
     """Stateful wrapper over the SVCJ cores (one per API request) on
     `device`. backend: "cuda" (kernel K8; its plain version on the CPU) or
-    "torch" (the twin). Greeks always ride the twin."""
+    "torch" (the twin). Greeks always ride the twin. mesh: None | "auto" |
+    a `parallel.mesh.Mesh` (`resolve_mesh`); a resolved mesh shards
+    `price` (`parallel/families.py:sharded_svcj_price`)."""
 
     def __init__(self, params: SVCJParams, num_paths: int = 200_000,
                  num_steps: int = 252, seed: int = 42, mesh=None,
                  backend: str = "cuda", *, device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
+        self.mesh = mesh
         self.params = params
         self.num_paths = int(num_paths)
         self.num_steps = int(num_steps)
@@ -138,12 +129,30 @@ class SVCJEngine:
     def price(self, spot: float, strike, T: float,
               is_call: bool = True) -> Dict:
         strikes = np.atleast_1d(np.asarray(strike, np.float32))
-        res = self._core(spot, strikes, T, is_call)
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.families import sharded_svcj_price
+
+            res = sharded_svcj_price(
+                self.params, spot, strikes, T, self.seed, mesh=mesh,
+                num_paths=self.num_paths, num_steps=self._steps(T),
+                is_call=is_call, backend=self.backend)
+            device = res["price"].device
+            res["bs_ref"] = bs_price(
+                spot, torch.as_tensor(strikes, device=device), T,
+                self.params.r, self.params.q,
+                torch.sqrt(torch.tensor(self.params.v0, dtype=torch.float32,
+                                        device=device)),
+                is_call, device=device)
+            res = to_host(res)
+        else:
+            res = self._core(spot, strikes, T, is_call)
         out = {
             "price": float(res["price"][0]),
             "std_error": float(res["std_error"][0]),
             "bs_ref": float(res["bs_ref"][0]),
-            "num_paths_used": self.num_paths,
+            "num_paths_used": int(np.asarray(
+                res.get("num_paths_used", self.num_paths))),
             "num_steps": self._steps(T),
             "v_max": float(res["v_max"]),
             "frac_nonfinite": float(res["frac_nonfinite"]),

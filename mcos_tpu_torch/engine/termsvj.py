@@ -37,7 +37,7 @@ from mcos_tpu_torch.engine.cliquet import (
 )
 from mcos_tpu_torch.engine.pricer import (
     _price_terminal,
-    not_ported,
+    resolve_mesh,
     seeded_generator,
     to_host,
 )
@@ -176,6 +176,9 @@ class TDSVJEngine:
             (`tdsvj.normalize_segments`).
         backend: "cuda" (kernel K9; its plain version on the CPU) or
             "torch" (the twin on a generator seeded with `seed`).
+        mesh: None | "auto" | a `parallel.mesh.Mesh` (`_resolved_mesh`); a
+            resolved mesh shards `price_batch` with the β = 1 companion CV
+            (`parallel/families.py:sharded_td_price`).
     """
 
     def __init__(
@@ -194,8 +197,6 @@ class TDSVJEngine:
         *,
         device="cuda",
     ):
-        if mesh is not None:
-            raise not_ported("mesh")
         if backend not in ("cuda", "torch"):
             raise ValueError(f"unknown backend: {backend!r}")
         self.params = params
@@ -211,6 +212,7 @@ class TDSVJEngine:
         self.seed = int(seed)
         self.backend = backend
         self.control_variate = control_variate
+        self.mesh = mesh
         self.device = torch.device(device)
 
     @classmethod
@@ -234,11 +236,33 @@ class TDSVJEngine:
         return step_param_arrays(ends, th, xi, lam, T,
                                  num_steps or self.num_steps)
 
+    def _resolved_mesh(self):
+        return resolve_mesh(self.mesh)
+
     def price_batch(self, spot: float, strikes, T: float,
                     is_call: bool = True) -> List[Dict]:
         """European chain at one expiry off one shared td path set."""
         th_t, xi_t, lam_t = self._step_arrays(float(T))
         strikes_arr = np.asarray(np.atleast_1d(strikes), np.float32)
+        mesh = self._resolved_mesh()
+        if mesh is not None:
+            # Path-sharded: pooled moments with the β = 1 companion CV
+            # inside the sharded driver.
+            from mcos_tpu_torch.parallel.families import sharded_td_price
+
+            res = to_host({k: v for k, v in sharded_td_price(
+                self.params, th_t, xi_t, lam_t, spot, strikes_arr, T,
+                self.seed, mesh=mesh, num_paths=self.num_paths,
+                num_steps=self.num_steps, is_call=is_call,
+                control_variate=self.control_variate,
+                backend=self.backend).items()
+                if k in ("price", "std_error")})
+            return [
+                {"strike": float(k), "price": float(res["price"][i]),
+                 "std_error": float(res["std_error"][i]),
+                 "num_devices": mesh.size}
+                for i, k in enumerate(np.atleast_1d(strikes))
+            ]
         common = dict(num_paths=self.num_paths, num_steps=self.num_steps,
                       is_call=is_call, control_variate=self.control_variate,
                       device=self.device)

@@ -50,7 +50,7 @@ import torch
 
 from mcos_tpu_torch.config import scaled_steps
 from mcos_tpu_torch.engine.exotics import variance_swap_fair_strike
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator
+from mcos_tpu_torch.engine.pricer import resolve_mesh, seeded_generator
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import cuda_kernels
 from mcos_tpu_torch.ops.simulate import (_f32, _svj_step_core,
@@ -177,14 +177,14 @@ class VolDerivsEngine:
 
     backend: "cuda" (the VIX Monte Carlo check on K4; its plain version on
     the CPU) or "torch" (the QE twin). The realized variance rides the
-    step loop either way. `mesh` raises: sharding is not ported.
+    step loop either way. mesh: None | "auto" | a `parallel.mesh.Mesh`
+    (`resolve_mesh`); a resolved mesh shards `variance_swap`
+    (`parallel/families.py:sharded_variance_swap`).
     """
 
     def __init__(self, params: SVJParams, num_paths: int = 200_000,
                  num_steps: int = 252, seed: int = 42, mesh=None, *,
                  backend: str = "cuda", device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
         if backend not in ("cuda", "torch"):
             raise ValueError(f"unknown backend: {backend!r}")
         self.params = params
@@ -192,6 +192,7 @@ class VolDerivsEngine:
         self.num_steps = int(num_steps)
         self.seed = int(seed)
         self.backend = backend
+        self.mesh = mesh
         self.device = torch.device(device)
 
     def _rv_draws(self, steps: int):
@@ -219,6 +220,16 @@ class VolDerivsEngine:
     def variance_swap(self, T: float) -> Dict[str, float]:
         """Closed-form fair strike + the MC round-trip (discrete daily
         sampling at the engine's step grid)."""
+        mesh = resolve_mesh(self.mesh)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.families import sharded_variance_swap
+
+            out = sharded_variance_swap(
+                self.params, T, self.seed, mesh=mesh,
+                num_paths=self.num_paths,
+                num_steps=scaled_steps(self.num_steps, T))
+            out["num_paths"] = int(out.pop("num_paths_used"))
+            return out
         closed = variance_swap_fair_strike(self.params, T)
         pairs = self._rv(T).mean(axis=0)   # iid pair means
         mc = pairs.mean()

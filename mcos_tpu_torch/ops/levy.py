@@ -30,7 +30,7 @@ import torch
 
 from mcos_tpu_torch.config import DIVIDEND_YIELD, RISK_FREE_RATE
 from mcos_tpu_torch.ops.cos_pricer import _chi_psi
-from mcos_tpu_torch.ops.simulate import _f32
+from mcos_tpu_torch.ops.simulate import _f32, _pair_payoffs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,9 +167,7 @@ def _mc_price(p, s: torch.Tensor, strikes, T, is_call: bool):
     branch-averaged payoffs, population std / √paths."""
     device = s.device
     strikes = torch.atleast_1d(_f32(np.asarray(strikes, np.float32), device))
-    phi = 1.0 if is_call else -1.0
-    pay = torch.clamp(phi * (s[..., None] - strikes[None, None, :]), min=0.0)
-    comb = torch.mean(pay, dim=0)
+    comb = _pair_payoffs(s, strikes, is_call)
     disc = torch.exp(-_f32(p.r, device) * _f32(T, device))
     mean = disc * torch.mean(comb, dim=0)
     se = disc * torch.std(comb, dim=0, correction=0) / float(
@@ -205,12 +203,34 @@ def levy_price_mc(p, spot, strikes, T,
                   num_paths: int, is_call: bool = True, mesh=None,
                   draws=None, device="cuda"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Model-dispatched Lévy MC pricing (VGParams | NIGParams) on one
-    device; `mesh` (the pooled multi-device path) is not ported."""
-    if mesh is not None:
-        from mcos_tpu_torch.engine.pricer import not_ported
+    """Model-dispatched Lévy MC pricing (VGParams | NIGParams).
 
-        raise not_ported("mesh")
+    mesh=None honours MCOS_AUTO_MESH=1; "auto" or a Mesh routes through
+    the pooled driver (`parallel/families.py:sharded_levy_price`), which
+    reproduces the single-device estimator on the pooled union sample.
+    The shards take the generator's seed, not its state: shard 0 draws
+    what `generator` draws, so it must not have drawn yet. Given one that
+    has drawn (or none), an explicit mesh raises ValueError, and the
+    toggle's mesh leaves the call on one device."""
+    from mcos_tpu_torch.engine.pricer import resolve_mesh, seeded_generator
+
+    explicit = mesh is not None
+    mesh = resolve_mesh(mesh)
+    if mesh is not None:
+        fresh = generator is not None and torch.equal(
+            generator.get_state(),
+            seeded_generator(generator.initial_seed(),
+                             generator.device).get_state())
+        if fresh:
+            from mcos_tpu_torch.parallel.families import sharded_levy_price
+
+            res = sharded_levy_price(p, spot, strikes, T,
+                                     generator.initial_seed(), mesh=mesh,
+                                     num_paths=num_paths, is_call=is_call)
+            return res["price"], res["std_error"]
+        if explicit:
+            raise ValueError("a mesh seeds its shards from the seed of "
+                             "`generator`: pass one that has not drawn")
     fn = vg_price_mc if isinstance(p, VGParams) else nig_price_mc
     return fn(p, spot, strikes, T, generator, num_paths=num_paths,
               is_call=is_call, draws=draws, device=device)

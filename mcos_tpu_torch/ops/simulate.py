@@ -218,14 +218,17 @@ def _terminal(params: SVJParams, spot, T, z, u, antithetic: bool,
 def simulate_terminal(
     params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
     num_steps: int, antithetic: bool = True, companion: bool = False,
-    *, device="cuda",
+    *, draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Simulate SVJ paths with `generator`'s draws; terminal (S, v, G).
+    """Simulate SVJ paths with `generator`'s draws, or with `draws` = (z,
+    u), (steps, 3, paths) normals and (steps, paths) jump uniforms (a
+    replayed stream); terminal (S, v, G).
 
     Returns (n_branch, num_paths) tensors: row 0 base, row 1 antithetic;
     G (the σ=√v0 GBM companion on the same dW₁) only when `companion`.
     """
-    z, u = _euler_draws(None, generator, num_paths, num_steps,
+    z, u = _euler_draws(draws, generator, num_paths, num_steps,
                         torch.device(device))
     return _terminal(params, spot, T, z, u, antithetic, companion,
                      False)[:3]
@@ -461,20 +464,30 @@ def _qe_paths(params: SVJParams, spot, T, draws, n_branch: int,
 def simulate_terminal_qe(
     params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
     num_steps: int, antithetic: bool = True, companion: bool = False,
-    *, device="cuda",
+    *, draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Andersen (2008) quadratic-exponential Heston scheme + Merton jumps,
     with `generator`'s draws: per step two normals (z_x; z_js) and two
-    uniforms (u_v, the variance transition's; u_jump), drawn up front.
+    uniforms (u_v, the variance transition's; u_jump), drawn up front; or
+    with `draws` = (z, u), each (steps, 2, paths) in that order.
 
     Returns (S, v, G or None), each (n_branch, num_paths); the pair shares
     the variance path, so both v rows are equal.
     """
-    device = torch.device(device)
-    z = torch.randn((num_steps, 2, num_paths), generator=generator,
-                    device=device, dtype=torch.float32)
-    u = torch.rand((num_steps, 2, num_paths), generator=generator,
-                   device=device, dtype=torch.float32)
+    if draws is not None:
+        z, u = draws
+        device = z.device
+        if (tuple(z.shape) != (num_steps, 2, num_paths)
+                or tuple(u.shape) != tuple(z.shape)):
+            raise ValueError(f"draws must be two ({num_steps}, 2, "
+                             f"{num_paths}) tensors")
+    else:
+        device = torch.device(device)
+        z = torch.randn((num_steps, 2, num_paths), generator=generator,
+                        device=device, dtype=torch.float32)
+        u = torch.rand((num_steps, 2, num_paths), generator=generator,
+                       device=device, dtype=torch.float32)
     return _qe_paths(params, spot, T, (z[:, 0], u[:, 0], u[:, 1], z[:, 1]),
                      2 if antithetic else 1, num_paths, companion, device)
 
@@ -573,6 +586,19 @@ def vanilla_payoff(s_final: torch.Tensor, strike, is_call: bool
 def combine_antithetic(payoffs: torch.Tensor) -> torch.Tensor:
     """Average payoff branches pairwise: (n_branch, n_paths) → (n_paths,)."""
     return torch.mean(payoffs, dim=0)
+
+
+def _pair_payoffs(s: torch.Tensor, strikes: torch.Tensor, is_call: bool,
+                  weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(2, paths) terminal spots → the antithetic pairs' mean vanilla
+    payoffs at each strike, (paths, K); each path's payoff first times
+    `weight` (a pathwise discount). The engines' European estimator and
+    their mesh shards' payoffs alike."""
+    phi = 1.0 if is_call else -1.0
+    pay = torch.clamp(phi * (s[..., None] - strikes), min=0.0)
+    if weight is not None:
+        pay = pay * weight[..., None]
+    return combine_antithetic(pay)
 
 
 def mc_mean_stderr(values: torch.Tensor

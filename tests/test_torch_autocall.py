@@ -134,7 +134,8 @@ def test_unreachable_autocall_by_law():
 
 def test_worst_of_refusals_match_jax():
     """Mixed rates, a corr of the wrong shape or not PSD: ValueError with
-    the JAX package's message; a mesh: not ported."""
+    the JAX package's message; a mesh, once refused, prices (slice N1): a
+    one-shard mesh gives the unsharded note value."""
     bad = [
         (lambda m: [m.SVJParams(**FIELDS), m.SVJParams(**FIELDS2)], [[1]]),
         (lambda m: [m.SVJParams(**FIELDS), m.SVJParams(**dict(FIELDS2,
@@ -153,9 +154,17 @@ def test_worst_of_refusals_match_jax():
             pa.WorstOfAutocallableEngine(plist(pm), corr, num_paths=N,
                                          device="cpu")
         assert str(a.value) == str(b.value)
-    with pytest.raises(NotImplementedError, match="slice N"):
-        pa.WorstOfAutocallableEngine([SVJParams()] * 2, CORR, mesh="auto",
-                                     device="cpu")
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(num_paths=N, steps_per_period=4, device="cpu")
+    ref = pa.WorstOfAutocallableEngine([SVJParams()] * 2, CORR,
+                                       **kw).price(1.0)
+    got = pa.WorstOfAutocallableEngine([SVJParams()] * 2, CORR,
+                                       mesh=make_mesh(["cpu"]),
+                                       **kw).price(1.0)
+    assert got["price"] == pytest.approx(ref["price"], rel=1e-6)
+    assert got["call_prob_by_date"] == pytest.approx(
+        ref["call_prob_by_date"], rel=1e-6)
 
 
 def test_no_feasible_par_coupon_raises_as_jax():

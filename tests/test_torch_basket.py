@@ -259,6 +259,16 @@ def test_implied_correlation_round_trip():
 
 
 def test_mesh_not_ported():
+    """The mesh, once refused, is slice N1's: a one-shard mesh prices the
+    unsharded engine's path set (its own tests: test_torch_families_mesh)."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
     _, pp = _params(2)
-    with pytest.raises(NotImplementedError, match="slice N"):
-        pb.BasketEngine(pp, np.eye(2), mesh="auto", device="cpu")
+    kw = dict(num_paths=1000, num_steps=8, device="cpu")
+    args = ([100.0, 95.0], [0.5, 0.5], 100.0, 0.5)
+    ref = pb.BasketEngine(pp, np.eye(2), **kw).price(*args)
+    got = pb.BasketEngine(pp, np.eye(2), mesh=make_mesh(["cpu"]),
+                          **kw).price(*args)
+    assert got["num_devices"] == 1
+    for k in ("price", "std_error", "cv_beta"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-6), k

@@ -193,9 +193,19 @@ def test_gbm_quanto_by_law():
 
 
 def test_mesh_not_ported():
-    for build in (lambda: pcl.CliquetEngine(SVJParams(), mesh="auto",
-                                            device="cpu"),
-                  lambda: pq.QuantoEngine(SVJParams(), 0.05, 0.1, -0.3,
-                                          mesh="auto", device="cpu")):
-        with pytest.raises(NotImplementedError, match="slice N"):
-            build()
+    """The mesh, once refused, is slice N1's: on a one-shard mesh both
+    engines price the unsharded path set."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    for build, run in (
+            (lambda m: pcl.CliquetEngine(SVJParams(), num_paths=1000,
+                                         steps_per_period=4, mesh=m,
+                                         device="cpu"),
+             lambda e: e.price_cliquet(1.0)),
+            (lambda m: pq.QuantoEngine(SVJParams(), 0.05, 0.1, -0.3,
+                                       num_paths=1000, num_steps=8, mesh=m,
+                                       device="cpu"),
+             lambda e: e.price(100.0, 100.0, 0.5))):
+        ref, got = run(build(None)), run(build(make_mesh(["cpu"])))
+        for k in ("price", "std_error", "cv_beta"):
+            assert got[k] == pytest.approx(ref[k], rel=1e-6), k

@@ -861,3 +861,42 @@ def test_rough_heston_request_schema_equal():
             jschemas.RoughHestonRequest(**dict(body, **bad))
         with pytest.raises(ValidationError):
             pschemas.RoughHestonRequest(**dict(body, **bad))
+
+
+#: The reference's sharded programs with pooling of their own: slice N2.
+_N2_MESH = {"sharded_all_greeks", "sharded_sobol_price",
+            "sharded_american_price", "sharded_mlmc_price",
+            "sharded_exposure_profile", "sharded_basket_bounds",
+            "sharded_pde_chain", "sharded_portfolio_returns"}
+#: The port's own names for what shard_map and jax.sharding give the
+#: reference: the mesh class, its shards and seeds, the one pooling
+#: function and the lockstep runner.
+_PORT_MESH = {"Mesh", "Shard", "MAX_KEYS", "StepPool", "beta_one_payoffs",
+              "mesh_shards", "pool_shards", "run_lockstep", "shard_moments",
+              "shard_seed"}
+
+
+@pytest.mark.parametrize("name", ["mesh", "families"])
+def test_parallel_public_names_match_jax(name):
+    """Slice N1 defines the public names of the reference's
+    `parallel/mesh.py` (all but slice N2's programs) and of its
+    `parallel/families.py` (all 13 drivers)."""
+    import importlib
+    import inspect
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))
+                and n not in _FRAMEWORKS | {"Array"}
+                and getattr(getattr(mod, n), "__module__", mod.__name__)
+                == mod.__name__}
+
+    jmod = importlib.import_module(f"mcos_tpu.parallel.{name}")
+    pmod = importlib.import_module(f"mcos_tpu_torch.parallel.{name}")
+    if name == "families":
+        assert public(pmod) == public(jmod)
+        assert len({n for n in public(pmod) if n.startswith("sharded_")}) \
+            == 13
+    else:
+        assert public(pmod) - _PORT_MESH == public(jmod) - _N2_MESH
+        assert _N2_MESH <= public(jmod)

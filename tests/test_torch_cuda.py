@@ -1723,3 +1723,115 @@ def test_slice_k_handlers_on_card_launch_no_kernel(cuda):
         flat = [v for v in res.values() if isinstance(v, float)]
         assert flat and all(np.isfinite(flat)), (route, res)
     assert all(n == 0 for n in ck.launch_counts().values())
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice N1: the path-sharded mesh on the card
+# ─────────────────────────────────────────────────────────────────────────────
+_MESH_CASES = {          # driver → the kernel its shards launch
+    "euler": "svj_terminal", "qe": "svj_terminal_qe",
+    "asian": "svj_path_stats", "digital": "svj_terminal",
+    "hhw": "hhw_terminal", "svcj": "svcj_terminal",
+    "td": "svj_terminal_td"}
+_TD_STEPS = np.arange(128)
+_TD = (np.where(_TD_STEPS < 64, 0.04, 0.09),
+       np.where(_TD_STEPS < 42, 0.5, 0.9),
+       np.where(_TD_STEPS < 64, 1.0, 6.0))
+
+
+def _mesh_price(case, mesh, seed, n):
+    """(price, std_error) of `case`'s sharded driver on `mesh`."""
+    from mcos_tpu_torch.models.params import SVCJParams
+    from mcos_tpu_torch.ops.hhw import HHWParams
+    from mcos_tpu_torch.parallel import families as pf
+    from mcos_tpu_torch.parallel import mesh as pm
+
+    if case in ("euler", "qe"):
+        res = pm.sharded_price(_P, 22500.0, [22500.0], 0.25, seed,
+                               mesh=mesh, num_paths=n, num_steps=63,
+                               scheme=case)
+    elif case in ("asian", "digital"):
+        res = pm.sharded_exotic_price(_P, 22500.0, 22500.0, 0.25, seed,
+                                      mesh=mesh, kind=case, num_paths=n,
+                                      num_steps=63)
+    elif case == "hhw":
+        res = pf.sharded_hhw_price(HHWParams(), 100.0, [100.0], 1.0, seed,
+                                   mesh=mesh, num_paths=n, num_steps=128)
+    elif case == "svcj":
+        res = pf.sharded_svcj_price(SVCJParams(), 22500.0, [22500.0], 0.25,
+                                    seed, mesh=mesh, num_paths=n,
+                                    num_steps=63)
+    else:
+        res = pf.sharded_td_price(_P, *_TD, 22500.0, [22500.0], 0.5, seed,
+                                  mesh=mesh, num_paths=n, num_steps=128)
+    return (float(res["price"].reshape(-1)[0]),
+            float(res["std_error"].reshape(-1)[0]))
+
+
+def _engine_price(case, seed, n, device):
+    """(price, std_error) of the unsharded engine core `case` shards."""
+    from mcos_tpu_torch.engine import pricer, termsvj
+    from mcos_tpu_torch.engine.exotics import ExoticEngine
+    from mcos_tpu_torch.engine.hhw import HHWEngine
+    from mcos_tpu_torch.engine.svcj import SVCJEngine
+    from mcos_tpu_torch.models.params import SVCJParams
+    from mcos_tpu_torch.ops.hhw import HHWParams
+
+    if case in ("euler", "qe"):
+        res = pricer.mc_price_cuda(_P, 22500.0, [22500.0], 0.25, seed,
+                                   num_paths=n, num_steps=63, scheme=case,
+                                   device=device)
+        return float(res["price"][0]), float(res["std_error"][0])
+    if case == "td":   # the sharded driver pools the β = 1 estimator
+        res = termsvj.mc_price_td_cuda(_P, *_TD, 22500.0, [22500.0], 0.5,
+                                       seed, num_paths=n, num_steps=128,
+                                       cv_beta="one", device=device)
+        return float(res["price"][0]), float(res["std_error"][0])
+    if case == "hhw":
+        out = HHWEngine(HHWParams(), num_paths=n, num_steps=128, seed=seed,
+                        device=device).price(100.0, 100.0, 1.0)
+    elif case == "svcj":
+        out = SVCJEngine(SVCJParams(), num_paths=n, num_steps=252,
+                         seed=seed, device=device).price(22500.0, 22500.0,
+                                                         0.25)
+    else:
+        eng = ExoticEngine(_P, num_paths=n, num_steps=252, seed=seed,
+                           device=device)
+        out = (eng.price_asian if case == "asian" else eng.price_digital)(
+            22500.0, 22500.0, 0.25)
+    return out["price"], out["std_error"]
+
+
+@pytest.mark.parametrize("case", sorted(_MESH_CASES))
+def test_one_shard_mesh_equals_unsharded_on_card(cuda, case):
+    """A one-shard mesh on the card launches its kernel once, on the
+    engine's seed: price and standard error within float32 rounding of the
+    unsharded engine's (rtol 1e-6)."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    kernel = getattr(ck, _MESH_CASES[case])
+    n0 = kernel.launches
+    got = _mesh_price(case, make_mesh([cuda]), 17, 100_000)
+    assert kernel.launches == n0 + 1
+    ref = _engine_price(case, 17, 100_000, cuda)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("case", sorted(_MESH_CASES))
+def test_four_shard_mesh_equals_its_shards_pooled_on_card(cuda, case):
+    """Four shards of cuda:0 launch four kernels, and their pooled result
+    is the moments of the four one-shard runs (each on its shard's seed)
+    pooled in shard order: the price is their mean to float32 rounding."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh, shard_seed
+
+    kernel = getattr(ck, _MESH_CASES[case])
+    n0 = kernel.launches
+    four = _mesh_price(case, make_mesh([cuda] * 4), 17, 4 * 25_000)
+    assert kernel.launches == n0 + 4
+    parts = [_mesh_price(case, make_mesh([cuda]), shard_seed(17, i), 25_000)
+             for i in range(4)]
+    if case != "asian":      # the optimal-β control pools cross moments
+        assert four[0] == pytest.approx(np.mean([p[0] for p in parts]),
+                                        rel=1e-6)
+    se_pooled_bound = np.sqrt(np.mean([p[1] ** 2 for p in parts]) / 4)
+    assert four[1] == pytest.approx(se_pooled_bound, rel=0.05)

@@ -490,8 +490,8 @@ def test_vix_host_parts_equal(fields, T):
         for k in b:
             if k != "convention":
                 _close(a[k], b[k], 0.0, 1e-10, k)
-    with pytest.raises(NotImplementedError):
-        pvol.VolDerivsEngine(p, mesh="auto", device="cpu")
+    # mesh= is ported (slice N1): it routes the variance swap only.
+    assert pvol.VolDerivsEngine(p, mesh="auto", device="cpu").mesh == "auto"
 
 
 def test_vix_future_mc_cuda_backend_by_law():

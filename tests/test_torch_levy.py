@@ -134,9 +134,19 @@ def test_samplers_by_law_against_cos(model, fields):
 
 
 def test_levy_price_mc_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice N"):
-        plevy.levy_price_mc(plevy.VGParams(), 100.0, [100.0], 0.5,
-                            num_paths=N, mesh="auto", device="cpu")
+    """The mesh, once refused, is slice N1's: a one-shard mesh seeded from
+    the generator prices what the fresh generator prices."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    for p in (plevy.VGParams(), plevy.NIGParams()):
+        ref = plevy.levy_price_mc(p, 100.0, [90.0, 100.0], 0.5,
+                                  seeded_generator(4, "cpu"), num_paths=N,
+                                  device="cpu")
+        got = plevy.levy_price_mc(p, 100.0, [90.0, 100.0], 0.5,
+                                  seeded_generator(4, "cpu"), num_paths=N,
+                                  mesh=make_mesh(["cpu"]), device="cpu")
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("calibrate", ["calibrate_vg", "calibrate_nig"])

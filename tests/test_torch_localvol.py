@@ -179,6 +179,14 @@ def test_engine_matches_jax_by_law():
 
 
 def test_engine_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="slice N"):
-        plv.LocalVolEngine(plv.LocalVolSurface.flat(0.2), mesh="auto",
-                           device="cpu")
+    """The mesh, once refused, is slice N1's: a one-shard mesh prices the
+    unsharded path set."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(num_paths=1000, num_steps=32, device="cpu")
+    surf = plv.LocalVolSurface.flat(0.2)
+    ref = plv.LocalVolEngine(surf, **kw).price(100.0, 100.0, 0.5)
+    got = plv.LocalVolEngine(surf, mesh=make_mesh(["cpu"]),
+                             **kw).price(100.0, 100.0, 0.5)
+    for k in ("price", "std_error"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-6), k

@@ -112,25 +112,38 @@ def test_engine_viz_programs_shapes_and_law():
 
 
 def test_mesh_error_names_slice_n():
-    """The mesh= error names the roadmap slice that ports sharding, by its
-    letter and subject rather than by an item number."""
+    """The sharded Sobol driver (Euler, antithetic, on a mesh) is slice
+    N2: its error names the roadmap slice by its letter and subject rather
+    than by an item number."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    eng = ppricer.MonteCarloEngine(SVJParams(), num_paths=256,
+                                   mesh=make_mesh(["cpu"] * 2), device="cpu")
     with pytest.raises(NotImplementedError) as err:
-        ppricer.MonteCarloEngine(SVJParams(), mesh="auto", device="cpu")
-    assert "slice N (sharding over NCCL)" in str(err.value)
+        eng.price(100.0, 100.0, 0.1)
+    assert "slice N2 (the sharded programs" in str(err.value)
     assert "item" not in str(err.value)
 
 
 def test_unported_options_raise():
-    """Only sharding is still unported (the td-SVJ American pricer came
-    with the American engine); PRNG-driven pricing and the QE draws path,
-    which raised before they were ported, now price."""
+    """Only the sharded Sobol driver is still unported (the td-SVJ
+    American pricer came with the American engine); PRNG-driven pricing,
+    the QE draws path and the sharded PRNG driver, which raised before
+    they were ported, now price."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
     p = SVJParams()
     assert set(ppricer.NOT_PORTED) == {"mesh"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ppricer.MonteCarloEngine(p, mesh="auto", device="cpu")
+        ppricer.MonteCarloEngine(p, num_paths=256, mesh=make_mesh(["cpu"]),
+                                 device="cpu").price(100.0, 100.0, 0.1)
     res = ppricer.MonteCarloEngine(p, num_paths=256, use_sobol=False,
                                    device="cpu").price(100.0, 100.0, 0.1)
     assert np.isfinite(res["price"]) and res["std_error"] > 0
+    sharded = ppricer.MonteCarloEngine(p, num_paths=256, use_sobol=False,
+                                       mesh=make_mesh(["cpu"]),
+                                       device="cpu").price(100.0, 100.0, 0.1)
+    assert sharded["price"] == pytest.approx(res["price"], rel=1e-6)
     z = torch.zeros((4, 8))
     u = torch.full((4, 8), 0.5)
     res = ppricer.mc_price_from_draws(p, 1.0, [1.0], 0.1, z, u, None, z,

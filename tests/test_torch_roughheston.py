@@ -330,9 +330,18 @@ def test_engine_compare_matches_jax(engines):
 
 
 def test_engine_mesh_is_slice_n():
-    with pytest.raises(NotImplementedError, match="slice N"):
-        peng.RoughHestonEngine(pr.RoughHestonParams(), mesh="auto",
-                               device="cpu")
+    """The mesh, once refused, is slice N1's: a one-shard mesh prices the
+    unsharded engine's lifted paths."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(num_paths=256, num_steps=1024, n_factors=6, device="cpu")
+    ref = peng.RoughHestonEngine(pr.RoughHestonParams(), **kw).price(
+        _SPOT, 100.0, _T)
+    got = peng.RoughHestonEngine(pr.RoughHestonParams(),
+                                 mesh=make_mesh(["cpu"]), **kw).price(
+        _SPOT, 100.0, _T)
+    for k in ("price", "std_error", "bs_ref"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-6), k
 
 
 def test_engine_steps_and_nodes_match_jax():

@@ -274,6 +274,52 @@ def test_get_routes(base):
     assert _get(base, "/api/nosuchroute")[0] == 404
 
 
+_CORS = ("Access-Control-Allow-Origin", "Access-Control-Allow-Methods",
+         "Access-Control-Allow-Headers")
+
+
+def _raw(url, method, body=None, headers=None):
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers
+
+
+def test_cors_preflight_and_headers_match_jax(base):
+    """A browser's preflight OPTIONS /api/price answers 204 with the JAX
+    handler's three Access-Control-* headers, and POST answers carry the
+    same three (the JAX server answers these without pricing)."""
+    jhttpd = jserver.serve("127.0.0.1", 0)
+    thread = threading.Thread(target=jhttpd.serve_forever, daemon=True)
+    thread.start()
+    jbase = f"http://127.0.0.1:{jhttpd.server_address[1]}"
+    try:
+        preflight = {"Origin": "http://elsewhere.example",
+                     "Access-Control-Request-Method": "POST",
+                     "Access-Control-Request-Headers": "content-type"}
+        got = _raw(base + "/api/price", "OPTIONS", headers=preflight)
+        ref = _raw(jbase + "/api/price", "OPTIONS", headers=preflight)
+        assert got[0] == ref[0] == 204
+        assert [got[1][k] for k in _CORS] == [ref[1][k] for k in _CORS] \
+            == ["*", "*", "*"]
+        for path, body in (("/api/price", b'{"spot": -1}'),
+                           ("/api/nosuchroute", b"{}")):
+            got = _raw(base + path, "POST", body,
+                       {"Content-Type": "application/json"})
+            ref = _raw(jbase + path, "POST", body,
+                       {"Content-Type": "application/json"})
+            assert got[0] == ref[0] and got[0] in (404, 422), path
+            assert [got[1][k] for k in _CORS] == [ref[1][k] for k in _CORS]
+    finally:
+        jhttpd.shutdown()
+        jhttpd.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
 def test_static_ui_and_traversal_guard(base):
     with open(os.path.join(pserver.WEB_DIR, "index.html"), "rb") as f:
         index = f.read()

@@ -265,6 +265,15 @@ def test_engine_against_jax_engine():
 
 
 def test_engine_refuses_a_mesh():
+    """The mesh, once refused, is slice N1's: a one-shard mesh launches K8
+    (its plain version here) on the engine's seed, the unsharded path
+    set."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
     _, pp = _both()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        SVCJEngine(pp, mesh="auto", device="cpu")
+    kw = dict(num_paths=2000, num_steps=16, device="cpu")
+    ref = SVCJEngine(pp, **kw).price(100.0, [95.0, 105.0], 0.5)
+    got = SVCJEngine(pp, mesh=make_mesh(["cpu"]), **kw).price(
+        100.0, [95.0, 105.0], 0.5)
+    for k in ("price", "std_error", "bs_ref", "v_max"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-6), k

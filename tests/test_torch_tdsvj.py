@@ -402,8 +402,17 @@ def test_engine_no_control_variate_and_refusals():
     euro = eng.price_american(_SPOT, 100.0, _T, exercise_every=16)
     assert np.isfinite(amer["price"]) and amer["std_error"] > 0
     assert amer["price"] >= euro["price"] - 3 * euro["std_error"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pterm.TDSVJEngine(pp, *_SEG, mesh="auto", device="cpu")
+    # The mesh, once refused, is slice N1's: without the control variate a
+    # one-shard mesh prices the same raw estimator on the same K9 paths.
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    sharded = pterm.TDSVJEngine(pp, *_SEG, num_paths=1 << 11, num_steps=16,
+                                control_variate=False,
+                                mesh=make_mesh(["cpu"]), device="cpu")
+    got = sharded.price(_SPOT, 100.0, _T)
+    assert got["num_devices"] == 1
+    assert got["price"] == pytest.approx(row["price"], rel=1e-6)
+    assert got["std_error"] == pytest.approx(row["std_error"], rel=1e-6)
     with pytest.raises(ValueError):
         pterm.TDSVJEngine(pp, [0.1], [0.04, 0.05], [0.5], [1.0],
                           device="cpu")
