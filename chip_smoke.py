@@ -5351,9 +5351,9 @@ class PoolCapture:
     def __enter__(self):
         real = self.real = self.pm.pool_shards
 
-        def spy(stats):
+        def spy(stats, mesh=None):
             stats = list(stats)
-            out = real(stats)
+            out = real(stats, mesh)
             self.calls.append((stats, out))
             return out
 
@@ -5632,6 +5632,389 @@ def mesh_path(device, ck, card, SVJParams, SVCJParams, hhw, localvol):
             "slv": slv, "wall_s": wall, "card": card}
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice N2: the sharded Sobol default, the programs with pooling of their
+# own, calibrate(mesh=...), and two processes on cuda:0
+# ─────────────────────────────────────────────────────────────────────────────
+def k1_at(ck, members, z1, z2, u, zjs, seed, spot, T, reps=5) -> dict:
+    """One K1 launch (a population of `members`, or one SVJParams) on the
+    given draws against its plain version, bit for bit on S, v and G,
+    timed beside its plain version and its bound. Not counted: call it
+    outside a counted window."""
+    kw = dict(seed=seed, antithetic=True, companion=True, steps_major=True)
+    pop = isinstance(members, list)
+    fn = (ck.svj_terminal_from_draws_population if pop
+          else ck.svj_terminal_from_draws)
+    plain = (ck.svj_terminal_from_draws_population_plain if pop
+             else ck.svj_terminal_from_draws_plain)
+    ker = fn(members, spot, T, z1, z2, u, zjs, **kw)
+    ref = plain(members, spot, T, z1, z2, u, zjs, **kw)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(ker, ref)]
+    err = float((ker[0] - ref[0]).abs().max())
+    ms = cuda_ms(lambda: fn(members, spot, T, z1, z2, u, zjs, **kw), reps)
+    plain_ms = cuda_ms(lambda: plain(members, spot, T, z1, z2, u, zjs, **kw),
+                       reps=2)
+    steps, n = z1.shape
+    m = len(members) if pop else 1
+    b = bound(k1_ops(m, streamed_u=u is not None), m * steps * n,
+              (4 if u is not None else 3) * steps * n * 4,
+              3 * m * 2 * n * 4)
+    return {"shape": [m, steps, n], "bit_equal": same, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def mesh_n2_path(device, ck, card, sobol, cal, SVJParams):
+    """Slice N2 on cuda:0. K1 at a 4-shard mesh's shard shape of the
+    /api/price net (131 072 points of 2^19 × 63 steps) and at the
+    calibrate shard's (12 members × 100 000 × 50) against its plain
+    version, bit for bit. Counted: `sharded_sobol_price` at /api/price's
+    defaults on one shard (at 2^19 paths and at 500 000) and on 4 shards,
+    `calibrate(mesh=...)` at its defaults on 2 shards, and each of the
+    seven other N2 programs once on one shard at its engine's default
+    size. Then: one shard against the unsharded engines (K1's S, v, G bit
+    for bit), each of the 4 Sobol shards its slice's launch alone, bit for
+    bit, the 2-shard calibration the unsharded one exactly, the launches,
+    MCOS_AUTO_MESH=1, and the 4-shard walls against the unsharded ones."""
+    from mcos_tpu_torch.engine import american, exposure, greeks, mlmc
+    from mcos_tpu_torch.engine import pde, pricer, risk
+    from mcos_tpu_torch.engine.basket import BasketEngine
+    from mcos_tpu_torch.engine.basket_american import price_bounds_basket
+    from mcos_tpu_torch.parallel import mesh as pm
+    from mcos_tpu_torch.profile_price import slice_i_body
+
+    t_phase = time.perf_counter()
+    params = SVJParams()
+    one = pm.make_mesh([device])
+    two = pm.make_mesh([device] * 2)
+    four = pm.make_mesh([device] * MESH_SHARDS)
+    n_net = 1 << int(np.ceil(np.log2(NUM_PATHS)))
+    ppd = n_net // MESH_SHARDS
+    steps = STEPS_DEFAULT
+    out = {"net_points": n_net, "paths_per_shard": ppd}
+
+    # 1. K1 at the shard shapes against its plain version (not counted).
+    s1 = pm.shard_seed(MESH_SEED, 1)
+    z1, z2, _, zjs = sobol.sobol_svj_draws_slice(ppd, n_net, ppd, steps,
+                                                 seed=MESH_SEED,
+                                                 device=device)
+    shard_pin = k1_at(ck, params, z1, z2, None, zjs, s1, SPOT, T_DEFAULT)
+    log(f"K1 at a Sobol shard's shape (shard 1: points [{ppd}, {2 * ppd}) "
+        f"of 2^{n_net.bit_length() - 1} x {steps} steps, its seed): S, v, "
+        f"G bit for bit {shard_pin['bit_equal']}; {shard_pin['ms']:.4f} ms,"
+        f" plain {shard_pin['plain_ms']:.2f} ms, bound "
+        f"{shard_pin['bound_ms']:.4f} ms ({shard_pin['bound_by']})")
+    check(all(shard_pin["bit_equal"]), "K1 at the Sobol shard shape")
+    whole = sobol.sobol_svj_draws(n_net, steps, seed=MESH_SEED,
+                                  jump_uniforms=False, device=device)
+    union = [sobol.sobol_svj_draws_slice(ppd, n_net, i * ppd, steps,
+                                         seed=MESH_SEED, device=device)
+             for i in range(MESH_SHARDS)]
+    for j in (0, 1, 3):
+        check(torch.equal(torch.cat([u[j] for u in union], dim=1),
+                          whole[j]), "the 4 Sobol slices are the net")
+    del whole, union
+    log(f"the {MESH_SHARDS} Sobol slices put together: the {n_net}-point "
+        f"net, bit for bit")
+    body = slice_i_body("calibrate")
+    cal_kw = dict(r=body["r"], q=body["q"])
+    n_cal, steps_cal = (SLICE_I_SIZES["calibrate_paths"],
+                        SLICE_I_SIZES["calibrate_steps"])
+    members = SLICE_I_SIZES["calibrate_members"]
+    draws = cal._calibration_draws(n_cal, steps_cal, pricer.seeded_generator(
+        42, device))
+    rng = np.random.default_rng(23)
+    lo, hi = cal.HESTON_BOUNDS[:, 0], cal.HESTON_BOUNDS[:, 1]
+    half = [SVJParams(**dict(zip(("kappa", "theta", "xi", "rho", "v0"),
+                                 (lo + (hi - lo) * rng.random(5)).tolist())),
+                      **cal_kw) for _ in range(members // 2)]
+    cal_pin = k1_at(ck, half, *draws, 0, body["spot"], body["T"])
+    log(f"K1 at a calibrate shard's shape ({members // 2} members x {n_cal} "
+        f"x {steps_cal}, shared draws): bit for bit {cal_pin['bit_equal']};"
+        f" {cal_pin['ms']:.4f} ms, plain {cal_pin['plain_ms']:.2f} ms, "
+        f"bound {cal_pin['bound_ms']:.4f} ms ({cal_pin['bound_by']})")
+    check(all(cal_pin["bit_equal"]), "K1 at the calibrate shard shape")
+
+    # 2. The unsharded engines, K1's outputs captured (not counted).
+    def sobol_engine(n, mesh=None):
+        return pricer.MonteCarloEngine(params, num_paths=n, seed=MESH_SEED,
+                                       mesh=mesh, device=device)
+
+    refs = {}
+    for n in (n_net, NUM_PATHS):
+        with KernelCapture(ck, "svj_terminal_from_draws") as cap:
+            refs[n] = (price_pair(sobol_engine(n).price(SPOT, STRIKE,
+                                                        T_DEFAULT)),
+                       cap.outs[-1])
+    eng_cal = cal.CalibrationEngine(device=device)
+
+    def calibrate(mesh=None, polish=True):
+        return eng_cal.calibrate(body["spot"], body["strikes"], body["T"],
+                                 body["market_prices"], mesh=mesh,
+                                 polish=polish, **cal_kw)
+
+    n0 = ck.svj_terminal_from_draws.launches
+    cal_ref = calibrate()
+    cal_launches = ck.svj_terminal_from_draws.launches - n0
+    gre = greeks.GreeksEngine(params, device=device)
+    g_steps = gre._steps(T_DEFAULT)
+    amer = american.AmericanEngine(params, device=device)
+    var_args = ([SPOT, 0.5 * SPOT], [0.2, 0.3], [[1.0, 0.4], [0.4, 1.0]],
+                [0.6, 0.4], 0.1)
+    xeng = exposure.ExposureEngine(
+        [SPOT], [0.2], [[1.0]],
+        [{"kind": "call", "strike": STRIKE, "T": 1.0, "qty": 1.0},
+         {"kind": "put", "strike": 0.9 * STRIKE, "T": 0.5, "qty": -2.0}],
+        device=device)
+    beng = BasketEngine([SVJParams(), SVJParams(v0=0.06, theta=0.06)],
+                        [[1.0, 0.5], [0.5, 1.0]], device=device)
+    b_args = ([SPOT, SPOT], STRIKE, 1.0)
+    peng = pde.HestonPDEEngine(params, device=device)
+    chain = [(STRIKE * k, T_DEFAULT) for k in (0.9, 0.95, 1.0, 1.05, 1.1)]
+    unsharded = {
+        "greeks": lambda: gre._grads(SPOT, STRIKE, T_DEFAULT, True)[:2],
+        "american": lambda: amer.price(SPOT, STRIKE, T_DEFAULT, False),
+        "mlmc": lambda: mlmc.mlmc_price(params, SPOT, STRIKE, T_DEFAULT,
+                                        eps=1.0, device=device),
+        "var": lambda: risk.portfolio_var(*var_args, device=device),
+        "exposure": lambda: xeng.profile(),
+        "basket_bounds": lambda: price_bounds_basket(beng, *b_args),
+        "pde_chain": lambda: [peng.price(SPOT, k, t) for k, t in chain]}
+    sharded = {
+        "greeks": lambda m: pm.sharded_all_greeks(
+            params, SPOT, STRIKE, T_DEFAULT, gre.seed, mesh=m,
+            num_paths=gre.num_paths, num_steps=g_steps),
+        "american": lambda m: american.AmericanEngine(
+            params, mesh=m, device=device).price(SPOT, STRIKE, T_DEFAULT,
+                                                 False),
+        "mlmc": lambda m: pm.sharded_mlmc_price(params, SPOT, STRIKE,
+                                                T_DEFAULT, eps=1.0, mesh=m),
+        "var": lambda m: risk.portfolio_var(*var_args, mesh=m,
+                                            device=device),
+        "exposure": lambda m: pm.sharded_exposure_profile(xeng, mesh=m),
+        "basket_bounds": lambda m: pm.sharded_basket_bounds(beng, *b_args,
+                                                            mesh=m),
+        "pde_chain": lambda m: pm.sharded_pde_chain(
+            peng, SPOT, chain, mesh=pm.make_mesh(list(m.devices),
+                                                 axis_name="batch"))}
+    ref7 = {}
+    for name, fn in unsharded.items():
+        t0 = time.perf_counter()
+        ref7[name] = fn()
+        torch.cuda.synchronize()
+        log(f"unsharded {name}: {(time.perf_counter() - t0) * 1e3:.0f} ms")
+
+    # 3. The N2 path, counted.
+    os.environ.pop("MCOS_AUTO_MESH", None)
+    ck.reset_launch_counts()
+    t_count = time.perf_counter()
+    with KernelCapture(ck, "svj_terminal_from_draws") as cap_one:
+        one_net = price_pair(sobol_engine(n_net, one).price(SPOT, STRIKE,
+                                                            T_DEFAULT))
+        one_def = price_pair(sobol_engine(NUM_PATHS, one).price(
+            SPOT, STRIKE, T_DEFAULT))
+    with PoolCapture(pm) as whole4:
+        four_res = price_pair(sobol_engine(NUM_PATHS, four).price(
+            SPOT, STRIKE, T_DEFAULT))
+    k1_sobol = ck.svj_terminal_from_draws.launches
+    cal_two = calibrate(two)
+    k1_by_route = {"sobol": k1_sobol, "calibrate":
+                   ck.svj_terminal_from_draws.launches - k1_sobol}
+    got7 = {}
+    for name, fn in sharded.items():
+        t0 = time.perf_counter()
+        got7[name] = fn(one)
+        torch.cuda.synchronize()
+        log(f"one-shard {name}: {(time.perf_counter() - t0) * 1e3:.0f} ms")
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    count_s = time.perf_counter() - t_count
+    expect = {"svj_terminal_from_draws": 2 + MESH_SHARDS + 2 * cal_launches}
+    log(f"N2 path launches ({count_s:.1f} s): {launches}, K1 by route "
+        f"{k1_by_route}; a calibration launches K1 {cal_launches} times "
+        f"unsharded, once a generation")
+    check(k1_by_route == {"sobol": 2 + MESH_SHARDS,
+                          "calibrate": 2 * cal_launches},
+          f"N2 path: K1 by route {k1_by_route}")
+    for name, n in launches.items():
+        check(n == expect.get(name, 0),
+              f"N2 path: {name} launched {n} times, expected "
+              f"{expect.get(name, 0)}")
+
+    # 4. The comparisons.
+    ref_net, ref_def = refs[n_net], refs[NUM_PATHS]
+    check(bitwise_equal(cap_one.outs[0], ref_net[1]),
+          "one-shard Sobol at 2^19: K1's S, v, G bit for bit")
+    check(all(bool(torch.equal(a[..., :NUM_PATHS], b))
+              for a, b in zip(cap_one.outs[1], ref_def[1])),
+          "one-shard Sobol at 500 000: K1's first 500 000 paths bit for bit")
+    errs = [abs(g / r - 1.0) for g, r in zip(one_net, ref_net[0])]
+    log(f"sharded Sobol, one shard at {n_net} paths: {one_net} vs the "
+        f"unsharded engine {ref_net[0]}: rel errs {errs[0]:.2e}, "
+        f"{errs[1]:.2e} (rtol 1e-6); K1's S, v, G bit for bit; at "
+        f"{NUM_PATHS} paths the shard prices the whole 2^19 net "
+        f"{one_def} (the engine its first {NUM_PATHS} points, "
+        f"{ref_def[0]}), K1's first {NUM_PATHS} paths bit for bit")
+    check(max(errs) <= 1e-6, "one-shard sharded Sobol = the engine")
+    shard_dicts, pooled4 = whole4.calls[-1]
+    check(len(shard_dicts) == MESH_SHARDS, "4 Sobol shards pooled")
+    for i in range(MESH_SHARDS):
+        z1, z2, _, zjs = sobol.sobol_svj_draws_slice(
+            ppd, n_net, i * ppd, steps, seed=MESH_SEED, device=device)
+        s_f, v_f, g_f = ck.svj_terminal_from_draws(
+            params, SPOT, T_DEFAULT, z1, z2, None, zjs,
+            seed=pm.shard_seed(MESH_SEED, i), companion=True,
+            steps_major=True)
+        alone = pm.shard_moments(pm.beta_one_payoffs(
+            params, SPOT, [STRIKE], T_DEFAULT, s_f, v_f, g_f, is_call=True,
+            control_variate=True))
+        check(bitwise_equal(shard_dicts[i], alone),
+              f"Sobol shard {i}: its one-shard run, bit for bit")
+    check(bitwise_equal(pm.pool_shards(shard_dicts), pooled4),
+          "4 Sobol shards pooled in shard order")
+    log(f"sharded Sobol, 4 shards of cuda:0 at {NUM_PATHS} (2^19 points): "
+        f"{four_res}; each shard's moments bit for bit its slice's launch "
+        f"alone")
+    check(cal_two["params"] == cal_ref["params"]
+          and all(cal_two[k] == cal_ref[k]
+                  for k in ("stage1_result", "stage2_result")),
+          "calibrate on 2 shards = unsharded, exactly")
+    log(f"calibrate(mesh=2 shards of cuda:0) at {members} members x {n_cal}"
+        f" x {steps_cal}: the unsharded fit exactly "
+        f"({cal_two['stage1_result']}, {cal_two['stage2_result']})")
+    progs = {}
+    g = got7["greeks"]
+    price, d_spot = ref7["greeks"]
+    progs["greeks"] = [abs(g["price"] / price - 1),
+                       abs(g["delta"] / d_spot - 1)]
+    for name, keys in (("american", ("price", "std_error")),
+                       ("mlmc", ("price", "std_error"))):
+        progs[name] = [abs(got7[name][k] / ref7[name][k] - 1) for k in keys]
+    check([lv["n"] for lv in got7["mlmc"]["levels"]]
+          == [lv["n"] for lv in ref7["mlmc"]["levels"]], "MLMC levels")
+    progs["var"] = [abs(got7["var"]["std"] / ref7["var"]["std"] - 1),
+                    abs(got7["var"]["mean"] - ref7["var"]["mean"])
+                    / ref7["var"]["std"]]
+    progs["exposure"] = [max((abs(a / b - 1) for a, b in zip(
+        got7["exposure"][k], ref7["exposure"][k]) if b), default=0.0)
+        for k in ("ee", "ene", "gross_ee")]
+    progs["basket_bounds"] = [abs(got7["basket_bounds"][k]
+                                  / ref7["basket_bounds"][k] - 1)
+                              for k in ("lower_bound", "upper_bound")]
+    progs["pde_chain"] = [max(abs(a["price"] - b["price"]) for a, b in zip(
+        got7["pde_chain"], ref7["pde_chain"]))]
+    limits = {"greeks": 1e-5, "var": 1e-4, "pde_chain": 0.0}
+    for name, errs in progs.items():
+        lim = limits.get(name, 1e-6)
+        log(f"{name}: one shard against the unsharded engine, errors "
+            f"{[f'{e:.2e}' for e in errs]} (limit {lim:g})")
+        check(max(errs) <= lim, f"{name}: one shard = unsharded")
+    out["programs"] = {k: {"errors": v} for k, v in progs.items()}
+    out["var"] = {"one_shard": got7["var"], "unsharded": ref7["var"]}
+
+    # MCOS_AUTO_MESH=1 on one card: the default Sobol engine on one device.
+    os.environ["MCOS_AUTO_MESH"] = "1"
+    try:
+        check(pricer.resolve_mesh(None) is None, "auto mesh on one card")
+        auto = price_pair(sobol_engine(NUM_PATHS).price(SPOT, STRIKE,
+                                                        T_DEFAULT))
+    finally:
+        os.environ.pop("MCOS_AUTO_MESH")
+    check(auto == ref_def[0], "MCOS_AUTO_MESH=1: the unsharded Sobol price")
+    log(f"MCOS_AUTO_MESH=1 on {torch.cuda.device_count()} card(s): the "
+        f"default Sobol engine's price {auto}, unsharded, bit for bit")
+
+    # 5. Walls, warm, in turns (unsharded, 4, 4, unsharded).
+    walls = {}
+    for label, run in (
+            ("sobol 500000 x 63", lambda m: sobol_engine(NUM_PATHS, m).price(
+                SPOT, STRIKE, T_DEFAULT)),
+            ("calibrate DE (no polish)", lambda m: calibrate(m, False))):
+        run(four)
+        t = [timed(lambda m=m: run(m)) for m in (None, four, four, None)]
+        walls[label] = {"unsharded_ms": (t[0] + t[3]) / 2,
+                        "four_shard_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+        log(f"{label}: 4 shards of cuda:0 {walls[label]['four_shard_ms']:.1f}"
+            f" ms vs unsharded {walls[label]['unsharded_ms']:.1f} ms "
+            f"(turns {[round(x, 1) for x in t]}); on {card}")
+    wall = time.perf_counter() - t_phase
+    log(f"N2 path {wall:.1f} s; on {card}")
+    out.update(launches=launches, k1_by_route=k1_by_route,
+               shard_pin=shard_pin, calibrate_pin=cal_pin,
+               calibrate_launches_unsharded=cal_launches,
+               sobol={"one_shard_net": one_net, "unsharded_net": ref_net[0],
+                      "one_shard_500k": one_def,
+                      "unsharded_500k": ref_def[0], "four_shards": four_res},
+               walls=walls, wall_s=wall, card=card)
+    return out
+
+
+def distributed_path(device, ck, card):
+    """Two processes on cuda:0 with gloo (NCCL refuses two ranks on one
+    GPU) run `parallel/distributed.py:_demo_price` at 500 000 × 63: both
+    ranks' price and standard error bit for bit each other's and the
+    in-process 2-shard mesh's. Counted: the in-process run's launches (the
+    children count their own, reported in their lines)."""
+    import socket
+
+    from mcos_tpu_torch.parallel import distributed as pdist
+
+    t_phase = time.perf_counter()
+    local = [str(device)] * 2
+    pdist._demo_price(NUM_PATHS, STEPS_DEFAULT, local)      # warm
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    one = pdist._demo_price(NUM_PATHS, STEPS_DEFAULT, local)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    check(launches["svj_terminal"] == 2, "in-process 2 shards: 2 K3")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "mcos_tpu_torch.parallel.distributed",
+           "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+           "--backend", "gloo", "--device", "cuda", "--num-paths",
+           str(NUM_PATHS), "--num-steps", str(STEPS_DEFAULT), "--timeout",
+           "60"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=120)
+            check(p.returncode == 0, f"rank failed:\n{stderr[-3000:]}")
+            outs.append(json.loads([ln for ln in stdout.splitlines()
+                                    if ln.startswith("{")][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    spawn_s = time.perf_counter() - t0
+    for o in outs:
+        log(f"rank {o['process_id']}/{o['num_processes']} on "
+            f"{o['devices']}: price {o['price']}, std_error "
+            f"{o['std_error']}; its call {o['wall_s'] * 1e3:.1f} ms (first "
+            f"in a fresh process), {o['collectives']} gather "
+            f"{o['collective_s'] * 1e3:.2f} ms (gloo, through the host)")
+    check(outs[0]["price"] == outs[1]["price"]
+          and outs[0]["std_error"] == outs[1]["std_error"],
+          "both ranks return the same bits")
+    check(outs[0]["price"] == one["price"]
+          and outs[0]["std_error"] == one["std_error"],
+          "2 processes = 1 process x 2 shards, bit for bit")
+    log(f"2 processes x 1 shard on cuda:0 (gloo) = 1 process x 2 shards, "
+        f"bit for bit: {one['price']}; in-process warm call "
+        f"{one['wall_s'] * 1e3:.1f} ms; the 2 processes from spawn to exit "
+        f"{spawn_s:.1f} s; on {card}")
+    wall = time.perf_counter() - t_phase
+    log(f"distributed path {wall:.1f} s")
+    return {"launches": launches, "ranks": outs, "in_process": one,
+            "spawn_to_exit_s": spawn_s, "wall_s": wall, "card": card}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
@@ -5744,6 +6127,8 @@ def main() -> None:
     kp = multiasset_path(device, ck, server, bs_price, SVJParams, gbm_params)
     lp = roughheston_path(device, ck, server, cos_price, SVJParams)
     sp = mesh_path(device, ck, card, SVJParams, SVCJParams, hhw, localvol)
+    n2 = mesh_n2_path(device, ck, card, sobol, cal, SVJParams)
+    dist = distributed_path(device, ck, card)
     log(f"warm slices L + M over HTTP (median of 5): /api/roughheston price "
         f"{lp['warm_price_ms']:.1f} ms, greeks {lp['warm_greeks_ms']:.1f}, "
         f"smile {lp['warm_smile_ms']:.1f} ms; on {card}")
@@ -5787,7 +6172,8 @@ def main() -> None:
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
              "rough": rp, "greeks": gp, "risk": gr, "american": ap,
              "calibration": cp, "desk": dp, "multiasset": kp,
-             "roughheston": lp, "mesh": sp}
+             "roughheston": lp, "mesh": sp, "mesh_n2": n2,
+             "distributed": dist}
     # No single PyTorch call computes any of these simulations: library_ms
     # is null for every kernel.
     kernels = [
@@ -5812,7 +6198,20 @@ def main() -> None:
          "from_params_ms": pop["from_params_ms"],
          "single_x24_from_params_ms": pop["single_x24_from_params_ms"],
          **{k: pop[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by")}}]
+                                "bound_by")}},
+        {"shape": f"{MESH_SHARDS} shards x 1 x {n2['paths_per_shard']} x "
+                  f"{STEPS_DEFAULT} (sharded /api/price: {MESH_SHARDS} "
+                  f"shards, 2 one-shard runs)",
+         "launches": n2["k1_by_route"]["sobol"],
+         **{k: n2["shard_pin"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")}},
+        {"shape": f"2 shards x {n2['calibrate_pin']['shape'][0]} x "
+                  f"{n2['calibrate_pin']['shape'][2]} x "
+                  f"{n2['calibrate_pin']['shape'][1]} (calibrate(mesh=))",
+         "launches": n2["k1_by_route"]["calibrate"],
+         **{k: n2["calibrate_pin"][k] for k in ("max_abs_err", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "bound_by")}}]
     kernels[5]["variants"] = [
         {"name": name, **{k: v[k] for k in ("steps", "max_abs_err", "ms",
                                             "plain_ms", "bound_ms",
@@ -5832,7 +6231,8 @@ def main() -> None:
                    "greeks_path": gp, "risk_path": gr,
                    "american_path": ap, "calibration_path": cp,
                    "desk_path": dp, "multiasset_path": kp,
-                   "roughheston_path": lp, "mesh_path": sp}, f,
+                   "roughheston_path": lp, "mesh_path": sp,
+                   "mesh_n2_path": n2, "distributed_path": dist}, f,
                   indent=1)
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

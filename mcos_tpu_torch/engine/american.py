@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from mcos_tpu_torch.config import DEFAULT_NUM_PATHS, scaled_steps
-from mcos_tpu_torch.engine.pricer import not_ported, seeded_generator, to_host
+from mcos_tpu_torch.engine.pricer import (resolve_mesh, seeded_generator,
+                                          to_host)
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops.dividends import DividendSchedule
 from mcos_tpu_torch.ops.simulate import (
@@ -657,8 +658,6 @@ class AmericanEngine:
                  num_steps: int = 64, seed: int = 42, basis_degree: int = 3,
                  dividends: "DividendSchedule" = None,
                  rate_curve=None, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh")
         self.params = params
         self.num_paths = int(num_paths)
         self.num_steps = int(num_steps)
@@ -674,6 +673,12 @@ class AmericanEngine:
         # corrected exactly (see lsm_price docstring). params.r is ignored
         # when a curve is set.
         self.rate_curve = rate_curve
+        # None | "auto" | Mesh: price() routes through the distributed LSM
+        # (parallel/mesh.py:sharded_american_price, pooled normal
+        # equations) when a mesh resolves and neither dividends nor a rate
+        # curve is set; greeks() and price_bounds() stay on one device.
+        # None honours MCOS_AUTO_MESH=1.
+        self.mesh = mesh
         self.device = torch.device(device)
 
     def _draws(self, k: int, steps: int):
@@ -718,9 +723,22 @@ class AmericanEngine:
         `exercise_every >= num_steps` degenerates to European (the test
         oracle)."""
         steps = scaled_steps(self.num_steps, T, floor=16)
+        every = min(int(exercise_every), steps)
+        mesh = (resolve_mesh(self.mesh) if self.dividends is None
+                and self.rate_curve is None else None)
+        if mesh is not None:
+            from mcos_tpu_torch.parallel.mesh import sharded_american_price
+
+            out = sharded_american_price(
+                self.params, spot, strike, T, self.seed, mesh=mesh,
+                num_paths=self.num_paths, num_steps=steps, is_call=is_call,
+                basis_degree=self.basis_degree, exercise_every=every)
+            out["num_steps"] = steps
+            if exercise_every != 1:
+                out["exercise_every"] = every
+            return out
         res = to_host(lsm_price(
-            self._params_T(T), spot, strike, T,
-            exercise_every=min(int(exercise_every), steps),
+            self._params_T(T), spot, strike, T, exercise_every=every,
             is_call=is_call, basis_degree=self.basis_degree,
             draws=self._draws(0, steps),
             **self._div_args(T, steps), **self._rate_args(T, steps)))
@@ -728,7 +746,7 @@ class AmericanEngine:
         out["num_paths_used"] = self.num_paths
         out["num_steps"] = steps
         if exercise_every != 1:
-            out["exercise_every"] = min(int(exercise_every), steps)
+            out["exercise_every"] = every
         return out
 
     def greeks(self, spot: float, strike: float, T: float,

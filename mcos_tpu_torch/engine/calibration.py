@@ -31,9 +31,11 @@ The Monte Carlo objectives on the device (`calibrate`):
 
 `calibrate_fast`, `calibrate_from_chain`, `parameter_uncertainty` and
 `calibrate_term_structure` are host numpy and scipy over the port's copy
-of the COS/Bates pricer, as in the JAX package. Sharding (`mesh=`, and
-`make_sharded_calibration_step`) is not ported yet and raises
-`NotImplementedError` naming its ROADMAP.md item.
+of the COS/Bates pricer, as in the JAX package. `calibrate(mesh=...)`
+splits each DE population over the mesh (one K1 population launch a
+shard a generation), and `make_sharded_calibration_step` is the JAX
+package's sharded training step: strikes over one mesh axis, paths over
+the other, an Adam step on the pathwise gradient.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from mcos_tpu_torch.config import (
     PARAM_BOUNDS,
     REGULARIZATION,
 )
-from mcos_tpu_torch.engine.pricer import (mc_price_from_draws, not_ported,
+from mcos_tpu_torch.engine.pricer import (mc_price_from_draws,
                                           population_prices_from_draws,
                                           seeded_generator)
 from mcos_tpu_torch.models.params import SVJParams, forward_price
@@ -172,10 +174,19 @@ def _calibration_draws(num_paths: int, num_steps: int,
     return z[0], z[1], u, z[2]
 
 
-def _history_params(params: SVJParams) -> List[float]:
-    """The eight model fields at float32, the optimizer layout's."""
-    return [float(np.float32(getattr(params, n)))
-            for n in _HESTON_NAMES + _JUMP_NAMES]
+def _data_at(data: Dict):
+    """device → `data` with its tensors on that device, each copy made once
+    (the objective of a population shard reads its rows' device)."""
+    from mcos_tpu_torch.parallel.mesh import _on
+
+    copies: Dict[str, Dict] = {}
+
+    def at(device) -> Dict:
+        key = str(device)
+        if key not in copies:
+            copies[key] = _on(data, torch.device(device))
+        return copies[key]
+    return at
 
 
 def _stage_masks(strikes, F, cfg):
@@ -223,10 +234,11 @@ class CalibrationEngine:
     ) -> Dict:
         """Two-stage Monte Carlo fit (see the module docstring). The draws
         come from `seeded_generator(seed, device)`, stage 1's DE from
-        seed + 1 and stage 2's from seed + 2."""
-        if mesh is not None:
-            raise not_ported("mesh")
-        del pop_axis
+        seed + 1 and stage 2's from seed + 2. `mesh` (a
+        `parallel.mesh.Mesh`) splits each DE population over its
+        `pop_axis` shards: each shard prices its members with one K1
+        population launch off the shared draws, copied once to its
+        device; the generations and the Adam polish stay on `device`."""
         device = self.device
         strikes = np.asarray(strikes, np.float32)
         market_prices = np.asarray(market_prices, np.float32)
@@ -256,11 +268,14 @@ class CalibrationEngine:
         # Warm-start member: the surface-consistent v0 = θ = ATM_IV².
         x0_heston = [3.0, atm_vol**2, 0.5, -0.7, atm_vol**2]
         iters1 = max(cfg.stage1_max_iter // 4, 25)
+        at1 = _data_at(data1)
         with torch.no_grad():
             res1 = differential_evolution(
-                lambda x: heston_objective(x, data1, is_call=is_call),
+                lambda x: heston_objective(x, at1(x.device),
+                                           is_call=is_call),
                 HESTON_BOUNDS, seeded_generator(seed + 1, device),
-                pop_size=pop_size, iters=iters1, x0=x0_heston)
+                pop_size=pop_size, iters=iters1, x0=x0_heston, mesh=mesh,
+                pop_axis=pop_axis)
         x1, f1 = res1.x, float(res1.fun)
         if polish:
             x1p, f1p = adam_polish(
@@ -277,11 +292,13 @@ class CalibrationEngine:
         logger.info("Stage 2: jump params on %d strikes", int(m2.sum()))
         data2 = dict(stage_data(m2), heston_x=x1)
         iters2 = max(cfg.stage2_max_iter // 4, 25)
+        at2 = _data_at(data2)
         with torch.no_grad():
             res2 = differential_evolution(
-                lambda x: svj_objective(x, data2, is_call=is_call),
+                lambda x: svj_objective(x, at2(x.device), is_call=is_call),
                 JUMP_BOUNDS, seeded_generator(seed + 2, device),
-                pop_size=pop_size, iters=iters2, x0=[1.0, -0.05, 0.10])
+                pop_size=pop_size, iters=iters2, x0=[1.0, -0.05, 0.10],
+                mesh=mesh, pop_axis=pop_axis)
         x2 = [float(v) for v in res2.x.cpu().numpy()]
         f2 = float(res2.fun)
         logger.info("Stage 2 done: λ=%.3f μ_J=%.4f σ_J=%.4f err=%.6g",
@@ -291,7 +308,7 @@ class CalibrationEngine:
                           **dict(zip(_JUMP_NAMES, x2)), r=r, q=q)
         warnings = final.validate()
         self.history.append({
-            "params": _history_params(final),
+            "params": [float(v) for v in final.to_array()],
             "stage1_error": f1,
             "stage2_error": f2,
             "warnings": warnings,
@@ -407,7 +424,7 @@ class CalibrationEngine:
                           sigma_j=float(jx[2]), r=r, q=q)
         warnings = final.validate()
         self.history.append({
-            "params": _history_params(final),
+            "params": [float(v) for v in final.to_array()],
             "stage1_error": float(res1.fun),
             "stage2_error": float(res2.fun),
             "warnings": warnings,
@@ -684,6 +701,125 @@ class CalibrationEngine:
         return self.history
 
 
-def make_sharded_calibration_step(*args, **kwargs):
-    """The mesh-sharded calibration step: not ported yet."""
-    raise not_ported("mesh")
+# ─────────────────────────────────────────────────────────────────────────────
+# Mesh-sharded training step (multi-device calibration)
+# ─────────────────────────────────────────────────────────────────────────────
+#: Adam's constants, optax.adam's defaults.
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def make_sharded_calibration_step(
+    mesh,
+    *,
+    num_paths: int,
+    num_steps: int,
+    is_call: bool = True,
+    lr: float = 0.05,
+    r: float = None,
+    q: float = None,
+    batch_axis: str = "batch",
+    path_axis: str = "paths",
+    shard_draws=None,
+):
+    """One optimizer step of Heston calibration over a 2-D mesh.
+
+    Strikes are data-parallel over `batch_axis`: batch row b takes the
+    b-th equal chunk of the chain. Each row prices its chunk with the
+    paths sharded over `path_axis`: path shard j runs num_paths/n_paths
+    paths of the Euler twin under autograd on the generator of
+    `shard_seed(seed, j)` (the same paths on every row), or on
+    `shard_draws(j)` (the twin's (z, u), tests), and the β = 1 companion
+    payoff sums pool over the row (`pool_shards`). The weighted SSE of
+    the rows is summed in row order, plus the ξ/ρ Tikhonov and the Feller
+    penalty; its gradient with respect to the sigmoid-box parameters
+    drives an Adam step (optax.adam(lr): bias-corrected, eps 1e-8).
+    r and q default to the SVJParams defaults; pass the market's.
+
+    Returns (step_fn, init_fn):
+        init_fn(x0) -> (u, opt_state)
+        step_fn(u, opt_state, spot, strikes, T, market, weights, seed)
+            -> (u, opt_state, loss)
+    with opt_state = (count, mu, nu) and every tensor on the mesh's first
+    device."""
+    from mcos_tpu_torch.ops import simulate
+    from mcos_tpu_torch.parallel.mesh import (beta_one_payoffs, mesh_shards,
+                                              pool_shards, shard_moments)
+    from mcos_tpu_torch.utils.optim import from_box, to_box
+
+    n_batch = mesh.shape[batch_axis]
+    n_path = mesh.shape[path_axis]
+    ppd = -(-int(num_paths) // n_path)
+    home = mesh.devices[0]
+    rate_kw = {k: float(v) for k, v in (("r", r), ("q", q)) if v is not None}
+    b_stride = int(np.prod(mesh.dims[mesh.axis_names.index(batch_axis)
+                                     + 1:]))
+    p_stride = int(np.prod(mesh.dims[mesh.axis_names.index(path_axis)
+                                     + 1:]))
+
+    def device_of(b: int, j: int) -> torch.device:
+        return mesh.devices[b * b_stride + j * p_stride]
+
+    def loss_fn(u, spot, strikes, T, market, weights, seed):
+        x = to_box(u, HESTON_BOUNDS)
+        kappa, theta, xi, rho, v0 = x
+        strikes, market, weights = (torch.as_tensor(
+            np.asarray(a, np.float32), device=home).reshape(n_batch, -1)
+            for a in (strikes, market, weights))
+        shards = mesh_shards(mesh, seed, axis_name=path_axis,
+                             backend="torch", shard_draws=shard_draws)
+        draws = {s.index: simulate._euler_draws(
+            s.draws, None if s.draws is not None else s.generator(), ppd,
+            num_steps, s.device) for s in shards}
+        sse = []
+        for b in range(n_batch):
+            parts = []
+            for j in range(n_path):
+                dev = device_of(b, j)
+                p = SVJParams(kappa=kappa.to(dev), theta=theta.to(dev),
+                              xi=xi.to(dev), rho=rho.to(dev), v0=v0.to(dev),
+                              lambda_j=0.0, mu_j=0.0, sigma_j=0.01,
+                              **rate_kw)
+                z, w = draws[j]
+                s_f, v_f, g_f = simulate.simulate_terminal(
+                    p, spot, T, None, ppd, num_steps, antithetic=True,
+                    companion=True, draws=(z.to(dev), w.to(dev)),
+                    device=dev)
+                parts.append(shard_moments(beta_one_payoffs(
+                    p, spot, strikes[b].to(dev), T, s_f, v_f, g_f,
+                    is_call=is_call, control_variate=True)))
+            stats = pool_shards(parts)
+            dev = stats["n"].device
+            discount = torch.exp(-torch.tensor(
+                float(rate_kw.get("r", SVJParams.r)), device=dev)
+                * float(np.float32(T)))
+            model = discount * stats["sum"] / stats["n"]
+            sse.append(torch.sum(weights[b].to(dev)
+                                 * (model - market[b].to(dev)) ** 2))
+        total = sse[0].to(home)
+        for part in sse[1:]:
+            total = total + part.to(home)
+        reg = REGULARIZATION["xi"] * xi**2 + REGULARIZATION["rho"] * rho**2
+        return total + reg + _feller_penalty(kappa, theta, xi)
+
+    def step_fn(u, opt_state, spot, strikes, T, market, weights, seed):
+        count, mu, nu = opt_state
+        u_req = u.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_fn(u_req, spot, strikes, T, market, weights, seed)
+            (grad,) = torch.autograd.grad(loss, u_req)
+        count = count + 1
+        # optax's order of operations: moments, bias correction, then
+        # u + (−lr)·m̂/(√v̂ + eps).
+        mu = (1.0 - _ADAM_B1) * grad + _ADAM_B1 * mu
+        nu = (1.0 - _ADAM_B2) * (grad * grad) + _ADAM_B2 * nu
+        mu_hat = mu / float(np.float32(1.0 - _ADAM_B1 ** count))
+        nu_hat = nu / float(np.float32(1.0 - _ADAM_B2 ** count))
+        u = u.detach() + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + _ADAM_EPS))
+        return u, (count, mu, nu), loss.detach()
+
+    def init_fn(x0):
+        u0 = from_box(torch.as_tensor(np.asarray(x0, np.float32)),
+                      HESTON_BOUNDS).to(home)
+        return u0, (0, torch.zeros_like(u0), torch.zeros_like(u0))
+
+    return step_fn, init_fn

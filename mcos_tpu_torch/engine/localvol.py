@@ -20,8 +20,8 @@ surface (Dupire 1994), from any implied-vol grid (market, SABR, SSVI).
   (index arithmetic, an integer clamp, two gathers). The carry is
   log(S/S0).
 
-Sharding (`mesh=`) is not ported yet and raises `NotImplementedError`
-naming its ROADMAP.md item.
+`mesh=` shards antithetic `price_batch` calls through
+`parallel/families.py:sharded_localvol_price`.
 """
 
 from __future__ import annotations

@@ -26,11 +26,10 @@ errors, and the terminal-state diagnostics the post-price guards read.
   `TermStructureSVJ`, one PRNG engine (K3) per maturity.
 
 Every engine takes an explicit `device`. `mesh=` (None, "auto" or a
-`parallel.mesh.Mesh`, resolved by `resolve_mesh`) routes the PRNG driver
-through `parallel/mesh.py:sharded_price`; the sharded Sobol driver is not
-ported: an explicit mesh raises `NotImplementedError` naming its
-ROADMAP.md slice, and the MCOS_AUTO_MESH toggle's mesh leaves the Sobol
-engine on one device.
+`parallel.mesh.Mesh`, resolved by `resolve_mesh`) routes the serving
+default estimator through `parallel/mesh.py`: the Sobol driver (Euler,
+antithetic) through `sharded_sobol_price`, one K1 launch a shard on its
+slice of the net, and the PRNG driver through `sharded_price`.
 """
 
 from __future__ import annotations
@@ -54,20 +53,6 @@ from mcos_tpu_torch.config import (
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import cuda_kernels, simulate
 from mcos_tpu_torch.ops.bs import bs_price
-
-#: Not yet ported: the ROADMAP.md queue 1 slice that will port each
-#: option, named by its letter and subject (item numbers change when the
-#: queue is re-anchored).
-NOT_PORTED = {
-    "mesh": ("ROADMAP.md queue 1, slice N2 (the sharded programs with "
-             "pooling of their own, and torch.distributed)"),
-}
-
-
-def not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to mcos_tpu_torch yet: {NOT_PORTED[option]}")
-
 
 # ─────────────────────────────────────────────────────────────────────────────
 # Functional core
@@ -471,6 +456,13 @@ def seeded_generator(seed: int, device) -> torch.Generator:
     return gen
 
 
+def has_not_drawn(generator: torch.Generator) -> bool:
+    """Whether `generator` is still where its seed put it: a mesh seeds its
+    shards from the seed, so only such a generator can be sharded."""
+    return torch.equal(generator.get_state(), seeded_generator(
+        generator.initial_seed(), generator.device).get_state())
+
+
 def to_host(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """One device→host copy for a whole result dict (one sync, not one per
     key)."""
@@ -537,7 +529,7 @@ class MonteCarloEngine:
     use_sobol=False; their plain versions on the CPU) or "torch" (the
     step-loop twins). mesh: None (one device; MCOS_AUTO_MESH=1 makes it
     "auto"), "auto" or a `parallel.mesh.Mesh` with a "paths" axis; a
-    resolved mesh shards the PRNG driver over its devices.
+    resolved mesh shards the Sobol and PRNG drivers over its devices.
     """
 
     def __init__(
@@ -636,16 +628,19 @@ class MonteCarloEngine:
             # Path-sharded pricing, routed as the reference routes it: the
             # serving-default estimator only; other configurations (optimal
             # β, reference-parity CV, QE × Sobol, no antithetic Sobol) fall
-            # through to the single-device drivers below. The sharded Sobol
-            # driver is slice N2: a mesh the caller asked for refuses it,
-            # and one the MCOS_AUTO_MESH toggle made falls through too.
-            if self.use_sobol and self.scheme != "qe" \
-                    and self.use_antithetic and self.mesh is not None:
-                raise not_ported("mesh")
-            if not self.use_sobol:
-                from mcos_tpu_torch.parallel.mesh import sharded_price
+            # through to the single-device drivers below.
+            from mcos_tpu_torch.parallel import mesh as pmesh
 
-                return sharded_price(
+            if self.use_sobol and self.scheme != "qe" \
+                    and self.use_antithetic:
+                return pmesh.sharded_sobol_price(
+                    params, spot, strikes, T, mesh=mesh,
+                    num_paths=self.num_paths, num_steps=steps,
+                    seed=self.seed, is_call=is_call,
+                    control_variate=self.use_control_variate,
+                    backend=self.backend)
+            if not self.use_sobol:
+                return pmesh.sharded_price(
                     params, spot, strikes, T, self.seed, mesh=mesh,
                     num_paths=self.num_paths, num_steps=steps,
                     is_call=is_call, antithetic=self.use_antithetic,

@@ -35,7 +35,8 @@ Where it runs:
 Randoms: every PRNG-driven function takes a `torch.Generator` and,
 optionally, the draws themselves, so the CPU tests replay the JAX keys'
 draws. Every entry point takes an explicit `device` ("cuda" by default).
-`portfolio_var(mesh=...)` raises: sharding waits for its ROADMAP.md slice.
+`portfolio_var(mesh=...)` shards the Gaussian copula's paths
+(`parallel/mesh.py:sharded_portfolio_returns`).
 """
 
 from __future__ import annotations
@@ -50,8 +51,8 @@ from mcos_tpu_torch.config import (JUMP_SCENARIO_SIZE, SPOT_SHOCKS,
                                    VOL_SHOCKS, scaled_steps)
 from mcos_tpu_torch.engine.greeks import _mc_price
 from mcos_tpu_torch.engine.pricer import (MonteCarloEngine, _price_terminal,
-                                          not_ported, seeded_generator,
-                                          to_host)
+                                          has_not_drawn, resolve_mesh,
+                                          seeded_generator, to_host)
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import simulate
 from mcos_tpu_torch.ops.bs import bs_delta, bs_gamma, bs_vega
@@ -929,6 +930,58 @@ def portfolio_risk_contributions(
     }
 
 
+def _sharded_portfolio_var(spots, sigmas, corr, weights, T, generator, r,
+                           q, num_paths, num_steps, confidence, mesh,
+                           draws) -> Dict[str, float]:
+    """portfolio_var's Gaussian path over a mesh, the JAX package's host
+    statistics: raw moments pooled in float32, central moments and the
+    tail order statistics in float64."""
+    from mcos_tpu_torch.parallel.mesh import sharded_portfolio_returns
+
+    if draws is not None:
+        raise ValueError("replayed draws cannot be sharded: pass no mesh")
+    seed = 0
+    if generator is not None:
+        if not has_not_drawn(generator):
+            raise ValueError("a mesh seeds its shards from the seed of "
+                             "`generator`: pass one that has not drawn")
+        seed = generator.initial_seed()
+    n_dev = int(np.prod(mesh.dims))
+    # Quota: the global tail spread over the shards with a 2x + 4√k margin,
+    # so the union of the shards' worst sets holds the global worst k with
+    # overwhelming probability (binomial concentration).
+    k_tail = max(int(num_paths * (1.0 - confidence)), 1)
+    quota = int(2.0 * k_tail / n_dev + 4.0 * np.sqrt(k_tail) + 64)
+    stats = sharded_portfolio_returns(
+        spots, sigmas, corr, weights, T, seed, mesh=mesh,
+        num_paths=num_paths, num_steps=num_steps, r=r, q=q,
+        tail_quota=quota)
+    n = float(stats["n"])
+    m1, m2, m3, m4 = (float(stats[f"sum{k}"]) / n for k in (1, 2, 3, 4))
+    std = float(np.sqrt(max(m2 - m1 * m1, 1e-20)))
+    mu3 = m3 - 3 * m1 * m2 + 2 * m1**3
+    mu4 = m4 - 4 * m1 * m3 + 6 * m1**2 * m2 - 3 * m1**4
+    tail = np.sort(stats["tail"].cpu().numpy().astype(np.float64))
+    k = min(k_tail, len(tail))
+    var = -tail[min(k, len(tail) - 1)]
+    cvar = -tail[:max(k, 1)].mean()
+    losses = -tail[tail < 0]
+    hill = _hill_estimator(losses) if len(losses) > 20 else float("nan")
+    kurt = float(mu4 / max(std**4, 1e-20))
+    return {
+        "var": float(var),
+        "cvar": float(cvar),
+        "skewness": float(mu3 / max(std**3, 1e-20)),
+        "kurtosis": kurt,
+        "excess_kurtosis": kurt - 3.0,
+        "tail_index": hill,
+        "mean": float(m1),
+        "std": std,
+        "num_devices": n_dev,
+        "num_paths_used": int(n),
+    }
+
+
 def portfolio_var(
     spots,
     sigmas,
@@ -954,9 +1007,33 @@ def portfolio_var(
     swaps the Gaussian dependence for a t-copula, lognormal marginals
     kept. `draws` as `multi_asset_gbm_terminal`'s or, for the t-copula,
     `multi_asset_t_copula_terminal`'s. `generator` defaults to one seeded
-    with 0 on `device`; `mesh` is not ported and raises."""
-    if mesh is not None:
-        raise not_ported("mesh")
+    with 0 on `device`.
+
+    The Gaussian copula shards its paths over a `mesh` (or "auto"; with
+    mesh=None, over every CUDA device when `device` is CUDA and there is
+    more than one, as the JAX package takes every device): moments pool as
+    sums and the tail by the exact union of the shards' worst returns
+    (`parallel/mesh.py:sharded_portfolio_returns`), so no device holds
+    the whole return vector. Its shards take the seed of `generator` (0
+    without one), which must not have drawn yet; `draws` cannot be
+    sharded. Given `draws` or a generator that has drawn, a mesh the
+    caller passed raises ValueError, and the implicit one leaves the call
+    on one device."""
+    if copula != "student_t":
+        explicit = mesh is not None
+        if mesh is None and torch.device(device).type == "cuda" \
+                and torch.cuda.device_count() > 1:
+            from mcos_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh()
+        elif mesh == "auto":
+            mesh = resolve_mesh(mesh)
+        shardable = draws is None and (generator is None
+                                       or has_not_drawn(generator))
+        if mesh is not None and (explicit or shardable):
+            return _sharded_portfolio_var(
+                spots, sigmas, corr, weights, T, generator, r, q, num_paths,
+                num_steps, confidence, mesh, draws)
     if generator is None and draws is None:
         generator = seeded_generator(0, device)
     if copula == "student_t":

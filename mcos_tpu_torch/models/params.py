@@ -29,6 +29,11 @@ from mcos_tpu_torch.config import (
     check_feller,
 )
 
+# Field order of to_array/from_array: the optimizer layout (the Heston core,
+# then the jumps), as in the JAX package.
+_ARRAY_FIELDS = ("kappa", "theta", "xi", "rho", "v0", "lambda_j", "mu_j",
+                 "sigma_j")
+
 
 @dataclasses.dataclass(frozen=True)
 class SVJParams:
@@ -67,6 +72,21 @@ class SVJParams:
         """Feller condition 2κθ > ξ²."""
         return check_feller(float(self.kappa), float(self.theta),
                             float(self.xi))
+
+    def to_array(self):
+        """The 8-element optimizer layout (`_ARRAY_FIELDS`), a (8,) float32
+        CPU tensor."""
+        import torch
+
+        return torch.tensor([float(getattr(self, f)) for f in _ARRAY_FIELDS],
+                            dtype=torch.float32)
+
+    @classmethod
+    def from_array(cls, arr, r: float = RISK_FREE_RATE,
+                   q: float = DIVIDEND_YIELD) -> "SVJParams":
+        """Rebuild from the optimizer layout, with the market's r and q."""
+        return cls(r=r, q=q, **{f: float(arr[i])
+                                for i, f in enumerate(_ARRAY_FIELDS)})
 
     def replace(self, **updates) -> "SVJParams":
         return dataclasses.replace(self, **updates)

@@ -212,16 +212,12 @@ def levy_price_mc(p, spot, strikes, T,
     what `generator` draws, so it must not have drawn yet. Given one that
     has drawn (or none), an explicit mesh raises ValueError, and the
     toggle's mesh leaves the call on one device."""
-    from mcos_tpu_torch.engine.pricer import resolve_mesh, seeded_generator
+    from mcos_tpu_torch.engine.pricer import has_not_drawn, resolve_mesh
 
     explicit = mesh is not None
     mesh = resolve_mesh(mesh)
     if mesh is not None:
-        fresh = generator is not None and torch.equal(
-            generator.get_state(),
-            seeded_generator(generator.initial_seed(),
-                             generator.device).get_state())
-        if fresh:
+        if generator is not None and has_not_drawn(generator):
             from mcos_tpu_torch.parallel.families import sharded_levy_price
 
             res = sharded_levy_price(p, spot, strikes, T,

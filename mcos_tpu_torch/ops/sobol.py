@@ -181,10 +181,16 @@ def _owen_scramble30(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
 
 
 def _sobol_integers(sv: torch.Tensor, shift: torch.Tensor, num_keep: int,
-                    n_bits: int) -> torch.Tensor:
+                    n_bits: int, offset: int = 0) -> torch.Tensor:
     """(dims, num_keep) Owen-scrambled 30-bit Sobol integers of points
-    0..num_keep-1 (int64 holding uint32 values)."""
-    idx = torch.arange(num_keep, dtype=torch.int64, device=sv.device)
+    offset..offset+num_keep-1 (int64 holding uint32 values). `n_bits`
+    covers the whole net the points belong to, so any slice of it is
+    reachable."""
+    if int(offset) < 0 or int(offset) + num_keep > 1 << 32:
+        raise ValueError(f"points [{offset}, {offset + num_keep}) leave the "
+                         "32-bit index range")
+    idx = torch.arange(int(offset), int(offset) + num_keep,
+                       dtype=torch.int64, device=sv.device)
     gray = idx ^ (idx >> 1)
     acc = torch.zeros((sv.shape[0], num_keep), dtype=torch.int64,
                       device=sv.device)
@@ -244,15 +250,16 @@ def ndtri_acklam(u: torch.Tensor) -> torch.Tensor:
     return torch.where(central, x_central, x_tail)
 
 
-def _normals(sv, shift, num_keep: int, n_bits: int):
-    u = _uniforms(_sobol_integers(sv, shift, num_keep, n_bits))
+def _normals(sv, shift, num_keep: int, n_bits: int, offset: int = 0):
+    u = _uniforms(_sobol_integers(sv, shift, num_keep, n_bits, offset))
     return ndtri_acklam(torch.clamp(u, _CLIP, 1.0 - _CLIP))
 
 
 def _bb_normals(sv, shift, bb: torch.Tensor, num_keep: int,
-                n_bits: int) -> torch.Tensor:
-    """Brownian-bridge-ordered per-step unit normals, (num_steps, num_keep)."""
-    z = _normals(sv, shift, num_keep, n_bits)
+                n_bits: int, offset: int = 0) -> torch.Tensor:
+    """Brownian-bridge-ordered per-step unit normals, (num_steps, num_keep),
+    of points offset..offset+num_keep-1."""
+    z = _normals(sv, shift, num_keep, n_bits, offset)
     num_steps = bb.shape[0]
     return torch.matmul(bb, z) * float(np.sqrt(np.float32(num_steps),
                                                dtype=np.float32))
@@ -274,6 +281,26 @@ def sobol_normals(num_paths: int, dims: int, seed: int = 0,
         _scramble_words(_fold_in(_seed_key(seed), stream), dims).astype(
             np.int64), device=device)
     return _normals(sv, shift, num_paths, m).T.contiguous()
+
+
+def _svj_net(num_keep: int, m: int, offset: int, num_steps: int, seed: int,
+             device: torch.device) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Points [offset, offset + num_keep) of the 2^m-point SVJ draw net,
+    steps-major (z1, z2, z_js): 3·steps Sobol dimensions split into
+    Z1 | Z2 | Z_jump_size, the bridge reordering Z1 and Z2. The whole net
+    (`sobol_svj_draws`) and its slices (`sobol_svj_draws_slice`) are both
+    made here, so a slice is the whole net's columns bit for bit."""
+    s = num_steps
+    sv = torch.as_tensor(sobol_direction_numbers(3 * s).astype(np.int64),
+                         device=device)
+    shift = torch.as_tensor(_scramble_shift(seed, 3 * s).astype(np.int64),
+                            device=device)
+    bb = torch.as_tensor(brownian_bridge_matrix(s), device=device)
+    z1 = _bb_normals(sv[:s], shift[:s], bb, num_keep, m, offset)
+    z2 = _bb_normals(sv[s:2 * s], shift[s:2 * s], bb, num_keep, m, offset)
+    z_js = _normals(sv[2 * s:], shift[2 * s:], num_keep, m, offset)
+    return z1, z2, z_js
 
 
 def sobol_svj_draws(num_paths: int, num_steps: int, seed: int = 0,
@@ -301,15 +328,7 @@ def sobol_svj_draws(num_paths: int, num_steps: int, seed: int = 0,
     device = torch.device(device)
     m = int(np.ceil(np.log2(max(num_paths, 2))))
     s = num_steps
-    sv = torch.as_tensor(sobol_direction_numbers(3 * s).astype(np.int64),
-                         device=device)
-    shift = torch.as_tensor(_scramble_shift(seed, 3 * s).astype(np.int64),
-                            device=device)
-    bb = torch.as_tensor(brownian_bridge_matrix(s), device=device)
-
-    z1 = _bb_normals(sv[:s], shift[:s], bb, num_paths, m)
-    z2 = _bb_normals(sv[s:2 * s], shift[s:2 * s], bb, num_paths, m)
-    z_js = _normals(sv[2 * s:], shift[2 * s:], num_paths, m)
+    z1, z2, z_js = _svj_net(num_paths, m, 0, s, seed, device)
     u_jump = None
     if jump_uniforms:
         gen = torch.Generator(device=device)
@@ -321,6 +340,35 @@ def sobol_svj_draws(num_paths: int, num_steps: int, seed: int = 0,
                 None if u_jump is None else u_jump.T.contiguous(),
                 z_js.T.contiguous())
     return z1, z2, u_jump, z_js
+
+
+def sobol_svj_draws_slice(paths_slice: int, total_paths: int, offset: int,
+                          num_steps: int, seed: int = 0,
+                          scramble: str = "owen", *, device="cuda",
+                          ) -> Tuple[torch.Tensor, torch.Tensor, None,
+                                     torch.Tensor]:
+    """Points [offset, offset + paths_slice) of the `total_paths`-point
+    SVJ draw net of `sobol_svj_draws` (total_paths a power of two; the
+    sharded Sobol driver gives shard i the offset i·paths_slice), on
+    `device`.
+
+    The same dimensions, scramble words and Brownian bridge as the whole
+    net, so the slices of a mesh put together are the whole net bit for
+    bit. No jump uniforms: the caller's kernel draws them (u_jump None).
+    Only the Owen scramble is ported. Returns steps-major
+    (z1, z2, None, z_js), each (num_steps, paths_slice)."""
+    if scramble != "owen":
+        raise ValueError(f"only the Owen scramble is ported, not "
+                         f"{scramble!r}")
+    if total_paths < 2 or total_paths & (total_paths - 1):
+        raise ValueError(f"total_paths must be a power of two, got "
+                         f"{total_paths}")
+    if offset < 0 or offset + paths_slice > total_paths:
+        raise ValueError(f"points [{offset}, {offset + paths_slice}) are "
+                         f"not in the {total_paths}-point net")
+    z1, z2, z_js = _svj_net(paths_slice, int(np.log2(total_paths)), offset,
+                            num_steps, seed, torch.device(device))
+    return z1, z2, None, z_js
 
 
 def sobol_qe_draws(num_paths: int, num_steps: int, seed: int = 0,

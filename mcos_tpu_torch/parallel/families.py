@@ -559,7 +559,7 @@ def sharded_slv_price(
 
     stats = pool_shards(run_lockstep(local, mesh_shards(
         mesh, seed, axis_name=axis_name,
-        shard_draws=shard_draws)))
+        shard_draws=shard_draws), mesh), mesh)
     return pool_moments(stats, _discount(heston.r, T, stats["n"].device))
 
 

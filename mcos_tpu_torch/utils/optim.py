@@ -11,6 +11,7 @@ device; the Adam steps draw nothing.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple, Tuple
 
 import torch
@@ -36,6 +37,8 @@ def differential_evolution(
     mutation: float = 0.7,
     crossover: float = 0.9,
     x0=None,
+    mesh=None,
+    pop_axis: str = "paths",
 ) -> DEResult:
     """DE/rand/1/bin with a vectorized population.
 
@@ -45,7 +48,19 @@ def differential_evolution(
     x0: optional (D,) warm start, clipped to the bounds; it replaces
     member 0 of the initial population, so the result is never worse than
     f(x0).
+    mesh: optional `parallel.mesh.Mesh`: the population splits over its
+    `pop_axis` shards (`parallel/mesh.py:sharded_population`), each shard
+    evaluating its members with one `obj_fn` call on its device, which
+    must then read its data on the rows' device. pop_size rounds up to a
+    multiple of the axis size; the generations themselves stay here.
     """
+    if mesh is not None:
+        from mcos_tpu_torch.parallel.mesh import sharded_population
+
+        n_dev = mesh.shape[pop_axis]
+        pop_size = -(-int(pop_size) // n_dev) * n_dev
+        obj_fn = partial(sharded_population, obj_fn, mesh=mesh,
+                         axis_name=pop_axis)
     device = generator.device
     bounds = _bounds(bounds, device)
     lo, hi = bounds[:, 0], bounds[:, 1]

@@ -379,7 +379,8 @@ def test_engine_price_bounds_and_its_refusals(monkeypatch):
     """The bracket on split(key(seed), 3): the lower bound within half a
     standard error of the reference's, the dual (seed + 2's generator, not
     replayed) within 4 combined standard errors; dividends and curves
-    refuse, as in the reference."""
+    refuse, as in the reference; mesh="auto" with no second CUDA device
+    prices on one device."""
     k_train, k_eval, _ = jax.random.split(jax.random.key(SEED), 3)
     jeng, peng = _engines(monkeypatch, {0: k_train, 1: k_eval})
     ref = jeng.price_bounds(S0, K, T, False, n_outer=512, n_inner=33)
@@ -401,8 +402,12 @@ def test_engine_price_bounds_and_its_refusals(monkeypatch):
                              rate_curve=RateCurve([1.0], [0.04]))
     with pytest.raises(ValueError, match="rate curves"):
         peng.price_bounds(S0, K, T)
-    with pytest.raises(NotImplementedError, match="slice N"):
-        pa.AmericanEngine(SVJParams(), mesh="auto", device="cpu")
+    # mesh="auto", once refused, is slice N2's: without two CUDA devices
+    # it resolves to no mesh, so the engine prices on its one device.
+    kw = dict(num_paths=1000, num_steps=16, device="cpu")
+    auto = pa.AmericanEngine(SVJParams(), mesh="auto", **kw)
+    assert auto.price(S0, K, T, False) == pa.AmericanEngine(
+        SVJParams(), **kw).price(S0, K, T, False)
 
 
 def test_engine_with_dividends_and_curve_matches_jax(monkeypatch):

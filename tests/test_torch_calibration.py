@@ -368,12 +368,23 @@ def test_calibrate_by_outcome(fits):
     assert got["warnings"] == got["params"].validate()
 
 
-def test_calibrate_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="slice N"):
-        pcal.CalibrationEngine(device="cpu").calibrate(
-            SPOT, STRIKES, T, _market(), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice N"):
-        pcal.make_sharded_calibration_step(None, num_paths=8, num_steps=2)
+def test_calibrate_refuses_a_mesh(fits):
+    """The mesh, once refused, is slice N2's: `calibrate` on a one-shard
+    mesh is the unsharded fit exactly, and the sharded training step
+    builds (tests/test_torch_distributed.py holds both against JAX and
+    over two shards)."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    market, got, _ = fits
+    one = pcal.CalibrationEngine(device="cpu").calibrate(
+        SPOT, STRIKES, T, market, num_paths=N, num_steps=STEPS, pop_size=8,
+        mesh=make_mesh(["cpu"]))
+    assert one["params"] == got["params"]
+    for stage in ("stage1_result", "stage2_result"):
+        assert one[stage] == got[stage]
+    step, init = pcal.make_sharded_calibration_step(
+        make_mesh_2d(1, ["cpu"]), num_paths=8, num_steps=2)
+    assert callable(step) and len(init(HESTON_X[0])) == 2
 
 
 # ─────────────────────────────────────────────────────────────────────────────

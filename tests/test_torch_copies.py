@@ -863,24 +863,28 @@ def test_rough_heston_request_schema_equal():
             pschemas.RoughHestonRequest(**dict(body, **bad))
 
 
-#: The reference's sharded programs with pooling of their own: slice N2.
+#: The reference's sharded programs with pooling of their own: slice N2,
+#: once missing from the port, now present.
 _N2_MESH = {"sharded_all_greeks", "sharded_sobol_price",
             "sharded_american_price", "sharded_mlmc_price",
             "sharded_exposure_profile", "sharded_basket_bounds",
             "sharded_pde_chain", "sharded_portfolio_returns"}
 #: The port's own names for what shard_map and jax.sharding give the
 #: reference: the mesh class, its shards and seeds, the one pooling
-#: function and the lockstep runner.
+#: function and its gather across processes, the lockstep runner and the
+#: DE population split.
 _PORT_MESH = {"Mesh", "Shard", "MAX_KEYS", "StepPool", "beta_one_payoffs",
               "mesh_shards", "pool_shards", "run_lockstep", "shard_moments",
-              "shard_seed"}
+              "shard_seed", "gather_shards", "COLLECTIVES",
+              "sharded_population"}
 
 
-@pytest.mark.parametrize("name", ["mesh", "families"])
+@pytest.mark.parametrize("name", ["mesh", "families", "distributed"])
 def test_parallel_public_names_match_jax(name):
-    """Slice N1 defines the public names of the reference's
-    `parallel/mesh.py` (all but slice N2's programs) and of its
-    `parallel/families.py` (all 13 drivers)."""
+    """Slices N1 and N2 define every public name of the reference's
+    `parallel/mesh.py` (N2's eight programs among them), of its
+    `parallel/families.py` (all 13 drivers) and of its
+    `parallel/distributed.py`."""
     import importlib
     import inspect
 
@@ -897,6 +901,9 @@ def test_parallel_public_names_match_jax(name):
         assert public(pmod) == public(jmod)
         assert len({n for n in public(pmod) if n.startswith("sharded_")}) \
             == 13
+    elif name == "distributed":
+        assert public(pmod) == public(jmod) == {
+            "initialize", "global_mesh", "is_distributed", "main"}
     else:
-        assert public(pmod) - _PORT_MESH == public(jmod) - _N2_MESH
-        assert _N2_MESH <= public(jmod)
+        assert public(pmod) - _PORT_MESH == public(jmod)
+        assert _N2_MESH <= public(pmod)

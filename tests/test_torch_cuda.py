@@ -1835,3 +1835,82 @@ def test_four_shard_mesh_equals_its_shards_pooled_on_card(cuda, case):
                                         rel=1e-6)
     se_pooled_bound = np.sqrt(np.mean([p[1] ** 2 for p in parts]) / 4)
     assert four[1] == pytest.approx(se_pooled_bound, rel=0.05)
+
+
+# ─────────────────────────────────────────────────────────────────────────────
+# Slice N2: the sharded Sobol default and two ranks on the card
+# ─────────────────────────────────────────────────────────────────────────────
+@pytest.mark.parametrize("n", [1 << 16, 60_000])
+def test_one_shard_sobol_equals_the_engine_on_card(cuda, n):
+    """A one-shard mesh routes the default engine through
+    `sharded_sobol_price`: one K1 launch on the 2^m-point net whose first n
+    paths are the unsharded engine's launch bit for bit (S, v, G); at
+    n = 2^m the price within rtol 1e-6."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh
+
+    outs = {}
+    for tag, mesh in (("engine", None), ("one shard", make_mesh([cuda]))):
+        eng = MonteCarloEngine(_P, num_paths=n, num_steps=63, seed=5,
+                               mesh=mesh, device=cuda)
+        real = ck.svj_terminal_from_draws
+        got = []
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            got.append(out)
+            return out
+
+        spy.launches = real.launches
+        ck.svj_terminal_from_draws = spy
+        try:
+            res = eng.price(22500.0, 22500.0, 0.25)
+        finally:
+            ck.svj_terminal_from_draws = real
+            real.launches = spy.launches
+        assert len(got) == 1
+        outs[tag] = (res, got[0])
+    (ref, k_ref), (one, k_one) = outs["engine"], outs["one shard"]
+    for a, b in zip(k_one, k_ref):
+        assert torch.equal(a[..., :n], b)
+    if n & (n - 1) == 0:
+        for k in ("price", "std_error"):
+            assert one[k] == pytest.approx(ref[k], rel=1e-6, abs=0)
+
+
+def test_two_ranks_on_card_equal_one_process_two_shards(cuda):
+    """Two processes on cuda:0 (gloo: NCCL refuses two ranks on one GPU)
+    pricing `parallel/distributed.py:_demo_price`: both ranks and the
+    in-process 2-shard mesh give the same bits."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from mcos_tpu_torch.parallel import distributed as pdist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "mcos_tpu_torch.parallel.distributed",
+           "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+           "--backend", "gloo", "--device", "cuda", "--num-paths", "65536",
+           "--num-steps", "32", "--timeout", "60"]
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=120)
+            assert p.returncode == 0, stderr[-2000:]
+            outs.append(json.loads([ln for ln in stdout.splitlines()
+                                    if ln.startswith("{")][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    one = pdist._demo_price(65536, 32, local_devices=[cuda, cuda])
+    for o in outs:
+        assert (o["price"], o["std_error"]) == (one["price"],
+                                                one["std_error"])

@@ -6,7 +6,8 @@ port shard fed the draws of the JAX shard's `fold_in(key, i)` key (price
 and standard error rtol 1e-5), an n-shard run against its shards' pooled
 one-shard runs, the float32 moment contract at 1e8 payoffs, the engine
 routes of `MonteCarloEngine` and the `MCOS_AUTO_MESH` toggle, and the
-sites that stay `not_ported("mesh")` until slice N2."""
+five sites that raised `not_ported("mesh")` until slice N2 routing to
+their drivers."""
 
 import jax
 import jax.numpy as jnp
@@ -284,9 +285,10 @@ def test_f32_moment_pools_hold_contract_at_1e8_paths():
 # Engine routes and the toggle
 # ─────────────────────────────────────────────────────────────────────────────
 def test_engine_routes_as_the_reference(cpu4, monkeypatch):
-    """use_sobol=False with β = 1 and the companion CV shards; Sobol with
-    Euler and antithetic is slice N2 (not_ported); Sobol QE, non-antithetic
-    Sobol and the other estimators fall through to one device."""
+    """use_sobol=False with β = 1 and the companion CV shards through
+    `sharded_price`; Sobol with Euler and antithetic (once refused, slice
+    N2's) through `sharded_sobol_price`; Sobol QE, non-antithetic Sobol and
+    the other estimators fall through to one device."""
     p = SVJParams(**_FIELDS)
     base = dict(num_paths=2000, num_steps=8, device="cpu", mesh=cpu4)
     sharded = ppricer.MonteCarloEngine(p, use_sobol=False, **base)
@@ -295,8 +297,14 @@ def test_engine_routes_as_the_reference(cpu4, monkeypatch):
     direct = pmesh.sharded_price(p, SPOT, [100.0], T, 42, mesh=cpu4,
                                  num_paths=2000, num_steps=sharded._steps(T))
     assert res["price"] == pytest.approx(float(direct["price"][0]), rel=0)
-    with pytest.raises(NotImplementedError, match="slice N2"):
-        ppricer.MonteCarloEngine(p, **base).price(SPOT, 100.0, T)
+    sobol = ppricer.MonteCarloEngine(p, **base)
+    res = sobol.price(SPOT, 100.0, T)
+    assert "raw_mc_price" not in res and "bs_ref" in res
+    direct = pmesh.sharded_sobol_price(p, SPOT, [100.0], T, mesh=cpu4,
+                                       num_paths=2000,
+                                       num_steps=sobol._steps(T))
+    assert res["price"] == pytest.approx(float(direct["price"][0]), rel=0)
+    assert res["num_paths_used"] == 2048        # the 2^11-point net
     for kw in ({"scheme": "qe"}, {"use_antithetic": False},
                {"use_sobol": False, "cv_beta": "optimal"},
                {"use_sobol": False, "cv_mode": "reference"}):
@@ -329,32 +337,82 @@ def test_auto_mesh_toggle(monkeypatch):
 
 
 def test_auto_mesh_leaves_the_sobol_engine_on_one_device(monkeypatch):
-    """The default engine (Sobol, Euler, antithetic, β = 1 companion) under
-    MCOS_AUTO_MESH=1 on six cards: the toggle's four-card mesh routes to
-    the sharded Sobol driver in the reference, which is slice N2, so the
-    port prices on one device, exactly as without the toggle (an explicit
-    mesh raises: test_engine_routes_as_the_reference)."""
+    """The toggle's mesh once left the default engine (Sobol, Euler,
+    antithetic, β = 1 companion) on one device; since slice N2 it routes,
+    as the reference routes it, to `sharded_sobol_price` over the largest
+    power-of-two prefix of six cards: four. The cards are stood in for by
+    CPU shards at the call."""
     p = SVJParams(**_FIELDS)
     monkeypatch.setattr(ppricer, "_AUTO_MESH", [])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 6)
     monkeypatch.setenv("MCOS_AUTO_MESH", "1")
+    calls, real = [], pmesh.sharded_sobol_price
+    cpu4 = pmesh.make_mesh(["cpu"] * 4)
+
+    def spy(*args, mesh, **kw):
+        calls.append(mesh)
+        return real(*args, mesh=cpu4, **kw)
+
+    monkeypatch.setattr(pmesh, "sharded_sobol_price", spy)
     eng = ppricer.MonteCarloEngine(p, num_paths=1024, num_steps=8,
                                    device="cpu")
-    assert eng._resolved_mesh().shape == {"paths": 4}
     got = eng.price(SPOT, 100.0, T)
+    assert len(calls) == 1
+    assert calls[0].devices == tuple(torch.device("cuda", i)
+                                     for i in range(4))
+    ref = real(p, SPOT, [100.0], T, mesh=cpu4, num_paths=1024,
+               num_steps=eng._steps(T), seed=42)
+    assert got["price"] == float(ref["price"][0])
     monkeypatch.setenv("MCOS_AUTO_MESH", "0")
     assert eng._resolved_mesh() is None
-    assert got == eng.price(SPOT, 100.0, T)
+    assert "raw_mc_price" in eng.price(SPOT, 100.0, T)    # one device
 
 
-def test_n2_sites_still_raise_not_ported():
+def test_n2_sites_still_raise_not_ported(monkeypatch):
+    """The five sites that raised `not_ported("mesh")` until slice N2 now
+    route to their drivers: the default Sobol engine, `AmericanEngine`,
+    `portfolio_var`, `calibrate(mesh=...)` (its populations) and
+    `make_sharded_calibration_step`."""
+    import dataclasses
+
     from mcos_tpu_torch.engine import american, calibration, risk
 
-    assert "slice N2" in ppricer.NOT_PORTED["mesh"]
-    with pytest.raises(NotImplementedError, match="slice N2"):
-        american.AmericanEngine(SVJParams(), mesh="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice N2"):
-        calibration.make_sharded_calibration_step()
-    with pytest.raises(NotImplementedError, match="slice N2"):
-        risk.portfolio_var([100.0, 100.0], [0.2, 0.3], np.eye(2),
-                           [0.5, 0.5], 0.1, mesh="auto", device="cpu")
+    assert not hasattr(ppricer, "NOT_PORTED")
+    cpu2 = pmesh.make_mesh(["cpu"] * 2)
+    seen = []
+
+    def spy(name):
+        real = getattr(pmesh, name)
+
+        def fn(*args, **kw):
+            seen.append(name)
+            return real(*args, **kw)
+        monkeypatch.setattr(pmesh, name, fn)
+
+    for name in ("sharded_sobol_price", "sharded_american_price",
+                 "sharded_portfolio_returns", "sharded_population"):
+        spy(name)
+    p = SVJParams(**_FIELDS)
+    ppricer.MonteCarloEngine(p, num_paths=512, num_steps=4, mesh=cpu2,
+                             device="cpu").price(SPOT, 100.0, T)
+    american.AmericanEngine(p, num_paths=512, num_steps=16, mesh=cpu2,
+                            device="cpu").price(SPOT, 100.0, T,
+                                                is_call=False)
+    var = risk.portfolio_var([100.0, 100.0], [0.2, 0.3], np.eye(2),
+                             [0.5, 0.5], 0.1, num_paths=2048, num_steps=2,
+                             mesh=cpu2, device="cpu")
+    assert var["num_devices"] == 2
+    cfg = dataclasses.replace(calibration.CALIBRATION_CONFIG,
+                              stage1_max_iter=4, stage2_max_iter=4)
+    calibration.CalibrationEngine(cfg, device="cpu").calibrate(
+        SPOT, [95.0, 100.0, 105.0], T, [8.0, 5.0, 2.8], num_paths=256,
+        num_steps=2, pop_size=2, polish=False, mesh=cpu2)
+    assert seen[:3] == ["sharded_sobol_price", "sharded_american_price",
+                        "sharded_portfolio_returns"]
+    assert set(seen[3:]) == {"sharded_population"}
+    step, init = calibration.make_sharded_calibration_step(
+        pmesh.make_mesh_2d(1, ["cpu"] * 2), num_paths=256, num_steps=2)
+    u, state = init([2.0, 0.05, 0.4, -0.6, 0.04])
+    _, _, loss = step(u, state, SPOT, [95.0, 100.0, 105.0], T,
+                      [8.0, 5.0, 2.8], [0.3, 0.4, 0.3], 0)
+    assert torch.isfinite(loss)

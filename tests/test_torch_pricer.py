@@ -112,31 +112,34 @@ def test_engine_viz_programs_shapes_and_law():
 
 
 def test_mesh_error_names_slice_n():
-    """The sharded Sobol driver (Euler, antithetic, on a mesh) is slice
-    N2: its error names the roadmap slice by its letter and subject rather
-    than by an item number."""
-    from mcos_tpu_torch.parallel.mesh import make_mesh
+    """The sharded Sobol driver (Euler, antithetic, on a mesh), whose error
+    once named slice N2, prices since that slice: a two-shard mesh prices
+    the 256-point net through `sharded_sobol_price`, no error raised."""
+    from mcos_tpu_torch.parallel.mesh import make_mesh, sharded_sobol_price
 
-    eng = ppricer.MonteCarloEngine(SVJParams(), num_paths=256,
-                                   mesh=make_mesh(["cpu"] * 2), device="cpu")
-    with pytest.raises(NotImplementedError) as err:
-        eng.price(100.0, 100.0, 0.1)
-    assert "slice N2 (the sharded programs" in str(err.value)
-    assert "item" not in str(err.value)
+    mesh = make_mesh(["cpu"] * 2)
+    eng = ppricer.MonteCarloEngine(SVJParams(), num_paths=256, mesh=mesh,
+                                   device="cpu")
+    res = eng.price(100.0, 100.0, 0.1)
+    ref = sharded_sobol_price(SVJParams(), 100.0, [100.0], 0.1, mesh=mesh,
+                              num_paths=256, num_steps=eng._steps(0.1))
+    assert res["price"] == float(ref["price"][0])
 
 
 def test_unported_options_raise():
-    """Only the sharded Sobol driver is still unported (the td-SVJ
-    American pricer came with the American engine); PRNG-driven pricing,
-    the QE draws path and the sharded PRNG driver, which raised before
-    they were ported, now price."""
+    """Nothing is unported any more: the table of unported options is gone,
+    and every option that raised before it was ported prices: PRNG-driven
+    pricing, the QE draws path, the sharded PRNG driver and (slice N2) the
+    sharded Sobol driver."""
     from mcos_tpu_torch.parallel.mesh import make_mesh
 
     p = SVJParams()
-    assert set(ppricer.NOT_PORTED) == {"mesh"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ppricer.MonteCarloEngine(p, num_paths=256, mesh=make_mesh(["cpu"]),
-                                 device="cpu").price(100.0, 100.0, 0.1)
+    assert not hasattr(ppricer, "NOT_PORTED")
+    one = ppricer.MonteCarloEngine(p, num_paths=256, mesh=make_mesh(["cpu"]),
+                                   device="cpu").price(100.0, 100.0, 0.1)
+    ref = ppricer.MonteCarloEngine(p, num_paths=256,
+                                   device="cpu").price(100.0, 100.0, 0.1)
+    assert one["price"] == pytest.approx(ref["price"], rel=1e-6)
     res = ppricer.MonteCarloEngine(p, num_paths=256, use_sobol=False,
                                    device="cpu").price(100.0, 100.0, 0.1)
     assert np.isfinite(res["price"]) and res["std_error"] > 0

@@ -386,8 +386,8 @@ def test_risk_contrib_device_matches_jax():
 
 def test_portfolio_programs_match_jax():
     """`portfolio_risk_contributions` and the Gaussian `portfolio_var` on
-    the JAX key's replayed normals (the JAX side on one device: its
-    sharded path waits for the port's sharding slice)."""
+    the JAX key's replayed normals (the JAX side on a one-device mesh;
+    tests/test_torch_mesh_n2_desk.py holds the sharded path)."""
     from mcos_tpu.parallel.mesh import make_mesh
 
     key = jax.random.key(9)
@@ -405,9 +405,13 @@ def test_portfolio_programs_match_jax():
     got = prisk.portfolio_var(SPOTS, SIGMAS, CORR, WEIGHTS, 0.1, draws=draws,
                               **kw)
     _assert_close_flat(got, ref, dict(rtol=1e-5, atol=1e-8))
-    with pytest.raises(NotImplementedError, match="slice N"):
-        prisk.portfolio_var(SPOTS, SIGMAS, CORR, WEIGHTS, 0.1, mesh="auto",
-                            device="cpu")
+    # mesh="auto", once refused, is slice N2's: without two CUDA devices
+    # it resolves to no mesh (tests/test_torch_mesh_n2_desk.py shards it).
+    kw.pop("num_paths")
+    auto = prisk.portfolio_var(SPOTS, SIGMAS, CORR, WEIGHTS, 0.1,
+                               mesh="auto", num_paths=PN, device="cpu", **kw)
+    assert auto == prisk.portfolio_var(SPOTS, SIGMAS, CORR, WEIGHTS, 0.1,
+                                       num_paths=PN, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("nu", [1.0, 3.0, 30.0, 300.0])
