@@ -47,6 +47,7 @@ from mcos_tpu_torch.engine.pricer import seeded_generator, to_host
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import simulate
 from mcos_tpu_torch.ops.bs import bs_price
+from mcos_tpu_torch.utils import spans
 
 # Shared FD bump defaults: vega() and jump_sensitivities() read ONE params
 # batch per contract with these (the all_greeks path), so the bump pair is
@@ -260,6 +261,7 @@ def lambda_lr_estimate(params: SVJParams, spot, strike, T, draws, *,
     return lr_term + drift_term, se
 
 
+@spans.traced("program.greeks")
 def _all_greeks_device(params: SVJParams, spot, strike, T, draws, *,
                        num_paths: int, num_steps: int, is_call: bool,
                        with_lr: bool, bump: float = 0.01,

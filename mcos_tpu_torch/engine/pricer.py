@@ -53,6 +53,7 @@ from mcos_tpu_torch.config import (
 from mcos_tpu_torch.models.params import SVJParams
 from mcos_tpu_torch.ops import cuda_kernels, simulate
 from mcos_tpu_torch.ops.bs import bs_price
+from mcos_tpu_torch.utils import spans
 
 # ─────────────────────────────────────────────────────────────────────────────
 # Functional core
@@ -463,6 +464,7 @@ def has_not_drawn(generator: torch.Generator) -> bool:
         generator.initial_seed(), generator.device).get_state())
 
 
+@spans.traced("host.sync")
 def to_host(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """One device→host copy for a whole result dict (one sync, not one per
     key)."""
@@ -578,16 +580,22 @@ class MonteCarloEngine:
             hit = _SOBOL_DRAWS_CACHE.get(key)
             if hit is not None:
                 _SOBOL_DRAWS_CACHE.move_to_end(key)
-                return hit
+        if hit is not None:
+            spans.count("sobol_cache_hits")
+            return hit
+        spans.count("sobol_cache_misses")
         from mcos_tpu_torch.ops.sobol import sobol_qe_draws, sobol_svj_draws
 
-        if self.scheme == "qe":
-            draws = sobol_qe_draws(self.num_paths, steps, seed=self.seed,
-                                   jump_uniforms=False, device=self.device)
-        else:
-            draws = sobol_svj_draws(self.num_paths, steps, seed=self.seed,
-                                    layout="steps", jump_uniforms=False,
-                                    device=self.device)
+        with spans.span("sobol.build"):
+            if self.scheme == "qe":
+                draws = sobol_qe_draws(self.num_paths, steps,
+                                       seed=self.seed, jump_uniforms=False,
+                                       device=self.device)
+            else:
+                draws = sobol_svj_draws(self.num_paths, steps,
+                                        seed=self.seed, layout="steps",
+                                        jump_uniforms=False,
+                                        device=self.device)
         with _SOBOL_DRAWS_LOCK:
             _SOBOL_DRAWS_CACHE[key] = draws
             while len(_SOBOL_DRAWS_CACHE) > _SOBOL_DRAWS_CACHE_MAX:
@@ -683,6 +691,7 @@ class MonteCarloEngine:
         return self.format_price(
             to_host(self.price_device(spot, strike, T, is_call)), T)
 
+    @spans.traced("program.price")
     def price_device(self, spot: float, strike: float, T: float,
                      is_call: bool = True) -> Dict[str, torch.Tensor]:
         """Enqueue the price program; return the on-device result dict."""
@@ -900,6 +909,7 @@ class MonteCarloEngine:
     def _seeded(self, seed: int) -> torch.Generator:
         return seeded_generator(seed, self.device)
 
+    @spans.traced("program.viz_paths")
     def sample_paths_device(self, spot: float, T: float,
                             num_samples: int = 50) -> torch.Tensor:
         """The viz-path recorder (≥ 50 steps), on device, unsynced."""
@@ -921,6 +931,7 @@ class MonteCarloEngine:
         return self.terminal_samples_device(spot, T,
                                             num_samples).cpu().numpy()
 
+    @spans.traced("program.viz_terms")
     def terminal_samples_device(self, spot: float, T: float,
                                 num_samples: int = 1024) -> torch.Tensor:
         """A small sample of terminal spots for the histogram, unsynced."""

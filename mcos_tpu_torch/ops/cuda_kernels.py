@@ -86,6 +86,7 @@ from mcos_tpu_torch.ops.exotics import (
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
 from mcos_tpu_torch.ops.simulate import qe_variance_step
 from mcos_tpu_torch.ops.sobol import ndtri_acklam
+from mcos_tpu_torch.utils import spans
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -175,7 +176,9 @@ class _Library:
         if not os.path.exists(lib_path):
             self._compile([s for s in sources if s.endswith(".cu")],
                           lib_path)
+            spans.count("kernel_library_builds")
         lib = ctypes.CDLL(lib_path)
+        spans.count("kernel_library_loads")
         vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_ulonglong,
                                   ctypes.c_float)

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from mcos_tpu_torch.config import DIVIDEND_YIELD, RISK_FREE_RATE
 from mcos_tpu_torch.ops.cos_pricer import cos_expansion_from_phi
 from mcos_tpu_torch.ops.simulate import _f32, _safe_sqrt
+from mcos_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,6 +272,7 @@ def _leaf(x, device) -> torch.Tensor:
     return x.reshape(-1, 1, 1) if x.dim() == 1 else x
 
 
+@spans.traced("program.lifted")
 def lifted_terminal(
     params: RoughHestonParams,
     spot,

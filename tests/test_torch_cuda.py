@@ -1914,3 +1914,76 @@ def test_two_ranks_on_card_equal_one_process_two_shards(cuda):
     for o in outs:
         assert (o["price"], o["std_error"]) == (one["price"],
                                                 one["std_error"])
+
+
+def test_request_spans_share_the_device_trace_clock(cuda):
+    """A warm solo `/api/price` under `torch.profiler` (CUDA activity):
+    moved by `profiler_clock_offset_ns()`, every device→host copy lies
+    inside a `host.sync` span of the request within 0.2 ms, and no kernel
+    starts before the request's `http.request` opened."""
+    import json
+    import threading
+    import time
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcos_tpu_torch.api import coalesce, server
+    from mcos_tpu_torch.utils import spans
+
+    ck.load_library()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server._Handler)
+    httpd.device = cuda
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/api/price"
+    body = json.dumps({"spot": 22500.0, "strike": 22500.0,
+                       "T": 0.1}).encode()
+    window, coalesce.coalescer.window_s = coalesce.coalescer.window_s, 0.0
+    try:
+        urllib.request.urlopen(url, data=body, timeout=300).read()
+        torch.cuda.synchronize()
+        mark = spans.RECORDER.snapshot()[-1].span_id
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            urllib.request.urlopen(url, data=body, timeout=300).read()
+            torch.cuda.synchronize()
+        deadline = time.monotonic() + 30
+        while True:
+            mine = [s for s in spans.RECORDER.snapshot()
+                    if s.span_id > mark]
+            roots = [s for s in mine if s.name == "http.request"]
+            if (roots and roots[0].t_end_ns is not None) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+    finally:
+        coalesce.coalescer.window_s = window
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    offset = spans.profiler_clock_offset_ns()
+    root, = roots
+    syncs = [s for s in mine if s.name == "host.sync"
+             and s.request_id == root.span_id]
+    events = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            start = e.start_ns() if hasattr(e, "start_ns") \
+                else e.start_us() * 1000
+            dur = e.duration_ns() if hasattr(e, "duration_ns") \
+                else e.duration_us() * 1000
+            events.append((e.name(), int(start), int(dur)))
+    copies = [e for e in events if e[0].startswith("Memcpy DtoH")]
+    kernels = [e for e in events
+               if not e[0].startswith(("Memcpy", "Memset"))]
+    assert syncs and copies and kernels
+    tol = 200_000
+    for name, start, dur in copies:
+        assert any(s.t_start_ns + offset - tol <= start
+                   and start + dur <= s.t_end_ns + offset + tol
+                   for s in syncs), (name, start, dur, [
+                       (s.t_start_ns + offset, s.t_end_ns + offset)
+                       for s in syncs])
+    assert min(k[1] for k in kernels) >= root.t_start_ns + offset

@@ -351,7 +351,8 @@ def test_static_file_keeps_sibling_directories_out(tmp_path, monkeypatch):
 
 def test_metrics_count_the_requests_made(base):
     snap0 = json.loads(_get(base, "/api/metrics")[2])
-    assert snap0.keys() == {"uptime_s", "endpoints", "coalescer"}
+    assert snap0.keys() == {"uptime_s", "endpoints", "coalescer", "counters",
+                            "spans"}
     body = dict(_RH, mode="smile", strikes=[S])
     for _ in range(2):
         assert _post(base, "/api/roughheston", body)[0] == 200
@@ -363,7 +364,10 @@ def test_metrics_count_the_requests_made(base):
     now = after["/api/roughheston"]
     assert now["count"] - before["count"] == 4
     assert now["errors"] - before["errors"] == 2
-    assert now["max_ms"] >= now["ewma_ms"] > 0
+    assert now.keys() == {"count", "errors", "max_ms", "p50_ms", "p95_ms",
+                          "p99_ms"}
+    assert now["max_ms"] >= now["p99_ms"] >= now["p95_ms"] >= \
+        now["p50_ms"] > 0
     assert json.loads(_get(base, "/api/metrics")[2])["coalescer"] == \
         {"window_ms": pserver.coalesce.coalescer.window_s * 1000,
          "batches_run": pserver.coalesce.coalescer.batches_run,
