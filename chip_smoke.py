@@ -35,13 +35,21 @@
    Philox words, with and without the companion leg where it has one; K7
    also against the exact discrete martingale E[D·S_T] = S0·e^{-qT} and
    the Vasicek bond. Each is timed with CUDA events beside its plain
-   version and its bound.
+   version and its bound. The viz kernel `svj_viz` (csrc/svj_viz.cu, the
+   recorder and the histogram sampler of /api/price) is held against its
+   plain version, the torch step loop, on the same draws at the quote's
+   step counts (recorder 50 × 50, 62 and 51; sampler 1 024 × 10, 19, 62
+   and 51): dt, √dt and λ·dt bit for bit, every jump indicator the
+   loop's, every spot within rtol 2e-6; then timed at 50 × 62 and
+   1 024 × 62 beside the loop and its latency bound.
 4. Main path, with every launch count set to 0 first: the port's HTTP
    server on 127.0.0.1 (GET /api/health; the default POST /api/price solo
    and as 4 concurrent requests that the coalescer batches; a degenerate
    GBM request against Black-Scholes; the default SVJ request against the
    COS oracle; 5 warm requests for latency) and the benchmark entry point
-   (`mcos_tpu_torch.bench`), then reads the launch counts.
+   (`mcos_tpu_torch.bench`), then reads the launch counts: the first
+   request raised `svj_viz`'s count and the `viz_kernel_launches` counter
+   by exactly 2, and every priced request launched it twice.
 5. The request options' path, with the counts set to 0 again: a new server
    on 127.0.0.1 answers use_sobol=false (SVJ against COS; GBM with the CV
    off against Black-Scholes; 4 concurrent requests in one batch, each
@@ -555,6 +563,121 @@ def k1_twin_errs(ck, members, spot, T, z1, z2, u_jump, zjs, seed) -> dict:
         errs["g_rel_err"] = max(errs["g_rel_err"], rel_err(ker[2][p],
                                                            twin[2]))
     return errs
+
+
+# The viz kernel (csrc/svj_viz.cu) is bound by latency: a path's steps
+# form one serial chain, and each step's v depends on the last through
+# about 13 operations (the floor, sqrtf's fast path 6 and its select,
+# xi sqrt(v), times dW2, two adds, the floor). At 4 cycles an operation
+# (the float32 pipe's latency; MUFU's is longer) and 1.98 GHz that is the
+# least time of a launch whatever its width; its bytes, 16 a path-step
+# read, take 0.3 us at 1 024 x 62.
+VIZ_CHAIN_OPS, VIZ_OP_CYCLES, SM_CLOCK_HZ = 13, 4, 1.98e9
+# (record, paths, steps, T): the quote cell's recorder (50 paths; 50 steps
+# at 7-28 days, 62 at 91) and sampler (1 024 paths; 10, 19, 62 steps), and
+# an odd count for each.
+VIZ_SHAPES = [(True, 50, 50, 28 / 365), (True, 50, 62, 91 / 365),
+              (True, 50, 51, 51 / 252), (False, 1024, 10, 7 / 365),
+              (False, 1024, 19, 28 / 365), (False, 1024, 62, 91 / 365),
+              (False, 1024, 51, 51 / 252)]
+# Spots rtol 2e-6: the kernel takes the twin's operations in its order,
+# uncontracted, on the constants the torch loop forms on the card; only
+# the last bits of k = exp(mu_J + sigma_J^2 / 2) - 1 (numpy's exp on the
+# host against torch's on the card) and of expf may differ.
+VIZ_RTOL = 2e-6
+
+
+def viz_bound(paths: int, steps: int, record: bool) -> dict:
+    """The viz kernel's least time: its latency chain, or its bytes."""
+    t_chain = steps * VIZ_CHAIN_OPS * VIZ_OP_CYCLES / SM_CLOCK_HZ * 1e3
+    b = bound(0, 0, 16 * paths * steps,
+              4 * paths * (steps + 1 if record else 1))
+    return {**b, "bound_ms": max(t_chain, b["bytes_ms"]),
+            "bound_by": "latency" if t_chain >= b["bytes_ms"] else "bytes",
+            "latency_ms": t_chain}
+
+
+def kernel_device_ms(fn, name: str, reps: int = 50) -> float:
+    """Mean device time of the kernels named `name` over `reps` calls of
+    fn(), from the profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.duration_ns() if hasattr(e, "duration_ns")
+            else e.duration_us() * 1000
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and name in e.name()]
+    check(len(durs) == reps, f"{name}: {len(durs)} device events of {reps}")
+    return sum(durs) / len(durs) / 1e6
+
+
+def check_viz(device, ck, params):
+    """The viz kernel against the torch step loop (its plain version) on
+    the same draws at VIZ_SHAPES, then timed at 50 x 62 (the recorder of a
+    91-day quote) and 1 024 x 62 (its sampler) beside the loop."""
+    pins = []
+    for record, paths, steps, T in VIZ_SHAPES:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1000 + steps)
+        z = torch.randn((steps, 3, paths), generator=gen, device=device)
+        u = torch.rand((steps, paths), generator=gen, device=device)
+        ker = ck.svj_viz(params, SPOT, T, z, u, record=record)
+        torch.cuda.synchronize()
+        ref = ck.svj_viz_plain(params, SPOT, T, z, u, record=record)
+        c = ck._viz_consts(params, SPOT, T, steps)
+        dt = torch.as_tensor(T, dtype=torch.float32, device=device) / steps
+        loop = [dt, torch.sqrt(dt), params.lambda_j * dt]
+        consts_exact = [np.float32(x.item()) for x in loop] \
+            == list(c[[2, 3, 9]])
+        jumps_same = bool(torch.equal(
+            u < torch.as_tensor(c[9], device=device), u < loop[2]))
+        err = rel_err(ker, ref)
+        pin = {"record": record, "shape": [paths, steps],
+               "consts_bit_for_bit": consts_exact,
+               "jump_indicators_same": jumps_same, "rel_err": err,
+               "bit_for_bit_share": float((ker == ref).float().mean())}
+        pins.append(pin)
+        log(f"svj_viz {'recorder' if record else 'sampler'} {paths} x "
+            f"{steps}: dt, sqrt dt, lambda dt bit for bit {consts_exact}, "
+            f"jump indicators the loop's {jumps_same}, spots rel err "
+            f"{err:.3e} (rtol {VIZ_RTOL:g}), "
+            f"{100 * pin['bit_for_bit_share']:.2f} % bit for bit")
+        check(bool(torch.isfinite(ker).all()), "svj_viz finite")
+        check(consts_exact and jumps_same and err <= VIZ_RTOL,
+              f"svj_viz {pin}")
+    shapes = []
+    for record, paths, steps in ((True, 50, 62), (False, 1024, 62)):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(7)
+        z = torch.randn((steps, 3, paths), generator=gen, device=device)
+        u = torch.rand((steps, paths), generator=gen, device=device)
+        T = 91 / 365
+        # Through the wrapper back to back, the host's work a launch paces
+        # the events; the kernel's own time is the profiler's.
+        ms = cuda_ms(lambda: ck.svj_viz(params, SPOT, T, z, u,
+                                        record=record), reps=200)
+        device_ms = kernel_device_ms(lambda: ck.svj_viz(
+            params, SPOT, T, z, u, record=record), "svj_viz_kernel")
+        plain_ms = cuda_ms(lambda: ck.svj_viz_plain(params, SPOT, T, z, u,
+                                                    record=record), reps=5)
+        b = viz_bound(paths, steps, record)
+        shapes.append({"record": record, "shape": [paths, steps],
+                       "ms": device_ms, "wrapper_ms": ms,
+                       "plain_ms": plain_ms, **b})
+        log(f"svj_viz {'recorder' if record else 'sampler'} {paths} x "
+            f"{steps}: kernel {device_ms:.4f} ms on the card, {ms:.4f} ms a "
+            f"call through the wrapper, plain loop {plain_ms:.4f} ms, "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"pins": pins, "shapes": shapes,
+            "max_abs_err": max(p["rel_err"] for p in pins),
+            **{k: shapes[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")}}
 
 
 def check_k2(device, ck, bs_price):
@@ -1134,6 +1257,8 @@ def check_response(status, res, what, diagnostics=True):
 
 
 def main_path(device, ck, bench, cos_price, bs_price, SVJParams, server):
+    from mcos_tpu_torch.utils import spans
+
     ck.reset_launch_counts()
     t0 = time.perf_counter()
     httpd = server.serve("127.0.0.1", 0, device=device)
@@ -1148,9 +1273,16 @@ def main_path(device, ck, bench, cos_price, bs_price, SVJParams, server):
             check(r.status == 200 and json.loads(r.read())["status"]
                   == "healthy", "GET /api/health")
         body = {"spot": SPOT, "strike": STRIKE, "T": T_DEFAULT}
+        viz0 = ck.launch_counts()["svj_viz"]
+        counted0 = spans.RECORDER.counters().get("viz_kernel_launches", 0)
         status, solo, first_ms = post(base, body)
         check_response(status, solo, "default /api/price")
         priced += 1
+        viz = (ck.launch_counts()["svj_viz"] - viz0,
+               spans.RECORDER.counters()["viz_kernel_launches"] - counted0)
+        log(f"one /api/price: svj_viz launched {viz[0]} times, "
+            f"viz_kernel_launches counted {viz[1]}")
+        check(viz == (2, 2), "one /api/price launches the viz kernel twice")
         log(f"default /api/price: {solo['price']:.4f} ± {solo['std_error']:.4f}"
             f" ({solo['num_steps']} steps, first request {first_ms:.1f} ms)")
 
@@ -1235,6 +1367,8 @@ def main_path(device, ck, bench, cos_price, bs_price, SVJParams, server):
     check(counts["svj_terminal_from_draws"] >= priced,
           "K1 launched for every priced request")
     check(counts["gbm_terminal"] > 0, "K2 launched by the benchmark")
+    check(counts["svj_viz"] == 2 * priced,
+          "the viz kernel launched twice for every priced request")
     out["launches"] = counts
     return out
 
@@ -6070,6 +6204,7 @@ def main() -> None:
     k7 = check_k7(device, ck, hhw)
     k8 = check_k8(device, ck, SVCJParams)
     k9 = check_k9(device, ck, tdsvj, params)
+    viz = check_viz(device, ck, params)
     # The route's instantiations: two branches, exactly 25 factors.
     route = {k: v for k, v in rough_res.items() if "ILi2ELi25ELb1E" in k}
     k10 = check_rough_kernel(device, ck, rough, "rbergomi_lift_integrals",
@@ -6168,6 +6303,7 @@ def main() -> None:
         ("svj_terminal_td", "svj_td.cu", 1833, k9, fp),
         ("rbergomi_lift_integrals", "rbergomi_lift.cu", 2015, k10, rp),
         ("rbergomi_lift_stats", "rbergomi_stats.cu", 2162, k11, rp),
+        ("svj_viz", "svj_viz.cu", None, viz, mp),
     )
     paths = {"main": mp, "options": op, "exotics": xp, "families": fp,
              "rough": rp, "greeks": gp, "risk": gr, "american": ap,
@@ -6179,7 +6315,9 @@ def main() -> None:
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"mcos_tpu_torch/csrc/{src}",
-         "replaces": f"mcos_tpu/ops/pallas_kernels.py:{line}",
+         "replaces": (f"mcos_tpu/ops/pallas_kernels.py:{line}" if line
+                      else "none: the lax.scan twins of "
+                           "mcos_tpu/ops/simulate.py"),
          "launches": path["launches"][name],
          "launches_by_path": {p: paths[p]["launches"][name] for p in paths},
          "max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -6212,6 +6350,7 @@ def main() -> None:
          **{k: n2["calibrate_pin"][k] for k in ("max_abs_err", "ms",
                                                 "plain_ms", "bound_ms",
                                                 "bound_by")}}]
+    kernels[-1]["shapes"] = viz["shapes"]
     kernels[5]["variants"] = [
         {"name": name, **{k: v[k] for k in ("steps", "max_abs_err", "ms",
                                             "plain_ms", "bound_ms",
@@ -6222,6 +6361,7 @@ def main() -> None:
         json.dump({"card": card, "build_s": ck.build_seconds(), "k1": k1,
                    "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6,
                    "k7": k7, "k8": k8, "k9": k9, "k10": k10, "k11": k11,
+                   "svj_viz": viz,
                    "k2_resources": gbm_res,
                    "k5_resources": qe_res,
                    "k6_resources": resources, "k7_k9_resources": fam,

@@ -4,8 +4,10 @@ The JAX package `mcos_tpu` is the reference; this package imports neither
 JAX nor `mcos_tpu`. Its layout mirrors the reference's (`config`, `models`,
 `ops`, `engine`, `api`, `utils`, `cli`), with the hand-written CUDA
 sources in `csrc/`: one kernel for each of the JAX package's eleven Pallas
-kernels (K1-K11). Its HTTP server (`api/server.py`) serves the
-reference's 32 POST routes, its 4 GET routes and the dashboard in `web/`.
+kernels (K1-K11), and `svj_viz.cu`, the step loops of `/api/price`'s two
+visualisation programs in one launch each. Its HTTP server
+(`api/server.py`) serves the reference's 32 POST routes, its 4 GET routes
+and the dashboard in `web/`.
 ROADMAP.md lists what is left (the sharded paths).
 
 The names below are the ones `mcos_tpu/__init__.py` re-exports, each from

@@ -934,12 +934,12 @@ class MonteCarloEngine:
     @spans.traced("program.viz_terms")
     def terminal_samples_device(self, spot: float, T: float,
                                 num_samples: int = 1024) -> torch.Tensor:
-        """A small sample of terminal spots for the histogram, unsynced."""
-        s_final, _, _ = simulate.simulate_terminal(
+        """A small sample of terminal spots for the histogram (one branch,
+        the engine's step count), on device, unsynced."""
+        return simulate.simulate_terminal_samples(
             self._params_T(T), self._spot_eff(spot, T), T,
             self._seeded(self.seed + 1234), num_paths=int(num_samples),
-            num_steps=self._steps(T), antithetic=False, device=self.device)
-        return s_final[0]
+            num_steps=self._steps(T), device=self.device)
 
 
 def price_term_structure(ts, spot: float, strikes, maturities,

@@ -29,6 +29,10 @@ K10 `rbergomi_lift_integrals` (csrc/rbergomi_lift.cu) replaces
     `rbergomi_lift_integrals_pallas` / `_rbergomi_lift_kernel`.
 K11 `rbergomi_lift_stats` (csrc/rbergomi_stats.cu) replaces
     `rbergomi_lift_stats_pallas` / `_rbergomi_lift_stats_kernel`.
+`svj_viz` (csrc/svj_viz.cu) replaces no Pallas kernel: it runs the whole
+    step loop of `/api/price`'s viz-path recorder or histogram sampler
+    (`ops/simulate.py:simulate_paths_recorded`, `simulate_terminal_samples`),
+    the JAX package's `lax.scan` programs, in one launch on their draws.
 
 The wrapper rule: a CPU input takes the plain torch version; a CUDA input
 launches the kernel or raises. There is no fallback from one to the other.
@@ -64,6 +68,7 @@ are).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import math
@@ -84,7 +89,11 @@ from mcos_tpu_torch.ops.exotics import (
     single_surv_increment,
 )
 from mcos_tpu_torch.ops.hhw import HHWParams, hhw_cholesky
-from mcos_tpu_torch.ops.simulate import qe_variance_step
+from mcos_tpu_torch.ops.simulate import (
+    qe_variance_step,
+    recorded_from_draws,
+    simulate_terminal,
+)
 from mcos_tpu_torch.ops.sobol import ndtri_acklam
 from mcos_tpu_torch.utils import spans
 
@@ -212,6 +221,8 @@ class _Library:
         lib.mcos_rbergomi_lift_stats.argtypes = [
             vp, vp, i64, i32, i32, u64, vp, vp, i32, vp]
         lib.mcos_rbergomi_lift_stats.restype = i32
+        lib.mcos_svj_viz.argtypes = [vp, vp, vp, vp, i64, i32, i32, vp]
+        lib.mcos_svj_viz.restype = i32
         lib.mcos_cuda_error_string.argtypes = [i32]
         lib.mcos_cuda_error_string.restype = ctypes.c_char_p
         self.path = lib_path
@@ -1988,10 +1999,100 @@ def rbergomi_lift_stats(params_vec, T, seed: int, c, d, g, tail,
 rbergomi_lift_stats.launches = 0
 
 
+# ─────────────────────────────────────────────────────────────────────────────
+# The viz programs of /api/price: the path recorder and the histogram sampler
+# ─────────────────────────────────────────────────────────────────────────────
+def _viz_consts(params: SVJParams, spot, T, num_steps: int) -> np.ndarray:
+    """The 13 float32 scalars of csrc/svj_viz.cu:VizConsts, each rounded
+    as the torch step loop forms it on the card (ops/simulate.py:
+    _svj_step_core): dt is float32 T times the float32 reciprocal of the
+    step count, which is how torch divides a CUDA tensor by a Python
+    number; sums of Python floats are taken in float64, then rounded."""
+    f = np.float32
+    p = params
+    with np.errstate(all="ignore"):
+        dt = f(T) * (f(1.0) / f(num_steps))
+        k = np.exp(f(p.mu_j + 0.5 * p.sigma_j**2)) - f(1.0)
+        return np.array(
+            [spot, p.v0, dt, np.sqrt(dt), p.kappa, p.theta, p.xi, p.rho,
+             np.sqrt(f(1.0 - p.rho * p.rho)), f(p.lambda_j) * dt, p.mu_j,
+             p.sigma_j, f(p.r - p.q) - f(p.lambda_j) * k], dtype=np.float32)
+
+
+def svj_viz_plain(params: SVJParams, spot, T, z: torch.Tensor,
+                  u: torch.Tensor, *, record: bool) -> torch.Tensor:
+    """Plain torch version of the viz kernel: the twins' own step loops on
+    the draws, `recorded_from_draws` (record) or row 0 of a one-branch
+    `simulate_terminal`."""
+    if record:
+        return recorded_from_draws(params, spot, T, z, u)
+    return simulate_terminal(params, spot, T, None, z.shape[2], z.shape[0],
+                             antithetic=False, draws=(z, u),
+                             device=z.device)[0][0]
+
+
+def svj_viz(params: SVJParams, spot, T, z: torch.Tensor, u: torch.Tensor,
+            *, record: bool) -> torch.Tensor:
+    """Viz kernel wrapper: the full-truncation log-Euler SVJ step loop of
+    the viz-path recorder (`record=True`) or the histogram sampler, one
+    thread a path, in one launch.
+
+    Args:
+        params: SVJParams of floats (a tensor leaf raises: the kernel has
+            no backward, and the viz programs need none).
+        z, u: contiguous float32 draws, (steps, 3, paths) normals (z1, z2,
+            z_js) and (steps, paths) jump uniforms, on one device.
+    Returns:
+        record: (paths, steps + 1) spots, column 0 = spot; else (paths,)
+        terminal spots. Each launch counts on `svj_viz.launches` and on
+        the span counter `viz_kernel_launches`.
+    """
+    leaves = [f.name for f in dataclasses.fields(params)
+              if isinstance(getattr(params, f.name), torch.Tensor)]
+    if leaves:
+        raise TypeError(f"svj_viz takes float parameters; {leaves} are "
+                        "tensors")
+    for name, x in (("z", z), ("u", u)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (z.dim() != 3 or z.shape[1] != 3 or z.numel() == 0
+            or tuple(u.shape) != (z.shape[0], z.shape[2])):
+        raise ValueError(f"draws must be non-empty (steps, 3, paths) normals "
+                         f"and (steps, paths) uniforms, got {tuple(z.shape)} "
+                         f"and {tuple(u.shape)}")
+    if u.device != z.device:
+        raise ValueError(f"u is on {u.device}, z on {z.device}")
+    if z.device.type == "cpu":
+        return svj_viz_plain(params, spot, T, z, u, record=record)
+    if z.device.type != "cuda":
+        raise ValueError(f"no kernel for device {z.device}")
+
+    steps, _, num_paths = z.shape
+    # Read by the launcher on the host and passed to the kernel by value.
+    consts = _viz_consts(params, spot, T, steps)
+    out = torch.empty((num_paths, steps + 1) if record else (num_paths,),
+                      dtype=torch.float32, device=z.device)
+    lib = load_library()
+    with torch.cuda.device(z.device):
+        rc = lib.mcos_svj_viz(z.data_ptr(), u.data_ptr(), consts.ctypes.data,
+                              out.data_ptr(), num_paths, steps, int(record),
+                              _stream_handle(z.device))
+    _check_rc(lib, rc, "svj_viz")
+    with _COUNT_LOCK:
+        svj_viz.launches += 1
+    spans.count("viz_kernel_launches")
+    return out
+
+
+svj_viz.launches = 0
+
+
 _WRAPPERS = (svj_terminal_from_draws, gbm_terminal, svj_terminal,
              svj_terminal_qe, svj_terminal_qe_from_draws, svj_path_stats,
              hhw_terminal, svcj_terminal, svj_terminal_td,
-             rbergomi_lift_integrals, rbergomi_lift_stats)
+             rbergomi_lift_integrals, rbergomi_lift_stats, svj_viz)
 
 
 def reset_launch_counts() -> None:

@@ -14,6 +14,12 @@ threefry keys, so they are pinned to it by law only. The draws-driven
 `simulate_terminal_from_draws` and `simulate_terminal_qe_from_draws` are
 deterministic and pinned to f32 noise.
 
+The two visualisation programs of `/api/price`, `simulate_paths_recorded`
+and `simulate_terminal_samples`, draw the same way and then run their
+whole step loop as one launch of `cuda_kernels.svj_viz` on a CUDA device;
+on the CPU that wrapper runs the loops here (`recorded_from_draws`,
+`simulate_terminal`).
+
 `simulate_terminal_with_score` and `simulate_terminal_members` feed the
 Greeks engine: they take a generator or the draws themselves, are
 differentiable in every parameter given as a tensor (floats keep the
@@ -344,18 +350,27 @@ def simulate_paths_recorded(
     params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
     num_steps: int, *, device="cuda",
 ) -> torch.Tensor:
-    """Record full paths for visualization (≤ O(100) paths).
+    """Record full paths for visualization (≤ O(100) paths) on
+    `generator`'s draws, drawn up front as `simulate_terminal` draws them:
+    one `cuda_kernels.svj_viz` launch on a CUDA device, the step loop of
+    `recorded_from_draws` (its plain version) on the CPU.
 
     Returns (num_paths, num_steps + 1) spots, column 0 = spot.
     """
-    device = torch.device(device)
+    return _viz_program(params, spot, T, generator, num_paths, num_steps,
+                        device, record=True)
+
+
+def recorded_from_draws(params: SVJParams, spot, T, z: torch.Tensor,
+                        u: torch.Tensor) -> torch.Tensor:
+    """The recorder's step loop over draws (z, u), (steps, 3, paths)
+    normals and (steps, paths) jump uniforms: (paths, steps + 1) spots,
+    column 0 = spot."""
+    device = z.device
+    num_steps, _, num_paths = z.shape
     spot = _f32(spot, device)
     dt = _f32(T, device) / num_steps
     sqrt_dt = torch.sqrt(dt)
-    z = torch.randn((num_steps, 3, num_paths), generator=generator,
-                    device=device, dtype=torch.float32)
-    u = torch.rand((num_steps, num_paths), generator=generator,
-                   device=device, dtype=torch.float32)
     log_s = torch.zeros(num_paths, dtype=torch.float32, device=device)
     v = _v0_like(params.v0, log_s)
     rows = []
@@ -365,6 +380,29 @@ def simulate_paths_recorded(
         rows.append(log_s)
     paths = spot * torch.exp(torch.stack(rows, dim=1))
     return torch.cat([spot.expand(num_paths, 1), paths], dim=1)
+
+
+def simulate_terminal_samples(
+    params: SVJParams, spot, T, generator: torch.Generator, num_paths: int,
+    num_steps: int, *, device="cuda",
+) -> torch.Tensor:
+    """Terminal spots for a histogram, (num_paths,): one branch, no
+    antithetic pair and no companion, on `generator`'s draws. Row 0 of
+    `simulate_terminal(..., antithetic=False)` on the same generator, which
+    is its plain version on the CPU; one `cuda_kernels.svj_viz` launch on a
+    CUDA device."""
+    return _viz_program(params, spot, T, generator, num_paths, num_steps,
+                        device, record=False)
+
+
+def _viz_program(params: SVJParams, spot, T, generator, num_paths: int,
+                 num_steps: int, device, *, record: bool) -> torch.Tensor:
+    """`generator`'s draws, then `cuda_kernels.svj_viz` on them."""
+    from mcos_tpu_torch.ops.cuda_kernels import svj_viz  # imports this module
+
+    z, u = _euler_draws(None, generator, num_paths, num_steps,
+                        torch.device(device))
+    return svj_viz(params, spot, T, z, u, record=record)
 
 
 def _qe_constants(params: SVJParams, dt: torch.Tensor):

@@ -1987,3 +1987,73 @@ def test_request_spans_share_the_device_trace_clock(cuda):
                        (s.t_start_ns + offset, s.t_end_ns + offset)
                        for s in syncs])
     assert min(k[1] for k in kernels) >= root.t_start_ns + offset
+
+
+# ── the viz kernel (csrc/svj_viz.cu): /api/price's recorder and sampler ────
+# The quote cell's step counts (recorder 50 and 62 at 50 paths, sampler 10,
+# 19 and 62 at 1 024) and an odd one, each at the maturity it serves.
+_VIZ_SHAPES = [(True, 50, 50, 28 / 365), (True, 50, 62, 91 / 365),
+               (True, 50, 51, 51 / 252), (False, 1024, 10, 7 / 365),
+               (False, 1024, 19, 28 / 365), (False, 1024, 62, 91 / 365),
+               (False, 1024, 51, 51 / 252)]
+# Spots rtol 2e-6: the kernel takes the twin's operations in its order,
+# uncontracted, on the constants the torch loop forms on the card; only
+# the last bits of k = exp(mu_J + sigma_J^2 / 2) - 1 (numpy's exp on the
+# host against torch's on the card) and of expf may differ.
+_VIZ_RTOL = 2e-6
+
+
+@pytest.mark.parametrize("record, paths, steps, T", _VIZ_SHAPES)
+def test_viz_kernel_matches_the_torch_loop(cuda, record, paths, steps, T):
+    p = SVJParams()
+    g = torch.Generator(device=cuda)
+    g.manual_seed(steps)
+    z = torch.randn((steps, 3, paths), generator=g, device=cuda)
+    u = torch.rand((steps, paths), generator=g, device=cuda)
+    n0 = ck.svj_viz.launches
+    ker = ck.svj_viz(p, 22500.0, T, z, u, record=record)
+    torch.cuda.synchronize()
+    assert ck.svj_viz.launches == n0 + 1
+    ref = ck.svj_viz_plain(p, 22500.0, T, z, u, record=record)
+    assert ker.shape == ref.shape == ((paths, steps + 1) if record
+                                      else (paths,))
+    # dt, sqrt(dt) and lambda dt bit for bit with the loop's tensors, so
+    # every jump indicator is the loop's.
+    c = ck._viz_consts(p, 22500.0, T, steps)
+    dt = torch.as_tensor(T, dtype=torch.float32, device=cuda) / steps
+    loop = [dt, torch.sqrt(dt), p.lambda_j * dt]
+    assert [np.float32(x.item()) for x in loop] == list(c[[2, 3, 9]])
+    assert torch.equal(u < torch.as_tensor(c[9], device=cuda), u < loop[2])
+    torch.testing.assert_close(ker, ref, rtol=_VIZ_RTOL, atol=0)
+
+
+def test_viz_kernel_rejects_what_it_does_not_take(cuda):
+    import dataclasses
+
+    z = torch.randn((4, 3, 64), device=cuda)
+    u = torch.rand((4, 64), device=cuda)
+    with pytest.raises(TypeError):
+        ck.svj_viz(dataclasses.replace(SVJParams(), xi=torch.tensor(0.5)),
+                   1.0, 1.0, z, u, record=True)
+    with pytest.raises(TypeError):
+        ck.svj_viz(SVJParams(), 1.0, 1.0, z.double(), u, record=False)
+    with pytest.raises(ValueError):
+        ck.svj_viz(SVJParams(), 1.0, 1.0, z, u.cpu(), record=False)
+
+
+def test_api_price_launches_the_viz_kernel_twice(cuda):
+    """One `/api/price`: the recorder and the sampler, one launch each."""
+    import json
+
+    from mcos_tpu_torch.api import server
+    from mcos_tpu_torch.utils import spans
+
+    body = {"spot": 22500.0, "strike": 22500.0, "T": 0.1,
+            "num_paths": 20_000}
+    server.handle_price(dict(body), device=cuda)
+    before = ck.launch_counts()["svj_viz"]
+    counted = spans.RECORDER.counters().get("viz_kernel_launches", 0)
+    res = server.handle_price(dict(body), device=cuda)
+    assert ck.launch_counts()["svj_viz"] - before == 2
+    assert spans.RECORDER.counters()["viz_kernel_launches"] - counted == 2
+    assert len(json.loads(res["terminal_samples"].raw)) == 1024
